@@ -1,0 +1,51 @@
+"""Architecture registry (the port's copy of `repro.configs`).
+
+Only the architectures this slice of the port runs are registered: the
+dense GQA transformer qwen2-7b. Asking for another one raises a KeyError
+that says so (ROADMAP.md Queue A lists the families still to port)."""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+from repro_torch.configs.base import ModelConfig
+
+_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
+_SMOKE: Dict[str, Callable[[], ModelConfig]] = {}
+
+
+def register(name: str):
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+def register_smoke(name: str):
+    def deco(fn):
+        _SMOKE[name] = fn
+        return fn
+    return deco
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _REGISTRY:
+        raise KeyError(f"arch {arch!r} is not ported to repro_torch yet; "
+                       f"ported: {sorted(_REGISTRY)}")
+    return _REGISTRY[arch]()
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    if arch not in _SMOKE:
+        raise KeyError(f"no ported smoke config for {arch!r}; ported: "
+                       f"{sorted(_SMOKE)}")
+    return _SMOKE[arch]()
+
+
+def list_archs():
+    return sorted(_REGISTRY)
+
+
+# import for registration side effects
+from repro_torch.configs import qwen2_7b  # noqa: E402,F401
+
+__all__ = ["ModelConfig", "get_config", "get_smoke_config", "list_archs"]

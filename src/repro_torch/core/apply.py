@@ -1,0 +1,148 @@
+"""Quantized parameter containers for the serving path (port of
+`repro.core.apply`).
+
+`QT` holds packed codes, per-channel scale and zero-point, and the leaf's
+logical shape and bit width. `serving_params` turns a `quantize_model`
+output into per-layer params with QT leaves; the decode path feeds the
+fused-layout QT projections to `quant_matmul` (`qt_linear`), so the card
+streams 4-bit codes instead of bf16 weights. Layers are a per-layer list
+in the port, so a per-layer bit width needs no scan segments.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.pipeline import is_qtensor, qtensor_bits
+from repro_torch.core.quantizer import pack_codes, unpack_codes
+
+Tensor = torch.Tensor
+
+
+def _default_cpb(bits: int) -> int:
+    return 2 if bits == 4 else 1
+
+
+class QT:
+    """Quantized tensor: codes (uint8, packed `cpb` codes per byte),
+    per-channel scale + zero-point; logical shape + bit width."""
+
+    def __init__(self, codes: Tensor, scale: Tensor, z_lo: Tensor,
+                 shape: Tuple[int, ...], bits: int,
+                 cpb: Optional[int] = None):
+        self.codes = codes
+        self.scale = scale
+        self.z_lo = z_lo
+        self.shape = tuple(int(s) for s in shape)
+        self.bits = int(bits)
+        self.cpb = _default_cpb(self.bits) if cpb is None else int(cpb)
+
+    def dequant(self, dtype=torch.bfloat16) -> Tensor:
+        u = unpack_codes(self.codes, self.cpb)
+        s, z = self.scale, self.z_lo
+        if u.dim() == s.dim() + 1:   # per-channel scale over the last dim
+            s = s[..., None, :]
+            z = z[..., None, :]
+        w = (u.float() + z.float()) * s
+        if tuple(w.shape) != self.shape:
+            target = _suffix_shape(self.shape, w.numel())
+            if target is not None:
+                w = w.reshape(target)
+        return w.to(dtype)
+
+
+def is_qt(x) -> bool:
+    return isinstance(x, QT)
+
+
+def _suffix_shape(shape, size):
+    """Shortest suffix of `shape` whose element count equals `size`."""
+    for i in range(len(shape), -1, -1):
+        if math.prod(shape[i:]) == size:
+            return tuple(shape[i:])
+    return None
+
+
+def qt_out_dims(qt: QT):
+    """Logical trailing dims of a 2D-codes QT's output axis (the (H, hd)
+    of a wq whose codes are stored (d, H·hd)); longest valid suffix."""
+    n = qt.codes.shape[-1] * qt.cpb
+    k = qt.codes.shape[0]
+    shp = qt.shape
+    for i in range(len(shp)):
+        if math.prod(shp[i:]) != n:
+            continue
+        if any(math.prod(shp[j:i]) == k for j in range(i)):
+            return tuple(shp[i:])
+    return (n,)
+
+
+def qt_fusable(x) -> bool:
+    """2D codes (tap_dim, cols) with one per-column scale: the layout
+    quant_matmul consumes directly."""
+    return is_qt(x) and x.codes.dim() == 2 and x.scale.dim() == 1
+
+
+def qt_linear(qt: QT, x2d: Tensor, out_dtype=None) -> Tensor:
+    """x2d (M, K) · QT codes (K, N) through `quant_matmul` (x cast to f32,
+    f32 result cast to `out_dtype`)."""
+    from repro_torch.kernels import ops
+    y = ops.quant_matmul(x2d.float().contiguous(), qt.codes,
+                         qt.scale.float(), qt.z_lo.float(), cpb=qt.cpb)
+    return y.to(out_dtype if out_dtype is not None else x2d.dtype)
+
+
+# leaves whose apply sites (qkv_project / out_project / apply_mlp) consume a
+# fused-layout QT directly
+FUSED_QT_LEAVES = frozenset(
+    {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"})
+
+
+def dequantize_qt_tree(tree, dtype=torch.bfloat16, keep_fused: bool = False):
+    """Replace QT leaves with dense weights; keep_fused=True keeps the
+    fusable projection leaves packed (the decode path)."""
+    def walk(node, name=""):
+        if is_qt(node):
+            if keep_fused and name in FUSED_QT_LEAVES and qt_fusable(node):
+                return node
+            return node.dequant(dtype)
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, name) for v in node)
+        return node
+
+    return walk(tree)
+
+
+def qt_from_qtensor(t: dict) -> QT:
+    """One pipeline QTensor (offset-binary uint8 codes, f32 per-column
+    scales, int32 zero-points) -> a QT packed to its recorded width."""
+    bits = qtensor_bits(t)
+    codes, cpb = pack_codes(t["codes"], bits)
+    return QT(codes, t["scale"], t["z_lo"], tuple(t["shape"]), bits, cpb=cpb)
+
+
+def serving_params(qparams, cfg):
+    """Fold a quantize_model output (__qlayers__ QTensor side table) into
+    per-layer params with QT leaves — the packed serving form. No dense
+    copy of a quantized weight is built."""
+    params = {k: v for k, v in qparams.items() if k != "__qlayers__"}
+    for k, v in list(params.items()):
+        if is_qtensor(v):
+            params[k] = qt_from_qtensor(v)
+    table = qparams.get("__qlayers__", {})
+    if not table:
+        return params
+
+    def walk(node):
+        if is_qtensor(node):
+            return qt_from_qtensor(node)
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return node
+
+    params["layers"] = [walk(table[k]) for k in sorted(table, key=int)]
+    return params

@@ -1,0 +1,31 @@
+"""Calibration: the Gram matrix H = XᵀX of an activation tap (port of
+`repro.core.calibrate`, single device)."""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def gram_from_tap(tap: Tensor) -> Tensor:
+    """(B, T, d) activation tap -> (d, d) f32 Gram matrix."""
+    x2 = tap.reshape(-1, tap.shape[-1]).float()
+    return x2.T @ x2
+
+
+class TapGramCache:
+    """One Gram per activation tap: leaves sharing a tap (wq/wk/wv on
+    attn_in, w_gate/w_up on mlp_in) reuse one H — 4 Gram matmuls per dense
+    layer instead of 7. Scope one instance per layer."""
+
+    def __init__(self):
+        self._grams: Dict[str, Tensor] = {}
+        self.computed = 0      # number of Gram matmuls issued
+
+    def gram(self, name: str, tap: Tensor) -> Tensor:
+        if name not in self._grams:
+            self._grams[name] = gram_from_tap(tap)
+            self.computed += 1
+        return self._grams[name]

@@ -1,0 +1,23 @@
+"""Device resolution shared by every entry point of the port."""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """`None` means the card. Asking for CUDA where there is none raises:
+    the port never carries on quietly on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev} (cuda or cpu)")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA was asked for (the default device) but "
+            "torch.cuda.is_available() is False; pass device='cpu' to run "
+            "on the CPU")
+    return dev
+

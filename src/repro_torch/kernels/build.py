@@ -1,0 +1,111 @@
+"""Build and load the port's CUDA kernels.
+
+Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
+into its own shared library, loaded with `ctypes`:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas=-v -o build/kernels/<name>-<hash>.so \
+         src/repro_torch/csrc/<name>.cu
+
+Libraries are built at first use into `build/kernels/` under the checkout
+(git-ignored), named by a hash of source + flags so an edited source is
+never served a stale binary. `build()` starts one `nvcc` per missing
+source, all at once. No `--use_fast_math`: the panel kernel needs IEEE
+division and round-half-even. Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
+SOURCES = ("comq_panel", "flash_attention", "quant_matmul")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): the CUDA kernels cannot be "
+                       "built")
+
+
+def lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def log_path(name: str) -> Path:
+    return lib_path(name).with_suffix(".log")
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile every missing library in parallel (one nvcc per source).
+    Returns {name: seconds} for the ones compiled; raises with nvcc's
+    output if any fails."""
+    names = list(SOURCES if names is None else names)
+    todo = [n for n in names if not lib_path(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name in todo:
+        out = lib_path(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.time())
+    secs, failed = {}, []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        secs[name] = time.time() - t0
+        log_path(name).write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {name}.cu (exit {proc.returncode}) ---\n"
+                          f"{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return secs
+
+
+def load(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point `fn` of library `name` (built on first use), with
+    its argument types declared; it returns a cudaError_t as int."""
+    if name not in _LIBS:
+        build([name])
+        _LIBS[name] = ctypes.CDLL(str(lib_path(name)))
+    f = getattr(_LIBS[name], fn)
+    f.argtypes = argtypes
+    f.restype = ctypes.c_int
+    return f
+
+
+def check(name: str, rc: int) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc:
+        err = getattr(_LIBS[name], "repro_cuda_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
+                           f"({err(rc).decode()})")

@@ -1,0 +1,69 @@
+"""`comq_panel`: the intra-panel COMQ coordinate sweep of the blocked
+solver — Hopper kernel (csrc/comq_panel.cu) and its plain version.
+
+Replaces the Pallas TPU kernel `src/repro/kernels/comq_panel.py`
+(`_panel_call`, entry `comq_panel_dq_pallas`). The source notes what
+bounds it on the H100 and how the design answers that; in short, one
+thread owns one column for all B steps and `h_bb` streams one row per step
+through shared memory, because at B=256 it is larger than a block's shared
+memory.
+
+Tolerance against the plain version: the kernel sums s_t in another order,
+so a code can flip where s_t lands on a rounding boundary; on random panels
+at the main path's shapes ≥ 99.9% of codes must be identical (checked on
+the card by chip_smoke.py and tests/test_torch_kernels.py).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.comq_hessian import panel_sweep_dq_ref
+from repro_torch.kernels import build
+
+Tensor = torch.Tensor
+NAME = "comq_panel"
+launches = 0     # kernel launches since the last reset (chip_smoke reads it)
+
+comq_panel_dq_plain = panel_sweep_dq_ref
+
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p]
+
+
+def _vec(a, n: int, dev) -> Tensor:
+    """Scalar or (n,) grid parameter -> contiguous (n,) f32 on `dev`."""
+    t = torch.as_tensor(a, device=dev).to(torch.float32)
+    return t.expand(n).contiguous() if t.dim() == 0 else t.contiguous()
+
+
+def comq_panel_dq_cuda(h_bb: Tensor, s0: Tensor, qf: Tensor, delta, z_lo,
+                       z_hi, hdiag: Tensor):
+    """Launch the kernel: returns (qf', ΔW), each (B, n) f32."""
+    global launches
+    dev = qf.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"comq_panel kernel needs CUDA tensors, got {dev}")
+    B, n = qf.shape
+    delta, z_lo, z_hi = (_vec(a, n, dev) for a in (delta, z_lo, z_hi))
+    for name, t, shape in (("h_bb", h_bb, (B, B)), ("s0", s0, (B, n)),
+                           ("qf", qf, (B, n)), ("hdiag", hdiag, (B,)),
+                           ("delta", delta, (n,)), ("z_lo", z_lo, (n,)),
+                           ("z_hi", z_hi, (n,))):
+        if t.device != dev or t.dtype != torch.float32:
+            raise TypeError(f"comq_panel: {name} must be f32 on {dev}, got "
+                            f"{t.dtype} on {t.device}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"comq_panel: {name} must be contiguous "
+                             f"{shape}, got {tuple(t.shape)}")
+    qf_out = torch.empty_like(qf)
+    dq = torch.empty_like(qf)
+    fn = build.load(NAME, "comq_panel_dq", _ARGTYPES)
+    rc = fn(h_bb.data_ptr(), s0.data_ptr(), qf.data_ptr(), delta.data_ptr(),
+            z_lo.data_ptr(), z_hi.data_ptr(), hdiag.data_ptr(),
+            qf_out.data_ptr(), dq.data_ptr(), B, n,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(NAME, rc)
+    launches += 1
+    return qf_out, dq

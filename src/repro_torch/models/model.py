@@ -1,0 +1,156 @@
+"""Top-level model API, dense family (port of `repro.models.model`).
+
+    params = init_params(cfg, seed=0, device=None)
+    logits, aux, cache = forward(params, cfg, plan, tokens, make_cache=...)
+    loss, metrics = lm_loss(params, cfg, plan, batch)
+    logits, cache = prefill(params, cfg, plan, tokens)
+    logits, cache = decode_step(params, cfg, plan, cache, tokens, pos)
+
+`params["layers"]` is a per-layer list of dicts with the JAX leaf names
+and per-layer shapes (wq (d, H, hd), wo (H, hd, d), w_down (f, d), ...).
+Layer leaves may be QT (packed codes, core/apply.py): `forward`
+dequantizes them per layer, `decode_step` keeps the fused projections
+packed and runs them through quant_matmul.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer as tfm
+from repro_torch.models.attention import init_kv_cache
+from repro_torch.models.common import (apply_norm, dense_init, dtype_of,
+                                       embed_init, norm_params)
+from repro_torch.models.transformer import BuildPlan
+
+Tensor = torch.Tensor
+Params = Dict[str, Any]
+
+
+def init_params(cfg, *, seed: int = 0, device: DeviceLike = None) -> Params:
+    """Random weights from `torch.Generator(device).manual_seed(seed)`."""
+    tfm.check_dense(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, v = cfg.d_model, cfg.vocab_size
+    p: Params = {"embed": embed_init(gen, (v, d), dev)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = dense_init(gen, (d, v), dev)
+    p["layers"] = [tfm.init_layer(gen, cfg, dev)
+                   for _ in range(cfg.n_layers)]
+    p["final_norm"] = norm_params(cfg, dev)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def embed_tokens(p: Params, cfg, plan: BuildPlan, tokens: Tensor) -> Tensor:
+    from repro_torch.core.apply import is_qt
+    from repro_torch.core.quantizer import unpack_codes
+    cd = dtype_of(cfg.compute_dtype)
+    emb = p["embed"]
+    if is_qt(emb):
+        # gather code rows first, dequantize only the touched rows
+        rows = unpack_codes(emb.codes[tokens], emb.cpb)
+        return ((rows.float() + emb.z_lo.float()) * emb.scale).to(cd)
+    return emb[tokens].to(cd)
+
+
+def unembed(p: Params, cfg, plan: BuildPlan, x: Tensor) -> Tensor:
+    from repro_torch.core.apply import is_qt
+    cd = x.dtype
+    w = p["unembed"] if not cfg.tie_embeddings else p["embed"].T
+    if is_qt(w):
+        w = w.dequant(cd)
+    return torch.einsum("btd,dv->btv", x, w.to(cd))
+
+
+# ---------------------------------------------------------------------------
+# forward (full sequence)
+# ---------------------------------------------------------------------------
+
+def _run_layers(p: Params, cfg, plan, x, make_cache: bool):
+    from repro_torch.core.apply import dequantize_qt_tree
+    cd = dtype_of(cfg.compute_dtype)
+    caches = []
+    for lp in p["layers"]:
+        x, cache = tfm.layer_full(dequantize_qt_tree(lp, cd), x, cfg, plan,
+                                  make_cache)
+        caches.append(cache)
+    return x, caches
+
+
+def forward(p: Params, cfg, plan: BuildPlan, tokens: Tensor,
+            make_cache: bool = False):
+    """Returns (logits, aux, cache_or_None)."""
+    x = embed_tokens(p, cfg, plan, tokens)
+    x, caches = _run_layers(p, cfg, plan, x, make_cache)
+    x = apply_norm(p["final_norm"], x, cfg)
+    logits = unembed(p, cfg, plan, x)
+    aux = torch.zeros((), device=x.device)
+    return logits, aux, ({"kv": caches} if make_cache else None)
+
+
+def lm_loss(p: Params, cfg, plan: BuildPlan, batch: Dict[str, Tensor],
+            z_loss: float = 1e-4, aux_weight: float = 1e-2):
+    logits, aux, _ = forward(p, cfg, plan, batch["tokens"])
+    labels = batch["labels"]
+    logits = logits.float()
+    m = logits.amax(dim=-1, keepdim=True)
+    shifted = logits - m
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = torch.mean(lse - ll)
+    zl = z_loss * torch.mean(torch.square(lse))
+    total = loss + zl + aux_weight * aux
+    return total, {"loss": loss, "z_loss": zl, "aux": aux,
+                   "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0))}
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+def cache_len_for(cfg, seq_len: int) -> int:
+    if cfg.sliding_window:
+        return min(cfg.sliding_window, seq_len)
+    return seq_len
+
+
+def init_cache(cfg, plan: BuildPlan, batch: int, seq_len: int,
+               device: DeviceLike = None):
+    """An empty per-layer cache list for decode at context length
+    seq_len."""
+    dev = resolve_device(device)
+    clen = cache_len_for(cfg, seq_len)
+    return {"kv": [init_kv_cache(batch, clen, cfg.n_kv_heads,
+                                 cfg.resolved_head_dim, plan.cache_dtype,
+                                 dev)
+                   for _ in range(cfg.n_layers)]}
+
+
+def prefill(p: Params, cfg, plan: BuildPlan, tokens: Tensor):
+    logits, _, cache = forward(p, cfg, plan, tokens, make_cache=True)
+    return logits[:, -1], cache
+
+
+def decode_step(p: Params, cfg, plan: BuildPlan, cache, tokens: Tensor,
+                pos: int):
+    """tokens: (B, 1); pos: absolute position (int). Fused-layout QT
+    projections stay packed and run through quant_matmul (keep_fused);
+    the cache is updated in place and returned."""
+    from repro_torch.core.apply import dequantize_qt_tree
+    cd = dtype_of(cfg.compute_dtype)
+    x = embed_tokens(p, cfg, plan, tokens)
+    new_kv = []
+    for lp, kv in zip(p["layers"], cache["kv"]):
+        lp = dequantize_qt_tree(lp, cd, keep_fused=True)
+        x, kv = tfm.layer_decode(lp, x, cfg, plan, kv, pos)
+        new_kv.append(kv)
+    x = apply_norm(p["final_norm"], x, cfg)
+    logits = unembed(p, cfg, plan, x)
+    return logits[:, 0], {"kv": new_kv}

@@ -1,0 +1,109 @@
+"""Package boundary of the PyTorch port: it imports nothing of JAX or of
+the JAX package, every module imports without triton/nvcc/a card, the
+dispatch never runs a plain version on a non-CPU tensor, and entry points
+refuse to fall back to the CPU."""
+import ast
+import importlib
+import pkgutil
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.kernels import build, ops
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_every_module_imports_without_a_toolchain():
+    names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                    "repro_torch.")]
+    assert len(names) >= 25
+    loaded = dict(build._LIBS)
+    for name in names:
+        importlib.import_module(name)
+    assert build._LIBS == loaded, "importing must not build or load a kernel"
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(*shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("op,kernel_mod,plain_name,args,kw", [
+    ("quant_matmul", "quant_matmul", "quant_matmul_plain",
+     lambda: (_meta(8, 64), _meta(64, 16, dtype=torch.uint8), _meta(32),
+              _meta(32)), {"cpb": 2}),
+    ("flash_attention", "flash_attention", "flash_attention_plain",
+     lambda: (_meta(1, 16, 4, 8, dtype=torch.bfloat16),
+              _meta(1, 16, 2, 8, dtype=torch.bfloat16),
+              _meta(1, 16, 2, 8, dtype=torch.bfloat16)), {}),
+    ("comq_panel_dq", "comq_panel", "comq_panel_dq_plain",
+     lambda: (_meta(8, 8), _meta(8, 4), _meta(8, 4), _meta(4), _meta(4),
+              _meta(4), _meta(8)), {}),
+])
+def test_dispatch_never_runs_plain_on_a_device_tensor(monkeypatch, op,
+                                                      kernel_mod, plain_name,
+                                                      args, kw):
+    """A non-CPU tensor reaches the kernel wrapper, which refuses anything
+    but CUDA; the plain version is never called."""
+    mod = importlib.import_module(f"repro_torch.kernels.{kernel_mod}")
+
+    def forbidden(*a, **k):
+        raise AssertionError("plain version reached for a non-CPU tensor")
+
+    monkeypatch.setattr(mod, plain_name, forbidden)
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        getattr(ops, op)(*args(), **kw)
+
+
+def test_cuda_default_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import quantize
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quantize.main(["--arch", "qwen2-7b", "--smoke"])
+
+
+@pytest.mark.parametrize("flag", ["--journal", "--shard-data", "--policy"])
+def test_launcher_rejects_unported_flags(flag, capsys):
+    from repro_torch.launch import quantize
+    argv = ["--arch", "qwen2-7b", "--smoke", "--device", "cpu", flag]
+    if quantize.NOT_PORTED[flag]:
+        argv.append("x")
+    with pytest.raises(SystemExit) as e:
+        quantize.main(argv)
+    assert e.value.code == 2
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_unported_arch_says_so():
+    from repro_torch.configs import get_config
+    with pytest.raises(KeyError, match="not ported"):
+        get_config("rwkv6-7b")
