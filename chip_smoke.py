@@ -10,7 +10,9 @@ no result line):
 2. build   — compile csrc/*.cu with nvcc, one process per source at once.
 3. kernels — each Hopper kernel against its plain PyTorch version on the
    card at the main path's shapes, with times (CUDA events), the least time
-   the card could take (bound) and a one-call PyTorch yardstick (library).
+   the card could take (bound) and a one-call PyTorch yardstick (library);
+   the two paged-attention kernels at the serve shapes (8 slots, 28/4
+   heads, head_dim 128, 16-token pages, up to 4096 tokens a slot).
 4. quantize — qwen2-7b at full width, n_layers cut 28 -> 2 (the only
    reduction): calibration 8x128, comq_blocked, 4-bit per-channel, greedy,
    3 sweeps, lambda 0.9; the launcher's JSON summary.
@@ -22,8 +24,25 @@ no result line):
    and read right after the main-path decode.
 6. w_down  — one 18944x3584 w_down solve with the panel kernel against the
    same solve with the plain panel version.
+7. paged decode — the phase-4 packed model admits the 8 eval prompts at
+   mixed lengths (64-128, seeded) through write_prefill and decodes 16
+   steps with decode_step_paged and per-slot positions, at kv_bits 0, 8
+   and 4, held against the same steps with the plain versions, each
+   started from the kernel run's pool (lockstep, teacher-forced; bf16,
+   then f32 for the precision gate); a free-running plain run is printed
+   beside it.
+8. serve  — serve.Runtime on the packed model, greedy, bf16, 8 slots,
+   16-token pages: 16 requests (prompts 64-512 tokens, seeded; buckets
+   128/256/512), 32 new tokens each, 8 submitted up front and the rest one
+   per decode step, at kv_bits 0, 8 and 4 (the serve path: launch counts
+   are reset before these runs and read right after). Then at f32 and
+   kv_bits 0: each request's tokens equal its solo run through the same
+   runtime, and a pool too small for all lifetimes preempts.
 
-Then one JSON line of the kernels, and last the device line.
+Launch counts: the quantize-and-decode path (phases 4-5) and the serve
+path (phase 8) are each counted from 0; every kernel must launch on the
+main path as a whole. Then one JSON line of the kernels, and last the
+device line.
 """
 from __future__ import annotations
 
@@ -38,7 +57,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}   # dense, no tensor-core f32
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12,    # dense, no tensor-core f32
+              "int8": 1979e12}
 
 # tolerances (each kernel's source states the same)
 PANEL_MIN_CODE_AGREEMENT = 0.999
@@ -53,6 +73,15 @@ LOGITS_REL = {"bfloat16": 1e-1, "float32": 1e-2}
 WDOWN_REL = 1e-3
 LOSS_GAP = 0.15
 PROMPT, STEPS = 128, 16
+# paged attention vs its plain version (the kernel source states the same)
+PAGED_BF16_RTOL, PAGED_BF16_ATOL, PAGED_F32_ATOL = 8e-3, 1e-3, 1e-4
+# serve phase
+SERVE_SLOTS, SERVE_BS, SERVE_NEW, SERVE_REQS = 8, 16, 32, 16
+SERVE_BUCKETS = (128, 256, 512)
+SMALL_POOL = 64            # pages: too few for the 16 lifetimes, so it preempts
+SLICE1 = ("comq_panel", "flash_attention", "quant_matmul")
+SERVE_NEW_KERNELS = ("paged_attention", "paged_attention_quant")
+SERVE_PATH = ("flash_attention", "quant_matmul") + SERVE_NEW_KERNELS
 
 
 class CheckFailed(RuntimeError):
@@ -95,11 +124,14 @@ def plain_kernels(ops, modules):
     """Route the dispatch to the plain versions for a reference run on the
     card (only this script does this; the package never does)."""
     saved = {name: getattr(ops, name) for name in
-             ("comq_panel_dq", "flash_attention", "quant_matmul")}
-    panel, flash, qmm = modules
+             ("comq_panel_dq", "flash_attention", "quant_matmul",
+              "paged_attention", "paged_attention_quant")}
+    panel, flash, qmm, paged = modules
     ops.comq_panel_dq = panel.comq_panel_dq_plain
     ops.flash_attention = flash.flash_attention_plain
     ops.quant_matmul = qmm.quant_matmul_plain
+    ops.paged_attention = paged.paged_attention_plain
+    ops.paged_attention_quant = paged.paged_attention_quant_plain
     try:
         yield
     finally:
@@ -225,6 +257,147 @@ def check_qmm(torch, qmm, dev, results):
             library_ms=library_ms, max_abs_err=err)
 
 
+def live_extent(lengths, window: int, bs: int):
+    """(live pages, live keys) that attention over these lengths needs:
+    keys in [max(0, len - window), len), pages that hold them."""
+    pages = keys = 0
+    for n in lengths:
+        if n <= 0:
+            continue
+        lo = max(0, n - window) if window > 0 else 0
+        keys += n - lo
+        pages += -(-n // bs) - lo // bs
+    return pages, keys
+
+
+def check_paged(torch, paged, dev, results):
+    """Both paged-attention kernels against their plain versions at the
+    serve shapes: bf16 (main path) and f32 q, window 0 and 1024, bf16 /
+    f32 pages and int8 / 4-bit codes; times at bf16, window 0."""
+    import torch.nn.functional as F
+    from repro_torch.serve.kv_cache import kv_encode, kv_scale_of
+    gen = torch.Generator(device=dev).manual_seed(4)
+    B, H, KV, hd, BS, MAXB = 8, 28, 4, 128, 16, 256
+    NB = B * MAXB
+    lens = torch.randint(1, MAXB * BS + 1, (B,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lens[3] = 0
+    lens_l = [int(n) for n in lens.cpu()]
+    bt = torch.randperm(NB, generator=gen, device=dev).reshape(B, MAXB).to(
+        torch.int32)
+    q32 = torch.randn(B, H, hd, generator=gen, device=dev)
+    k32 = torch.randn(NB, BS, KV, hd, generator=gen, device=dev)
+    v32 = torch.randn(NB, BS, KV, hd, generator=gen, device=dev)
+    say(f"paged inputs: B={B} H={H} KV={KV} hd={hd} BS={BS} MAXB={MAXB} "
+        f"NB={NB}, lengths {lens_l}")
+
+    def quantized(pool, kv_bits):
+        scale = kv_scale_of(pool.abs().amax(dim=(1, 3)), kv_bits)
+        return kv_encode(pool, scale[:, None], kv_bits), scale.contiguous()
+
+    variants = [("paged_attention", 0, k32.bfloat16(), v32.bfloat16(),
+                 None, None)]
+    for kv_bits in (8, 4):
+        kq, ks = quantized(k32, kv_bits)
+        vq, vs = quantized(v32, kv_bits)
+        variants.append(("paged_attention_quant", kv_bits, kq, vq, ks, vs))
+
+    for name, kv_bits, kp, vp, ks, vs in variants:
+        def kernel(q, kp, vp, window):
+            if kv_bits:
+                return paged.paged_attention_quant_cuda(
+                    q, kp, vp, ks, vs, bt, lens, window=window,
+                    kv_bits=kv_bits)
+            return paged.paged_attention_cuda(q, kp, vp, bt, lens,
+                                              window=window)
+
+        def plain(q, kp, vp, window):
+            if kv_bits:
+                return paged.paged_attention_quant_plain(
+                    q, kp, vp, ks, vs, bt, lens, window=window,
+                    kv_bits=kv_bits)
+            return paged.paged_attention_plain(q, kp, vp, bt, lens,
+                                               window=window)
+
+        for dtype in (torch.bfloat16, torch.float32):
+            q = q32.to(dtype)
+            kpp, vpp = kp, vp
+            if not kv_bits and dtype == torch.float32:
+                kpp, vpp = k32, v32      # the f32 check runs f32 pages
+            for window in (0, 1024):
+                got = kernel(q, kpp, vpp, window)
+                want = plain(q, kpp, vpp, window)
+                torch.cuda.synchronize()
+                zero_ok = bool((got[3] == 0).all())
+                d = (got.float() - want.float()).abs()
+                err = float(d.max())
+                if dtype == torch.bfloat16:
+                    ok = bool((d <= PAGED_BF16_RTOL * want.float().abs()
+                               + PAGED_BF16_ATOL).all())
+                    tol = f"{PAGED_BF16_RTOL}*|want|+{PAGED_BF16_ATOL}"
+                else:
+                    ok = err <= PAGED_F32_ATOL
+                    tol = f"{PAGED_F32_ATOL}"
+                label = (f"kernel {name} kv_bits={kv_bits} "
+                         f"{str(dtype)[6:]} window={window}")
+                say(f"{label}: max|d| {err:.3e} (tol {tol}), zero-length "
+                    f"slot exact 0: {zero_ok}")
+                check(ok and zero_ok, f"{label} disagrees with its plain "
+                      f"version ({err}, zero slot {zero_ok})")
+                if dtype != torch.bfloat16 or window != 0:
+                    continue
+                # rotate pool copies past the 50 MB L2, as a decode step
+                # finds the pages
+                pool_bytes = 2 * kpp.numel() * kpp.element_size()
+                n_copy = max(2, math.ceil(160e6 / pool_bytes))
+                copies = [(kpp.clone(), vpp.clone()) for _ in range(n_copy)]
+                ms = cuda_ms(torch, lambda i: kernel(
+                    q, *copies[i % n_copy], 0), 50)
+                plain_ms = cuda_ms(torch, lambda i: plain(
+                    q, *copies[i % n_copy], 0), 5)
+                del copies
+                pages, keys = live_extent(lens_l, 0, BS)
+                page_bytes = BS * KV * kpp.shape[3] * kpp.element_size()
+                nbytes = (2 * pages * page_bytes + 2 * q.numel() * 2
+                          + bt.numel() * 4 + B * 4)
+                if kv_bits:
+                    nbytes += 2 * pages * KV * 4
+                flops = 4.0 * H * hd * keys
+                bms, by = bound_ms(nbytes, flops,
+                                   "int8" if kv_bits else "bf16")
+                library_ms, lib_note = None, ("no one-call PyTorch "
+                                              "equivalent over int codes")
+                if not kv_bits:
+                    lib_note = ("scaled_dot_product_attention(enable_gqa) "
+                                "over K/V gathered beforehand into (B, KV, "
+                                "S, hd) with a length mask; the gather is "
+                                "not timed")
+                    S = MAXB * BS
+                    idx = (bt.long()[:, :, None] * BS + torch.arange(
+                        BS, device=dev)).reshape(B, S)
+                    gath = [tuple(p.reshape(NB * BS, KV, hd)[idx]
+                                  .permute(0, 2, 1, 3).contiguous()
+                                  for p in (kpp, vpp)) for _ in range(2)]
+                    mask = (torch.arange(S, device=dev)[None]
+                            < lens[:, None])[:, None, None, :]
+                    q4 = q[:, :, None, :]
+                    try:
+                        library_ms = cuda_ms(
+                            torch, lambda i: F.scaled_dot_product_attention(
+                                q4, *gath[i % 2], attn_mask=mask,
+                                enable_gqa=True), 20)
+                    except TypeError:   # torch without enable_gqa
+                        lib_note = "torch has no enable_gqa"
+                    del gath
+                say(f"{label}: ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
+                    f"bound_ms {bms:.4f} ({by}; {pages} live pages, "
+                    f"{nbytes / 1e6:.2f} MB), library_ms {library_ms} "
+                    f"({lib_note})")
+                results[(name, kv_bits)] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=library_ms, max_abs_err=err)
+
+
 # ---------------------------------------------------------------------------
 # phases 4-6: the main path
 # ---------------------------------------------------------------------------
@@ -245,25 +418,142 @@ def run_decode(torch, sp, cfg, plan, tokens, feed=None):
     return outs, fed
 
 
-def compare_decode(torch, ops, modules, sp, cfg, plan, tokens, outs, fed,
-                   label):
+def compare_decode(torch, ops, modules, rerun, outs, label, what="decode"):
     """Re-run the teacher-forced steps with the plain versions on the card
-    and hold each step's logits against `outs`."""
+    (`rerun()` returns their per-step logits) and hold each step's logits
+    against `outs`."""
     with torch.no_grad(), plain_kernels(ops, modules):
-        ref_outs, _ = run_decode(torch, sp, cfg, plan, tokens, feed=fed)
+        ref_outs = rerun()
     worst = 0.0
     for i, (a, b) in enumerate(zip(outs, ref_outs)):
         d = (a - b).abs()
         rel = float(d.max()) / float(b.abs().max())
         worst = max(worst, rel)
         agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
-        say(f"decode {label} step {i}: max|d logits| {float(d.max()):.4e} "
+        say(f"{what} {label} step {i}: max|d logits| {float(d.max()):.4e} "
             f"mean {float(d.mean()):.3e} (rel {rel:.3e}, tol "
             f"{LOGITS_REL[label]}), greedy token agreement {agree:.3f}")
     check(worst <= LOGITS_REL[label],
-          f"decode logits ({label}) vs plain: rel {worst}")
+          f"{what} logits ({label}) vs plain: rel {worst}")
     check(all(bool(torch.isfinite(o).all()) for o in outs),
-          f"non-finite decode logits ({label})")
+          f"non-finite {what} logits ({label})")
+
+
+# ---------------------------------------------------------------------------
+# phases 7-8: paged decode and the serving runtime
+# ---------------------------------------------------------------------------
+
+def run_paged_decode(torch, sp, cfg, plan, tokens, lens, feed=None,
+                     snapshots=None, lockstep=None):
+    """Prefill the B prompts tokens[b, :lens[b]] (one right-padded batch),
+    scatter each slot's rows into its pages with write_prefill, then STEPS
+    decode_step_paged steps with per-slot positions; with `feed`,
+    teacher-forced on those tokens. `snapshots` (a list) collects a copy
+    of the pool before each step; with `lockstep` (such a list) step i
+    runs from lockstep[i] instead of this run's own pool. Returns
+    (per-step logits, fed, final pool)."""
+    from repro_torch.models import decode_step_paged, forward
+    from repro_torch.serve.kv_cache import (blocks_for, init_paged_cache,
+                                            write_prefill)
+    dev = tokens.device
+    B, T = tokens.shape[0], max(lens)
+    maxb = blocks_for(T + STEPS, SERVE_BS)
+    pool = init_paged_cache(cfg, plan, B * maxb, SERVE_BS, device=dev)
+    bt = torch.arange(B * maxb, dtype=torch.int32, device=dev).reshape(
+        B, maxb)
+    logits, _, cache = forward(sp, cfg, plan.replace(prefill_cache_len=T),
+                               tokens[:, :T], make_cache=True)
+    for b in range(B):
+        kpos = cache["kv"][0].pos[b]
+        write_prefill(pool, torch.stack([c.k[b] for c in cache["kv"]]),
+                      torch.stack([c.v[b] for c in cache["kv"]]),
+                      torch.where(kpos < lens[b], kpos, -1), bt[b],
+                      kv_bits=plan.kv_bits)
+    last = torch.tensor(lens, device=dev) - 1
+    outs, fed = [logits[torch.arange(B, device=dev), last].float()], []
+    pos = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for i in range(STEPS):
+        tok = feed[i] if feed is not None else outs[-1].argmax(-1)
+        fed.append(tok)
+        if snapshots is not None:
+            snapshots.append({k: v.clone() for k, v in pool.items()})
+        if lockstep is not None:
+            pool = lockstep[i]
+        lg, pool = decode_step_paged(sp, cfg, plan, pool, bt, tok[:, None],
+                                     pos + i)
+        outs.append(lg.float())
+    torch.cuda.synchronize()
+    return outs, fed, pool
+
+
+def pool_gap(torch, a, b) -> str:
+    """How far two pools of the same run drifted: codes that differ (and
+    by how many units), or the largest page difference."""
+    if "k_scale" not in a:
+        gap = max(float((a[n].float() - b[n].float()).abs().max())
+                  for n in ("k", "v"))
+        return f"max|d page| {gap:.3e}"
+    diff = n = worst = 0
+    for name in ("k", "v"):
+        x, y = a[name], b[name]
+        if x.dtype == torch.uint8:     # nibble pairs: compare each code
+            x = torch.stack([x & 15, x >> 4], -1)
+            y = torch.stack([y & 15, y >> 4], -1)
+        d = (x.int() - y.int()).abs()
+        diff += int((d > 0).sum())
+        n += d.numel()
+        worst = max(worst, int(d.max()))
+    return f"{diff} of {n} codes differ (max {worst} units)"
+
+
+def serve_prompts(vocab: int):
+    import numpy as np
+    rs = np.random.RandomState(6)
+    lens = rs.randint(64, SERVE_BUCKETS[-1] + 1, SERVE_REQS)
+    return [rs.randint(0, vocab, (int(n),)).astype(np.int32) for n in lens]
+
+
+def serve_config(num_blocks=None):
+    from repro_torch.serve import ServeConfig, blocks_for
+    maxb = blocks_for(SERVE_BUCKETS[-1] + SERVE_NEW, SERVE_BS)
+    return ServeConfig(max_slots=SERVE_SLOTS, block_size=SERVE_BS,
+                       num_blocks=num_blocks or SERVE_SLOTS * maxb,
+                       buckets=SERVE_BUCKETS, max_blocks_per_slot=maxb)
+
+
+def serve_traffic(torch, dev, sp, cfg, plan, prompts, sc, label):
+    """Drive one Runtime: SERVE_SLOTS requests up front, the rest one per
+    decode step, then drain. Checks every request ran to its length and the
+    pool ends clean; prints the run's metrics. Returns (runtime, requests)."""
+    import numpy as np
+    from repro_torch.serve import Runtime, paged_cache_bytes
+    rt = Runtime(sp, cfg, plan, sc, device=dev)
+    t0 = time.time()
+    reqs = [rt.submit(p, max_new_tokens=SERVE_NEW)
+            for p in prompts[:SERVE_SLOTS]]
+    for p in prompts[SERVE_SLOTS:]:
+        rt.step()
+        reqs.append(rt.submit(p, max_new_tokens=SERVE_NEW))
+    rt.run()
+    wall = time.time() - t0
+    ntok = sum(len(r.out_tokens) for r in reqs)
+    itl = np.asarray([dt for r in reqs for dt in r.itl])
+    say(f"serve {label}: {len(reqs)} requests, {ntok} tokens in {wall:.3f} "
+        f"s: tok_per_s {ntok / wall:.1f}, ttft_p50_s "
+        f"{float(np.percentile([r.ttft for r in reqs], 50)):.4f}, "
+        f"itl_p50_s {float(np.percentile(itl, 50)):.4f}, itl_p99_s "
+        f"{float(np.percentile(itl, 99)):.4f}, decode_steps {rt.steps}, "
+        f"preemptions {rt.scheduler.preemptions}, cache_bytes "
+        f"{paged_cache_bytes(cfg, plan, sc.num_blocks, sc.block_size)}")
+    check(all(r.finish_reason == "length"
+              and len(r.out_tokens) == SERVE_NEW for r in reqs),
+          f"serve {label}: a request did not run to its length: "
+          f"{[(r.finish_reason, len(r.out_tokens)) for r in reqs]}")
+    rt.allocator.check_integrity()
+    check(rt.allocator.num_free == rt.allocator.num_blocks
+          and rt.scheduler.idle, f"serve {label}: pool or queue not clean")
+    return rt, reqs
+
 
 
 def main() -> int:
@@ -277,6 +567,7 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import comq_quantize_blocked
     from repro_torch.core.apply import serving_params
@@ -284,10 +575,12 @@ def main() -> int:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import comq_panel as panel
     from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import paged_attention as paged
     from repro_torch.kernels import quant_matmul as qmm
     from repro_torch.launch.quantize import quantize_and_eval, set_precision
     from repro_torch.models import BuildPlan, embed_tokens
     from repro_torch.models.transformer import layer_full
+    from repro_torch.serve import Runtime
 
     set_precision()
     dev = torch.device("cuda", 0)
@@ -317,6 +610,7 @@ def main() -> int:
     check_panel(torch, panel, dev, results)
     check_flash(torch, flash, dev, results)
     check_qmm(torch, qmm, dev, results)
+    check_paged(torch, paged, dev, results)
 
     # 4. quantize (main path, counted)
     cfg = get_config("qwen2-7b").replace(n_layers=2)
@@ -348,12 +642,15 @@ def main() -> int:
         outs, fed = run_decode(torch, sp, cfg, plan, run.eval_tokens)
     say(f"decode: prefill 8x{PROMPT} + {STEPS} steps in "
         f"{time.time() - t0:.2f} s wall")
-    counts = ops.launch_counts()
-    say(f"main path launches: {counts}")
-    check(all(v > 0 for v in counts.values()),
-          f"a kernel of the main path never launched: {counts}")
-    compare_decode(torch, ops, (panel, flash, qmm), sp, cfg, plan,
-                   run.eval_tokens, outs, fed, "bfloat16")
+    path_counts = ops.launch_counts()
+    say(f"quantize + decode path launches: {path_counts}")
+    check(all(path_counts[n] > 0 for n in SLICE1),
+          f"a kernel of the quantize + decode path never launched: "
+          f"{path_counts}")
+    kernels = (panel, flash, qmm, paged)
+    compare_decode(torch, ops, kernels, lambda: run_decode(
+        torch, sp, cfg, plan, run.eval_tokens, feed=fed)[0], outs,
+        "bfloat16")
     # the same steps at f32 compute with an f32 cache (outside the counted
     # main path)
     cfg32 = cfg.replace(compute_dtype="float32")
@@ -361,9 +658,10 @@ def main() -> int:
     with torch.no_grad():
         outs32, _ = run_decode(torch, sp, cfg32, plan32, run.eval_tokens,
                                feed=fed)
-    compare_decode(torch, ops, (panel, flash, qmm), sp, cfg32, plan32,
-                   run.eval_tokens, outs32, fed, "float32")
-    del sp, outs, outs32
+    compare_decode(torch, ops, kernels, lambda: run_decode(
+        torch, sp, cfg32, plan32, run.eval_tokens, feed=fed)[0], outs32,
+        "float32")
+    del outs, outs32
 
     # 6. one w_down leaf: panel kernel vs plain panel version
     with torch.no_grad():
@@ -390,24 +688,105 @@ def main() -> int:
         say(f"w_down final error kernel vs plain: rel {rel:.3e} (tol "
             f"{WDOWN_REL})")
         check(rel <= WDOWN_REL, f"w_down final error differs by {rel}")
+        del h, r
+
+    # 7. paged decode, kernels vs plain versions, teacher-forced. The gate
+    # is lockstep: step i of the plain run starts from the kernel run's
+    # pool before step i, so it measures each step's kernels. A free-running
+    # plain run is printed beside it: with quantized pages, a K/V value that
+    # lands within rounding of a code boundary can take the other code in
+    # the two runs and stay in the pool, which moves later logits by far
+    # more than the kernels' own difference (PERF.md, PR 12).
+    lens = [int(n) for n in np.random.RandomState(5).randint(64, PROMPT + 1,
+                                                             8)]
+    say(f"paged decode: prompt lengths {lens}")
+    for kv_bits in (0, 8, 4):
+        for label, c, pl in (
+                ("bfloat16", cfg, BuildPlan(kv_bits=kv_bits)),
+                ("float32", cfg32, BuildPlan(cache_dtype=torch.float32,
+                                             kv_bits=kv_bits))):
+            snaps = []
+            with torch.no_grad():
+                outs, fed, pool = run_paged_decode(
+                    torch, sp, c, pl, run.eval_tokens, lens, snapshots=snaps)
+            compare_decode(torch, ops, kernels, lambda: run_paged_decode(
+                torch, sp, c, pl, run.eval_tokens, lens, feed=fed,
+                lockstep=snaps)[0], outs, label,
+                what=f"paged decode kv_bits={kv_bits}")
+            del snaps
+            with torch.no_grad(), plain_kernels(ops, kernels):
+                free, _, free_pool = run_paged_decode(
+                    torch, sp, c, pl, run.eval_tokens, lens, feed=fed)
+            worst = max(float((a - b).abs().max()) / float(b.abs().max())
+                        for a, b in zip(outs, free))
+            say(f"paged decode kv_bits={kv_bits} {label}, free-running plain "
+                f"run: worst step rel {worst:.3e}; final pools: "
+                f"{pool_gap(torch, pool, free_pool)}")
+
+    # 8. serve (the serve path, counted), then f32 token identity
+    prompts = serve_prompts(cfg.vocab_size)
+    say(f"serve prompts: lengths {[len(p) for p in prompts]}")
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        for kv_bits in (0, 8, 4):
+            serve_traffic(torch, dev, sp, cfg, BuildPlan(kv_bits=kv_bits),
+                          prompts, serve_config(), f"bf16 kv_bits={kv_bits}")
+    serve_counts = ops.launch_counts()
+    say(f"serve path launches: {serve_counts}")
+    check(all(serve_counts[n] > 0 for n in SERVE_PATH),
+          f"a kernel of the serve path never launched: {serve_counts}")
+    totals = {n: path_counts[n] + serve_counts[n] for n in serve_counts}
+    say(f"main path launches (quantize + decode + serve): {totals}")
+    check(all(v > 0 for v in totals.values()),
+          f"a kernel of the main path never launched: {totals}")
+    plan32 = BuildPlan(cache_dtype=torch.float32)
+    with torch.no_grad():
+        _, reqs = serve_traffic(torch, dev, sp, cfg32, plan32, prompts,
+                                serve_config(), "f32 kv_bits=0 mixed")
+        solo_rt = Runtime(sp, cfg32, plan32, serve_config(), device=dev)
+        solo = [solo_rt.generate([p], max_new_tokens=SERVE_NEW)[0].tolist()
+                for p in prompts]
+        same = sum(r.out_tokens == t for r, t in zip(reqs, solo))
+        say(f"serve f32: mixed == solo for {same}/{len(solo)} requests")
+        check(same == len(solo), "serve f32: a mixed-traffic request "
+              "differs from its solo run")
+        rt, reqs = serve_traffic(torch, dev, sp, cfg32, plan32, prompts,
+                                 serve_config(num_blocks=SMALL_POOL),
+                                 f"f32 kv_bits=0 pool of {SMALL_POOL} pages")
+        check(rt.scheduler.preemptions > 0,
+              "serve f32: the small pool never preempted")
+        same = sum(r.out_tokens == t for r, t in zip(reqs, solo))
+        tok = sum(a == b for r, t in zip(reqs, solo)
+                  for a, b in zip(r.out_tokens, t))
+        say(f"serve f32 under preemption: {same}/{len(solo)} requests and "
+            f"{tok}/{SERVE_NEW * len(solo)} tokens equal their solo runs")
 
     # kernels line
     src = "src/repro_torch/csrc/{}.cu"
+    launches = dict(path_counts)
+    launches.update({n: serve_counts[n] for n in SERVE_NEW_KERNELS})
     entries = [
-        ("comq_panel", results[("comq_panel", 18944)],
+        ("comq_panel", "comq_panel", results[("comq_panel", 18944)],
          "src/repro/kernels/comq_panel.py:79"),
-        ("flash_attention", results[("flash_attention",)],
+        ("flash_attention", "flash_attention", results[("flash_attention",)],
          "src/repro/kernels/flash_attention.py:95"),
-        ("quant_matmul", results[("quant_matmul", 8, 3584, 18944, 2)],
+        ("quant_matmul", "quant_matmul",
+         results[("quant_matmul", 8, 3584, 18944, 2)],
          "src/repro/kernels/quant_matmul.py:94"),
+        ("paged_attention", "paged_attention",
+         results[("paged_attention", 0)],
+         "src/repro/kernels/paged_attention.py:219"),
+        ("paged_attention_quant", "paged_attention",
+         results[("paged_attention_quant", 8)],
+         "src/repro/kernels/paged_attention.py:175"),
     ]
     say(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src.format(name),
-         "replaces": where, "launches": counts[name],
+        {"name": name, "route": "cuda", "source": src.format(source),
+         "replaces": where, "launches": launches[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        for name, r, where in entries]}))
+        for name, source, r, where in entries]}))
     say(f"chip_smoke: all phases passed in {time.time() - t_all:.1f} s")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

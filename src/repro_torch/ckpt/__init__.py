@@ -1,6 +1,8 @@
 from repro_torch.ckpt.quantized import (PackedCkptError, load_packed_ckpt,
-                                       pack_tree, save_packed_ckpt, to_host,
+                                       pack_tree, save_packed_ckpt,
+                                       strip_for_serving, to_host,
                                        tree_bytes, unpack_tree)
 
 __all__ = ["PackedCkptError", "load_packed_ckpt", "pack_tree",
-           "save_packed_ckpt", "to_host", "tree_bytes", "unpack_tree"]
+           "save_packed_ckpt", "strip_for_serving", "to_host", "tree_bytes",
+           "unpack_tree"]

@@ -73,6 +73,16 @@ def unpack_tree(tree):
     return walk(tree)
 
 
+def strip_for_serving(qparams):
+    """Drop the dense copies of quantized layers from a `quantize_model`
+    output — the on-disk checkpoint form. Everything serving needs
+    survives: the top-level params and the "__qlayers__" table, which
+    holds each layer's dense non-quantized leaves (norms, biases) beside
+    its QTensors. `core.apply.serving_params` and `core.materialize` both
+    accept the stripped form."""
+    return {k: v for k, v in qparams.items() if k not in ("layers", "groups")}
+
+
 def tree_bytes(tree) -> int:
     total = 0
 

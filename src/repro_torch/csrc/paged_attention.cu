@@ -1,0 +1,425 @@
+// paged_attention / paged_attention_quant: decode attention of one query
+// token per slot over that slot's pages of a paged KV pool, for Hopper
+// (sm_90a).
+//
+// Replaces the Pallas TPU kernels src/repro/kernels/paged_attention.py
+// (paged_attention_pallas, and paged_attention_quant_pallas with its body
+// _quant_kernel). Plain versions: repro_torch.kernels.paged_attention
+// .paged_attention_plain / .paged_attention_quant_plain (the ports of
+// kernels/ref.paged_attention_ref / paged_attention_quant_ref).
+//
+// Layout: q (B, H, hd) in f32 or bf16; pool (NB, BS, KV, row) with row =
+// hd values (f32 or bf16 pages), hd int8 codes, or hd/2 bytes of 4-bit
+// offset-binary nibble pairs (low nibble first, value = code - 8); one f32
+// scale per (page, kv_head) in (NB, KV) for the quantized pools; block
+// tables (B, MAXB) int32; lengths (B,) int32. Query head h reads KV head
+// h / G, G = H / KV (qwen2: 7, not a power of two). The query sits at
+// position length-1: keys at positions >= length are masked, and with
+// window > 0 so are keys with (length-1) - pos >= window. A slot of
+// length 0 writes exact zeros. Output (B, H, hd) in q's type.
+//
+// What bounds it on the H100: bytes. One query token per slot does
+// 4·H·hd flops per key against 2·KV·hd·(bytes per value) bytes of K/V per
+// key, 7 flop/byte in bf16 (qwen2: H/KV = 7) — far under the ~295 the
+// card needs to be compute-bound. So the least time is the live pages' bytes over
+// 3.35 TB/s: at B=8 and ~2k tokens per slot that is ~32 MB, ~10 us.
+//
+// Design (flash-decoding): the TPU walked a slot's pages as a sequential
+// grid dimension with m/l/acc in VMEM scratch. Here one block takes one
+// (split, kv head, slot): a split is a fixed range of pps logical pages
+// (256 tokens at BS=16), so a long slot spreads over many SMs, and a
+// second small kernel combines the splits' (m, l, acc). A block loads its
+// own block-table entries and length, and loops over its live keys in
+// tiles of 64: K/V rows are read with 16-byte loads where the row allows,
+// unpacked to f32 in shared memory (codes are never written back to
+// device memory dequantized), each thread scores (g, key) pairs, one warp
+// per query head runs the online softmax, and each thread accumulates
+// P·V for its head dims of all G heads in registers. The per-page K scale
+// multiplies the score after the dot and the V scale multiplies the
+// probability before P·V. Keys outside [max(0, length-window), length)
+// are never loaded, and splits with no live key write only m = -inf.
+// The split size does not depend on the batch, so a slot's result does
+// not depend on its batchmates. f32 math throughout (no tensor cores).
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+#include <string.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTK = 64;     // keys per shared-memory tile (2 per lane)
+constexpr int kMaxG = 16;   // query heads per KV head
+constexpr int kMaxDPT = 2;  // head dims per thread: hd <= 256
+
+static_assert(kTK == 64, "the softmax gives each lane two keys of a tile");
+static_assert(kMaxDPT == 2, "the combine kernel holds two dims a thread");
+
+enum Kind { kF32 = 0, kBF16 = 1, kInt8 = 2, kInt4 = 3 };
+
+template <int W> struct Vec;
+template <> struct Vec<16> { using T = uint4; };
+template <> struct Vec<4> { using T = uint32_t; };
+template <> struct Vec<2> { using T = uint16_t; };
+template <> struct Vec<1> { using T = uint8_t; };
+
+// values of a W-byte load
+template <int KIND, int W> struct Unit {
+  static constexpr int kValues = KIND == kF32 ? W / 4
+                                 : KIND == kBF16 ? W / 2
+                                 : KIND == kInt8 ? W : 2 * W;
+};
+
+template <int KIND, int W>
+__device__ __forceinline__ void unpack(const uint8_t* b, float* dst) {
+#pragma unroll
+  for (int e = 0; e < Unit<KIND, W>::kValues; ++e) {
+    if (KIND == kF32) {
+      float f;
+      memcpy(&f, b + 4 * e, 4);
+      dst[e] = f;
+    } else if (KIND == kBF16) {
+      const uint32_t u = (uint32_t)b[2 * e] | ((uint32_t)b[2 * e + 1] << 8);
+      dst[e] = __uint_as_float(u << 16);
+    } else if (KIND == kInt8) {
+      dst[e] = (float)(int8_t)b[e];
+    } else {
+      const uint8_t c = b[e / 2];
+      dst[e] = (float)((e & 1) ? (c >> 4) : (c & 15)) - 8.f;
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
+  return v;
+}
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(~0u, v, o);
+  return v;
+}
+
+struct Args {
+  const void* q;
+  const uint8_t* k;
+  const uint8_t* v;
+  const float* ks;  // (NB, KV) or null
+  const float* vs;
+  const int* bt;
+  const int* lens;
+  void* o;
+  float* part_acc;  // (B, KV, NS, G, hd)
+  float* part_ml;   // (B, KV, NS, G, 2)
+  int q_bf16, B, H, KV, G, hd, NB, BS, MAXB, pps, NS, window, row_bytes;
+  float scale;
+};
+
+size_t split_smem_bytes(int G, int hd) {
+  return sizeof(float) * ((size_t)G * hd + (size_t)kTK * (hd + 1) +
+                          (size_t)kTK * hd + (size_t)G * kTK + 2 * kTK +
+                          3 * (size_t)G);
+}
+
+template <int KIND, int W>
+__global__ void __launch_bounds__(kThreads)
+    paged_split_kernel(const Args a) {
+  extern __shared__ float smem[];
+  const int G = a.G, hd = a.hd;
+  float* qs = smem;                  // [G][hd]
+  float* ksm = qs + G * hd;          // [kTK][hd+1] (odd stride: no conflicts)
+  float* vsm = ksm + kTK * (hd + 1); // [kTK][hd]
+  float* sc = vsm + kTK * hd;        // [G][kTK] scores, then p·v_scale
+  float* kscl = sc + G * kTK;        // [kTK] softmax scale · K page scale
+  float* vscl = kscl + kTK;          // [kTK] V page scale
+  float* m_s = vscl + kTK;           // [G]
+  float* l_s = m_s + G;              // [G]
+  float* corr_s = l_s + G;           // [G]
+
+  const int split = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int len = min(a.lens[b], a.MAXB * a.BS);  // the table's extent
+  const int k_lo = a.window > 0 ? max(0, len - a.window) : 0;
+  const int span = a.pps * a.BS;
+  const int s_lo = max(k_lo, split * span);
+  const int s_hi = min(len, (split + 1) * span);
+  const size_t part = ((size_t)(b * a.KV + kv) * a.NS + split) * G;
+  if (s_lo >= s_hi) {  // no live key in this split
+    if (tid < G) {
+      a.part_ml[2 * (part + tid)] = -INFINITY;
+      a.part_ml[2 * (part + tid) + 1] = 0.f;
+    }
+    return;
+  }
+
+  for (int i = tid; i < G * hd; i += kThreads) {
+    const size_t qi = ((size_t)b * a.H + (size_t)kv * G) * hd + i;
+    qs[i] = a.q_bf16
+                ? __bfloat162float(((const __nv_bfloat16*)a.q)[qi])
+                : ((const float*)a.q)[qi];
+  }
+  if (tid < G) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
+  }
+  float acc[kMaxG][kMaxDPT];
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g)
+#pragma unroll
+    for (int s = 0; s < kMaxDPT; ++s) acc[g][s] = 0.f;
+
+  using VT = typename Vec<W>::T;
+  constexpr int EPU = Unit<KIND, W>::kValues;
+  const int units = a.row_bytes / W;
+  const bool quant = a.ks != nullptr;
+
+  for (int t0 = s_lo; t0 < s_hi; t0 += kTK) {
+    const int n = min(kTK, s_hi - t0);
+    __syncthreads();  // previous tile consumed; q and m/l staged
+    for (int i = tid; i < kTK * units; i += kThreads) {
+      const int j = i / units, u = i % units;
+      float* kd = ksm + j * (hd + 1) + u * EPU;
+      float* vd = vsm + j * hd + u * EPU;
+      int page = -1, off = 0;
+      if (j < n) {
+        const int kpos = t0 + j;
+        page = a.bt[(size_t)b * a.MAXB + kpos / a.BS];
+        off = kpos % a.BS;
+      }
+      if (page >= 0 && page < a.NB) {
+        const size_t row =
+            ((size_t)(page * a.BS + off) * a.KV + kv) * a.row_bytes +
+            (size_t)u * W;
+        const VT kr = *reinterpret_cast<const VT*>(a.k + row);
+        const VT vr = *reinterpret_cast<const VT*>(a.v + row);
+        unpack<KIND, W>(reinterpret_cast<const uint8_t*>(&kr), kd);
+        unpack<KIND, W>(reinterpret_cast<const uint8_t*>(&vr), vd);
+      } else {  // past the tile's live keys (or a page id out of range)
+#pragma unroll
+        for (int e = 0; e < EPU; ++e) {
+          kd[e] = 0.f;
+          vd[e] = 0.f;
+        }
+      }
+    }
+    for (int j = tid; j < kTK; j += kThreads) {
+      float kf = 0.f, vf = 0.f;
+      if (j < n) {
+        kf = a.scale;
+        vf = 1.f;
+        if (quant) {
+          const int page = a.bt[(size_t)b * a.MAXB + (t0 + j) / a.BS];
+          if (page >= 0 && page < a.NB) {
+            kf *= a.ks[(size_t)page * a.KV + kv];
+            vf = a.vs[(size_t)page * a.KV + kv];
+          }
+        }
+      }
+      kscl[j] = kf;
+      vscl[j] = vf;
+    }
+    __syncthreads();
+
+    for (int i = tid; i < G * kTK; i += kThreads) {
+      const int g = i / kTK, j = i % kTK;
+      float s = -INFINITY;
+      if (j < n) {
+        const float* qr = qs + g * hd;
+        const float* kr = ksm + j * (hd + 1);
+        float d0 = 0.f, d1 = 0.f;
+        int d = 0;
+        for (; d + 1 < hd; d += 2) {
+          d0 = fmaf(qr[d], kr[d], d0);
+          d1 = fmaf(qr[d + 1], kr[d + 1], d1);
+        }
+        if (d < hd) d0 = fmaf(qr[d], kr[d], d0);
+        s = (d0 + d1) * kscl[j];
+      }
+      sc[i] = s;
+    }
+    __syncthreads();
+
+    for (int g = warp; g < G; g += kWarps) {
+      float* row = sc + g * kTK;
+      const float s0 = row[lane], s1 = row[lane + 32];
+      const float tmax = warp_max(fmaxf(s0, s1));
+      const float m_old = m_s[g];
+      float m_new = m_old, corr = 1.f, p0 = 0.f, p1 = 0.f;
+      if (tmax != -INFINITY) {
+        m_new = fmaxf(m_old, tmax);
+        corr = expf(m_old - m_new);
+        p0 = expf(s0 - m_new);
+        p1 = expf(s1 - m_new);
+      }
+      const float psum = warp_sum(p0 + p1);
+      row[lane] = p0 * vscl[lane];
+      row[lane + 32] = p1 * vscl[lane + 32];
+      if (lane == 0) {
+        l_s[g] = l_s[g] * corr + psum;
+        m_s[g] = m_new;
+        corr_s[g] = corr;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int ds = 0; ds < kMaxDPT; ++ds) {
+      const int d = tid + ds * kThreads;
+      if (d >= hd) continue;
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g)
+        if (g < G) acc[g][ds] *= corr_s[g];
+      for (int j = 0; j < n; ++j) {
+        const float vv = vsm[j * hd + d];
+#pragma unroll
+        for (int g = 0; g < kMaxG; ++g)
+          if (g < G) acc[g][ds] = fmaf(sc[g * kTK + j], vv, acc[g][ds]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int ds = 0; ds < kMaxDPT; ++ds) {
+    const int d = tid + ds * kThreads;
+    if (d >= hd) continue;
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g)
+      if (g < G) a.part_acc[(part + g) * hd + d] = acc[g][ds];
+  }
+  if (tid < G) {
+    a.part_ml[2 * (part + tid)] = m_s[tid];
+    a.part_ml[2 * (part + tid) + 1] = l_s[tid];
+  }
+}
+
+// One block per (query head, slot): merge the splits' (m, l, acc).
+__global__ void __launch_bounds__(kThreads)
+    paged_combine_kernel(const Args a) {
+  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int kv = h / a.G, g = h % a.G;
+  const size_t base = (size_t)(b * a.KV + kv) * a.NS * a.G + g;
+  float M = -INFINITY;
+  for (int s = 0; s < a.NS; ++s)
+    M = fmaxf(M, a.part_ml[2 * (base + (size_t)s * a.G)]);
+  float out[kMaxDPT] = {0.f, 0.f};
+  if (M != -INFINITY) {
+    float L = 0.f;
+    for (int s = 0; s < a.NS; ++s) {
+      const size_t p = base + (size_t)s * a.G;
+      const float m = a.part_ml[2 * p];
+      if (m == -INFINITY) continue;
+      const float w = expf(m - M);
+      L += w * a.part_ml[2 * p + 1];
+#pragma unroll
+      for (int ds = 0; ds < kMaxDPT; ++ds) {
+        const int d = tid + ds * kThreads;
+        if (d < a.hd) out[ds] = fmaf(w, a.part_acc[p * a.hd + d], out[ds]);
+      }
+    }
+    const float inv = 1.f / fmaxf(L, 1e-20f);
+#pragma unroll
+    for (int ds = 0; ds < kMaxDPT; ++ds) out[ds] *= inv;
+  }
+#pragma unroll
+  for (int ds = 0; ds < kMaxDPT; ++ds) {
+    const int d = tid + ds * kThreads;
+    if (d >= a.hd) continue;
+    const size_t oi = ((size_t)b * a.H + h) * a.hd + d;
+    if (a.q_bf16) {
+      ((__nv_bfloat16*)a.o)[oi] = __float2bfloat16_rn(out[ds]);
+    } else {
+      ((float*)a.o)[oi] = out[ds];
+    }
+  }
+}
+
+template <int KIND, int W>
+int launch(const Args& a, cudaStream_t stream) {
+  const size_t smem = split_smem_bytes(a.G, a.hd);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_split_kernel<KIND, W>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  paged_split_kernel<KIND, W>
+      <<<dim3(a.NS, a.KV, a.B), kThreads, smem, stream>>>(a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  paged_combine_kernel<<<dim3(a.H, a.B), kThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int KIND>
+int launch_kind(const Args& a, cudaStream_t stream) {
+  // the widest load that divides the row bytes and the pools' alignment
+  // (every row starts at a multiple of row_bytes from the pool's base)
+  const uintptr_t al = (uintptr_t)a.k | (uintptr_t)a.v | (uintptr_t)a.row_bytes;
+  if (al % 16 == 0) return launch<KIND, 16>(a, stream);
+  if (al % 4 == 0) return launch<KIND, 4>(a, stream);
+  if constexpr (KIND != kF32) {
+    if (al % 2 == 0) return launch<KIND, 2>(a, stream);
+  }
+  if constexpr (KIND == kInt8 || KIND == kInt4) {
+    return launch<KIND, 1>(a, stream);
+  }
+  return (int)cudaErrorMisalignedAddress;
+}
+
+int run(Args a, int kind, void* stream) {
+  if (a.G < 1 || a.G > kMaxG || a.hd < 1 || a.hd > kThreads * kMaxDPT ||
+      a.H != a.G * a.KV || a.NS < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (kind) {
+    case kF32: return launch_kind<kF32>(a, s);
+    case kBF16: return launch_kind<kBF16>(a, s);
+    case kInt8: return launch_kind<kInt8>(a, s);
+    case kInt4: return launch_kind<kInt4>(a, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* repro_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// kind: 0 = f32 pages, 1 = bf16 pages. dims: B, H, KV, hd, NB, BS, MAXB,
+// pps (pages per split), NS (splits), window.
+int paged_attention(const void* q, const void* k, const void* v,
+                    const void* bt, const void* lens, void* o,
+                    void* part_acc, void* part_ml, int q_bf16, int kind,
+                    const void* dims, float scale, void* stream) {
+  const int* dm = (const int*)dims;
+  Args a{q, (const uint8_t*)k, (const uint8_t*)v, nullptr, nullptr,
+         (const int*)bt, (const int*)lens, o, (float*)part_acc,
+         (float*)part_ml, q_bf16, dm[0], dm[1], dm[2], dm[1] / dm[2], dm[3],
+         dm[4], dm[5], dm[6], dm[7], dm[8], dm[9],
+         dm[3] * (kind == 0 ? 4 : 2), scale};
+  if (kind != 0 && kind != 1) return (int)cudaErrorInvalidValue;
+  return run(a, kind, stream);
+}
+
+// Quantized pool: kind 2 = int8 codes, 3 = 4-bit nibble pairs; ks/vs are
+// (NB, KV) f32 page scales. dims as above.
+int paged_attention_quant(const void* q, const void* k, const void* v,
+                          const void* ks, const void* vs, const void* bt,
+                          const void* lens, void* o, void* part_acc,
+                          void* part_ml, int q_bf16, int kind,
+                          const void* dims, float scale, void* stream) {
+  const int* dm = (const int*)dims;
+  Args a{q, (const uint8_t*)k, (const uint8_t*)v, (const float*)ks,
+         (const float*)vs, (const int*)bt, (const int*)lens, o,
+         (float*)part_acc, (float*)part_ml, q_bf16, dm[0], dm[1], dm[2],
+         dm[1] / dm[2], dm[3], dm[4], dm[5], dm[6], dm[7], dm[8], dm[9],
+         kind == 2 ? dm[3] : dm[3] / 2, scale};
+  if (kind != 2 && kind != 3) return (int)cudaErrorInvalidValue;
+  return run(a, kind, stream);
+}
+
+}  // extern "C"

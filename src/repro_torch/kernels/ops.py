@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels import comq_panel as _panel
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import quant_matmul as _qmm
 
 Tensor = torch.Tensor
@@ -48,13 +49,46 @@ def quant_matmul(x: Tensor, codes: Tensor, scale: Tensor, z_lo: Tensor, *,
     return _qmm.quant_matmul_cuda(x, codes, scale, z_lo, cpb=cpb)
 
 
-KERNELS = (_panel, _flash, _qmm)
+def paged_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
+                    block_tables: Tensor, lengths: Tensor, *,
+                    window: int = 0) -> Tensor:
+    """Decode attention over a paged KV pool (serve/kv_cache.py layout):
+    q (B, H, hd), one query token per slot; block_tables (B, MAXB)
+    physical page ids; lengths (B,) valid tokens (0 = inactive slot)."""
+    if _plain(q):
+        return _paged.paged_attention_plain(q, k_pool, v_pool, block_tables,
+                                            lengths, window=window)
+    return _paged.paged_attention_cuda(q, k_pool, v_pool, block_tables,
+                                       lengths, window=window)
+
+
+def paged_attention_quant(q: Tensor, k_pool: Tensor, v_pool: Tensor,
+                          k_scale: Tensor, v_scale: Tensor,
+                          block_tables: Tensor, lengths: Tensor, *,
+                          window: int = 0, kv_bits: int = 8) -> Tensor:
+    """Decode attention over a quantized paged pool: integer codes (int8 /
+    packed 4-bit) with (NB, KV) per-page scales, dequantized inside the
+    kernel."""
+    if _plain(q):
+        return _paged.paged_attention_quant_plain(
+            q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths,
+            window=window, kv_bits=kv_bits)
+    return _paged.paged_attention_quant_cuda(
+        q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths,
+        window=window, kv_bits=kv_bits)
+
+
+# every kernel: (module, its name attribute, its launch-counter attribute)
+KERNELS = ((_panel, "NAME", "launches"), (_flash, "NAME", "launches"),
+           (_qmm, "NAME", "launches"), (_paged, "NAME", "launches"),
+           (_paged, "NAME_QUANT", "launches_quant"))
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNELS:
-        mod.launches = 0
+    for mod, _, count in KERNELS:
+        setattr(mod, count, 0)
 
 
 def launch_counts() -> dict:
-    return {mod.NAME: mod.launches for mod in KERNELS}
+    return {getattr(mod, name): getattr(mod, count)
+            for mod, name, count in KERNELS}

@@ -1,0 +1,170 @@
+"""`paged_attention` and `paged_attention_quant`: decode attention of one
+query token per slot over a paged KV pool — Hopper kernels
+(csrc/paged_attention.cu) and their plain versions.
+
+Replace the Pallas TPU kernels `src/repro/kernels/paged_attention.py`
+(`paged_attention_pallas`, and `paged_attention_quant_pallas` with its
+body `_quant_kernel`). Both read the serving layout of
+`serve/kv_cache.py`: q (B, H, hd); pool (NB, BS, KV, hd) in f32/bf16, or
+(NB, BS, KV, hd/cpb) int8 codes / 4-bit nibble pairs with (NB, KV) f32
+page scales; block tables (B, MAXB) int32; lengths (B,) int32, 0 =
+inactive (exact zeros). The query sits at position length-1; `window` > 0
+also masks keys with (length-1) - pos >= window. Output (B, H, hd) in
+q.dtype (f32 or bf16).
+
+What bounds them is the bytes of the live pages; the source notes the
+design (flash-decoding: fixed 256-token splits per (slot, kv head) and a
+combine pass, so a slot's result does not depend on its batchmates).
+
+Tolerance against the plain version (which dequantizes in f32 and runs
+the f32 oracle): the same f32 softmax summed in another order, so
+|Δ| ≤ 8e-3·|want| + 1e-3 in bf16 (two bf16 ulps) and |Δ| ≤ 1e-4 in f32;
+zero-length slots are exactly 0 in both.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+Tensor = torch.Tensor
+NAME = "paged_attention"
+NAME_QUANT = "paged_attention_quant"
+launches = 0          # paged_attention launches since the last reset
+launches_quant = 0    # paged_attention_quant launches since the last reset
+
+_SPLIT_TOKENS = 256   # keys per split (csrc: one block per split)
+_MAX_G, _MAX_HD = 16, 256
+_PAGE_KIND = {torch.float32: 0, torch.bfloat16: 1}
+_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+             + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+_ARGTYPES_QUANT = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+
+
+def paged_attention_plain(q: Tensor, k_pool: Tensor, v_pool: Tensor,
+                          block_tables: Tensor, lengths: Tensor, *,
+                          window: int = 0) -> Tensor:
+    """`ref.paged_attention_ref` in q.dtype."""
+    return ref.paged_attention_ref(q, k_pool, v_pool, block_tables, lengths,
+                                   window=window).to(q.dtype)
+
+
+def paged_attention_quant_plain(q: Tensor, k_pool: Tensor, v_pool: Tensor,
+                                k_scale: Tensor, v_scale: Tensor,
+                                block_tables: Tensor, lengths: Tensor, *,
+                                window: int = 0, kv_bits: int = 8) -> Tensor:
+    """`ref.paged_attention_quant_ref` (f32 dequantization) in q.dtype."""
+    return ref.paged_attention_quant_ref(
+        q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths,
+        window=window, kv_bits=kv_bits).to(q.dtype)
+
+
+def _check(name: str, q: Tensor, k_pool: Tensor, v_pool: Tensor,
+           block_tables: Tensor, lengths: Tensor, row: int):
+    """Validate the common operands; returns (B, H, KV, hd, NB, BS, MAXB)."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"{name} kernel needs CUDA tensors, got {dev}")
+    if q.dim() != 3 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
+        raise ValueError(f"{name}: want q (B,H,hd) and pools (NB,BS,KV,row); "
+                         f"got {tuple(q.shape)}, {tuple(k_pool.shape)}, "
+                         f"{tuple(v_pool.shape)}")
+    B, H, hd = q.shape
+    NB, BS, KV = k_pool.shape[:3]
+    if k_pool.shape[3] != row or H % KV or H // KV > _MAX_G or hd > _MAX_HD:
+        raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} pool "
+                         f"{tuple(k_pool.shape)} (needs row {row}, "
+                         f"H % KV == 0, H/KV <= {_MAX_G}, hd <= {_MAX_HD})")
+    if q.dtype not in _Q_DTYPES:
+        raise TypeError(f"{name}: q must be f32 or bf16, got {q.dtype}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B \
+            or tuple(lengths.shape) != (B,):
+        raise ValueError(f"{name}: want block_tables (B, MAXB) and lengths "
+                         f"(B,), got {tuple(block_tables.shape)}, "
+                         f"{tuple(lengths.shape)}")
+    for t, what in ((block_tables, "block_tables"), (lengths, "lengths")):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: {what} must be int32, got {t.dtype}")
+    for t in (q, k_pool, v_pool, block_tables, lengths):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: every operand must be contiguous on "
+                             f"{dev}")
+    return B, H, KV, hd, NB, BS, block_tables.shape[1]
+
+
+def _launch(lib_fn: str, q: Tensor, k_pool: Tensor, v_pool: Tensor,
+            scales, block_tables: Tensor, lengths: Tensor, kind: int,
+            dims, window: int, argtypes) -> Tensor:
+    B, H, KV, hd, NB, BS, MAXB = dims
+    pps = max(1, _SPLIT_TOKENS // BS)
+    ns = max(1, -(-MAXB // pps))
+    dev = q.device
+    o = torch.empty(B, H, hd, dtype=q.dtype, device=dev)
+    part_acc = torch.empty(B, KV, ns, H // KV, hd, dtype=torch.float32,
+                           device=dev)
+    part_ml = torch.empty(B, KV, ns, H // KV, 2, dtype=torch.float32,
+                          device=dev)
+    shape = (ctypes.c_int * 10)(B, H, KV, hd, NB, BS, MAXB, pps, ns,
+                                int(window))
+    fn = build.load(NAME, lib_fn, argtypes)
+    ptrs = [q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr()]
+    ptrs += [s.data_ptr() for s in scales]
+    ptrs += [block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
+             part_acc.data_ptr(), part_ml.data_ptr()]
+    rc = fn(*ptrs, _Q_DTYPES[q.dtype], kind, ctypes.addressof(shape),
+            1.0 / math.sqrt(hd), torch.cuda.current_stream(dev).cuda_stream)
+    build.check(NAME, rc)
+    return o
+
+
+def paged_attention_cuda(q: Tensor, k_pool: Tensor, v_pool: Tensor,
+                         block_tables: Tensor, lengths: Tensor, *,
+                         window: int = 0) -> Tensor:
+    """Launch the kernel over an f32 or bf16 page pool."""
+    global launches
+    dims = _check(NAME, q, k_pool, v_pool, block_tables, lengths,
+                  row=q.shape[-1] if q.dim() == 3 else -1)
+    if k_pool.dtype not in _PAGE_KIND or v_pool.dtype != k_pool.dtype:
+        raise TypeError(f"{NAME}: pages must be f32 or bf16, got "
+                        f"{k_pool.dtype}/{v_pool.dtype}")
+    o = _launch(NAME, q, k_pool, v_pool, (), block_tables, lengths,
+                _PAGE_KIND[k_pool.dtype], dims, window, _ARGTYPES)
+    launches += 1
+    return o
+
+
+def paged_attention_quant_cuda(q: Tensor, k_pool: Tensor, v_pool: Tensor,
+                               k_scale: Tensor, v_scale: Tensor,
+                               block_tables: Tensor, lengths: Tensor, *,
+                               window: int = 0, kv_bits: int = 8) -> Tensor:
+    """Launch the kernel over int8 (kv_bits 8) or 4-bit nibble-pair
+    (kv_bits 4) codes with (NB, KV) f32 page scales."""
+    global launches_quant
+    if kv_bits not in (4, 8):
+        raise ValueError(f"{NAME_QUANT}: kv_bits must be 4 or 8, got "
+                         f"{kv_bits}")
+    hd = q.shape[-1] if q.dim() == 3 else -1
+    dims = _check(NAME_QUANT, q, k_pool, v_pool, block_tables, lengths,
+                  row=hd if kv_bits == 8 else hd // 2)
+    want = torch.int8 if kv_bits == 8 else torch.uint8
+    if k_pool.dtype != want or v_pool.dtype != want or (kv_bits == 4
+                                                        and hd % 2):
+        raise TypeError(f"{NAME_QUANT}: kv_bits={kv_bits} pages must be "
+                        f"{want} (even hd for 4-bit), got {k_pool.dtype}")
+    NB, KV = dims[4], dims[2]
+    for s in (k_scale, v_scale):
+        if s.dtype != torch.float32 or tuple(s.shape) != (NB, KV) \
+                or s.device != q.device or not s.is_contiguous():
+            raise ValueError(f"{NAME_QUANT}: scales must be contiguous f32 "
+                             f"({NB}, {KV}) on {q.device}, got {s.dtype} "
+                             f"{tuple(s.shape)} on {s.device}")
+    o = _launch(NAME_QUANT, q, k_pool, v_pool, (k_scale, v_scale),
+                block_tables, lengths, 2 if kv_bits == 8 else 3, dims,
+                window, _ARGTYPES_QUANT)
+    launches_quant += 1
+    return o

@@ -109,11 +109,22 @@ def quantize_and_eval(cfg, *, bits: int = 4,
     return QuantizeRun(summary, params, qparams, report, spec, tokens, ev)
 
 
-class _NotPorted(argparse.Action):
+class NotPorted(argparse.Action):
+    """A JAX launcher flag the port does not have yet: exits 2 saying so."""
+
     def __call__(self, parser, namespace, values, option_string=None):
+        jax_prog = parser.prog.replace("repro_torch.", "repro.")
         parser.exit(2, f"{parser.prog}: {option_string} is not yet ported to "
                        "repro_torch (see ROADMAP.md Queue A); run the JAX "
-                       "launcher `python -m repro.launch.quantize` for it\n")
+                       f"launcher `{jax_prog}` for it\n")
+
+
+def add_not_ported(ap: argparse.ArgumentParser, flags: Dict[str, bool]):
+    """Register `flags` ({flag: takes a value}) as NotPorted."""
+    for flag, takes_value in flags.items():
+        ap.add_argument(flag, action=NotPorted,
+                        nargs=None if takes_value else 0,
+                        help=argparse.SUPPRESS)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -136,10 +147,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "file (readable by the JAX package)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
-    for flag, takes_value in NOT_PORTED.items():
-        ap.add_argument(flag, action=_NotPorted,
-                        nargs=None if takes_value else 0,
-                        help=argparse.SUPPRESS)
+    add_not_ported(ap, NOT_PORTED)
     return ap
 
 

@@ -8,6 +8,9 @@
 * Decode attends over a bf16 (B, S, KV, hd) cache with a position mask.
   Caches are updated in place (one write per step instead of a copy of
   the whole cache).
+* Paged decode (the serving runtime) writes one row per slot into a page
+  pool, bf16/f32 or quantized, in place, and attends through
+  `kernels.ops.paged_attention[_quant]`.
 """
 from __future__ import annotations
 
@@ -222,3 +225,146 @@ def decode_attend(q: Tensor, cache: KVCache, head_map: Tensor, *,
     return _dense_attention(q, cache.k, cache.v, head_map, causal=True,
                             window=window, q_positions=qp,
                             kv_positions=cache.pos, kv_valid=cache.pos >= 0)
+
+
+# ---------------------------------------------------------------------------
+# paged KV cache (serve/kv_cache.py owns the pool + block tables; these are
+# the per-layer device ops of a continuous-batching decode step). Pools are
+# updated in place.
+# ---------------------------------------------------------------------------
+
+def _slot_rows(block_tables: Tensor, pos: Tensor, BS: int):
+    """(physical page, offset, active) of each slot's write position;
+    inactive slots (pos -1) read position 0 of their table row."""
+    safe = pos.clamp(min=0).long()
+    phys = torch.gather(block_tables.long(), 1, (safe // BS)[:, None])[:, 0]
+    return phys, safe % BS, pos >= 0
+
+
+def _redirect_inactive(active: Tensor, *vals: Tensor):
+    """Point every inactive slot's write at the first active slot's, with
+    the same value. Slots own disjoint pages, so active writes never
+    collide, and an inactive slot's write becomes an exact duplicate of an
+    active one: a scatter that drops inactive slots without reading `pos`
+    on the host. With no active slot, every slot rewrites slot 0's values,
+    which the callers set to what the pool already holds there."""
+    first = torch.argmax(active.to(torch.int32))
+    return [torch.where(active.view(-1, *[1] * (v.dim() - 1)), v, v[first])
+            for v in vals]
+
+
+def paged_insert(k_pool: Tensor, v_pool: Tensor, k_new: Tensor,
+                 v_new: Tensor, block_tables: Tensor, pos: Tensor):
+    """Write one token per slot into the paged pool, in place.
+
+    k_pool/v_pool: (NB, BS, KV, hd); k_new/v_new: (B, 1, KV, hd);
+    block_tables: (B, MAXB) physical block ids; pos: (B,) absolute write
+    position, -1 = inactive slot (nothing written)."""
+    NB, BS = k_pool.shape[0], k_pool.shape[1]
+    phys, off, active = _slot_rows(block_tables, pos, BS)
+    dest = phys * BS + off
+    for pool, new in ((k_pool, k_new), (v_pool, v_new)):
+        flat = pool.view(NB * BS, *pool.shape[2:])
+        val = torch.where(active[:, None, None], new[:, 0].to(pool.dtype),
+                          flat[dest])
+        d, val = _redirect_inactive(active, dest, val)
+        flat[d] = val
+    return k_pool, v_pool
+
+
+def paged_gather(pool: Tensor, block_tables: Tensor) -> Tensor:
+    """(NB, BS, KV, hd) + (B, MAXB) -> (B, MAXB·BS, KV, hd): a slot's pages
+    in logical order (row i holds position i)."""
+    NB, BS = pool.shape[0], pool.shape[1]
+    B, MAXB = block_tables.shape
+    idx = (block_tables.long()[:, :, None] * BS
+           + torch.arange(BS, device=pool.device)[None, None])
+    return pool.reshape(NB * BS, *pool.shape[2:])[idx.reshape(B, MAXB * BS)]
+
+
+def _grouped_heads(q: Tensor, k_pool: Tensor) -> None:
+    if q.shape[2] % k_pool.shape[2]:
+        raise NotImplementedError(
+            "paged decode attention needs Hp % KV == 0 (the uneven hymba "
+            "head map is not ported)")
+
+
+def paged_decode_attend(q: Tensor, k_pool: Tensor, v_pool: Tensor,
+                        block_tables: Tensor, lengths: Tensor,
+                        head_map: Tensor, *, window: int = 0) -> Tensor:
+    """q: (B, 1, Hp, hd); lengths: (B,) int32 valid tokens per slot (0
+    inactive). Runs `ops.paged_attention`: the kernel for CUDA tensors,
+    its plain version on the CPU. Returns (B, 1, Hp, hd) in q.dtype."""
+    _grouped_heads(q, k_pool)
+    from repro_torch.kernels import ops
+    o = ops.paged_attention(q[:, 0].contiguous(), k_pool, v_pool,
+                            block_tables, lengths, window=window)
+    return o[:, None]
+
+
+def paged_insert_quant(k_pool: Tensor, v_pool: Tensor, k_scale: Tensor,
+                       v_scale: Tensor, k_new: Tensor, v_new: Tensor,
+                       block_tables: Tensor, pos: Tensor, *, kv_bits: int):
+    """Write one token per slot into a quantized pool (decode append), in
+    place.
+
+    k_pool/v_pool: (NB, BS, KV, hd/cpb) integer codes; k_scale/v_scale:
+    (NB, KV) f32 per-(page, kv_head) scales; k_new/v_new: (B, 1, KV, hd)
+    float; pos: (B,), -1 = inactive (nothing written).
+
+    The page scale is a running max: appending a token with a larger
+    absmax raises the page scale, and the page's existing codes rescale
+    by old/new (exact when the scale is unchanged, at most one code unit
+    of double rounding when it grows). A token at page offset 0 starts a
+    fresh page: the old scale and codes belong to a freed request and are
+    overwritten, not maxed. Returns (k_pool, k_scale, v_pool, v_scale)."""
+    from repro_torch.core.quantizer import pack_int4, unpack_int4
+    from repro_torch.serve.kv_cache import _kv_qmax, kv_encode, kv_scale_of
+    BS = k_pool.shape[1]
+    qmax = _kv_qmax(kv_bits)
+    phys, off, active = _slot_rows(block_tables, pos, BS)
+    fresh = (off == 0)[:, None]                      # (B, 1)
+    at_off = (torch.arange(BS, device=pos.device)[None, :, None, None]
+              == off[:, None, None, None])
+    for pool, scale, new in ((k_pool, k_scale, k_new),
+                             (v_pool, v_scale, v_new)):
+        row = new[:, 0].float()                      # (B, KV, hd)
+        s_tok = kv_scale_of(row.abs().amax(dim=-1), kv_bits)
+        old = scale[phys]                            # (B, KV)
+        s_new = torch.where(fresh, s_tok, torch.maximum(old, s_tok))
+        # rescale the page's existing codes to the (possibly) raised
+        # scale; ratio 0 wipes a fresh page's stale codes outright
+        ratio = torch.where(fresh | (s_new <= 0), 0.0,
+                            old / torch.where(s_new > 0, s_new, 1.0))
+        page = pool[phys]                            # (B, BS, KV, hd/cpb)
+        if kv_bits == 8:
+            pq = page.float() * ratio[:, None, :, None]
+            page2 = torch.clamp(torch.round(pq), -qmax, qmax).to(torch.int8)
+        else:
+            pq = (unpack_int4(page).float() - 8.0) * ratio[:, None, :, None]
+            pq = torch.clamp(torch.round(pq), -qmax, qmax)
+            page2 = pack_int4((pq + 8.0).to(torch.uint8))
+        tok = kv_encode(row, s_new, kv_bits)         # (B, KV, hd/cpb)
+        page2 = torch.where(at_off, tok[:, None], page2)
+        page2 = torch.where(active[:, None, None, None], page2, page)
+        s_new = torch.where(active[:, None], s_new, old)
+        d, page2, s_new = _redirect_inactive(active, phys, page2, s_new)
+        pool[d] = page2
+        scale[d] = s_new
+    return k_pool, k_scale, v_pool, v_scale
+
+
+def paged_decode_attend_quant(q: Tensor, k_pool: Tensor, v_pool: Tensor,
+                              k_scale: Tensor, v_scale: Tensor,
+                              block_tables: Tensor, lengths: Tensor,
+                              head_map: Tensor, *, window: int = 0,
+                              kv_bits: int = 8) -> Tensor:
+    """Quantized-pool decode attention through
+    `ops.paged_attention_quant`: the kernel streams codes and folds the
+    per-page scales in; the plain version dequantizes in f32."""
+    _grouped_heads(q, k_pool)
+    from repro_torch.kernels import ops
+    o = ops.paged_attention_quant(q[:, 0].contiguous(), k_pool, v_pool,
+                                  k_scale, v_scale, block_tables, lengths,
+                                  window=window, kv_bits=kv_bits)
+    return o[:, None]

@@ -5,12 +5,15 @@
     loss, metrics = lm_loss(params, cfg, plan, batch)
     logits, cache = prefill(params, cfg, plan, tokens)
     logits, cache = decode_step(params, cfg, plan, cache, tokens, pos)
+    logits, pool = decode_step_paged(params, cfg, plan, pool, block_tables,
+                                     tokens, pos)
 
 `params["layers"]` is a per-layer list of dicts with the JAX leaf names
 and per-layer shapes (wq (d, H, hd), wo (H, hd, d), w_down (f, d), ...).
 Layer leaves may be QT (packed codes, core/apply.py): `forward`
 dequantizes them per layer, `decode_step` keeps the fused projections
-packed and runs them through quant_matmul.
+packed and runs them through quant_matmul; `decode_step_paged` does the
+same against a paged KV pool with one position per slot (serve/).
 """
 from __future__ import annotations
 
@@ -154,3 +157,32 @@ def decode_step(p: Params, cfg, plan: BuildPlan, cache, tokens: Tensor,
     x = apply_norm(p["final_norm"], x, cfg)
     logits = unembed(p, cfg, plan, x)
     return logits[:, 0], {"kv": new_kv}
+
+
+def decode_step_paged(p: Params, cfg, plan: BuildPlan, pool, block_tables,
+                      tokens: Tensor, pos: Tensor):
+    """One continuous-batching decode step against a paged KV pool.
+
+    tokens: (B, 1); pos: (B,) int32 absolute write positions per slot (-1 =
+    inactive slot: nothing written, its logits are garbage the runtime
+    ignores); pool: {"k", "v"[, "k_scale", "v_scale"]} with a leading
+    layer dim (serve/kv_cache.py), updated in place; block_tables:
+    (B, MAXB) int32 physical page ids. Every slot carries its own
+    position, so a mixed-length, staggered-arrival batch decodes in one
+    step. Layers run in a Python loop; fused-layout QT projections stay
+    packed and run through quant_matmul (keep_fused). Returns
+    (logits (B, V), pool)."""
+    from repro_torch.core.apply import dequantize_qt_tree
+    tfm.check_dense(cfg)
+    cd = dtype_of(cfg.compute_dtype)
+    x = embed_tokens(p, cfg, plan, tokens)
+    for i, lp in enumerate(p["layers"]):
+        lp = dequantize_qt_tree(lp, cd, keep_fused=True)
+        scales = ((pool["k_scale"][i], pool["v_scale"][i]) if plan.kv_bits
+                  else ())
+        x = tfm.layer_decode_paged(lp, x, cfg, plan, pool["k"][i],
+                                   pool["v"][i], block_tables, pos,
+                                   *scales)[0]
+    x = apply_norm(p["final_norm"], x, cfg)
+    logits = unembed(p, cfg, plan, x)
+    return logits[:, 0], pool

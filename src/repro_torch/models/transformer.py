@@ -3,8 +3,9 @@
 
 Layers run one at a time from a per-layer list of param dicts (the JAX
 package scans stacked params). `BuildPlan` keeps the facts the dense path
-reads: the KV-cache dtype and the prefill cache length. The port runs on
-one device, so there is no TP head or vocab padding (the JAX plan's tp=1).
+reads: the KV-cache dtype, the prefill cache length and the paged pool's
+code width. The port runs on one device, so there is no TP head or vocab
+padding (the JAX plan's tp=1).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.attention import (cache_insert, cache_prefill,
                                           decode_attend, flash_attention,
                                           head_to_kv_map, init_kv_cache,
+                                          paged_decode_attend, paged_insert,
                                           qkv_project)
 from repro_torch.models.common import apply_norm, apply_rope, norm_params
 
@@ -30,6 +32,9 @@ class BuildPlan:
     # prefill cache capacity (0 -> prompt length); decode callers set
     # prompt+max_new so decode continues without ring eviction
     prefill_cache_len: int = 0
+    # paged KV pool: 0 = pages in cache_dtype, 8 / 4 = integer page codes
+    # with per-(layer, page, kv_head) scales (serve/kv_cache.py)
+    kv_bits: int = 0
 
     def replace(self, **kw) -> "BuildPlan":
         return dataclasses.replace(self, **kw)
@@ -130,5 +135,51 @@ def layer_decode(p: dict, x: Tensor, cfg, plan: BuildPlan, kv_cache,
     o = decode_attend(q, kv_cache, _hmap(cfg, x.device), pos=pos,
                       window=cfg.sliding_window)
     x = x + attn_mod.out_project(p["attn"], o)
+    return x + _decode_ffn(p, x, cfg), kv_cache
+
+
+def _decode_ffn(p: dict, x: Tensor, cfg) -> Tensor:
     xn = apply_norm(p["ln2"], x, cfg)
-    return x + mlp_mod.apply_mlp(p["mlp"], xn, cfg), kv_cache
+    return mlp_mod.apply_mlp(p["mlp"], xn, cfg)
+
+
+def layer_decode_paged(p: dict, x: Tensor, cfg, plan: BuildPlan,
+                       k_pool: Tensor, v_pool: Tensor, block_tables: Tensor,
+                       pos: Tensor, k_scale: Tensor = None,
+                       v_scale: Tensor = None):
+    """One decode step against this layer's pages of the paged KV pool
+    (serve/kv_cache.py), updated in place.
+
+    x: (B, 1, d); k_pool/v_pool: (NB, BS, KV, hd) pages; block_tables:
+    (B, MAXB) int32 physical page ids per slot; pos: (B,) int32 absolute
+    write position per slot, -1 = inactive (nothing written; its output
+    row is garbage the runtime ignores). Positions are per slot: slots sit
+    at different sequence lengths. Returns (x, k_pool, v_pool).
+
+    With `plan.kv_bits` set the pools hold integer codes and
+    k_scale/v_scale (NB, KV) the per-(page, kv_head) scales: the append
+    re-quantizes under a running-max page scale and attention dequantizes
+    in the kernel. Returns (x, k_pool, v_pool, k_scale, v_scale) then."""
+    check_dense(cfg)
+    hmap = _hmap(cfg, x.device)
+    xn = apply_norm(p["ln1"], x, cfg)
+    q, k, v = qkv_project(p["attn"], xn)
+    posb = pos.clamp(min=0)[:, None]                     # (B, 1)
+    q = apply_rope(q, posb, cfg.rope_theta)
+    k = apply_rope(k, posb, cfg.rope_theta)
+    lengths = (pos + 1).clamp(min=0).to(torch.int32)
+    if plan.kv_bits:
+        attn_mod.paged_insert_quant(k_pool, v_pool, k_scale, v_scale, k, v,
+                                    block_tables, pos, kv_bits=plan.kv_bits)
+        o = attn_mod.paged_decode_attend_quant(
+            q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths,
+            hmap, window=cfg.sliding_window, kv_bits=plan.kv_bits)
+    else:
+        paged_insert(k_pool, v_pool, k, v, block_tables, pos)
+        o = paged_decode_attend(q, k_pool, v_pool, block_tables, lengths,
+                                hmap, window=cfg.sliding_window)
+    x = x + attn_mod.out_project(p["attn"], o)
+    x = x + _decode_ffn(p, x, cfg)
+    if plan.kv_bits:
+        return x, k_pool, v_pool, k_scale, v_scale
+    return x, k_pool, v_pool

@@ -1,0 +1,390 @@
+"""Continuous-batching serving runtime over the paged KV cache (port of
+`repro.serve.runtime`).
+
+The runtime ties together:
+
+* `serve/scheduler.py` — priority admission, prefill buckets, incremental
+  page allocation + preemption-by-page-reclaim (or full-lifetime
+  reservation under ``policy="reserve"``);
+* `serve/kv_cache.py` — the paged pool + block tables + host allocator;
+* `models/model.py::decode_step_paged` — one decode step with per-slot
+  positions, so slots at different sequence lengths (mixed lengths,
+  staggered arrivals) share every decode step; its attention runs the
+  `paged_attention[_quant]` kernels on the card;
+* `serve/sampler.py::sample_batch_seeded` — per-slot sampling settings,
+  with every draw a pure function of (request seed, token index).
+
+The batch shape is fixed at `max_slots` rows and every kernel computes a
+row from that row's inputs alone, so a request's tokens do not depend on
+its batchmates: mixed traffic reproduces solo runs token for token.
+
+Preemption is recompute-based: the victim's pages are freed and it
+re-queues; on re-admission the runtime re-prefills prompt + all emitted
+tokens but the last, then feeds the last emitted token through the normal
+decode step, so every resumed token comes from the same decode step as an
+uninterrupted run.
+
+Per decode step the host uploads the tokens and positions, re-uploads
+the block tables only when they changed, and pulls the sampled tokens:
+that pull is the step's one host sync. The JAX runtime's journal, fault
+injector, tracer, metrics registry and mesh are not ported yet; passing
+any of them raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.model import decode_step_paged, forward
+from repro_torch.models.transformer import check_dense
+from repro_torch.serve.kv_cache import (BlockAllocator, blocks_for,
+                                        init_paged_cache, paged_cache_bytes,
+                                        write_prefill)
+from repro_torch.serve.sampler import sample_batch_seeded
+from repro_torch.serve.scheduler import DEFAULT_BUCKETS, Request, Scheduler
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    max_slots: int = 4
+    block_size: int = 16
+    num_blocks: int = 64
+    buckets: Tuple[int, ...] = DEFAULT_BUCKETS
+    max_blocks_per_slot: Optional[int] = None
+    rng_seed: int = 0
+    policy: str = "preempt"          # "preempt" | "reserve"
+
+
+def params_device(params) -> torch.device:
+    """Device of the first tensor in a params tree (QT leaves included)."""
+    stack = [params]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, Tensor):
+            return node.device
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+        elif hasattr(node, "codes"):
+            return node.codes.device
+    raise ValueError("params hold no tensor")
+
+
+def check_params_device(params, dev: torch.device) -> None:
+    got = params_device(params)
+    if got.type != dev.type:
+        raise ValueError(f"params are on {got} but the runtime runs on {dev}; "
+                         "move them, or pass the matching device")
+
+
+class Runtime:
+    """Continuous-batching runtime: submit() requests, run() to drain.
+
+    Runs on the card unless `device="cpu"`."""
+
+    def __init__(self, params, cfg, plan, serve_cfg: ServeConfig = None,
+                 journal=None, injector=None, tracer=None, metrics=None,
+                 mesh=None, device: DeviceLike = None):
+        for name, arg in (("journal", journal), ("injector", injector),
+                          ("tracer", tracer), ("metrics", metrics),
+                          ("mesh", mesh)):
+            if arg is not None:
+                raise NotImplementedError(
+                    f"Runtime({name}=...) is not yet ported to repro_torch "
+                    "(see ROADMAP.md Queue A)")
+        check_dense(cfg)
+        kv_bits = int(getattr(plan, "kv_bits", 0) or 0)
+        if kv_bits not in (0, 4, 8):
+            raise ValueError(f"kv_bits must be 0, 4 or 8, got {kv_bits}")
+        self.kv_bits = kv_bits
+        self.device = resolve_device(device)
+        check_params_device(params, self.device)
+        self.params = params
+        self.cfg = cfg
+        self.plan = plan
+        sc = serve_cfg or ServeConfig()
+        self.serve_cfg = sc
+        self.allocator = BlockAllocator(sc.num_blocks)
+        self.scheduler = Scheduler(sc.max_slots, self.allocator,
+                                   buckets=sc.buckets,
+                                   block_size=sc.block_size,
+                                   max_blocks_per_slot=sc.max_blocks_per_slot,
+                                   policy=sc.policy)
+        self.maxb = self.scheduler.max_blocks_per_slot
+        self.pool = init_paged_cache(cfg, plan, sc.num_blocks, sc.block_size,
+                                     device=self.device)
+
+        B = sc.max_slots
+        # host-side decode state, one row per slot
+        self._bt = np.zeros((B, self.maxb), np.int32)
+        self._pos = np.full((B,), -1, np.int32)
+        self._tok = np.zeros((B,), np.int64)
+        self._temp = np.zeros((B,), np.float32)
+        self._topk = np.zeros((B,), np.int32)
+        self._topp = np.zeros((B,), np.float32)
+        self._seed = np.zeros((B,), np.uint32)   # per-request sampling seed
+        self._count = np.zeros((B,), np.int32)   # tokens emitted so far
+        # device-resident block tables, re-uploaded only on change
+        self._bt_dev = None
+        self._bt_dirty = True
+        self._any_sampling = False   # any live slot with temperature > 0
+        # run() metrics
+        self.steps = 0
+        self.decode_seconds = 0.0
+        self._occ_sum = 0.0          # live-token occupancy, summed per step
+        self._occ_steps = 0
+
+    def _upload(self, a: np.ndarray) -> Tensor:
+        """Host array -> a tensor on the runtime's device (a copy). On the
+        card the copy goes through pinned memory without waiting."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cpu":
+            return t.clone()
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    # -- request intake ------------------------------------------------------
+
+    def submit(self, prompt, max_new_tokens: int = 32,
+               temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+               stop_tokens=(), stream_cb=None, priority: int = 0,
+               seed: Optional[int] = None) -> Request:
+        req = Request(prompt=np.asarray(prompt, np.int32).reshape(-1),
+                      max_new_tokens=max_new_tokens, temperature=temperature,
+                      top_k=top_k, top_p=top_p,
+                      stop_tokens=tuple(int(t) for t in stop_tokens),
+                      stream_cb=stream_cb, priority=priority, seed=seed)
+        self.scheduler.submit(req)
+        if req.seed is None:
+            # deterministic per-request default
+            req.seed = (self.serve_cfg.rng_seed * 1_000_003
+                        + req.rid) & 0x7FFFFFFF
+        return req
+
+    # -- serving loop --------------------------------------------------------
+
+    def _clear_slot(self, req: Request) -> None:
+        """Scheduler preemption callback: wipe the victim's slot state
+        while `req.slot` is still assigned."""
+        s = req.slot
+        self._pos[s] = -1
+        self._bt[s] = 0
+        self._tok[s] = 0
+        self._temp[s] = 0.0
+        self._topk[s] = 0
+        self._topp[s] = 0.0
+        self._seed[s] = 0
+        self._count[s] = 0
+        self._bt_dirty = True
+        self._any_sampling = bool((self._temp > 0.0).any())
+
+    def _prefill(self, tokens_in: np.ndarray, bucket: int):
+        """Prefill one right-padded request; returns (logits (1, bucket,
+        V), k_seq, v_seq (L, S, KV, hd), positions (S,))."""
+        tlen = len(tokens_in)
+        tokens = np.zeros((1, bucket), np.int64)
+        tokens[0, :tlen] = tokens_in
+        # cache capacity >= bucket: the right-pad rows must not ring-evict
+        # real rows before the scatter drops them
+        plan = self.plan.replace(prefill_cache_len=bucket)
+        logits, _, cache = forward(self.params, self.cfg, plan,
+                                   self._upload(tokens), make_cache=True)
+        kv = cache["kv"]
+        k_seq = torch.stack([c.k[0] for c in kv])
+        v_seq = torch.stack([c.v[0] for c in kv])
+        return logits, k_seq, v_seq, kv[0].pos[0]
+
+    def _admit_one(self, req: Request) -> int:
+        """Prefill + scatter for a newly (re-)admitted request. Fresh
+        requests sample their first token from the prefill logits (TTFT)
+        and return 1; resumed requests re-prefill prompt + emitted[:-1]
+        and feed emitted[-1] through the next decode step, so every
+        resumed token comes from the same decode step as an uninterrupted
+        run, and 0 new tokens are emitted here."""
+        resume = bool(req.out_tokens)
+        if resume:
+            tokens_in = np.concatenate(
+                [req.prompt, np.asarray(req.out_tokens[:-1], np.int32)])
+        else:
+            tokens_in = req.prompt
+        tlen = int(len(tokens_in))
+        bucket = self.scheduler.bucket_for(tlen, extend=resume)
+        logits, k_seq, v_seq, kv_pos = self._prefill(tokens_in, bucket)
+        table_row = np.zeros((self.maxb,), np.int32)
+        table_row[:len(req.blocks)] = req.blocks
+        # only positions < true length: the right-pad rows are dropped
+        pos_row = torch.where((kv_pos >= 0) & (kv_pos < tlen), kv_pos,
+                              torch.full_like(kv_pos, -1))
+        write_prefill(self.pool, k_seq, v_seq, pos_row,
+                      self._upload(table_row), kv_bits=self.kv_bits)
+        s = req.slot
+        self._bt[s] = table_row
+        self._pos[s] = tlen          # next decode writes K/V here
+        self._temp[s] = req.temperature
+        self._topk[s] = req.top_k
+        self._topp[s] = req.top_p
+        self._seed[s] = np.uint32(req.seed or 0)
+        self._bt_dirty = True
+        self._any_sampling = bool((self._temp > 0.0).any())
+        if resume:
+            self._tok[s] = req.out_tokens[-1]
+            self._count[s] = len(req.out_tokens)
+            return 0
+        # first token comes straight from the prefill logits (TTFT token)
+        last = logits[:, tlen - 1]
+        if req.temperature <= 0.0:
+            first = torch.argmax(last, dim=-1)
+        else:
+            first = sample_batch_seeded(
+                last, [req.seed or 0], [0], temperature=[req.temperature],
+                top_k=[req.top_k], top_p=[req.top_p])
+        first = int(first[0])        # the TTFT token must reach the stream
+        req.emit(first, time.time())
+        self._tok[s] = first
+        self._count[s] = 1
+        if req.finished():       # max_new == 1, or the TTFT token is a stop
+            self._retire(req)
+        return 1
+
+    def _retire(self, req: Request) -> None:
+        s = req.slot
+        req.finished()               # ensure finish_reason is set
+        self.scheduler.release(req)
+        self._pos[s] = -1
+        self._bt[s] = 0
+        self._tok[s] = 0
+        self._count[s] = 0
+        # clear sampling settings too: greedy rows of the seeded sampler
+        # equal argmax, so dropping back to it cannot change tokens
+        self._temp[s] = 0.0
+        self._topk[s] = 0
+        self._topp[s] = 0.0
+        self._bt_dirty = True
+        self._any_sampling = bool((self._temp > 0.0).any())
+
+    def step(self) -> int:
+        """Admit what fits (possibly preempting lower-priority victims),
+        grow pages for the rows this step writes (possibly preempting),
+        then run one decode step for all active slots. Returns the number
+        of tokens emitted (prefill first-tokens included)."""
+        emitted = 0
+        for req in self.scheduler.admit(on_preempt=self._clear_slot):
+            emitted += self._admit_one(req)
+        bs = self.serve_cfg.block_size
+        for s, req in sorted(self.scheduler.running.items()):
+            if req.state != "running":      # preempted earlier this pass
+                continue
+            needed = int(self._pos[s]) // bs + 1
+            self.scheduler.ensure_pages(req, needed,
+                                        on_preempt=self._clear_slot)
+        running = dict(self.scheduler.running)
+        if not running:
+            return emitted
+        for s, req in running.items():
+            row = np.asarray(req.blocks, np.int32)       # grown tables
+            if not np.array_equal(self._bt[s, :len(row)], row):
+                self._bt[s, :len(row)] = row
+                self._bt_dirty = True
+        t0 = time.time()
+        if self._bt_dirty or self._bt_dev is None:
+            self._bt_dev = self._upload(self._bt)
+            self._bt_dirty = False
+        logits, self.pool = decode_step_paged(
+            self.params, self.cfg, self.plan, self.pool, self._bt_dev,
+            self._upload(self._tok[:, None]), self._upload(self._pos))
+        if self._any_sampling:
+            toks = sample_batch_seeded(
+                logits, self._seed, self._count, temperature=self._temp,
+                top_k=self._topk, top_p=self._topp)
+        else:
+            toks = torch.argmax(logits, dim=-1)
+        toks = toks.cpu().numpy()    # the step's one host sync
+        now = time.time()
+        self.steps += 1
+        self.decode_seconds += now - t0
+        for s, req in running.items():
+            req.emit(int(toks[s]), now)
+            emitted += 1
+            self._pos[s] += 1
+            self._tok[s] = int(toks[s])
+            self._count[s] += 1
+            # stop-token or length: slot + pages free on this very step
+            if req.finished():
+                self._retire(req)
+        live = self._live_blocks()
+        self._occ_sum += live / self.allocator.num_blocks
+        self._occ_steps += 1
+        return emitted
+
+    def _live_blocks(self) -> int:
+        """Pages holding written K/V rows."""
+        return sum(blocks_for(int(self._pos[s]), self.serve_cfg.block_size)
+                   for s in range(self.serve_cfg.max_slots)
+                   if self._pos[s] >= 0)
+
+    def run(self) -> dict:
+        """Drain the queue; returns aggregate + per-request metrics for
+        this call (tokens emitted and requests completed while run() was
+        draining). ITL percentiles are `np.percentile` over this run's
+        inter-token gaps."""
+        t0 = time.time()
+        done_before = len(self.scheduler.completed)
+        steps_before = self.steps
+        occ_sum0, occ_n0 = self._occ_sum, self._occ_steps
+        preempt0 = self.scheduler.preemptions
+        new_tokens = 0
+        while not self.scheduler.idle:
+            new_tokens += self.step()
+        wall = time.time() - t0
+        done = self.scheduler.completed[done_before:]
+        occ_n = self._occ_steps - occ_n0
+        itl = np.asarray([dt for r in done for dt in r.itl], np.float64)
+        return {
+            "requests": len(done),
+            "finish_reasons": [r.finish_reason for r in done],
+            "new_tokens": new_tokens,
+            "wall_seconds": wall,
+            "tok_per_s": new_tokens / max(wall, 1e-9),
+            "ttft_s": [r.ttft for r in done],
+            "itl_mean_s": float(itl.mean()) if itl.size else 0.0,
+            "itl_p50_s": float(np.percentile(itl, 50)) if itl.size else 0.0,
+            "itl_p99_s": float(np.percentile(itl, 99)) if itl.size else 0.0,
+            "decode_steps": self.steps - steps_before,
+            "preemptions": self.scheduler.preemptions - preempt0,
+            "cache_blocks": self.allocator.num_blocks,
+            "cache_peak_blocks": self.allocator.peak_in_use,
+            "cache_peak_occupancy": (self.allocator.peak_in_use
+                                     / self.allocator.num_blocks),
+            "mean_live_occupancy": ((self._occ_sum - occ_sum0) / occ_n
+                                    if occ_n else 0.0),
+            "cache_bytes": paged_cache_bytes(
+                self.cfg, self.plan, self.serve_cfg.num_blocks,
+                self.serve_cfg.block_size),
+        }
+
+    def metrics_snapshot(self) -> dict:
+        """Cheap host-side health snapshot; touches no device state."""
+        return {
+            "retired": len(self.scheduler.completed),
+            "queued": len(self.scheduler.queue),
+            "running": len(self.scheduler.running),
+            "live_occupancy": self._live_blocks() / self.allocator.num_blocks,
+            "preemptions": self.scheduler.preemptions,
+            "decode_steps": self.steps,
+        }
+
+    def generate(self, prompts, max_new_tokens: int = 32, **kw
+                 ) -> List[np.ndarray]:
+        """Submit `prompts` (list of 1-D int arrays) in order, drain, and
+        return each request's tokens in submission order."""
+        reqs = [self.submit(p, max_new_tokens=max_new_tokens, **kw)
+                for p in prompts]
+        self.run()
+        return [np.asarray(r.out_tokens, np.int32) for r in reqs]

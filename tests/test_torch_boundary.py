@@ -64,6 +64,19 @@ def _meta(*shape, dtype=torch.float32):
     ("comq_panel_dq", "comq_panel", "comq_panel_dq_plain",
      lambda: (_meta(8, 8), _meta(8, 4), _meta(8, 4), _meta(4), _meta(4),
               _meta(4), _meta(8)), {}),
+    ("paged_attention", "paged_attention", "paged_attention_plain",
+     lambda: (_meta(2, 4, 16, dtype=torch.bfloat16),
+              _meta(6, 4, 2, 16, dtype=torch.bfloat16),
+              _meta(6, 4, 2, 16, dtype=torch.bfloat16),
+              _meta(2, 3, dtype=torch.int32), _meta(2, dtype=torch.int32)),
+     {"window": 0}),
+    ("paged_attention_quant", "paged_attention",
+     "paged_attention_quant_plain",
+     lambda: (_meta(2, 4, 16, dtype=torch.bfloat16),
+              _meta(6, 4, 2, 8, dtype=torch.uint8),
+              _meta(6, 4, 2, 8, dtype=torch.uint8), _meta(6, 2), _meta(6, 2),
+              _meta(2, 3, dtype=torch.int32), _meta(2, dtype=torch.int32)),
+     {"kv_bits": 4}),
 ])
 def test_dispatch_never_runs_plain_on_a_device_tensor(monkeypatch, op,
                                                       kernel_mod, plain_name,

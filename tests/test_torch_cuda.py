@@ -106,3 +106,127 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     kv = torch.randn(1, 8, 2, 16, device=cuda)
     with pytest.raises(ValueError):
         flash_attention.flash_attention_cuda(q, kv, kv)   # 3 % 2 != 0
+
+
+# ---------------------------------------------------------------------------
+# paged_attention / paged_attention_quant
+# ---------------------------------------------------------------------------
+
+def _paged_inputs(dev, B, H, KV, hd, NB, BS, MAXB, lengths, dtype, seed):
+    """q (B, H, hd), f32 pages (NB, BS, KV, hd), a table of distinct random
+    pages per slot, int32 lengths."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, H, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(NB, BS, KV, hd, generator=g, device=dev)
+    v = torch.randn(NB, BS, KV, hd, generator=g, device=dev)
+    bt = torch.stack([torch.randperm(NB, generator=g, device=dev)[:MAXB]
+                      for _ in range(B)]).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, k, v, bt, lens
+
+
+def _quantize_pool(pool, kv_bits):
+    from repro_torch.serve.kv_cache import kv_encode, kv_scale_of
+    scale = kv_scale_of(pool.abs().amax(dim=(1, 3)), kv_bits)   # (NB, KV)
+    codes = kv_encode(pool, scale[:, None], kv_bits)
+    return codes.contiguous(), scale.contiguous()
+
+
+def _paged_diff(got, want, lens):
+    """|got - want| and |want| in f32, after checking that zero-length
+    slots are exactly 0."""
+    assert bool((got[lens == 0] == 0).all()), "zero-length slots must be 0"
+    got, want = got.float(), want.float()
+    return (got - want).abs(), want.abs()
+
+
+PAGED_CASES = [
+    dict(H=28, KV=4, hd=128, lengths=[1, 4096, 0, 1000, 17, 2500]),  # G 7
+    dict(H=4, KV=4, hd=64, lengths=[33, 0, 700]),                     # G 1
+    dict(H=14, KV=2, hd=16, lengths=[5, 300, 0]),                     # G 7
+]
+
+
+@pytest.mark.parametrize("case", PAGED_CASES,
+                         ids=lambda c: f"H{c['H']}-KV{c['KV']}-hd{c['hd']}")
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_matches_plain(cuda, case, window, dtype):
+    from repro_torch.kernels import paged_attention as pa
+    BS, MAXB = 16, 256
+    NB = MAXB * len(case["lengths"])
+    q, k, v, bt, lens = _paged_inputs(cuda, len(case["lengths"]), case["H"],
+                                      case["KV"], case["hd"], NB, BS, MAXB,
+                                      case["lengths"], dtype, seed=case["H"])
+    k, v = k.to(dtype), v.to(dtype)
+    got = pa.paged_attention_cuda(q, k, v, bt, lens, window=window)
+    want = pa.paged_attention_plain(q, k, v, bt, lens, window=window)
+    assert got.dtype == dtype
+    d, w = _paged_diff(got, want, lens)
+    if dtype == torch.float32:
+        assert float(d.max()) <= 1e-4
+    else:
+        assert bool((d <= 8e-3 * w + 1e-3).all()), float(d.max())
+
+
+@pytest.mark.parametrize("case", PAGED_CASES,
+                         ids=lambda c: f"H{c['H']}-KV{c['KV']}-hd{c['hd']}")
+@pytest.mark.parametrize("kv_bits", [8, 4])
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_quant_matches_plain(cuda, case, kv_bits, window,
+                                             dtype):
+    from repro_torch.kernels import paged_attention as pa
+    BS, MAXB = 16, 256
+    NB = MAXB * len(case["lengths"])
+    q, k, v, bt, lens = _paged_inputs(cuda, len(case["lengths"]), case["H"],
+                                      case["KV"], case["hd"], NB, BS, MAXB,
+                                      case["lengths"], dtype, seed=case["hd"])
+    kq, ks = _quantize_pool(k, kv_bits)
+    vq, vs = _quantize_pool(v, kv_bits)
+    got = pa.paged_attention_quant_cuda(q, kq, vq, ks, vs, bt, lens,
+                                        window=window, kv_bits=kv_bits)
+    want = pa.paged_attention_quant_plain(q, kq, vq, ks, vs, bt, lens,
+                                          window=window, kv_bits=kv_bits)
+    d, w = _paged_diff(got, want, lens)
+    if dtype == torch.float32:
+        assert float(d.max()) <= 1e-4
+    else:
+        assert bool((d <= 8e-3 * w + 1e-3).all()), float(d.max())
+
+
+def test_paged_attention_odd_rows_and_small_pages(cuda):
+    """Rows whose bytes allow only narrow loads (hd 14: 28-byte bf16 rows,
+    7-byte 4-bit rows) and BS 4 pages over many splits."""
+    from repro_torch.kernels import paged_attention as pa
+    q, k, v, bt, lens = _paged_inputs(cuda, 3, 4, 2, 14, 90, 4, 30,
+                                      [117, 4, 0], torch.bfloat16, seed=3)
+    got = pa.paged_attention_cuda(q, k.bfloat16(), v.bfloat16(), bt, lens)
+    want = pa.paged_attention_plain(q, k.bfloat16(), v.bfloat16(), bt, lens)
+    assert bool(((got.float() - want.float()).abs()
+                 <= 8e-3 * want.float().abs() + 1e-3).all())
+    kq, ks = _quantize_pool(k, 4)
+    vq, vs = _quantize_pool(v, 4)
+    got = pa.paged_attention_quant_cuda(q.float(), kq, vq, ks, vs, bt, lens,
+                                        window=6, kv_bits=4)
+    want = pa.paged_attention_quant_plain(q.float(), kq, vq, ks, vs, bt, lens,
+                                          window=6, kv_bits=4)
+    assert float((got - want).abs().max()) <= 1e-4
+    assert bool((got[2] == 0).all())
+
+
+def test_paged_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from repro_torch.kernels import paged_attention as pa
+    q, k, v, bt, lens = _paged_inputs(cuda, 2, 4, 2, 16, 8, 4, 4, [3, 5],
+                                      torch.float32, seed=0)
+    with pytest.raises(TypeError):
+        pa.paged_attention_cuda(q.half(), k, v, bt, lens)
+    with pytest.raises(TypeError):
+        pa.paged_attention_cuda(q, k, v, bt.long(), lens)
+    with pytest.raises(ValueError):
+        pa.paged_attention_cuda(q[:, :3], k, v, bt, lens)     # 3 % 2 != 0
+    kq, ks = _quantize_pool(k, 8)
+    with pytest.raises(TypeError):     # uint8 codes at kv_bits 8
+        pa.paged_attention_quant_cuda(q, kq.view(torch.uint8),
+                                      kq.view(torch.uint8), ks, ks, bt, lens,
+                                      kv_bits=8)
