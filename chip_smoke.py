@@ -9,8 +9,12 @@ no result line):
 1. device  — the card's name and power limit (nvidia-smi).
 2. build   — compile csrc/*.cu with nvcc, one process per source at once.
 3. kernels — each Hopper kernel against its plain PyTorch version on the
-   card at the main path's shapes, with times (CUDA events), the least time
-   the card could take (bound) and a one-call PyTorch yardstick (library);
+   card at the main path's shapes, with times, the least time the card
+   could take (bound) and a one-call PyTorch yardstick (library). Kernel
+   and library times are the median (min-max beside it) of 5 CUDA-event
+   windows over calls replayed from a CUDA graph, with the eager median
+   beside them (`Timing`). flash_attention at B=8, T=128 (quantize and
+   decode) and B=1, T=512 (serve prefill) in bf16, and checked in f32;
    the two paged-attention kernels at the serve shapes (8 slots, 28/4
    heads, head_dim 128, 16-token pages, up to 4096 tokens a slot).
 4. quantize — qwen2-7b at full width, n_layers cut 28 -> 2 (the only
@@ -49,6 +53,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -57,12 +62,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+WINDOWS = 5                        # CUDA-event windows per kernel time
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12,    # dense, no tensor-core f32
               "int8": 1979e12}
 
 # tolerances (each kernel's source states the same)
 PANEL_MIN_CODE_AGREEMENT = 0.999
 FLASH_BF16_RTOL, FLASH_BF16_ATOL = 8e-3, 1e-3
+FLASH_F32_TOL = 1e-4                # |d| <= TOL * |want| + TOL
 QMM_REL = 1e-3                      # max|Δ| <= QMM_REL * max|Y|
 # decode logits, kernels vs plain versions, teacher-forced: max|Δ| <=
 # REL * max|logits|. This random-init model amplifies rounding-level
@@ -119,6 +126,58 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+class Timing:
+    """Per-call device time over WINDOWS CUDA-event windows of `iters`
+    calls each: `ms` the median, `lo`/`hi` the min and max. The calls are
+    replayed from one CUDA graph, so the card runs them back to back and
+    the host's Python dispatch (~10-30 us a wrapper call, more than these
+    kernels take) does not pace it; `eager_ms` is the median of the same
+    windows launched from Python. `how` says which `ms` is ("graph", or
+    "eager" with the reason if the calls could not be captured)."""
+
+    def __init__(self, torch, fn, iters: int):
+        fn(0)
+        torch.cuda.synchronize()
+        self.eager = self._windows(
+            torch, lambda: [fn(i) for i in range(iters)], iters)
+        self.eager_ms = statistics.median(self.eager)
+        try:
+            graph = torch.cuda.CUDAGraph()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn(0)
+            torch.cuda.current_stream().wait_stream(side)
+            with torch.cuda.graph(graph):
+                for i in range(iters):
+                    fn(i)
+            graph.replay()
+            torch.cuda.synchronize()
+            times, self.how = self._windows(torch, graph.replay, iters), "graph"
+            del graph
+        except RuntimeError as e:   # capture refused: print why, keep eager
+            times, self.how = self.eager, f"eager ({type(e).__name__}: {e})"
+        self.ms = statistics.median(times)
+        self.lo, self.hi = min(times), max(times)
+
+    @staticmethod
+    def _windows(torch, run, iters):
+        out = []
+        for _ in range(WINDOWS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end) / iters)
+        return out
+
+    def __str__(self):
+        return (f"{self.ms:.4f} [{self.lo:.4f}-{self.hi:.4f}, {self.how}; "
+                f"eager {self.eager_ms:.4f}]")
+
+
 @contextlib.contextmanager
 def plain_kernels(ops, modules):
     """Route the dispatch to the plain versions for a reference run on the
@@ -161,7 +220,7 @@ def check_panel(torch, panel, dev, results):
         torch.cuda.synchronize()
         agree = float((qk == qp).float().mean())
         err = float((qk - qp).abs().max())
-        ms = cuda_ms(torch, lambda i: panel.comq_panel_dq_cuda(*args), 20)
+        t = Timing(torch, lambda i: panel.comq_panel_dq_cuda(*args), 20)
         plain_ms = cuda_ms(torch, lambda i: panel.comq_panel_dq_plain(*args),
                            3)
         nbytes = 4 * (B * B + 2 * B * n + 3 * n + B) + 4 * 2 * B * n
@@ -169,50 +228,69 @@ def check_panel(torch, panel, dev, results):
         bms, by = bound_ms(nbytes, flops, "f32")
         say(f"kernel comq_panel B={B} n={n}: code agreement {agree:.6f} "
             f"(need >= {PANEL_MIN_CODE_AGREEMENT}), max|dq code| {err}, "
-            f"ms {ms:.4f}, plain_ms {plain_ms:.3f}, bound_ms {bms:.4f} "
+            f"ms {t}, plain_ms {plain_ms:.3f}, bound_ms {bms:.4f} "
             f"({by}), library_ms null")
         check(agree >= PANEL_MIN_CODE_AGREEMENT,
               f"comq_panel n={n}: code agreement {agree}")
-        results[("comq_panel", n)] = dict(ms=ms, plain_ms=plain_ms,
+        results[("comq_panel", n)] = dict(ms=t.ms, plain_ms=plain_ms,
                                           bound_ms=bms, bound_by=by,
                                           library_ms=None, max_abs_err=err)
 
 
 def check_flash(torch, flash, dev, results):
+    """bf16 (the main path, tensor cores) at the quantize/decode shape
+    B=8, T=128 and the serve-prefill shape B=1, T=512, each timed; then
+    the f32 (CUDA-core) kernel at B=8, T=128, checked only."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(2)
-    B, T, H, KV, hd = 8, PROMPT, 28, 4, 128
-    q = torch.randn(B, T, H, hd, generator=gen, device=dev).bfloat16()
-    k = torch.randn(B, T, KV, hd, generator=gen, device=dev).bfloat16()
-    v = torch.randn(B, T, KV, hd, generator=gen, device=dev).bfloat16()
-    got = flash.flash_attention_cuda(q, k, v, causal=True).float()
-    want = flash.flash_attention_plain(q, k, v, causal=True).float()
+    H, KV, hd = 28, 4, 128
+    for B, T in ((8, PROMPT), (1, SERVE_BUCKETS[-1])):
+        q = torch.randn(B, T, H, hd, generator=gen, device=dev).bfloat16()
+        k = torch.randn(B, T, KV, hd, generator=gen, device=dev).bfloat16()
+        v = torch.randn(B, T, KV, hd, generator=gen, device=dev).bfloat16()
+        got = flash.flash_attention_cuda(q, k, v, causal=True).float()
+        want = flash.flash_attention_plain(q, k, v, causal=True).float()
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        err = float(diff.max())
+        ok = bool((diff <= FLASH_BF16_RTOL * want.abs()
+                   + FLASH_BF16_ATOL).all())
+        t = Timing(torch, lambda i: flash.flash_attention_cuda(q, k, v), 50)
+        plain_ms = cuda_ms(torch, lambda i: flash.flash_attention_plain(
+            q, k, v), 10)
+        lib, lib_note = None, "scaled_dot_product_attention, GQA, causal"
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        try:
+            lib = Timing(torch, lambda i: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 50)
+        except TypeError:   # torch without enable_gqa: no one-call yardstick
+            lib_note = "torch has no enable_gqa"
+        nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+        flops = 4.0 * hd * B * H * T * (T + 1) / 2
+        bms, by = bound_ms(nbytes, flops, "bf16")
+        say(f"kernel flash_attention B={B} T={T} H={H} KV={KV} hd={hd} bf16 "
+            f"causal: max|d| {err:.3e} (tol {FLASH_BF16_RTOL}*|want|+"
+            f"{FLASH_BF16_ATOL}), ms {t}, plain_ms {plain_ms:.4f}, "
+            f"bound_ms {bms:.4f} ({by}), library_ms {lib} ({lib_note})")
+        check(ok, f"flash_attention B={B} T={T} disagrees with its plain "
+              f"version ({err})")
+        results[("flash_attention", B, T)] = dict(
+            ms=t.ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            library_ms=lib.ms if lib else None, max_abs_err=err)
+    # the f32 instantiation (CUDA cores), the precision path of phase 5
+    B, T = 8, PROMPT
+    q, k, v = (torch.randn(B, T, n, hd, generator=gen, device=dev)
+               for n in (H, KV, KV))
+    got = flash.flash_attention_cuda(q, k, v, causal=True)
+    want = flash.flash_attention_plain(q, k, v, causal=True)
     torch.cuda.synchronize()
     diff = (got - want).abs()
     err = float(diff.max())
-    ok = bool((diff <= FLASH_BF16_RTOL * want.abs() + FLASH_BF16_ATOL).all())
-    ms = cuda_ms(torch, lambda i: flash.flash_attention_cuda(q, k, v), 50)
-    plain_ms = cuda_ms(torch, lambda i: flash.flash_attention_plain(q, k, v),
-                       10)
-    library_ms = None
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    try:
-        library_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 50)
-    except TypeError:   # torch without enable_gqa: no one-call yardstick
-        pass
-    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
-    flops = 4.0 * hd * B * H * T * (T + 1) / 2
-    bms, by = bound_ms(nbytes, flops, "bf16")
-    say(f"kernel flash_attention B={B} T={T} H={H} KV={KV} hd={hd} bf16 "
-        f"causal: max|d| {err:.3e} (tol {FLASH_BF16_RTOL}*|want|+"
-        f"{FLASH_BF16_ATOL}), ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
-        f"bound_ms {bms:.4f} ({by}), library_ms {library_ms}")
-    check(ok, f"flash_attention disagrees with its plain version ({err})")
-    results[("flash_attention",)] = dict(ms=ms, plain_ms=plain_ms,
-                                         bound_ms=bms, bound_by=by,
-                                         library_ms=library_ms,
-                                         max_abs_err=err)
+    say(f"kernel flash_attention B={B} T={T} H={H} KV={KV} hd={hd} f32 "
+        f"causal: max|d| {err:.3e} (tol {FLASH_F32_TOL}*|want|+"
+        f"{FLASH_F32_TOL})")
+    check(bool((diff <= FLASH_F32_TOL * want.abs() + FLASH_F32_TOL).all()),
+          f"flash_attention f32 disagrees with its plain version ({err})")
 
 
 def check_qmm(torch, qmm, dev, results):
@@ -238,23 +316,23 @@ def check_qmm(torch, qmm, dev, results):
         # from HBM, as a decode step does
         n_copy = min(64, max(2, math.ceil(128e6 / codes.numel())))
         copies = [codes.clone() for _ in range(n_copy)]
-        ms = cuda_ms(torch, lambda i: qmm.quant_matmul_cuda(
+        t = Timing(torch, lambda i: qmm.quant_matmul_cuda(
             x, copies[i % n_copy], scale, z, cpb=cpb), 20)
         plain_ms = cuda_ms(torch, lambda i: qmm.quant_matmul_plain(
             x, copies[i % n_copy], scale, z, cpb=cpb), 5)
         w = (unpack_codes(codes, cpb).float() + z) * scale
-        library_ms = cuda_ms(torch, lambda i: torch.matmul(x, w), 10)
+        lib = Timing(torch, lambda i: torch.matmul(x, w), 10)
         del copies, w
         nbytes = 4 * M * K + codes.numel() + 8 * N + 4 * M * N
         bms, by = bound_ms(nbytes, 2.0 * M * K * N, "f32")
         say(f"kernel quant_matmul M={M} K={K} N={N} bits={bits} cpb={cpb}: "
-            f"max|d|/max|y| {rel:.3e} (tol {QMM_REL}), ms {ms:.4f}, "
+            f"max|d|/max|y| {rel:.3e} (tol {QMM_REL}), ms {t}, "
             f"plain_ms {plain_ms:.4f}, bound_ms {bms:.4f} ({by}), "
-            f"library_ms {library_ms:.4f}")
+            f"library_ms {lib}")
         check(rel <= QMM_REL, f"quant_matmul {M}x{K}x{N} cpb={cpb}: {rel}")
         results[("quant_matmul", M, K, N, cpb)] = dict(
-            ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-            library_ms=library_ms, max_abs_err=err)
+            ms=t.ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            library_ms=lib.ms, max_abs_err=err)
 
 
 def live_extent(lengths, window: int, bs: int):
@@ -351,7 +429,7 @@ def check_paged(torch, paged, dev, results):
                 pool_bytes = 2 * kpp.numel() * kpp.element_size()
                 n_copy = max(2, math.ceil(160e6 / pool_bytes))
                 copies = [(kpp.clone(), vpp.clone()) for _ in range(n_copy)]
-                ms = cuda_ms(torch, lambda i: kernel(
+                t = Timing(torch, lambda i: kernel(
                     q, *copies[i % n_copy], 0), 50)
                 plain_ms = cuda_ms(torch, lambda i: plain(
                     q, *copies[i % n_copy], 0), 5)
@@ -365,8 +443,8 @@ def check_paged(torch, paged, dev, results):
                 flops = 4.0 * H * hd * keys
                 bms, by = bound_ms(nbytes, flops,
                                    "int8" if kv_bits else "bf16")
-                library_ms, lib_note = None, ("no one-call PyTorch "
-                                              "equivalent over int codes")
+                lib, lib_note = None, ("no one-call PyTorch equivalent "
+                                       "over int codes")
                 if not kv_bits:
                     lib_note = ("scaled_dot_product_attention(enable_gqa) "
                                 "over K/V gathered beforehand into (B, KV, "
@@ -382,20 +460,20 @@ def check_paged(torch, paged, dev, results):
                             < lens[:, None])[:, None, None, :]
                     q4 = q[:, :, None, :]
                     try:
-                        library_ms = cuda_ms(
+                        lib = Timing(
                             torch, lambda i: F.scaled_dot_product_attention(
                                 q4, *gath[i % 2], attn_mask=mask,
                                 enable_gqa=True), 20)
                     except TypeError:   # torch without enable_gqa
                         lib_note = "torch has no enable_gqa"
                     del gath
-                say(f"{label}: ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
+                say(f"{label}: ms {t}, plain_ms {plain_ms:.4f}, "
                     f"bound_ms {bms:.4f} ({by}; {pages} live pages, "
-                    f"{nbytes / 1e6:.2f} MB), library_ms {library_ms} "
+                    f"{nbytes / 1e6:.2f} MB), library_ms {lib} "
                     f"({lib_note})")
                 results[(name, kv_bits)] = dict(
-                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                    library_ms=library_ms, max_abs_err=err)
+                    ms=t.ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=lib.ms if lib else None, max_abs_err=err)
 
 
 # ---------------------------------------------------------------------------
@@ -768,7 +846,8 @@ def main() -> int:
     entries = [
         ("comq_panel", "comq_panel", results[("comq_panel", 18944)],
          "src/repro/kernels/comq_panel.py:79"),
-        ("flash_attention", "flash_attention", results[("flash_attention",)],
+        ("flash_attention", "flash_attention",
+         results[("flash_attention", 8, PROMPT)],
          "src/repro/kernels/flash_attention.py:95"),
         ("quant_matmul", "quant_matmul",
          results[("quant_matmul", 8, 3584, 18944, 2)],

@@ -21,8 +21,8 @@
 // What bounds it on the H100: bytes. One query token per slot does
 // 4·H·hd flops per key against 2·KV·hd·(bytes per value) bytes of K/V per
 // key, 7 flop/byte in bf16 (qwen2: H/KV = 7) — far under the ~295 the
-// card needs to be compute-bound. So the least time is the live pages' bytes over
-// 3.35 TB/s: at B=8 and ~2k tokens per slot that is ~32 MB, ~10 us.
+// card needs to be compute-bound. So the least time is the live pages'
+// bytes over 3.35 TB/s: at B=8 and ~2k tokens per slot that is ~32 MB, ~10 us.
 //
 // Design (flash-decoding): the TPU walked a slot's pages as a sequential
 // grid dimension with m/l/acc in VMEM scratch. Here one block takes one
@@ -39,12 +39,30 @@
 // probability before P·V. Keys outside [max(0, length-window), length)
 // are never loaded, and splits with no live key write only m = -inf.
 // The split size does not depend on the batch, so a slot's result does
-// not depend on its batchmates. f32 math throughout (no tensor cores).
+// not depend on its batchmates. The CUDA-core split kernel (f32 math)
+// serves f32 q or pages and the int8 / 4-bit pools.
+//
+// bf16 q over bf16 pages (the main path) takes a tensor-core split kernel
+// with the same splits, masks and combine: the G query rows of the KV head
+// are zero-padded to the 16 rows of an mma A fragment (held in registers
+// through ldmatrix; re-read per tile for hd > 128); K/V rows are gathered
+// by block table into shared memory as bf16 through a 3-stage cp.async
+// ring of 64-key tiles (16/8/4-byte copies, rows padded by 16 bytes for
+// conflict-free ldmatrix, hd zero-padded to a multiple of 16), so ~64 KB
+// a block are in flight at hd 128; each warp takes 16 keys of a tile,
+// with S = Q.K^T by mma.m16n8k16 (bf16 in, f32 accumulate), its own
+// online softmax (m, l, acc) in registers and P.V with P split into bf16
+// hi + lo (two mmas, ~16 bits of P); the block merges its warps once, at
+// the end of the split, in shared memory. To shorten each block's chain
+// of dependent loads, it reads its split's block-table entries alongside
+// the slot's length and issues the Q copy before the table is resolved.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -293,29 +311,41 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One block per (query head, slot): merge the splits' (m, l, acc).
+// One block per (query head, slot): merge the splits' (m, l, acc). The
+// splits' (m, l) are staged in shared memory by parallel loads, so only
+// the acc loads stay in the loop (unrolled, issued ahead of their use).
 __global__ void __launch_bounds__(kThreads)
     paged_combine_kernel(const Args a) {
+  extern __shared__ float ml_sh[];  // [NS][2]
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int kv = h / a.G, g = h % a.G;
   const size_t base = (size_t)(b * a.KV + kv) * a.NS * a.G + g;
+  for (int s = tid; s < a.NS; s += kThreads) {
+    const size_t p = base + (size_t)s * a.G;
+    ml_sh[2 * s] = a.part_ml[2 * p];
+    ml_sh[2 * s + 1] = a.part_ml[2 * p + 1];
+  }
+  __syncthreads();
   float M = -INFINITY;
-  for (int s = 0; s < a.NS; ++s)
-    M = fmaxf(M, a.part_ml[2 * (base + (size_t)s * a.G)]);
+  for (int s = 0; s < a.NS; ++s) M = fmaxf(M, ml_sh[2 * s]);
   float out[kMaxDPT] = {0.f, 0.f};
   if (M != -INFINITY) {
     float L = 0.f;
+#pragma unroll 16
     for (int s = 0; s < a.NS; ++s) {
       const size_t p = base + (size_t)s * a.G;
-      const float m = a.part_ml[2 * p];
-      if (m == -INFINITY) continue;
+      const float m = ml_sh[2 * s];
       const float w = expf(m - M);
-      L += w * a.part_ml[2 * p + 1];
+      float x[kMaxDPT];  // predicated loads, issued ahead of their use
 #pragma unroll
       for (int ds = 0; ds < kMaxDPT; ++ds) {
         const int d = tid + ds * kThreads;
-        if (d < a.hd) out[ds] = fmaf(w, a.part_acc[p * a.hd + d], out[ds]);
+        x[ds] = d < a.hd && m != -INFINITY ? a.part_acc[p * a.hd + d] : 0.f;
       }
+      if (m == -INFINITY) continue;
+      L += w * ml_sh[2 * s + 1];
+#pragma unroll
+      for (int ds = 0; ds < kMaxDPT; ++ds) out[ds] = fmaf(w, x[ds], out[ds]);
     }
     const float inv = 1.f / fmaxf(L, 1e-20f);
 #pragma unroll
@@ -334,6 +364,293 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+int launch_combine(const Args& a, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * 2 * a.NS;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_combine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  paged_combine_kernel<<<dim3(a.H, a.B), kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 q over bf16 pages: tensor cores (mma.sync m16n8k16) fed by a
+// 3-stage cp.async ring
+// ---------------------------------------------------------------------------
+
+constexpr int kTcStages = 3;
+constexpr int kMaxSpan = 512;  // tokens a split (pps * BS) the kernel takes
+constexpr int kRowPad = 8;  // bf16 elements (16 bytes) added to each row
+constexpr float kLn2 = 0.69314718055994531f;
+
+using bf16 = __nv_bfloat16;
+
+// KD: 16-wide steps of the zero-padded head dim (HD = 16 * KD >= hd);
+// w: the cp.async width in bytes (16, 8 or 4).
+template <int KD>
+__global__ void __launch_bounds__(kThreads)
+    paged_split_tc_kernel(const Args a, int w) {
+  using namespace mma_bf16;
+  constexpr int HD = 16 * KD;
+  constexpr int LD = HD + kRowPad;  // row stride (elements): 16 B odd
+  constexpr int LDB = 2 * LD;
+  constexpr bool kQInRegs = KD <= 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // stage s: K rows [0, kTK), then V rows [kTK, 2 kTK), each LD wide
+  bf16* kv_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* qs = kv_s + kTcStages * 2 * kTK * LD;              // [16][LD]
+  float* ml_s = reinterpret_cast<float*>(qs + 16 * LD);    // [kWarps][16][2]
+  int* rows_s = reinterpret_cast<int*>(ml_s + kWarps * 16 * 2);  // [span]
+  // [kWarps][16][HD + 8] f32 after the loop: the row pad makes the
+  // fragment's float2 stores conflict-free
+  float* o_s = reinterpret_cast<float*>(smem_raw);
+  constexpr int OLD = HD + 8;
+
+  const int G = a.G, hd = a.hd;
+  const int split = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int span = a.pps * a.BS;
+  // the block-table entries of this thread's keys split * span + j, j =
+  // tid, tid + 128, ... (at most kMaxSpan / kThreads), loaded alongside
+  // the slot's length rather than after it
+  constexpr int kKeysPerThread = kMaxSpan / kThreads;
+  const int* bt = a.bt + (size_t)b * a.MAXB;
+  int page[kKeysPerThread];
+#pragma unroll
+  for (int i = 0; i < kKeysPerThread; ++i) {
+    const int j = tid + i * kThreads;
+    const int pi = (split * span + j) / a.BS;
+    page[i] = j < span && pi < a.MAXB ? bt[pi] : -1;
+  }
+  const int len = min(a.lens[b], a.MAXB * a.BS);  // the table's extent
+  const int k_lo = a.window > 0 ? max(0, len - a.window) : 0;
+  const int s_lo = max(k_lo, split * span);
+  const int s_hi = min(len, (split + 1) * span);
+  const size_t part = ((size_t)(b * a.KV + kv) * a.NS + split) * G;
+  if (s_lo >= s_hi) {  // no live key in this split
+    if (tid < G) {
+      a.part_ml[2 * (part + tid)] = -INFINITY;
+      a.part_ml[2 * (part + tid) + 1] = 0.f;
+    }
+    return;
+  }
+
+  // pad columns [hd, HD) of the K/V and Q rows (contiguous): cp.async
+  // writes only [0, hd)
+  for (int i = tid; i < (kTcStages * 2 * kTK + 16) * (HD - hd) / 2;
+       i += kThreads) {
+    const int r = i / ((HD - hd) / 2), c = hd + 2 * (i % ((HD - hd) / 2));
+    *reinterpret_cast<uint32_t*>(kv_s + r * LD + c) = 0u;
+  }
+
+  const int cpr = a.row_bytes / w;  // cp.async chunks per row
+
+  // the group's G query rows, zero-filled to the 16 rows of an A fragment,
+  // in the first group with tile 0 (issued first: it needs no table)
+  const uint8_t* qg = reinterpret_cast<const uint8_t*>(a.q) +
+                      ((size_t)b * a.H + kv * G) * a.row_bytes;
+  for_each_chunk(16, cpr, tid, kThreads, [&](int r, int c) {
+    cp_async_w(smem_u32(reinterpret_cast<char*>(qs + r * LD) + c * w),
+               qg + (r < G ? (size_t)r * a.row_bytes + c * w : 0), r < G, w);
+  });
+
+  // the pool row (page * BS + offset) * KV + kv of each key of the split
+  // (indexed from split * span); -1 for a page id out of range (a zero
+  // row, as the CUDA-core path reads it)
+#pragma unroll
+  for (int i = 0; i < kKeysPerThread; ++i) {
+    const int j = tid + i * kThreads, kpos = split * span + j;
+    if (j < span)
+      rows_s[j] = page[i] >= 0 && page[i] < a.NB
+                      ? (page[i] * a.BS + kpos % a.BS) * a.KV + kv
+                      : -1;
+  }
+  __syncthreads();
+
+  // keys [t0, t0 + kTK) of the split into `stage` (rows r: K rows, then
+  // V rows); keys past s_hi are zero-filled
+  auto load_tile = [&](int stage, int t0) {
+    bf16* dst = kv_s + stage * 2 * kTK * LD;
+    const int n = min(kTK, s_hi - t0);
+    const int* rows = rows_s + (t0 - split * span);
+    for_each_chunk(2 * kTK, cpr, tid, kThreads, [&](int r, int c) {
+      const int j = r < kTK ? r : r - kTK;
+      const int row = j < n ? rows[j] : -1;
+      const uint8_t* src = (r < kTK ? a.k : a.v) +
+                           (row >= 0 ? (size_t)row * a.row_bytes + c * w : 0);
+      cp_async_w(smem_u32(reinterpret_cast<char*>(dst + r * LD) + c * w),
+                 src, row >= 0, w);
+    });
+  };
+
+  const int n_tiles = (s_hi - s_lo + kTK - 1) / kTK;
+#pragma unroll
+  for (int st = 0; st < kTcStages - 1; ++st) {
+    if (st < n_tiles) load_tile(st, s_lo + st * kTK);
+    cp_async_commit();
+  }
+
+  const int gid = lane >> 2, tig = lane & 3;
+  const float scale_log2 = a.scale * 1.4426950408889634f;
+  const uint32_t q_lane = lane_addr_a(smem_u32(qs), LDB, lane);
+  uint32_t qf[kQInRegs ? KD : 1][4];
+  float acc[2 * KD][4];
+#pragma unroll
+  for (int n = 0; n < 2 * KD; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<kTcStages - 2>();  // tile `it` has landed
+    __syncthreads();  // ... for every thread; stage (it - 1) % 3 is free
+    if (it + kTcStages - 1 < n_tiles)
+      load_tile((it + kTcStages - 1) % kTcStages,
+                s_lo + (it + kTcStages - 1) * kTK);
+    cp_async_commit();
+    if (kQInRegs && it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < (kQInRegs ? KD : 1); ++kk)
+        ldmatrix_x4(qf[kk], q_lane + 32 * kk);
+    }
+    const int n = min(kTK, s_hi - (s_lo + it * kTK));
+    if (16 * warp >= n) continue;  // this warp's 16 keys are all past s_hi
+
+    const bf16* k_w = kv_s + (it % kTcStages) * 2 * kTK * LD + 16 * warp * LD;
+    const uint32_t k_lane = lane_addr_b(smem_u32(k_w), LDB, lane);
+    const uint32_t v_lane = lane_addr_a(smem_u32(k_w + kTK * LD), LDB, lane);
+
+    // S = Q K^T: the 16 (padded) query rows x this warp's 16 keys
+    float s[2][4];
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
+    uint32_t bk[2][4];  // K fragments one step ahead of the mmas
+    ldmatrix_x4(bk[0], k_lane);
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      if (kk + 1 < KD) ldmatrix_x4(bk[(kk + 1) & 1], k_lane + 32 * (kk + 1));
+      uint32_t q_a[4];
+      if constexpr (kQInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) q_a[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(q_a, q_lane + 32 * kk);
+      }
+      mma_16816(s[0], q_a, bk[kk & 1][0], bk[kk & 1][1]);
+      mma_16816(s[1], q_a, bk[kk & 1][2], bk[kk & 1][3]);
+    }
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 16 * warp + 8 * t + 2 * tig + (e & 1);
+        s[t][e] = j < n ? s[t][e] * scale_log2 : -INFINITY;
+      }
+
+    float corr[2];
+    online_softmax<2>(s, m, l, corr);
+#pragma unroll
+    for (int t = 0; t < 2 * KD; ++t) {
+      acc[t][0] *= corr[0];
+      acc[t][1] *= corr[0];
+      acc[t][2] *= corr[1];
+      acc[t][3] *= corr[1];
+    }
+    pv_split<KD>(acc, s[0], s[1], v_lane);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the stages: o_s reuses them
+
+  // merge the warps: (m, l) per row, then the accumulators rescaled to
+  // the rows' common max and summed
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lr = quad_sum(l[r]);
+    if (tig == 0) {
+      ml_s[2 * (warp * 16 + gid + 8 * r)] = m[r];
+      ml_s[2 * (warp * 16 + gid + 8 * r) + 1] = lr;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = gid + 8 * r;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int ww = 0; ww < kWarps; ++ww)
+      mx = fmaxf(mx, ml_s[2 * (ww * 16 + row)]);
+    const float wgt = mx == -INFINITY ? 0.f : exp2f(m[r] - mx);
+    float* dst = o_s + (warp * 16 + row) * OLD + 2 * tig;
+#pragma unroll
+    for (int t = 0; t < 2 * KD; ++t)
+      *reinterpret_cast<float2*>(dst + 8 * t) =
+          make_float2(acc[t][2 * r] * wgt, acc[t][2 * r + 1] * wgt);
+  }
+  __syncthreads();
+  for (int i = tid; i < G * hd; i += kThreads) {
+    const int g = i / hd, d = i - g * hd;
+    float sum = 0.f;
+#pragma unroll
+    for (int ww = 0; ww < kWarps; ++ww) sum += o_s[(ww * 16 + g) * OLD + d];
+    a.part_acc[(part + g) * hd + d] = sum;
+  }
+  if (tid < G) {
+    float mx = -INFINITY, sum = 0.f;
+#pragma unroll
+    for (int ww = 0; ww < kWarps; ++ww)
+      mx = fmaxf(mx, ml_s[2 * (ww * 16 + tid)]);
+#pragma unroll
+    for (int ww = 0; ww < kWarps; ++ww) {
+      const float mw = ml_s[2 * (ww * 16 + tid)];
+      if (mw != -INFINITY)
+        sum += exp2f(mw - mx) * ml_s[2 * (ww * 16 + tid) + 1];
+    }
+    a.part_ml[2 * (part + tid)] = mx * kLn2;  // natural units, as the f32 path
+    a.part_ml[2 * (part + tid) + 1] = sum;
+  }
+}
+
+template <int KD>
+int launch_tc(const Args& a, int w, cudaStream_t stream) {
+  const size_t smem = sizeof(bf16) * (16 * KD + kRowPad) *
+                          (kTcStages * 2 * kTK + 16) +
+                      sizeof(float) * kWarps * 16 * 2 +
+                      sizeof(int) * a.pps * a.BS;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_split_tc_kernel<KD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  paged_split_tc_kernel<KD>
+      <<<dim3(a.NS, a.KV, a.B), kThreads, smem, stream>>>(a, w);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_combine(a, stream);
+}
+
+// bf16 q over bf16 pages: the widest cp.async (16, 8 or 4 bytes) that
+// divides the row bytes and the alignment of q and the pools, then the
+// head-dim steps
+int launch_bf16(const Args& a, cudaStream_t stream) {
+  const uintptr_t al = (uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v |
+                       (uintptr_t)a.row_bytes;
+  const int w = al % 16 == 0 ? 16 : al % 8 == 0 ? 8 : al % 4 == 0 ? 4 : 0;
+  if (w == 0) return (int)cudaErrorMisalignedAddress;
+  if (a.pps * a.BS > kMaxSpan) return (int)cudaErrorInvalidValue;
+  const int steps = (a.hd + 15) / 16;
+  if (steps <= 1) return launch_tc<1>(a, w, stream);
+  if (steps <= 2) return launch_tc<2>(a, w, stream);
+  if (steps <= 4) return launch_tc<4>(a, w, stream);
+  if (steps <= 8) return launch_tc<8>(a, w, stream);
+  return launch_tc<16>(a, w, stream);
+}
+
 template <int KIND, int W>
 int launch(const Args& a, cudaStream_t stream) {
   const size_t smem = split_smem_bytes(a.G, a.hd);
@@ -347,8 +664,7 @@ int launch(const Args& a, cudaStream_t stream) {
       <<<dim3(a.NS, a.KV, a.B), kThreads, smem, stream>>>(a);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  paged_combine_kernel<<<dim3(a.H, a.B), kThreads, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+  return launch_combine(a, stream);
 }
 
 template <int KIND>
@@ -372,6 +688,7 @@ int run(Args a, int kind, void* stream) {
       a.H != a.G * a.KV || a.NS < 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (kind == kBF16 && a.q_bf16) return launch_bf16(a, s);
   switch (kind) {
     case kF32: return launch_kind<kF32>(a, s);
     case kBF16: return launch_kind<kBF16>(a, s);

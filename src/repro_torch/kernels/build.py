@@ -8,10 +8,11 @@ into its own shared library, loaded with `ctypes`:
          src/repro_torch/csrc/<name>.cu
 
 Libraries are built at first use into `build/kernels/` under the checkout
-(git-ignored), named by a hash of source + flags so an edited source is
-never served a stale binary. `build()` starts one `nvcc` per missing
-source, all at once. No `--use_fast_math`: the panel kernel needs IEEE
-division and round-half-even. Nothing here runs at import time.
+(git-ignored), named by a hash of source + shared headers (`csrc/*.cuh`)
++ flags so an edited source or header is never served a stale binary.
+`build()` starts one `nvcc` per missing source, all at once. No
+`--use_fast_math`: the panel kernel needs IEEE division and
+round-half-even. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -48,9 +49,13 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The library's path, named by a hash of its source, every shared
+    header (`csrc/*.cuh`, which any source may include) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def log_path(name: str) -> Path:

@@ -8,10 +8,15 @@ Replaces the Pallas TPU kernel `src/repro/kernels/flash_attention.py`
 device memory) and maps query head h to KV head h // (H // KV); the group
 need not be a power of two (qwen2: 7).
 
+Dispatch by dtype: bf16 q/k/v run the tensor-core kernel (mma.sync bf16
+with f32 accumulation, K/V through a 2-stage cp.async ring; needs an even
+hd), f32 the CUDA-core kernel. The source states the design.
+
 Tolerance against the plain version: both compute the softmax in f32 from
-the same inputs and differ only in summation order and exp's last bit, so
-a bf16 output may round the other way: |Δ| ≤ 8e-3·|want| + 1e-3 for bf16
-(two bf16 ulps) and ≤ 1e-4 + 1e-4·|want| for f32.
+the same inputs and differ only in summation order, exp's last bits and,
+for bf16, P carried into P·V as bf16 hi + lo (~16 bits), so a bf16 output
+may round the other way: |Δ| ≤ 8e-3·|want| + 1e-3 for bf16 (two bf16
+ulps) and ≤ 1e-4 + 1e-4·|want| for f32.
 """
 from __future__ import annotations
 
@@ -85,6 +90,9 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q/k/v must share f32 or bf16, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if q.dtype == torch.bfloat16 and hd % 2:
+        raise ValueError(f"flash_attention: the bf16 kernel copies rows in "
+                         f"4-byte units and needs an even hd, got {hd}")
     for t in (q, k, v):
         if t.device != dev or t.stride(3) != 1:
             raise ValueError("flash_attention: q/k/v must be on one CUDA "

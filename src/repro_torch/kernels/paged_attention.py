@@ -15,6 +15,10 @@ q.dtype (f32 or bf16).
 What bounds them is the bytes of the live pages; the source notes the
 design (flash-decoding: fixed 256-token splits per (slot, kv head) and a
 combine pass, so a slot's result does not depend on its batchmates).
+Dispatch by dtype: bf16 q over bf16 pages runs the tensor-core split
+kernel (mma.sync bf16 with f32 accumulation, pages gathered through a
+3-stage cp.async ring; needs an even hd); f32 q or pages and the int8 /
+4-bit pools run the CUDA-core split kernel.
 
 Tolerance against the plain version (which dequantizes in f32 and runs
 the f32 oracle): the same f32 softmax summed in another order, so
@@ -38,6 +42,7 @@ launches_quant = 0    # paged_attention_quant launches since the last reset
 
 _SPLIT_TOKENS = 256   # keys per split (csrc: one block per split)
 _MAX_G, _MAX_HD = 16, 256
+_MAX_BS = 512         # bf16 kernel: a split of at most 512 tokens
 _PAGE_KIND = {torch.float32: 0, torch.bfloat16: 1}
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
@@ -132,6 +137,12 @@ def paged_attention_cuda(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     if k_pool.dtype not in _PAGE_KIND or v_pool.dtype != k_pool.dtype:
         raise TypeError(f"{NAME}: pages must be f32 or bf16, got "
                         f"{k_pool.dtype}/{v_pool.dtype}")
+    if q.dtype == k_pool.dtype == torch.bfloat16 and (dims[3] % 2
+                                                      or dims[5] > _MAX_BS):
+        raise ValueError(f"{NAME}: the bf16 kernel copies rows in 4-byte "
+                         f"units and takes pages of at most {_MAX_BS} "
+                         f"tokens: needs an even hd, got hd {dims[3]}, BS "
+                         f"{dims[5]}")
     o = _launch(NAME, q, k_pool, v_pool, (), block_tables, lengths,
                 _PAGE_KIND[k_pool.dtype], dims, window, _ARGTYPES)
     launches += 1

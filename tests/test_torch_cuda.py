@@ -76,6 +76,42 @@ def test_flash_reads_strided_views(cuda):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+def _bf16_close(got, want):
+    """The bf16 tolerance of both attention kernels: two bf16 ulps."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool((d <= 8e-3 * want.abs() + 1e-3).all()), float(d.max())
+
+
+@pytest.mark.parametrize("case", [
+    dict(B=1, T=512, H=28, KV=4, hd=128, window=0),   # serve prefill
+    dict(B=2, T=300, H=14, KV=2, hd=64, window=100),  # window edge
+    dict(B=3, T=77, H=8, KV=8, hd=32, window=0),      # Tq % 64 != 0
+    dict(B=1, T=200, H=16, KV=1, hd=256, window=0),   # group 16, hd 256
+    dict(B=2, T=70, H=4, KV=2, hd=14, window=0)],     # 28-byte rows
+    ids=lambda c: "-".join(f"{k}{v}" for k, v in c.items()))
+def test_flash_bf16_tensor_core_shapes(cuda, case):
+    B, T, H, KV, hd, w = (case[k] for k in ("B", "T", "H", "KV", "hd",
+                                             "window"))
+    g = torch.Generator(device=cuda).manual_seed(T + hd)
+    q, k, v = (torch.randn(B, T, n, hd, generator=g, device=cuda).bfloat16()
+               for n in (H, KV, KV))
+    got = flash_attention.flash_attention_cuda(q, k, v, window=w)
+    want = flash_attention.flash_attention_plain(q, k, v, window=w)
+    assert got.dtype == torch.bfloat16
+    _bf16_close(got, want)
+
+
+def test_flash_bf16_reads_strided_views(cuda):
+    """bf16 q/k/v as views into a fused (B, T, H+2KV, hd) buffer."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn(2, 40, 14 + 4, 32, generator=g, device=cuda).bfloat16()
+    q, k, v = qkv[:, :, :14], qkv[:, :, 14:16], qkv[:, :, 16:]
+    _bf16_close(flash_attention.flash_attention_cuda(q, k, v),
+                flash_attention.flash_attention_plain(q, k, v))
+
+
 @pytest.mark.parametrize("M,K,N", [(8, 3584, 512), (5, 300, 44),
                                    (70, 1000, 24)])
 @pytest.mark.parametrize("bits", [8, 4, 2])
@@ -106,6 +142,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     kv = torch.randn(1, 8, 2, 16, device=cuda)
     with pytest.raises(ValueError):
         flash_attention.flash_attention_cuda(q, kv, kv)   # 3 % 2 != 0
+    odd = torch.randn(1, 8, 2, 15, device=cuda).bfloat16()
+    with pytest.raises(ValueError):    # bf16 rows copy in 4-byte units
+        flash_attention.flash_attention_cuda(odd, odd, odd)
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +254,31 @@ def test_paged_attention_odd_rows_and_small_pages(cuda):
     assert bool((got[2] == 0).all())
 
 
+@pytest.mark.parametrize("case", [
+    # ends mid-page and mid-tile, and at the 256-token split boundary +-1
+    dict(H=28, KV=4, hd=128, window=0,
+         lengths=[255, 256, 257, 511, 513, 37, 70, 1]),
+    dict(H=28, KV=4, hd=128, window=1024,       # qwen2's group of 7
+         lengths=[4096, 1023, 1025, 2000, 0, 3333]),
+    dict(H=16, KV=1, hd=32, window=0, lengths=[100, 300]),     # group 16
+    dict(H=8, KV=4, hd=256, window=50, lengths=[700, 64, 5])],  # hd 256
+    ids=lambda c: f"H{c['H']}-KV{c['KV']}-hd{c['hd']}-w{c['window']}")
+def test_paged_attention_bf16_tensor_core_shapes(cuda, case):
+    from repro_torch.kernels import paged_attention as pa
+    BS, MAXB = 16, 256
+    lens_l = case["lengths"]
+    NB = MAXB * len(lens_l)
+    q, k, v, bt, lens = _paged_inputs(cuda, len(lens_l), case["H"],
+                                      case["KV"], case["hd"], NB, BS, MAXB,
+                                      lens_l, torch.bfloat16, seed=len(lens_l))
+    k, v = k.bfloat16(), v.bfloat16()
+    got = pa.paged_attention_cuda(q, k, v, bt, lens, window=case["window"])
+    want = pa.paged_attention_plain(q, k, v, bt, lens, window=case["window"])
+    d, w = _paged_diff(got, want, lens)
+    assert got.dtype == torch.bfloat16
+    assert bool((d <= 8e-3 * w + 1e-3).all()), float(d.max())
+
+
 def test_paged_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     from repro_torch.kernels import paged_attention as pa
     q, k, v, bt, lens = _paged_inputs(cuda, 2, 4, 2, 16, 8, 4, 4, [3, 5],
@@ -225,6 +289,11 @@ def test_paged_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         pa.paged_attention_cuda(q, k, v, bt.long(), lens)
     with pytest.raises(ValueError):
         pa.paged_attention_cuda(q[:, :3], k, v, bt, lens)     # 3 % 2 != 0
+    odd = _paged_inputs(cuda, 2, 4, 2, 15, 8, 4, 4, [3, 5], torch.bfloat16,
+                        seed=0)
+    with pytest.raises(ValueError):    # bf16 rows copy in 4-byte units
+        pa.paged_attention_cuda(odd[0], odd[1].bfloat16(), odd[2].bfloat16(),
+                                *odd[3:])
     kq, ks = _quantize_pool(k, 8)
     with pytest.raises(TypeError):     # uint8 codes at kv_bits 8
         pa.paged_attention_quant_cuda(q, kq.view(torch.uint8),
