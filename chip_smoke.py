@@ -13,8 +13,11 @@ no result line):
    could take (bound) and a one-call PyTorch yardstick (library). Kernel
    and library times are the median (min-max beside it) of 5 CUDA-event
    windows over calls replayed from a CUDA graph, with the eager median
-   beside them (`Timing`). flash_attention at B=8, T=128 (quantize and
-   decode) and B=1, T=512 (serve prefill) in bf16, and checked in f32;
+   beside them (`Timing`). quant_matmul with f32 X (three bf16 planes in
+   the kernel) and bf16 X (the bf16 decode and serve paths) at M=1, 8 and
+   1024, bounded by bytes or bf16 products. flash_attention at B=8, T=128
+   (quantize and decode) and B=1, T=512 (serve prefill) in bf16, and
+   checked in f32;
    the two paged-attention kernels at the serve shapes (8 slots, 28/4
    heads, head_dim 128, 16-token pages, up to 4096 tokens a slot).
 4. quantize — qwen2-7b at full width, n_layers cut 28 -> 2 (the only
@@ -294,16 +297,26 @@ def check_flash(torch, flash, dev, results):
 
 
 def check_qmm(torch, qmm, dev, results):
+    """f32 X (three bf16 planes in the kernel) at the decode shapes
+    (M=1 and 8), at M=1024 and at 8-/2-bit; bf16 X (what the bf16 decode
+    and serve paths hand over) at the decode shapes and M=1024. The bound
+    is the least time once codes are exact in bf16: max(bytes / HBM rate,
+    2*M*K*N / bf16 peak)."""
     from repro_torch.core.quantizer import pack_codes, unpack_codes
     gen = torch.Generator(device=dev).manual_seed(3)
-    cases = [(M, K, N, 4) for M in (8, 1024)
-             for K, N in ((3584, 18944), (18944, 3584), (3584, 512))]
-    cases += [(8, 3584, 3584, 8), (8, 3584, 18944, 2)]
-    for M, K, N, bits in cases:
+    shapes = ((3584, 18944), (18944, 3584), (3584, 512))
+    cases = [(M, K, N, 4, torch.float32) for M in (8, 1024)
+             for K, N in shapes]
+    cases += [(8, 3584, 3584, 8, torch.float32),
+              (8, 3584, 18944, 2, torch.float32),
+              (1, 3584, 18944, 4, torch.float32)]
+    cases += [(M, K, N, 4, torch.bfloat16) for M, (K, N) in
+              [(8, s) for s in shapes] + [(1, shapes[0]), (1024, shapes[0])]]
+    for M, K, N, bits, xdt in cases:
         u = torch.randint(0, 2 ** bits, (K, N), generator=gen, device=dev,
                           dtype=torch.uint8)
         codes, cpb = pack_codes(u, bits)
-        x = torch.randn(M, K, generator=gen, device=dev)
+        x = torch.randn(M, K, generator=gen, device=dev).to(xdt)
         scale = torch.rand(N, generator=gen, device=dev) * 0.04 + 0.01
         z = torch.randint(-(2 ** (bits - 1)), 0, (N,), generator=gen,
                           device=dev).float()
@@ -321,16 +334,25 @@ def check_qmm(torch, qmm, dev, results):
         plain_ms = cuda_ms(torch, lambda i: qmm.quant_matmul_plain(
             x, copies[i % n_copy], scale, z, cpb=cpb), 5)
         w = (unpack_codes(codes, cpb).float() + z) * scale
-        lib = Timing(torch, lambda i: torch.matmul(x, w), 10)
-        del copies, w
-        nbytes = 4 * M * K + codes.numel() + 8 * N + 4 * M * N
-        bms, by = bound_ms(nbytes, 2.0 * M * K * N, "f32")
-        say(f"kernel quant_matmul M={M} K={K} N={N} bits={bits} cpb={cpb}: "
-            f"max|d|/max|y| {rel:.3e} (tol {QMM_REL}), ms {t}, "
+        xf = x.float()
+        lib = Timing(torch, lambda i: torch.matmul(xf, w), 10)
+        del copies, w, xf
+        nbytes = (x.element_size() * M * K + codes.numel() + 8 * N
+                  + 4 * M * N)
+        bms, by = bound_ms(nbytes, 2.0 * M * K * N, "bf16")
+        xname = str(xdt)[6:]
+        say(f"kernel quant_matmul M={M} K={K} N={N} bits={bits} cpb={cpb} "
+            f"x={xname}: max|d|/max|y| {rel:.3e} (tol {QMM_REL}), ms {t}, "
             f"plain_ms {plain_ms:.4f}, bound_ms {bms:.4f} ({by}), "
-            f"library_ms {lib}")
-        check(rel <= QMM_REL, f"quant_matmul {M}x{K}x{N} cpb={cpb}: {rel}")
-        results[("quant_matmul", M, K, N, cpb)] = dict(
+            f"library_ms {lib} (torch.matmul, f32 X on the dequantized f32 "
+            f"weight)")
+        if (M, K, N, bits, xdt) == (8, 3584, 18944, 4, torch.float32):
+            say(f"  for continuity: the f32-FMA bound of PRs 11-13 at this "
+                f"shape, {bound_ms(nbytes, 2.0 * M * K * N, 'f32')[0]:.4f} "
+                f"ms")
+        check(rel <= QMM_REL, f"quant_matmul {M}x{K}x{N} cpb={cpb} "
+              f"x={xname}: {rel}")
+        results[("quant_matmul", M, K, N, cpb, xname)] = dict(
             ms=t.ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
             library_ms=lib.ms, max_abs_err=err)
 
@@ -850,7 +872,7 @@ def main() -> int:
          results[("flash_attention", 8, PROMPT)],
          "src/repro/kernels/flash_attention.py:95"),
         ("quant_matmul", "quant_matmul",
-         results[("quant_matmul", 8, 3584, 18944, 2)],
+         results[("quant_matmul", 8, 3584, 18944, 2, "bfloat16")],
          "src/repro/kernels/quant_matmul.py:94"),
         ("paged_attention", "paged_attention",
          results[("paged_attention", 0)],

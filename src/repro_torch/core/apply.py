@@ -86,11 +86,13 @@ def qt_fusable(x) -> bool:
 
 
 def qt_linear(qt: QT, x2d: Tensor, out_dtype=None) -> Tensor:
-    """x2d (M, K) · QT codes (K, N) through `quant_matmul` (x cast to f32,
-    f32 result cast to `out_dtype`)."""
+    """x2d (M, K) · QT codes (K, N) through `quant_matmul` (f32 and bf16
+    x go in as they are, any other type as f32; the f32 result is cast to
+    `out_dtype`)."""
     from repro_torch.kernels import ops
-    y = ops.quant_matmul(x2d.float().contiguous(), qt.codes,
-                         qt.scale.float(), qt.z_lo.float(), cpb=qt.cpb)
+    x = x2d if x2d.dtype in (torch.float32, torch.bfloat16) else x2d.float()
+    y = ops.quant_matmul(x.contiguous(), qt.codes, qt.scale.float(),
+                         qt.z_lo.float(), cpb=qt.cpb)
     return y.to(out_dtype if out_dtype is not None else x2d.dtype)
 
 

@@ -1,5 +1,6 @@
-// Warp-level bf16 tensor-core helpers shared by the attention kernels
-// (flash_attention.cu, paged_attention.cu), for Hopper (sm_90a).
+// Warp-level bf16 tensor-core and cp.async helpers shared by the kernels
+// (flash_attention.cu, paged_attention.cu, quant_matmul.cu; comq_panel.cu
+// uses the copies only), for Hopper (sm_90a).
 //
 // - cp.async: asynchronous global -> shared copies of 16, 8 or 4 bytes,
 //   zero-filled when the source row is out of range, grouped and waited on

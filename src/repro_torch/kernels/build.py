@@ -17,6 +17,7 @@ round-half-even. Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -105,6 +106,13 @@ def load(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
     f.argtypes = argtypes
     f.restype = ctypes.c_int
     return f
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index` (read once)."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(name: str, rc: int) -> None:

@@ -3,10 +3,11 @@ solver — Hopper kernel (csrc/comq_panel.cu) and its plain version.
 
 Replaces the Pallas TPU kernel `src/repro/kernels/comq_panel.py`
 (`_panel_call`, entry `comq_panel_dq_pallas`). The source notes what
-bounds it on the H100 and how the design answers that; in short, one
-thread owns one column for all B steps and `h_bb` streams one row per step
-through shared memory, because at B=256 it is larger than a block's shared
-memory.
+bounds it on the H100 and how the design answers that; in short, a
+blocked sweep: the B rows are cut into sub-panels of 16, one thread a
+column walks a sub-panel's chain, then all warps of the block apply the
+rank-16 update to the rows after it; a block owns 4-32 columns, fewer
+when n is small, so that the card fills.
 
 Tolerance against the plain version: the kernel sums s_t in another order,
 so a code can flip where s_t lands on a rounding boundary; on random panels
@@ -16,6 +17,7 @@ the card by chip_smoke.py and tests/test_torch_kernels.py).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,8 +30,7 @@ launches = 0     # kernel launches since the last reset (chip_smoke reads it)
 
 comq_panel_dq_plain = panel_sweep_dq_ref
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def _vec(a, n: int, dev) -> Tensor:
@@ -38,9 +39,17 @@ def _vec(a, n: int, dev) -> Tensor:
     return t.expand(n).contiguous() if t.dim() == 0 else t.contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def max_b() -> int:
+    """The largest panel B the kernel takes: its rows' running s and h_bb
+    strips must fit one block's shared memory (889 on the H100)."""
+    return build.load(NAME, "comq_panel_max_b", [])()
+
+
 def comq_panel_dq_cuda(h_bb: Tensor, s0: Tensor, qf: Tensor, delta, z_lo,
                        z_hi, hdiag: Tensor):
-    """Launch the kernel: returns (qf', ΔW), each (B, n) f32."""
+    """Launch the kernel: returns (qf', ΔW), each (B, n) f32. B may be at
+    most `max_b()`."""
     global launches
     dev = qf.device
     if dev.type != "cuda":
@@ -57,12 +66,16 @@ def comq_panel_dq_cuda(h_bb: Tensor, s0: Tensor, qf: Tensor, delta, z_lo,
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"comq_panel: {name} must be contiguous "
                              f"{shape}, got {tuple(t.shape)}")
+    if B > max_b():
+        raise ValueError(f"comq_panel: a panel of B={B} rows does not fit a "
+                         f"block's shared memory; the kernel takes B up to "
+                         f"{max_b()}")
     qf_out = torch.empty_like(qf)
     dq = torch.empty_like(qf)
     fn = build.load(NAME, "comq_panel_dq", _ARGTYPES)
     rc = fn(h_bb.data_ptr(), s0.data_ptr(), qf.data_ptr(), delta.data_ptr(),
             z_lo.data_ptr(), z_hi.data_ptr(), hdiag.data_ptr(),
-            qf_out.data_ptr(), dq.data_ptr(), B, n,
+            qf_out.data_ptr(), dq.data_ptr(), B, n, build.sm_count(dev.index),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(NAME, rc)
     launches += 1

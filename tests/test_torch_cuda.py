@@ -148,6 +148,152 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the tiling edges of the redesigned comq_panel and quant_matmul
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("M", [1, 3, 8, 9, 17, 64, 1024])
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_tiling_edges(cuda, M, bits, dtype):
+    """Both tile configurations (8 rows a block below M = 64, in one or
+    more row tiles; then 128 / 64 rows), K off the 16-deep steps, N off a block's 128 code bytes, code rows
+    whose width only allows 8-, 4- or 2-byte (plain) copies, and X rows
+    of odd length (4-byte f32 / 2-byte bf16 copies) at K = 37."""
+    K = (37, 300, 1000)[M % 3]
+    N = 1000                       # code rows of 1000 / 500 / 250 bytes
+    g = torch.Generator(device=cuda).manual_seed(M * 10 + bits)
+    x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
+    u = torch.randint(0, 2 ** bits, (K, N), generator=g, device=cuda,
+                      dtype=torch.uint8)
+    scale = torch.rand(N, generator=g, device=cuda) * 0.04 + 0.01
+    z = torch.randint(-(2 ** (bits - 1)), 0, (N,), generator=g,
+                      device=cuda).float()
+    codes, cpb = pack_codes(u, bits)
+    got = quant_matmul.quant_matmul_cuda(x, codes, scale, z, cpb=cpb)
+    want = quant_matmul.quant_matmul_plain(x, codes, scale, z, cpb=cpb)
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("B,n", [(16, 1), (40, 5), (100, 130), (255, 4097),
+                                 (256, 20000)])
+def test_panel_tiling_edges(cuda, B, n):
+    """B below 256 and off the 16-row sub-panels, n off every column
+    tile (4-32 a block), rows with h_tt <= 1e-12 inside the panel."""
+    g = torch.Generator(device=cuda).manual_seed(B * 7 + n)
+    x = torch.randn(4 * B, B, generator=g, device=cuda)
+    h_bb = x.T @ x / (4 * B) + 0.1 * torch.eye(B, device=cuda)
+    dead = torch.arange(B, device=cuda) % 13 == 5     # h_tt = 0 rows
+    h_bb[dead, :] = 0
+    h_bb[:, dead] = 0
+    qf = torch.randn(B, n, generator=g, device=cuda) * 3
+    delta = torch.rand(n, generator=g, device=cuda) * 0.15 + 0.05
+    args = (h_bb, torch.randn(B, n, generator=g, device=cuda), qf, delta,
+            torch.full((n,), -8.0, device=cuda),
+            torch.full((n,), 7.0, device=cuda),
+            torch.diagonal(h_bb).contiguous())
+    qk, dk = comq_panel.comq_panel_dq_cuda(*args)
+    qp, _ = comq_panel.comq_panel_dq_plain(*args)
+    assert float((qk == qp).float().mean()) >= 0.999
+    assert torch.equal(qk[dead], torch.clamp(torch.round(qf[dead]), -8, 7))
+    assert torch.equal(dk, (qk - qf) * delta)
+
+
+@pytest.mark.parametrize("M,K,NB,cpb,split,kc", [
+    (8, 3584, 9472, 2, 8, 448), (8, 18944, 1792, 2, 37, 512),
+    (1024, 3584, 9472, 2, 1, 3584), (3, 300, 500, 2, 3, 128),
+    (8, 3584, 128, 4, 28, 128), (8, 3584, 256, 2, 28, 128),
+    (8, 3584, 512, 1, 28, 128)])
+def test_quant_matmul_plan(cuda, M, K, NB, cpb, split, kc):
+    """The kernel's split-K plan on 132 SMs (an H100): about four blocks
+    an SM where the tiles do not fill the card, runs of whole stages that
+    cover K. The last three are the shapes whose order
+    test_torch_kernel_numerics emulates at its KC."""
+    for x_bf16 in (False, True):
+        big, ksplit, kc_, ws = quant_matmul.plan(M, K, NB, cpb, x_bf16, 132)
+        assert (big, ksplit, kc_) == (int(M >= 64), split, kc)
+        assert (ksplit - 1) * kc_ < K <= ksplit * kc_
+        planes = 0 if x_bf16 else -(-3 * M * K // 2)
+        assert ws >= planes + (ksplit * M * NB * cpb if ksplit > 1 else 0)
+
+
+def test_quant_matmul_captured_in_a_graph_keeps_its_workspace(cuda):
+    """A call captured into a CUDA graph replays correctly, and writes
+    nothing outside its own memory, after a larger eager call on the same
+    stream has grown (and let go of) that stream's shared workspace."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+
+    def inputs(M, K, N):
+        u = torch.randint(0, 16, (K, N), generator=g, device=cuda,
+                          dtype=torch.uint8)
+        codes, cpb = pack_codes(u, 4)
+        return (torch.randn(M, K, generator=g, device=cuda), codes,
+                torch.rand(N, generator=g, device=cuda) * 0.04 + 0.01,
+                torch.randint(-8, 0, (N,), generator=g, device=cuda).float(),
+                cpb)
+
+    x, codes, scale, z, cpb = inputs(8, 1024, 512)
+    want = quant_matmul.quant_matmul_plain(x, codes, scale, z, cpb=cpb)
+    ws = quant_matmul.plan(8, 1024, codes.shape[1], cpb, False,
+                           torch.cuda.get_device_properties(cuda)
+                           .multi_processor_count)[3]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        quant_matmul.quant_matmul_cuda(x, codes, scale, z, cpb=cpb)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = quant_matmul.quant_matmul_cuda(x, codes, scale, z, cpb=cpb)
+        big = inputs(64, 8192, 4096)
+        quant_matmul.quant_matmul_cuda(*big[:4], cpb=cpb)
+        # the size the small call's buffer had: the allocator hands its
+        # block on to this tensor
+        junk = torch.full((ws,), float("nan"), device=cuda)
+        y.zero_()
+        graph.replay()
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(junk).all())
+    assert float((y - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+def test_panel_and_qmm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    B, n = 32, 64
+    h = torch.eye(B, device=cuda)
+    m = torch.zeros(B, n, device=cuda)
+    v = torch.ones(n, device=cuda)
+    d = torch.ones(B, device=cuda)
+    with pytest.raises(TypeError):      # f64 panel
+        comq_panel.comq_panel_dq_cuda(h.double(), m, m, v, v, v, d)
+    with pytest.raises(ValueError):     # strided s0
+        comq_panel.comq_panel_dq_cuda(
+            h, torch.zeros(B, 2 * n, device=cuda)[:, ::2], m, v, v, v, d)
+    with pytest.raises(ValueError):     # hdiag of the wrong length
+        comq_panel.comq_panel_dq_cuda(h, m, m, v, v, v, d[:-1])
+    with pytest.raises(RuntimeError):   # CPU tensors never reach the kernel
+        comq_panel.comq_panel_dq_cuda(h.cpu(), m.cpu(), m.cpu(), v.cpu(),
+                                      v.cpu(), v.cpu(), d.cpu())
+    big = comq_panel.max_b() + 1        # a panel past shared memory
+    hb, mb = torch.eye(big, device=cuda), torch.zeros(big, 8, device=cuda)
+    vb, db = torch.ones(8, device=cuda), torch.ones(big, device=cuda)
+    with pytest.raises(ValueError, match=f"up to {big - 1}"):
+        comq_panel.comq_panel_dq_cuda(hb, mb, mb, vb, vb, vb, db)
+    comq_panel.comq_panel_dq_cuda(hb[:-1, :-1].contiguous(), mb[:-1],
+                                  mb[:-1], vb, vb, vb, db[:-1])
+    x = torch.randn(8, 64, device=cuda)
+    codes = torch.zeros(64, 16, dtype=torch.uint8, device=cuda)
+    s = torch.ones(32, device=cuda)
+    for bad in (x.to(torch.int32), x.double()):
+        with pytest.raises(TypeError):
+            quant_matmul.quant_matmul_cuda(bad, codes, s, s, cpb=2)
+    with pytest.raises(ValueError):     # cpb 3
+        quant_matmul.quant_matmul_cuda(x, codes, s, s, cpb=3)
+    with pytest.raises(ValueError):     # codes of the wrong K
+        quant_matmul.quant_matmul_cuda(x, codes[:-1], s, s, cpb=2)
+    with pytest.raises(TypeError):      # bf16 scale
+        quant_matmul.quant_matmul_cuda(x, codes, s.bfloat16(), s, cpb=2)
+
+
+# ---------------------------------------------------------------------------
 # paged_attention / paged_attention_quant
 # ---------------------------------------------------------------------------
 
