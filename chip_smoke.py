@@ -19,7 +19,9 @@ no result line):
    (quantize and decode) and B=1, T=512 (serve prefill) in bf16, and
    checked in f32;
    the two paged-attention kernels at the serve shapes (8 slots, 28/4
-   heads, head_dim 128, 16-token pages, up to 4096 tokens a slot).
+   heads, head_dim 128, 16-token pages, up to 4096 tokens a slot): bf16
+   pages and, for int8 / 4-bit codes, the kernel the wrapper's dispatch
+   rule names (printed: tensor cores for bf16 q, CUDA cores for f32 q).
 4. quantize — qwen2-7b at full width, n_layers cut 28 -> 2 (the only
    reduction): calibration 8x128, comq_blocked, 4-bit per-channel, greedy,
    3 sweeps, lambda 0.9; the launcher's JSON summary.
@@ -42,7 +44,8 @@ no result line):
    16-token pages: 16 requests (prompts 64-512 tokens, seeded; buckets
    128/256/512), 32 new tokens each, 8 submitted up front and the rest one
    per decode step, at kv_bits 0, 8 and 4 (the serve path: launch counts
-   are reset before these runs and read right after). Then at f32 and
+   are reset before these runs and read right after; at kv_bits 8 and 4
+   every quantized-pool launch must be on the tensor-core kernel). Then at f32 and
    kv_bits 0: each request's tokens equal its solo run through the same
    runtime, and a pool too small for all lifetimes preempts.
 
@@ -401,6 +404,9 @@ def check_paged(torch, paged, dev, results):
         kq, ks = quantized(k32, kv_bits)
         vq, vs = quantized(v32, kv_bits)
         variants.append(("paged_attention_quant", kv_bits, kq, vq, ks, vs))
+        say(f"paged_attention_quant kv_bits={kv_bits} dispatch: bf16 q -> "
+            f"{paged.quant_kernel(torch.bfloat16, kv_bits, hd, BS)}, f32 q "
+            f"-> {paged.quant_kernel(torch.float32, kv_bits, hd, BS)}")
 
     for name, kv_bits, kp, vp, ks, vs in variants:
         def kernel(q, kp, vp, window):
@@ -424,8 +430,17 @@ def check_paged(torch, paged, dev, results):
             kpp, vpp = kp, vp
             if not kv_bits and dtype == torch.float32:
                 kpp, vpp = k32, v32      # the f32 check runs f32 pages
+            tc = bool(kv_bits) and paged.quant_kernel(
+                dtype, kv_bits, hd, BS) == paged.TENSOR_CORE
+            check(tc == (bool(kv_bits) and dtype == torch.bfloat16),
+                  f"{name} kv_bits={kv_bits} {dtype}: dispatched to "
+                  f"{'tensor' if tc else 'CUDA'} cores")
             for window in (0, 1024):
+                tc0 = paged.launches_quant_tc
                 got = kernel(q, kpp, vpp, window)
+                check(paged.launches_quant_tc - tc0 == tc,
+                      f"{name} kv_bits={kv_bits} {dtype}: the wrapper did "
+                      f"not launch the kernel its dispatch rule names")
                 want = plain(q, kpp, vpp, window)
                 torch.cuda.synchronize()
                 zero_ok = bool((got[3] == 0).all())
@@ -439,7 +454,8 @@ def check_paged(torch, paged, dev, results):
                     ok = err <= PAGED_F32_ATOL
                     tol = f"{PAGED_F32_ATOL}"
                 label = (f"kernel {name} kv_bits={kv_bits} "
-                         f"{str(dtype)[6:]} window={window}")
+                         f"{str(dtype)[6:]} window={window}"
+                         + (" (tensor cores)" if tc else ""))
                 say(f"{label}: max|d| {err:.3e} (tol {tol}), zero-length "
                     f"slot exact 0: {zero_ok}")
                 check(ok and zero_ok, f"{label} disagrees with its plain "
@@ -496,6 +512,10 @@ def check_paged(torch, paged, dev, results):
                 results[(name, kv_bits)] = dict(
                     ms=t.ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                     library_ms=lib.ms if lib else None, max_abs_err=err)
+    r = {k: results[("paged_attention_quant", k)]["ms"] for k in (8, 4)}
+    say(f"paged bf16 q, same run: tensor-core kernel for codes int8 "
+        f"{r[8]:.4f} ms, 4-bit {r[4]:.4f} ms; bf16 pages "
+        f"{results[('paged_attention', 0)]['ms']:.4f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -829,8 +849,16 @@ def main() -> int:
     ops.reset_launch_counts()
     with torch.no_grad():
         for kv_bits in (0, 8, 4):
+            n0, tc0 = paged.launches_quant, paged.launches_quant_tc
             serve_traffic(torch, dev, sp, cfg, BuildPlan(kv_bits=kv_bits),
                           prompts, serve_config(), f"bf16 kv_bits={kv_bits}")
+            if kv_bits:
+                n = paged.launches_quant - n0
+                tc = paged.launches_quant_tc - tc0
+                say(f"serve bf16 kv_bits={kv_bits}: paged_attention_quant "
+                    f"launches {n}, {tc} of them on the tensor-core kernel")
+                check(n > 0 and tc == n, f"serve bf16 kv_bits={kv_bits}: "
+                      f"{tc} of {n} quantized-pool launches on tensor cores")
     serve_counts = ops.launch_counts()
     say(f"serve path launches: {serve_counts}")
     check(all(serve_counts[n] > 0 for n in SERVE_PATH),

@@ -40,7 +40,8 @@
 // are never loaded, and splits with no live key write only m = -inf.
 // The split size does not depend on the batch, so a slot's result does
 // not depend on its batchmates. The CUDA-core split kernel (f32 math)
-// serves f32 q or pages and the int8 / 4-bit pools.
+// serves f32 q or pages, and f32 q or rows narrower than 4 bytes of codes
+// over the int8 / 4-bit pools.
 //
 // bf16 q over bf16 pages (the main path) takes a tensor-core split kernel
 // with the same splits, masks and combine: the G query rows of the KV head
@@ -56,6 +57,21 @@
 // the end of the split, in shared memory. To shorten each block's chain
 // of dependent loads, it reads its split's block-table entries alongside
 // the slot's length and issues the Q copy before the table is resolved.
+//
+// bf16 q over int8 / 4-bit pools takes the same design on tensor cores
+// (the main path's serve at kv_bits 8 / 4): the ring copies the raw code
+// rows (hd or hd/2 bytes, 16-byte copies; codes are never written to
+// device memory dequantized) and the warps widen them to bf16 in
+// registers by magic numbers, exactly (int8 -127..127, 4-bit -8..7), so
+// S = Q.K^T by mma.m16n8k16 is the f32-accumulated product of exact
+// operands. One 32-bit word of a code row feeds a lane's K fragment whole:
+// Q's head dims are permuted to match when it is staged. The V fragment
+// pairs one dim of two key rows straight from their words (byte_perm),
+// and P.V's accumulator holds the dims in that word order until the merge.
+// The K page scale multiplies each key's score with the softmax scale; l
+// sums the unscaled P, and P.V sees P times each key's V page scale,
+// split into bf16 hi + lo. Scales are read per key: a window may start
+// mid-page. A page id out of range reads as a zero row with scale 0.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -388,6 +404,71 @@ constexpr float kLn2 = 0.69314718055994531f;
 
 using bf16 = __nv_bfloat16;
 
+// The end of a split on tensor cores: merge the warps' (m, l, acc), each
+// over its own keys ((m, l) per row, then the accumulators rescaled to the
+// rows' common max and summed) and write the split's partials. pos_of(d)
+// is where head dim d sits in the accumulator: column 8 * tile + c of its
+// 2 KD 8-column tiles. o_s ([kWarps][16][16 KD + 8] f32: the row pad makes
+// the fragment's float2 stores conflict-free) may alias the K/V stages
+// once every warp is done with them; ml_s is [kWarps][16][2].
+template <int KD, class PosOf>
+__device__ __forceinline__ void merge_warps(const Args& a,
+                                            const float (&acc)[2 * KD][4],
+                                            const float (&m)[2],
+                                            const float (&l)[2], float* o_s,
+                                            float* ml_s, size_t part, int tid,
+                                            PosOf pos_of) {
+  using namespace mma_bf16;
+  constexpr int OLD = 16 * KD + 8;
+  const int lane = tid & 31, warp = tid >> 5, gid = lane >> 2, tig = lane & 3;
+  const int G = a.G, hd = a.hd;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lr = quad_sum(l[r]);
+    if (tig == 0) {
+      ml_s[2 * (warp * 16 + gid + 8 * r)] = m[r];
+      ml_s[2 * (warp * 16 + gid + 8 * r) + 1] = lr;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = gid + 8 * r;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int ww = 0; ww < kWarps; ++ww)
+      mx = fmaxf(mx, ml_s[2 * (ww * 16 + row)]);
+    const float wgt = mx == -INFINITY ? 0.f : exp2f(m[r] - mx);
+    float* dst = o_s + (warp * 16 + row) * OLD + 2 * tig;
+#pragma unroll
+    for (int t = 0; t < 2 * KD; ++t)
+      *reinterpret_cast<float2*>(dst + 8 * t) =
+          make_float2(acc[t][2 * r] * wgt, acc[t][2 * r + 1] * wgt);
+  }
+  __syncthreads();
+  for (int i = tid; i < G * hd; i += kThreads) {
+    const int g = i / hd, d = i - g * hd, pd = pos_of(d);
+    float sum = 0.f;
+#pragma unroll
+    for (int ww = 0; ww < kWarps; ++ww) sum += o_s[(ww * 16 + g) * OLD + pd];
+    a.part_acc[(part + g) * hd + d] = sum;
+  }
+  if (tid < G) {
+    float mx = -INFINITY, sum = 0.f;
+#pragma unroll
+    for (int ww = 0; ww < kWarps; ++ww)
+      mx = fmaxf(mx, ml_s[2 * (ww * 16 + tid)]);
+#pragma unroll
+    for (int ww = 0; ww < kWarps; ++ww) {
+      const float mw = ml_s[2 * (ww * 16 + tid)];
+      if (mw != -INFINITY)
+        sum += exp2f(mw - mx) * ml_s[2 * (ww * 16 + tid) + 1];
+    }
+    a.part_ml[2 * (part + tid)] = mx * kLn2;  // natural units, as the f32 path
+    a.part_ml[2 * (part + tid) + 1] = sum;
+  }
+}
+
 // KD: 16-wide steps of the zero-padded head dim (HD = 16 * KD >= hd);
 // w: the cp.async width in bytes (16, 8 or 4).
 template <int KD>
@@ -404,10 +485,7 @@ __global__ void __launch_bounds__(kThreads)
   bf16* qs = kv_s + kTcStages * 2 * kTK * LD;              // [16][LD]
   float* ml_s = reinterpret_cast<float*>(qs + 16 * LD);    // [kWarps][16][2]
   int* rows_s = reinterpret_cast<int*>(ml_s + kWarps * 16 * 2);  // [span]
-  // [kWarps][16][HD + 8] f32 after the loop: the row pad makes the
-  // fragment's float2 stores conflict-free
-  float* o_s = reinterpret_cast<float*>(smem_raw);
-  constexpr int OLD = HD + 8;
+  float* o_s = reinterpret_cast<float*>(smem_raw);  // after the loop
 
   const int G = a.G, hd = a.hd;
   const int split = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
@@ -566,53 +644,8 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with the stages: o_s reuses them
 
-  // merge the warps: (m, l) per row, then the accumulators rescaled to
-  // the rows' common max and summed
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float lr = quad_sum(l[r]);
-    if (tig == 0) {
-      ml_s[2 * (warp * 16 + gid + 8 * r)] = m[r];
-      ml_s[2 * (warp * 16 + gid + 8 * r) + 1] = lr;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = gid + 8 * r;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int ww = 0; ww < kWarps; ++ww)
-      mx = fmaxf(mx, ml_s[2 * (ww * 16 + row)]);
-    const float wgt = mx == -INFINITY ? 0.f : exp2f(m[r] - mx);
-    float* dst = o_s + (warp * 16 + row) * OLD + 2 * tig;
-#pragma unroll
-    for (int t = 0; t < 2 * KD; ++t)
-      *reinterpret_cast<float2*>(dst + 8 * t) =
-          make_float2(acc[t][2 * r] * wgt, acc[t][2 * r + 1] * wgt);
-  }
-  __syncthreads();
-  for (int i = tid; i < G * hd; i += kThreads) {
-    const int g = i / hd, d = i - g * hd;
-    float sum = 0.f;
-#pragma unroll
-    for (int ww = 0; ww < kWarps; ++ww) sum += o_s[(ww * 16 + g) * OLD + d];
-    a.part_acc[(part + g) * hd + d] = sum;
-  }
-  if (tid < G) {
-    float mx = -INFINITY, sum = 0.f;
-#pragma unroll
-    for (int ww = 0; ww < kWarps; ++ww)
-      mx = fmaxf(mx, ml_s[2 * (ww * 16 + tid)]);
-#pragma unroll
-    for (int ww = 0; ww < kWarps; ++ww) {
-      const float mw = ml_s[2 * (ww * 16 + tid)];
-      if (mw != -INFINITY)
-        sum += exp2f(mw - mx) * ml_s[2 * (ww * 16 + tid) + 1];
-    }
-    a.part_ml[2 * (part + tid)] = mx * kLn2;  // natural units, as the f32 path
-    a.part_ml[2 * (part + tid) + 1] = sum;
-  }
+  merge_warps<KD>(a, acc, m, l, o_s, ml_s, part, tid,
+                  [](int d) { return d; });
 }
 
 template <int KD>
@@ -651,6 +684,384 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
   return launch_tc<16>(a, w, stream);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 q over int8 / 4-bit pools: the bf16 kernel's splits, ring, softmax
+// and merge on tensor cores, with the raw codes in the ring and widened to
+// bf16 in registers
+// ---------------------------------------------------------------------------
+
+constexpr int kQuantStages = 3;
+constexpr int kCodePad = 16;  // bytes added to each code row (conflict-free)
+
+// Codes widen to bf16 exactly by magic numbers, as in quant_matmul.cu.
+// int8 code c of byte b of u = w ^ 0x80808080: the f32 with bits
+// 0x4B0000uu is 2^23 + 128 + c, so less 2^23 + 128 it is c (exact). (A
+// bf16-only widening, 0x4300 | (c & 127) less 0x4300 | (c & 128) by
+// __hsub2, issues fewer instructions but ran slower on the H100.)
+__device__ __forceinline__ float int8_f32(uint32_t u, int b) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 | b)) -
+         8388736.f;
+}
+// two small integers held exactly in f32 -> a bf16 pair (x0 low): the top
+// 16 bits of each, exact since they have at most 8 significant bits
+__device__ __forceinline__ uint32_t bf16_pair(float x0, float x1) {
+  return __byte_perm(__float_as_uint(x0), __float_as_uint(x1), 0x7632);
+}
+// 4-bit offset-binary nibbles u at bits 0-3 and 16-19 of t -> the bf16
+// pair (u0 - 8, u1 - 8): 0x4300 | u is bf16 128 + u, less 136 (exact)
+__device__ __forceinline__ uint32_t nib_pair(uint32_t t) {
+  const uint32_t x = (t & 0x000F000Fu) | 0x43004300u;
+  const uint32_t c136 = 0x43084308u;
+  return mma_bf16::bits_of(
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&x),
+              *reinterpret_cast<const __nv_bfloat162*>(&c136)));
+}
+
+// The head dim at position pos of the zero-padded Q row (the A fragment's
+// column 16 kk + p) and so of the K fragments: one 32-bit word of a key row
+// feeds a lane's K fragment registers whole. int8: lane tig of step kk
+// reads the codes of dims 16 kk + 4 tig .. + 3, b0 = (+0, +1), b1 = (+2,
+// +3). 4-bit: lane tig reads the word of dims 32 (kk / 2) + 8 tig .. + 7
+// (nibble j = dim j), and the register (w >> 4 s) & 0x000F000F pairs dims
+// (s, s + 4): steps 2 kk' / 2 kk' + 1 take s = 0, 1 / 2, 3.
+template <int KIND>
+__device__ __forceinline__ int q_dim(int pos) {
+  const int kk = pos >> 4, p = pos & 15, r = p >> 3, tig = (p & 7) >> 1,
+            e = p & 1;
+  return KIND == kInt8 ? 16 * kk + 4 * tig + 2 * r + e
+                       : 32 * (kk >> 1) + 8 * tig + 2 * (kk & 1) + r + 4 * e;
+}
+
+// Where head dim d sits in P.V's accumulator (8 * tile + column). The V
+// fragment of column n of tile VPW * g + i is built from the 32-bit words
+// at byte 32 g + 4 n of four key rows (VPW codes a word, value i of it),
+// so tile VPW * g + i column n is dim 8 VPW g + VPW n + i.
+template <int KIND>
+__device__ __forceinline__ int acc_pos(int d) {
+  constexpr int VPW = KIND == kInt8 ? 4 : 8;
+  const int g = d / (8 * VPW), n = (d / VPW) % 8, i = d % VPW;
+  return 8 * (VPW * g + i) + n;
+}
+
+template <int KD, int KIND>
+constexpr size_t tcq_smem_bytes(int span) {
+  constexpr size_t HD = 16 * KD, CB = KIND == kInt8 ? HD : HD / 2;
+  constexpr size_t ring = (size_t)kQuantStages * 2 * kTK * (CB + kCodePad);
+  constexpr size_t o_s = sizeof(float) * kWarps * 16 * (HD + 8);
+  return (ring > o_s ? ring : o_s) + sizeof(bf16) * 16 * (HD + kRowPad) +
+         sizeof(float) * kWarps * 16 * 2 +
+         (2 * sizeof(float) + sizeof(int)) * (size_t)span;
+}
+
+// KD: 16-wide steps of the zero-padded head dim (HD = 16 * KD >= hd; a
+// multiple of 32 for int8 and of 64 for 4-bit, the words' reach); KIND:
+// kInt8 or kInt4; w: the cp.async width in bytes (16, 8 or 4).
+template <int KD, int KIND>
+__global__ void __launch_bounds__(kThreads)
+    paged_split_tcq_kernel(const Args a, int w) {
+  using namespace mma_bf16;
+  constexpr int HD = 16 * KD;
+  constexpr int CB = KIND == kInt8 ? HD : HD / 2;  // code bytes a padded row
+  constexpr int RS = CB + kCodePad;                // their stride in smem
+  constexpr int LD = HD + kRowPad;                 // Q row stride
+  constexpr int VPW = KIND == kInt8 ? 4 : 8;       // codes a 32-bit word
+  constexpr bool kQInRegs = KD <= 8;
+  static_assert(HD % (8 * VPW) == 0, "V words reach 8 VPW dims a tile group");
+  constexpr size_t kRing = (size_t)kQuantStages * 2 * kTK * RS;
+  constexpr size_t kOs = sizeof(float) * kWarps * 16 * (HD + 8);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // stage s: K code rows [0, kTK), then V code rows [kTK, 2 kTK), RS apart
+  uint8_t* ring = smem_raw;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw + (kRing > kOs ? kRing : kOs));
+  float* ml_s = reinterpret_cast<float*>(qs + 16 * LD);  // [kWarps][16][2]
+  float* kscl = ml_s + kWarps * 16 * 2;  // [span] softmax scale * log2e * ks
+  float* vscl = kscl + a.pps * a.BS;     // [span] vs
+  int* rows_s = reinterpret_cast<int*>(vscl + a.pps * a.BS);  // [span]
+  float* o_s = reinterpret_cast<float*>(smem_raw);  // after the loop
+
+  const int G = a.G, hd = a.hd;
+  const int split = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int span = a.pps * a.BS;
+  constexpr int kKeysPerThread = kMaxSpan / kThreads;
+  const int* bt = a.bt + (size_t)b * a.MAXB;
+  int page[kKeysPerThread];
+#pragma unroll
+  for (int i = 0; i < kKeysPerThread; ++i) {
+    const int j = tid + i * kThreads;
+    const int pi = (split * span + j) / a.BS;
+    page[i] = j < span && pi < a.MAXB ? bt[pi] : -1;
+  }
+  const int len = min(a.lens[b], a.MAXB * a.BS);  // the table's extent
+  const int k_lo = a.window > 0 ? max(0, len - a.window) : 0;
+  const int s_lo = max(k_lo, split * span);
+  const int s_hi = min(len, (split + 1) * span);
+  const size_t part = ((size_t)(b * a.KV + kv) * a.NS + split) * G;
+  if (s_lo >= s_hi) {  // no live key in this split
+    if (tid < G) {
+      a.part_ml[2 * (part + tid)] = -INFINITY;
+      a.part_ml[2 * (part + tid) + 1] = 0.f;
+    }
+    return;
+  }
+
+  // the group's G query rows in q_dim order, zero-filled to the 16 rows
+  // of an A fragment and past hd (plain loads: issued before the table is
+  // resolved)
+  const bf16* qg =
+      reinterpret_cast<const bf16*>(a.q) + ((size_t)b * a.H + kv * G) * hd;
+  for (int i = tid; i < 16 * HD; i += kThreads) {
+    const int r = i / HD, pos = i % HD, d = q_dim<KIND>(pos);
+    qs[r * LD + pos] =
+        r < G && d < hd ? qg[r * hd + d] : __float2bfloat16_rn(0.f);
+  }
+  // the pool row of each key of the split (from split * span); -1 for a
+  // page id out of range (a zero row with scale 0)
+#pragma unroll
+  for (int i = 0; i < kKeysPerThread; ++i) {
+    const int j = tid + i * kThreads, kpos = split * span + j;
+    if (j < span)
+      rows_s[j] = page[i] >= 0 && page[i] < a.NB
+                      ? (page[i] * a.BS + kpos % a.BS) * a.KV + kv
+                      : -1;
+  }
+  __syncthreads();
+
+  const int cpr = a.row_bytes / w;  // cp.async chunks per row
+  // keys [t0, t0 + kTK) of the split into `stage`; keys past s_hi are
+  // zero-filled
+  auto load_tile = [&](int stage, int t0) {
+    uint8_t* dst = ring + stage * 2 * kTK * RS;
+    const int n = min(kTK, s_hi - t0);
+    const int* rows = rows_s + (t0 - split * span);
+    for_each_chunk(2 * kTK, cpr, tid, kThreads, [&](int r, int c) {
+      const int j = r < kTK ? r : r - kTK;
+      const int row = j < n ? rows[j] : -1;
+      const uint8_t* src = (r < kTK ? a.k : a.v) +
+                           (row >= 0 ? (size_t)row * a.row_bytes + c * w : 0);
+      cp_async_w(smem_u32(dst + r * RS + c * w), src, row >= 0, w);
+    });
+  };
+
+  const int n_tiles = (s_hi - s_lo + kTK - 1) / kTK;
+#pragma unroll
+  for (int st = 0; st < kQuantStages - 1; ++st) {
+    if (st < n_tiles) load_tile(st, s_lo + st * kTK);
+    cp_async_commit();
+  }
+
+  // the keys' page scales, per key (a window may start mid-page), loaded
+  // while the first tiles are in flight; published by the loop's barrier
+  const float scale_log2 = a.scale * 1.4426950408889634f;
+#pragma unroll
+  for (int i = 0; i < kKeysPerThread; ++i) {
+    const int j = tid + i * kThreads;
+    if (j < span) {
+      const bool ok = page[i] >= 0 && page[i] < a.NB;
+      const size_t si = ok ? (size_t)page[i] * a.KV + kv : 0;
+      kscl[j] = ok ? scale_log2 * a.ks[si] : 0.f;
+      vscl[j] = ok ? a.vs[si] : 0.f;
+    }
+  }
+
+  const int gid = lane >> 2, tig = lane & 3;
+  const uint32_t q_lane = lane_addr_a(smem_u32(qs), 2 * LD, lane);
+  uint32_t qf[kQInRegs ? KD : 1][4];
+  float acc[2 * KD][4];
+#pragma unroll
+  for (int n = 0; n < 2 * KD; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<kQuantStages - 2>();  // tile `it` has landed
+    __syncthreads();  // ... for every thread; stage (it - 1) % S is free
+    if (it + kQuantStages - 1 < n_tiles)
+      load_tile((it + kQuantStages - 1) % kQuantStages,
+                s_lo + (it + kQuantStages - 1) * kTK);
+    cp_async_commit();
+    if (kQInRegs && it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < (kQInRegs ? KD : 1); ++kk)
+        ldmatrix_x4(qf[kk], q_lane + 32 * kk);
+    }
+    const int t0 = s_lo + it * kTK;
+    const int n = min(kTK, s_hi - t0);
+    if (16 * warp >= n) continue;  // this warp's 16 keys are all past s_hi
+
+    const uint8_t* k_w = ring + (it % kQuantStages) * 2 * kTK * RS +
+                         16 * warp * RS;
+    const uint8_t* v_w = k_w + kTK * RS;
+    const int jt = t0 - split * span;  // kscl / vscl index of the tile
+
+    auto q_frag = [&](int kk, uint32_t (&q_a)[4]) {
+      if constexpr (kQInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) q_a[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(q_a, q_lane + 32 * kk);
+      }
+    };
+
+    // S = Q K^T over exact codes: the 16 (padded) query rows x the warp's
+    // 16 keys (tile t: keys 8 t + gid as B columns)
+    float s[2][4];
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
+    if constexpr (KIND == kInt8) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t q_a[4];
+        q_frag(kk, q_a);
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const uint32_t u = *reinterpret_cast<const uint32_t*>(
+                                 k_w + (8 * t + gid) * RS + 16 * kk + 4 * tig) ^
+                             0x80808080u;
+          mma_16816(s[t], q_a, bf16_pair(int8_f32(u, 0), int8_f32(u, 1)),
+                    bf16_pair(int8_f32(u, 2), int8_f32(u, 3)));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int k2 = 0; k2 < KD / 2; ++k2) {
+        uint32_t wd[2];
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+          wd[t] = *reinterpret_cast<const uint32_t*>(
+              k_w + (8 * t + gid) * RS + 16 * k2 + 4 * tig);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t q_a[4];
+          q_frag(2 * k2 + h, q_a);
+#pragma unroll
+          for (int t = 0; t < 2; ++t)
+            mma_16816(s[t], q_a, nib_pair(wd[t] >> (8 * h)),
+                      nib_pair(wd[t] >> (8 * h + 4)));
+        }
+      }
+    }
+    // the softmax scale and the K page scale, per key
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 16 * warp + 8 * t + 2 * tig + (e & 1);
+        s[t][e] = j < n ? s[t][e] * kscl[jt + j] : -INFINITY;
+      }
+
+    float corr[2];
+    online_softmax<2>(s, m, l, corr);  // l sums the unscaled P
+#pragma unroll
+    for (int t = 0; t < 2 * KD; ++t) {
+      acc[t][0] *= corr[0];
+      acc[t][1] *= corr[0];
+      acc[t][2] *= corr[1];
+      acc[t][3] *= corr[1];
+    }
+    // P . V sees P * vs (the V page scale, per key)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 16 * warp + 8 * t + 2 * tig + (e & 1);
+        s[t][e] = j < n ? s[t][e] * vscl[jt + j] : 0.f;
+      }
+
+    // P split into bf16 hi + lo as the A fragment; the V fragments pair
+    // one dim of two key rows (2 tig + {0, 1}, 2 tig + 8 + {0, 1})
+    // straight from the code words (tools/attention_ab.py times the other
+    // design, a per-warp bf16 V tile read by ldmatrix)
+    uint32_t hi[4], lo[4];
+    split_pack(s[0][0], s[0][1], hi[0], lo[0]);
+    split_pack(s[0][2], s[0][3], hi[1], lo[1]);
+    split_pack(s[1][0], s[1][1], hi[2], lo[2]);
+    split_pack(s[1][2], s[1][3], hi[3], lo[3]);
+#pragma unroll
+    for (int g = 0; g < HD / (8 * VPW); ++g) {
+      uint32_t wv[4];  // key rows 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        wv[r] = *reinterpret_cast<const uint32_t*>(
+            v_w + (2 * tig + (r & 1) + 8 * (r >> 1)) * RS + 32 * g +
+            4 * gid);
+      uint32_t b0[VPW], b1[VPW];
+      if constexpr (KIND == kInt8) {
+        uint32_t u[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) u[r] = wv[r] ^ 0x80808080u;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          b0[i] = bf16_pair(int8_f32(u[0], i), int8_f32(u[1], i));
+          b1[i] = bf16_pair(int8_f32(u[2], i), int8_f32(u[3], i));
+        }
+      } else {
+#pragma unroll
+        for (int bb = 0; bb < 4; ++bb) {
+          const uint32_t x0 = __byte_perm(wv[0], wv[1], bb | ((4 + bb) << 8));
+          const uint32_t x1 = __byte_perm(wv[2], wv[3], bb | ((4 + bb) << 8));
+          b0[2 * bb] = nib_pair(x0);
+          b1[2 * bb] = nib_pair(x1);
+          b0[2 * bb + 1] = nib_pair(x0 >> 4);
+          b1[2 * bb + 1] = nib_pair(x1 >> 4);
+        }
+      }
+      // the hi mmas of all VPW tiles, then the lo ones: no two mmas into
+      // one accumulator back to back
+#pragma unroll
+      for (int i = 0; i < VPW; ++i)
+        mma_16816(acc[VPW * g + i], hi, b0[i], b1[i]);
+#pragma unroll
+      for (int i = 0; i < VPW; ++i)
+        mma_16816(acc[VPW * g + i], lo, b0[i], b1[i]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the stages: o_s reuses them
+  merge_warps<KD>(a, acc, m, l, o_s, ml_s, part, tid,
+                  [](int d) { return acc_pos<KIND>(d); });
+}
+
+template <int KD, int KIND>
+int launch_tcq(const Args& a, int w, cudaStream_t stream) {
+  const size_t smem = tcq_smem_bytes<KD, KIND>(a.pps * a.BS);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_split_tcq_kernel<KD, KIND>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  paged_split_tcq_kernel<KD, KIND>
+      <<<dim3(a.NS, a.KV, a.B), kThreads, smem, stream>>>(a, w);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_combine(a, stream);
+}
+
+// bf16 q over int8 (hd % 4 == 0) or 4-bit (hd % 8 == 0) codes: rows copied
+// in 4-byte units or wider, then the head-dim steps (a multiple of 2 for
+// int8, of 4 for 4-bit)
+int launch_quant_tc(const Args& a, int kind, cudaStream_t stream) {
+  const uintptr_t al = (uintptr_t)a.k | (uintptr_t)a.v | (uintptr_t)a.row_bytes;
+  const int w = al % 16 == 0 ? 16 : al % 8 == 0 ? 8 : al % 4 == 0 ? 4 : 0;
+  if (w == 0) return (int)cudaErrorMisalignedAddress;
+  if (!a.q_bf16 || a.pps * a.BS > kMaxSpan || a.hd % (kind == kInt8 ? 4 : 8))
+    return (int)cudaErrorInvalidValue;
+  const int steps = (a.hd + 15) / 16;
+  if (kind == kInt8) {
+    if (steps <= 2) return launch_tcq<2, kInt8>(a, w, stream);
+    if (steps <= 4) return launch_tcq<4, kInt8>(a, w, stream);
+    if (steps <= 8) return launch_tcq<8, kInt8>(a, w, stream);
+    return launch_tcq<16, kInt8>(a, w, stream);
+  }
+  if (steps <= 4) return launch_tcq<4, kInt4>(a, w, stream);
+  if (steps <= 8) return launch_tcq<8, kInt4>(a, w, stream);
+  return launch_tcq<16, kInt4>(a, w, stream);
+}
+
 template <int KIND, int W>
 int launch(const Args& a, cudaStream_t stream) {
   const size_t smem = split_smem_bytes(a.G, a.hd);
@@ -683,12 +1094,15 @@ int launch_kind(const Args& a, cudaStream_t stream) {
   return (int)cudaErrorMisalignedAddress;
 }
 
-int run(Args a, int kind, void* stream) {
+// tensor_cores: the quantized pools' route, chosen by the caller
+// (kernels/paged_attention.quant_kernel); the bf16 pages' is fixed by type
+int run(Args a, int kind, int tensor_cores, void* stream) {
   if (a.G < 1 || a.G > kMaxG || a.hd < 1 || a.hd > kThreads * kMaxDPT ||
       a.H != a.G * a.KV || a.NS < 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (kind == kBF16 && a.q_bf16) return launch_bf16(a, s);
+  if (tensor_cores) return launch_quant_tc(a, kind, s);
   switch (kind) {
     case kF32: return launch_kind<kF32>(a, s);
     case kBF16: return launch_kind<kBF16>(a, s);
@@ -719,16 +1133,19 @@ int paged_attention(const void* q, const void* k, const void* v,
          dm[4], dm[5], dm[6], dm[7], dm[8], dm[9],
          dm[3] * (kind == 0 ? 4 : 2), scale};
   if (kind != 0 && kind != 1) return (int)cudaErrorInvalidValue;
-  return run(a, kind, stream);
+  return run(a, kind, 0, stream);
 }
 
 // Quantized pool: kind 2 = int8 codes, 3 = 4-bit nibble pairs; ks/vs are
-// (NB, KV) f32 page scales. dims as above.
+// (NB, KV) f32 page scales; tensor_cores 1 takes the tensor-core kernel
+// (bf16 q; refused where it does not apply), 0 the CUDA-core one. dims as
+// above.
 int paged_attention_quant(const void* q, const void* k, const void* v,
                           const void* ks, const void* vs, const void* bt,
                           const void* lens, void* o, void* part_acc,
                           void* part_ml, int q_bf16, int kind,
-                          const void* dims, float scale, void* stream) {
+                          int tensor_cores, const void* dims, float scale,
+                          void* stream) {
   const int* dm = (const int*)dims;
   Args a{q, (const uint8_t*)k, (const uint8_t*)v, (const float*)ks,
          (const float*)vs, (const int*)bt, (const int*)lens, o,
@@ -736,7 +1153,7 @@ int paged_attention_quant(const void* q, const void* k, const void* v,
          dm[1] / dm[2], dm[3], dm[4], dm[5], dm[6], dm[7], dm[8], dm[9],
          kind == 2 ? dm[3] : dm[3] / 2, scale};
   if (kind != 2 && kind != 3) return (int)cudaErrorInvalidValue;
-  return run(a, kind, stream);
+  return run(a, kind, tensor_cores, stream);
 }
 
 }  // extern "C"

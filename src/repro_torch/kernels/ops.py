@@ -87,6 +87,7 @@ KERNELS = ((_panel, "NAME", "launches"), (_flash, "NAME", "launches"),
 def reset_launch_counts() -> None:
     for mod, _, count in KERNELS:
         setattr(mod, count, 0)
+    _paged.launches_quant_tc = 0     # the tensor-core share of launches_quant
 
 
 def launch_counts() -> dict:

@@ -15,15 +15,23 @@ q.dtype (f32 or bf16).
 What bounds them is the bytes of the live pages; the source notes the
 design (flash-decoding: fixed 256-token splits per (slot, kv head) and a
 combine pass, so a slot's result does not depend on its batchmates).
-Dispatch by dtype: bf16 q over bf16 pages runs the tensor-core split
-kernel (mma.sync bf16 with f32 accumulation, pages gathered through a
-3-stage cp.async ring; needs an even hd); f32 q or pages and the int8 /
-4-bit pools run the CUDA-core split kernel.
+Dispatch by dtype and shape only (never by a failure):
+- bf16 q over bf16 pages: the tensor-core split kernel (mma.sync bf16
+  with f32 accumulation, pages gathered through a 3-stage cp.async ring;
+  needs an even hd and pages of at most 512 tokens, else it raises);
+- bf16 q over int8 codes with hd % 4 == 0, or over 4-bit codes with
+  hd % 8 == 0 (rows copied in 4-byte cp.async units), with splits of at
+  most 512 tokens: the tensor-core split kernel for codes, which copies
+  the raw codes and widens them to bf16 in registers (`quant_kernel`);
+- everything else (f32 q or pages, quantized rows narrower than that):
+  the CUDA-core split kernel (f32 math).
 
 Tolerance against the plain version (which dequantizes in f32 and runs
 the f32 oracle): the same f32 softmax summed in another order, so
 |Δ| ≤ 8e-3·|want| + 1e-3 in bf16 (two bf16 ulps) and |Δ| ≤ 1e-4 in f32;
-zero-length slots are exactly 0 in both.
+zero-length slots are exactly 0 in both. On the tensor cores the codes
+are exact in bf16, S is the f32-accumulated product of bf16 q and the
+codes, and P·vs enters P·V as bf16 hi + lo (~16 bits).
 """
 from __future__ import annotations
 
@@ -39,15 +47,17 @@ NAME = "paged_attention"
 NAME_QUANT = "paged_attention_quant"
 launches = 0          # paged_attention launches since the last reset
 launches_quant = 0    # paged_attention_quant launches since the last reset
+launches_quant_tc = 0  # ... of them on the tensor-core kernel
+TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
 
 _SPLIT_TOKENS = 256   # keys per split (csrc: one block per split)
 _MAX_G, _MAX_HD = 16, 256
-_MAX_BS = 512         # bf16 kernel: a split of at most 512 tokens
+_MAX_SPAN = 512       # tensor-core kernels: a split of at most 512 tokens
 _PAGE_KIND = {torch.float32: 0, torch.bfloat16: 1}
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
              + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
-_ARGTYPES_QUANT = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
+_ARGTYPES_QUANT = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
 
 
@@ -67,6 +77,23 @@ def paged_attention_quant_plain(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     return ref.paged_attention_quant_ref(
         q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths,
         window=window, kv_bits=kv_bits).to(q.dtype)
+
+
+def _pages_per_split(block_size: int) -> int:
+    return max(1, _SPLIT_TOKENS // block_size)
+
+
+def quant_kernel(q_dtype: torch.dtype, kv_bits: int, hd: int,
+                 block_size: int) -> str:
+    """The kernel `paged_attention_quant_cuda` launches, by dtype and shape
+    only: TENSOR_CORE for bf16 q over int8 codes with hd % 4 == 0 or 4-bit
+    codes with hd % 8 == 0 (rows in 4-byte cp.async units) and splits of
+    pps·BS ≤ 512 tokens; CUDA_CORE otherwise (f32 q, narrower rows)."""
+    row_unit = 4 if kv_bits == 8 else 8
+    if (q_dtype == torch.bfloat16 and hd % row_unit == 0
+            and _pages_per_split(block_size) * block_size <= _MAX_SPAN):
+        return TENSOR_CORE
+    return CUDA_CORE
 
 
 def _check(name: str, q: Tensor, k_pool: Tensor, v_pool: Tensor,
@@ -104,9 +131,9 @@ def _check(name: str, q: Tensor, k_pool: Tensor, v_pool: Tensor,
 
 def _launch(lib_fn: str, q: Tensor, k_pool: Tensor, v_pool: Tensor,
             scales, block_tables: Tensor, lengths: Tensor, kind: int,
-            dims, window: int, argtypes) -> Tensor:
+            dims, window: int, argtypes, route=()) -> Tensor:
     B, H, KV, hd, NB, BS, MAXB = dims
-    pps = max(1, _SPLIT_TOKENS // BS)
+    pps = _pages_per_split(BS)
     ns = max(1, -(-MAXB // pps))
     dev = q.device
     o = torch.empty(B, H, hd, dtype=q.dtype, device=dev)
@@ -121,8 +148,9 @@ def _launch(lib_fn: str, q: Tensor, k_pool: Tensor, v_pool: Tensor,
     ptrs += [s.data_ptr() for s in scales]
     ptrs += [block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
              part_acc.data_ptr(), part_ml.data_ptr()]
-    rc = fn(*ptrs, _Q_DTYPES[q.dtype], kind, ctypes.addressof(shape),
-            1.0 / math.sqrt(hd), torch.cuda.current_stream(dev).cuda_stream)
+    rc = fn(*ptrs, _Q_DTYPES[q.dtype], kind, *route,
+            ctypes.addressof(shape), 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(dev).cuda_stream)
     build.check(NAME, rc)
     return o
 
@@ -138,9 +166,9 @@ def paged_attention_cuda(q: Tensor, k_pool: Tensor, v_pool: Tensor,
         raise TypeError(f"{NAME}: pages must be f32 or bf16, got "
                         f"{k_pool.dtype}/{v_pool.dtype}")
     if q.dtype == k_pool.dtype == torch.bfloat16 and (dims[3] % 2
-                                                      or dims[5] > _MAX_BS):
+                                                      or dims[5] > _MAX_SPAN):
         raise ValueError(f"{NAME}: the bf16 kernel copies rows in 4-byte "
-                         f"units and takes pages of at most {_MAX_BS} "
+                         f"units and takes pages of at most {_MAX_SPAN} "
                          f"tokens: needs an even hd, got hd {dims[3]}, BS "
                          f"{dims[5]}")
     o = _launch(NAME, q, k_pool, v_pool, (), block_tables, lengths,
@@ -154,8 +182,9 @@ def paged_attention_quant_cuda(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                                block_tables: Tensor, lengths: Tensor, *,
                                window: int = 0, kv_bits: int = 8) -> Tensor:
     """Launch the kernel over int8 (kv_bits 8) or 4-bit nibble-pair
-    (kv_bits 4) codes with (NB, KV) f32 page scales."""
-    global launches_quant
+    (kv_bits 4) codes with (NB, KV) f32 page scales: the tensor-core or
+    the CUDA-core split kernel, as `quant_kernel` says."""
+    global launches_quant, launches_quant_tc
     if kv_bits not in (4, 8):
         raise ValueError(f"{NAME_QUANT}: kv_bits must be 4 or 8, got "
                          f"{kv_bits}")
@@ -174,8 +203,10 @@ def paged_attention_quant_cuda(q: Tensor, k_pool: Tensor, v_pool: Tensor,
             raise ValueError(f"{NAME_QUANT}: scales must be contiguous f32 "
                              f"({NB}, {KV}) on {q.device}, got {s.dtype} "
                              f"{tuple(s.shape)} on {s.device}")
+    tc = quant_kernel(q.dtype, kv_bits, dims[3], dims[5]) == TENSOR_CORE
     o = _launch(NAME_QUANT, q, k_pool, v_pool, (k_scale, v_scale),
                 block_tables, lengths, 2 if kv_bits == 8 else 3, dims,
-                window, _ARGTYPES_QUANT)
+                window, _ARGTYPES_QUANT, route=(int(tc),))
     launches_quant += 1
+    launches_quant_tc += tc
     return o

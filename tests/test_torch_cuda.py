@@ -445,3 +445,72 @@ def test_paged_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         pa.paged_attention_quant_cuda(q, kq.view(torch.uint8),
                                       kq.view(torch.uint8), ks, ks, bt, lens,
                                       kv_bits=8)
+
+
+# bf16 q over int8 / 4-bit pools: the tensor-core kernel for codes
+QUANT_TC_CASES = [
+    # qwen2's group of 7 at hd 128, 16-token pages: split and tile edges
+    dict(H=28, KV=4, hd=128, BS=16, window=0,
+         lengths=[255, 256, 257, 1, 0, 2048]),
+    # group 1, hd 64, 4-token pages, a window that starts mid-page
+    dict(H=4, KV=4, hd=64, BS=4, window=37, lengths=[700, 0, 33, 3]),
+    # group 16, hd 256, 32-token pages, a window that starts mid-page
+    dict(H=16, KV=1, hd=256, BS=32, window=100, lengths=[1000, 5, 0]),
+    # group 7, 32-token pages, window 1024 starting mid-page
+    dict(H=14, KV=2, hd=128, BS=32, window=1024, lengths=[1500, 64, 0]),
+]
+
+
+@pytest.mark.parametrize("case", QUANT_TC_CASES, ids=lambda c: (
+    f"H{c['H']}-KV{c['KV']}-hd{c['hd']}-BS{c['BS']}-w{c['window']}"))
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_paged_quant_tensor_cores_match_plain(cuda, case, kv_bits):
+    from repro_torch.kernels import paged_attention as pa
+    lens_l, BS = case["lengths"], case["BS"]
+    MAXB = -(-max(lens_l) // BS) + 1
+    q, k, v, bt, lens = _paged_inputs(cuda, len(lens_l), case["H"],
+                                      case["KV"], case["hd"],
+                                      MAXB * len(lens_l), BS, MAXB, lens_l,
+                                      torch.bfloat16, seed=case["hd"] + BS)
+    kq, ks = _quantize_pool(k, kv_bits)
+    vq, vs = _quantize_pool(v, kv_bits)
+    assert pa.quant_kernel(q.dtype, kv_bits, case["hd"], BS) == pa.TENSOR_CORE
+    before = pa.launches_quant_tc
+    got = pa.paged_attention_quant_cuda(q, kq, vq, ks, vs, bt, lens,
+                                        window=case["window"],
+                                        kv_bits=kv_bits)
+    want = pa.paged_attention_quant_plain(q, kq, vq, ks, vs, bt, lens,
+                                          window=case["window"],
+                                          kv_bits=kv_bits)
+    assert pa.launches_quant_tc == before + 1
+    assert got.dtype == torch.bfloat16
+    d, w = _paged_diff(got, want, lens)
+    assert bool((d <= 8e-3 * w + 1e-3).all()), float(d.max())
+
+
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_paged_quant_tensor_cores_read_a_page_out_of_range_as_zero(
+        cuda, kv_bits):
+    """A page id past the pool reads as a zero row with scale 0: the result
+    of a real all-zero page with scale 0 in its place."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serve.kv_cache import kv_encode
+    H, KV, hd, BS, MAXB, NB = 28, 4, 128, 16, 40, 80
+    q, k, v, bt, lens = _paged_inputs(cuda, 2, H, KV, hd, NB, BS, MAXB,
+                                      [600, 300], torch.bfloat16, seed=9)
+    kq, ks = _quantize_pool(k, kv_bits)
+    vq, vs = _quantize_pool(v, kv_bits)
+    bt[0, 5] = NB
+    bt[1, 3] = 1000
+    zero_scale = torch.zeros(1, KV, device=cuda)
+    zero_page = kv_encode(torch.zeros(1, BS, KV, hd, device=cuda),
+                          zero_scale[:, None], kv_bits)
+    bt_ref = torch.where(bt >= NB, torch.full_like(bt, NB), bt)
+    want = pa.paged_attention_quant_plain(
+        q, torch.cat([kq, zero_page]), torch.cat([vq, zero_page]),
+        torch.cat([ks, zero_scale]), torch.cat([vs, zero_scale]), bt_ref,
+        lens, kv_bits=kv_bits)
+    got = pa.paged_attention_quant_cuda(q, kq, vq, ks, vs, bt, lens,
+                                        kv_bits=kv_bits)
+    d, w = _paged_diff(got, want, lens)
+    assert bool((d <= 8e-3 * w + 1e-3).all()), float(d.max())
