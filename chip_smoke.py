@@ -49,10 +49,26 @@ no result line):
    kv_bits 0: each request's tokens equal its solo run through the same
    runtime, and a pool too small for all lifetimes preempts.
 
-Launch counts: the quantize-and-decode path (phases 4-5) and the serve
-path (phase 8) are each counted from 0; every kernel must launch on the
-main path as a whole. Then one JSON line of the kernels, and last the
-device line.
+9. policy — (a) the launcher's run with --policy
+   "0.mlp.w_down=8,1.attn.wk=2,1.mlp.w_gate=3,kv=8" (2/3/4/8-bit leaves,
+   codes packed 4, 2 and 1 per byte, int8 KV): per-leaf bits, the summary
+   (no guard event, mixed_policy, improvement > 0), 16 greedy steps on the
+   static engine with the int8 cache against the plain versions
+   (lockstep, teacher-forced; bf16 printed, f32 under the precision
+   gate; bf16 over a bf16 cache under the coarse gate), and the phase-8
+   traffic through serve.Runtime at kv_bits 8; quant_matmul must launch
+   at cpb 1, 2 and 4. (c) the same quantize with --no-guards, then with
+   guards again, gives the same codes bit for bit; the three quantize
+   times are printed.
+   (b) --bits-budget 3.5 --policy kv=4: the allocation histogram, at most
+   3.5 bits a parameter, and 8 requests served at kv_bits 4.
+   Phase 3 also holds comq_panel at the 2- and 8-bit code ranges and
+   quant_matmul at 8-bit w_down and 2-bit wk shapes.
+
+Launch counts: the quantize-and-decode path (phases 4-5), the serve path
+(phase 8) and the policy path (phase 9a) are each counted from 0; every
+kernel must launch on the main path as a whole. Then one JSON line of the
+kernels, and last the device line.
 """
 from __future__ import annotations
 
@@ -95,6 +111,11 @@ SMALL_POOL = 64            # pages: too few for the 16 lifetimes, so it preempts
 SLICE1 = ("comq_panel", "flash_attention", "quant_matmul")
 SERVE_NEW_KERNELS = ("paged_attention", "paged_attention_quant")
 SERVE_PATH = ("flash_attention", "quant_matmul") + SERVE_NEW_KERNELS
+# phase 9: a per-leaf policy with all four widths (2-bit wk is cpb 4,
+# 3-bit w_gate cpb 2, 8-bit w_down cpb 1) and int8 KV, and a budget
+POLICY = "0.mlp.w_down=8,1.attn.wk=2,1.mlp.w_gate=3,kv=8"
+BUDGET = 3.5
+POLICY_PATH = SLICE1 + ("paged_attention_quant",)
 
 
 class CheckFailed(RuntimeError):
@@ -209,16 +230,22 @@ def plain_kernels(ops, modules):
 # ---------------------------------------------------------------------------
 
 def check_panel(torch, panel, dev, results):
+    """4-bit codes at the model's n (512 / 3584 / 18944 columns), then the
+    2- and 8-bit code ranges a policy solves at, n=3584: qf and δ scale
+    with the range, so at 8 bits δ is 17x finer than at 4 and far more
+    steps land near a rounding boundary (the kernel's exact redo)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     B = 256
-    for n in (512, 3584, 18944):
+    for n, bits in ((512, 4), (3584, 4), (18944, 4), (3584, 2), (3584, 8)):
+        spread = (2 ** bits - 1) / 15
         x = torch.randn(4 * B, B, generator=gen, device=dev)
         h_bb = (x.T @ x) / (4 * B) + 0.1 * torch.eye(B, device=dev)
         s0 = torch.randn(B, n, generator=gen, device=dev)
-        qf = torch.randn(B, n, generator=gen, device=dev) * 3
-        delta = torch.rand(n, generator=gen, device=dev) * 0.15 + 0.05
-        z_lo = torch.full((n,), -8.0, device=dev)
-        z_hi = torch.full((n,), 7.0, device=dev)
+        qf = torch.randn(B, n, generator=gen, device=dev) * 3 * spread
+        delta = (torch.rand(n, generator=gen, device=dev) * 0.15
+                 + 0.05) / spread
+        z_lo = torch.full((n,), -2.0 ** (bits - 1), device=dev)
+        z_hi = torch.full((n,), 2.0 ** (bits - 1) - 1, device=dev)
         hdiag = torch.diagonal(h_bb).contiguous()
         args = (h_bb, s0, qf, delta, z_lo, z_hi, hdiag)
         qk, dk = panel.comq_panel_dq_cuda(*args)
@@ -226,21 +253,23 @@ def check_panel(torch, panel, dev, results):
         torch.cuda.synchronize()
         agree = float((qk == qp).float().mean())
         err = float((qk - qp).abs().max())
+        clipped = float(((qk == z_lo) | (qk == z_hi)).float().mean())
         t = Timing(torch, lambda i: panel.comq_panel_dq_cuda(*args), 20)
         plain_ms = cuda_ms(torch, lambda i: panel.comq_panel_dq_plain(*args),
                            3)
         nbytes = 4 * (B * B + 2 * B * n + 3 * n + B) + 4 * 2 * B * n
         flops = 2.0 * n * B * (B - 1) / 2
         bms, by = bound_ms(nbytes, flops, "f32")
-        say(f"kernel comq_panel B={B} n={n}: code agreement {agree:.6f} "
+        say(f"kernel comq_panel B={B} n={n} bits={bits} codes "
+            f"[{int(z_lo[0])}, {int(z_hi[0])}]: code agreement {agree:.6f} "
             f"(need >= {PANEL_MIN_CODE_AGREEMENT}), max|dq code| {err}, "
-            f"ms {t}, plain_ms {plain_ms:.3f}, bound_ms {bms:.4f} "
-            f"({by}), library_ms null")
+            f"codes at a clip {clipped:.3f}, ms {t}, plain_ms "
+            f"{plain_ms:.3f}, bound_ms {bms:.4f} ({by}), library_ms null")
         check(agree >= PANEL_MIN_CODE_AGREEMENT,
-              f"comq_panel n={n}: code agreement {agree}")
-        results[("comq_panel", n)] = dict(ms=t.ms, plain_ms=plain_ms,
-                                          bound_ms=bms, bound_by=by,
-                                          library_ms=None, max_abs_err=err)
+              f"comq_panel n={n} bits={bits}: code agreement {agree}")
+        key = ("comq_panel", n) if bits == 4 else ("comq_panel", n, bits)
+        results[key] = dict(ms=t.ms, plain_ms=plain_ms, bound_ms=bms,
+                            bound_by=by, library_ms=None, max_abs_err=err)
 
 
 def check_flash(torch, flash, dev, results):
@@ -315,6 +344,10 @@ def check_qmm(torch, qmm, dev, results):
               (1, 3584, 18944, 4, torch.float32)]
     cases += [(M, K, N, 4, torch.bfloat16) for M, (K, N) in
               [(8, s) for s in shapes] + [(1, shapes[0]), (1024, shapes[0])]]
+    # the policy's widths at model shapes: 8-bit w_down (cpb 1) and 2-bit
+    # wk (cpb 4, 128 code bytes a row)
+    cases += [(8, 18944, 3584, 8, torch.bfloat16),
+              (8, 3584, 512, 2, torch.bfloat16)]
     for M, K, N, bits, xdt in cases:
         u = torch.randint(0, 2 ** bits, (K, N), generator=gen, device=dev,
                           dtype=torch.uint8)
@@ -522,15 +555,24 @@ def check_paged(torch, paged, dev, results):
 # phases 4-6: the main path
 # ---------------------------------------------------------------------------
 
-def run_decode(torch, sp, cfg, plan, tokens, feed=None):
+def run_decode(torch, sp, cfg, plan, tokens, feed=None, snapshots=None,
+               lockstep=None):
     """prefill + STEPS greedy decode steps; with `feed`, teacher-forced on
-    those tokens. Returns (per-step logits, tokens fed)."""
+    those tokens. `snapshots` (a list) collects a copy of the cache before
+    each step; with `lockstep` (such a list) step i runs from lockstep[i].
+    Returns (per-step logits, tokens fed)."""
     from repro_torch.models import decode_step, prefill
     logits, cache = prefill(sp, cfg, plan, tokens)
     outs, fed = [logits.float()], []
     for i in range(STEPS):
         tok = feed[i] if feed is not None else outs[-1].argmax(-1)
         fed.append(tok)
+        if snapshots is not None:
+            snapshots.append({"kv": [type(c)(*(None if t is None
+                                               else t.clone() for t in c))
+                                     for c in cache["kv"]]})
+        if lockstep is not None:
+            cache = lockstep[i]
         logits, cache = decode_step(sp, cfg, plan, cache, tok[:, None],
                                     PROMPT + i)
         outs.append(logits.float())
@@ -538,10 +580,11 @@ def run_decode(torch, sp, cfg, plan, tokens, feed=None):
     return outs, fed
 
 
-def compare_decode(torch, ops, modules, rerun, outs, label, what="decode"):
+def compare_decode(torch, ops, modules, rerun, outs, label, what="decode",
+                   gate=True):
     """Re-run the teacher-forced steps with the plain versions on the card
     (`rerun()` returns their per-step logits) and hold each step's logits
-    against `outs`."""
+    against `outs` (with gate=False the gap is printed, not gated)."""
     with torch.no_grad(), plain_kernels(ops, modules):
         ref_outs = rerun()
     worst = 0.0
@@ -550,11 +593,13 @@ def compare_decode(torch, ops, modules, rerun, outs, label, what="decode"):
         rel = float(d.max()) / float(b.abs().max())
         worst = max(worst, rel)
         agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        tol = LOGITS_REL[label] if gate else "none: reported"
         say(f"{what} {label} step {i}: max|d logits| {float(d.max()):.4e} "
-            f"mean {float(d.mean()):.3e} (rel {rel:.3e}, tol "
-            f"{LOGITS_REL[label]}), greedy token agreement {agree:.3f}")
-    check(worst <= LOGITS_REL[label],
-          f"{what} logits ({label}) vs plain: rel {worst}")
+            f"mean {float(d.mean()):.3e} (rel {rel:.3e}, tol {tol}), greedy "
+            f"token agreement {agree:.3f}")
+    if gate:
+        check(worst <= LOGITS_REL[label],
+              f"{what} logits ({label}) vs plain: rel {worst}")
     check(all(bool(torch.isfinite(o).all()) for o in outs),
           f"non-finite {what} logits ({label})")
 
@@ -674,6 +719,160 @@ def serve_traffic(torch, dev, sp, cfg, plan, prompts, sc, label):
           and rt.scheduler.idle, f"serve {label}: pool or queue not clean")
     return rt, reqs
 
+
+
+# ---------------------------------------------------------------------------
+# phase 9: mixed-precision policies
+# ---------------------------------------------------------------------------
+
+def leaf_bits(qparams):
+    """{"layer.mod.leaf": bits} of a quantize_model output."""
+    return {f"{l}.{mod}.{leaf}": v["bits"]
+            for l, lp in sorted(qparams["__qlayers__"].items(),
+                                key=lambda kv: int(kv[0]))
+            for mod, leaves in lp.items() if isinstance(leaves, dict)
+            for leaf, v in leaves.items() if isinstance(v, dict)}
+
+
+def same_codes(torch, qa, qb) -> bool:
+    """Codes, scales and zero-points of two quantize_model outputs equal
+    bit for bit."""
+    ta, tb = qa["__qlayers__"], qb["__qlayers__"]
+    n = 0
+    for l, lp in ta.items():
+        for mod, leaves in lp.items():
+            if not isinstance(leaves, dict):
+                continue
+            for leaf, a in leaves.items():
+                if not isinstance(a, dict):
+                    continue
+                b = tb[l][mod][leaf]
+                if not all(torch.equal(a[k], b[k])
+                           for k in ("codes", "scale", "z_lo")):
+                    return False
+                n += 1
+    return n > 0
+
+
+def phase_policy(torch, dev, cfg, cfg32, ops, kernels, prompts, qmm,
+                 paged):
+    """Quantize under a per-leaf policy that puts 2/3/4/8-bit leaves on
+    the card, decode and serve it from its packed codes; a bits-per-param
+    budget; the same policy with guards off. Returns the launch counts of
+    run (a)'s path (quantize + decode + serve)."""
+    from repro_torch.core.apply import serving_params
+    from repro_torch.core.policy import alloc_bits_per_param
+    from repro_torch.launch.quantize import quantize_and_eval
+    common = dict(method="comq_blocked", calib_batch=8, calib_seq=PROMPT,
+                  device=dev)
+
+    # (a) the per-leaf policy, quantize + decode + serve counted
+    ops.reset_launch_counts()
+    run = quantize_and_eval(cfg, policy=POLICY, **common)
+    s = run.summary
+    bits = leaf_bits(run.qparams)
+    say(f"policy (a) {POLICY!r}: per-leaf bits {bits}")
+    say(f"policy (a) quantize: {json.dumps(s)}")
+    imp = s["comq_vs_rtn_error_improvement"]
+    check(s["mixed_policy"] is True and s["guard_events"] == 0
+          and math.isfinite(imp) and imp > 0,
+          f"policy (a): mixed_policy {s['mixed_policy']}, guard_events "
+          f"{s['guard_events']}, improvement {imp}")
+    check(sorted(set(bits.values())) == [2, 3, 4, 8],
+          f"policy (a) did not put all four widths on the card: {bits}")
+    plan = run.plan
+    check(plan.cache_quant and plan.kv_bits == 8,
+          f"policy (a): kv=8 did not reach the plan ({plan})")
+    sp = serving_params(run.qparams, cfg)
+    packing = {f"{i}.{mod}.{leaf}": (q.bits, q.cpb)
+               for i, lp in enumerate(sp["layers"])
+               for mod, leaves in lp.items() if isinstance(leaves, dict)
+               for leaf, q in leaves.items() if hasattr(q, "cpb")}
+    say(f"policy (a) packed leaves (bits, codes per byte): {packing}")
+    check({c for _, c in packing.values()} == {1, 2, 4},
+          f"policy (a): the packed model does not hold cpb 1, 2 and 4: "
+          f"{packing}")
+    # 16 greedy steps on the static engine with the int8 cache, against
+    # the plain versions in lockstep (step i of the plain run starts from
+    # the kernel run's cache: an int8 code can flip between the two runs
+    # and stay in the cache, as pages do in phase 7). f32 carries the
+    # precision gate. At bf16 the int8-cache gap is printed, not gated:
+    # each step's new K/V row takes its own absmax scale, so a one-ulp
+    # bf16 difference in the row's largest entry re-rounds all its codes;
+    # the same steps over a bf16 cache carry phase 5's coarse bf16 gate
+    dplan = plan.replace(prefill_cache_len=PROMPT + STEPS)
+    for label, cache, c, pl in (
+            ("bfloat16", "int8", cfg, dplan),
+            ("bfloat16", "bf16", cfg, dplan.replace(cache_quant=False)),
+            ("float32", "int8", cfg32,
+             dplan.replace(cache_dtype=torch.float32))):
+        snaps = []
+        t0 = time.time()
+        with torch.no_grad():
+            outs, fed = run_decode(torch, sp, c, pl, run.eval_tokens,
+                                   snapshots=snaps)
+        say(f"policy (a) decode {label}, {cache} cache: prefill "
+            f"8x{PROMPT} + {STEPS} steps in {time.time() - t0:.2f} s wall")
+        compare_decode(torch, ops, kernels, lambda: run_decode(
+            torch, sp, c, pl, run.eval_tokens, feed=fed,
+            lockstep=snaps)[0], outs, label,
+            what=f"policy (a) decode {cache} cache",
+            gate=(label, cache) != ("bfloat16", "int8"))
+        del snaps
+        with torch.no_grad(), plain_kernels(ops, kernels):
+            free, _ = run_decode(torch, sp, c, pl, run.eval_tokens, feed=fed)
+        worst = max(float((a - b).abs().max()) / float(b.abs().max())
+                    for a, b in zip(outs, free))
+        say(f"policy (a) decode {label}, {cache} cache, free-running plain "
+            f"run: worst step rel {worst:.3e}")
+    with torch.no_grad():
+        n0, tc0 = paged.launches_quant, paged.launches_quant_tc
+        serve_traffic(torch, dev, sp, cfg, plan, prompts, serve_config(),
+                      "policy (a) bf16 kv_bits=8")
+        n, tc = paged.launches_quant - n0, paged.launches_quant_tc - tc0
+    check(n > 0 and tc == n, f"policy (a) serve: {tc} of {n} quantized-pool "
+          f"launches on tensor cores")
+    counts = ops.launch_counts()
+    by_cpb = dict(qmm.launches_by_cpb)
+    say(f"policy (a) path launches (quantize + decode + serve): {counts}; "
+        f"quant_matmul by codes per byte {by_cpb}")
+    check(all(by_cpb[c] > 0 for c in (1, 2, 4)),
+          f"policy (a): quant_matmul did not launch at cpb 1, 2 and 4: "
+          f"{by_cpb}")
+    check(all(counts[k] > 0 for k in POLICY_PATH),
+          f"a kernel of the policy path never launched: {counts}")
+    del sp
+
+    # (c) the same quantize with guards off: the same codes, bit for bit;
+    # then guards on once more, so each setting has a run after a warm one
+    off = quantize_and_eval(cfg, policy=POLICY, guards=False, **common)
+    same = same_codes(torch, run.qparams, off.qparams)
+    off_s = off.seconds
+    del off
+    again = quantize_and_eval(cfg, policy=POLICY, **common)
+    same_again = same_codes(torch, run.qparams, again.qparams)
+    say(f"policy (c) guards off: codes equal to guards on: {same}; a second "
+        f"guards-on run: {same_again}. quantize_model seconds "
+        f"(synchronized, host clock): guards on {run.seconds:.3f}, then off "
+        f"{off_s:.3f}, then on {again.seconds:.3f}")
+    check(same and same_again,
+          "policy (c): guards-off or repeated codes differ from run (a)'s")
+    del run, again
+
+    # (b) a bits-per-param budget with 4-bit pages
+    run = quantize_and_eval(cfg, bits_budget=BUDGET, policy="kv=4", **common)
+    bpp = alloc_bits_per_param(run.alloc, run.sizes)
+    say(f"policy (b) --bits-budget {BUDGET}: {bpp:.4f} bits/param, per-leaf "
+        f"bits {leaf_bits(run.qparams)}")
+    say(f"policy (b) quantize: {json.dumps(run.summary)}")
+    check(bpp <= BUDGET + 1e-9, f"policy (b): {bpp} bits/param > {BUDGET}")
+    check(run.plan.kv_bits == 4 and not run.plan.cache_quant,
+          f"policy (b): kv=4 did not reach the plan ({run.plan})")
+    with torch.no_grad():
+        serve_traffic(torch, dev, serving_params(run.qparams, cfg), cfg,
+                      run.plan, prompts[:SERVE_SLOTS], serve_config(),
+                      "policy (b) bf16 kv_bits=4")
+    return counts
 
 
 def main() -> int:
@@ -889,10 +1088,13 @@ def main() -> int:
         say(f"serve f32 under preemption: {same}/{len(solo)} requests and "
             f"{tok}/{SERVE_NEW * len(solo)} tokens equal their solo runs")
 
-    # kernels line
+    # 9. mixed-precision policies (the policy path, counted)
+    policy_counts = phase_policy(torch, dev, cfg, cfg32, ops, kernels,
+                                 prompts, qmm, paged)
+
+    # kernels line: launches on the main path as a whole
     src = "src/repro_torch/csrc/{}.cu"
-    launches = dict(path_counts)
-    launches.update({n: serve_counts[n] for n in SERVE_NEW_KERNELS})
+    launches = {n: totals[n] + policy_counts[n] for n in totals}
     entries = [
         ("comq_panel", "comq_panel", results[("comq_panel", 18944)],
          "src/repro/kernels/comq_panel.py:79"),

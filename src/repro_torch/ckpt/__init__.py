@@ -1,8 +1,9 @@
 from repro_torch.ckpt.quantized import (PackedCkptError, load_packed_ckpt,
-                                       pack_tree, save_packed_ckpt,
+                                       pack_tree, policy_extra,
+                                       restore_policy, save_packed_ckpt,
                                        strip_for_serving, to_host,
                                        tree_bytes, unpack_tree)
 
 __all__ = ["PackedCkptError", "load_packed_ckpt", "pack_tree",
-           "save_packed_ckpt", "strip_for_serving", "to_host", "tree_bytes",
+           "policy_extra", "restore_policy", "save_packed_ckpt", "strip_for_serving", "to_host", "tree_bytes",
            "unpack_tree"]

@@ -2,7 +2,8 @@
 of `repro.ckpt.quantized`).
 
 `pack_tree`/`unpack_tree` convert between the pipeline's QTensor tree and
-the storage form. `save_packed_ckpt` writes one self-describing file —
+the storage form; `policy_extra`/`restore_policy` carry the QuantPolicy
+in the metadata. `save_packed_ckpt` writes one self-describing file —
 a format/version header plus a crc32 over the pickled payload — whose
 arrays are numpy arrays, never torch tensors, so the JAX package's
 `load_packed_ckpt` reads what the port writes (and the other way round).
@@ -71,6 +72,30 @@ def unpack_tree(tree):
             return type(node)(walk(v) for v in node)
         return node
     return walk(tree)
+
+
+def policy_extra(policy=None, arch: Optional[str] = None,
+                 **kw) -> Dict[str, Any]:
+    """Checkpoint metadata for a quantized save: the arch plus the
+    serialized QuantPolicy (`core.policy.policy_to_dict`), so a restore
+    rebuilds the exact per-leaf bit assignment. `save_packed_ckpt(path,
+    tree, **policy_extra(...))` stores it beside the tree."""
+    out: Dict[str, Any] = dict(kw)
+    if arch is not None:
+        out["arch"] = arch
+    if policy is not None:
+        from repro_torch.core.policy import as_policy, policy_to_dict
+        out["policy"] = policy_to_dict(as_policy(policy))
+    return out
+
+
+def restore_policy(extra: Dict[str, Any]):
+    """Inverse of policy_extra: the QuantPolicy a checkpoint was solved
+    under (from `load_packed_ckpt`'s payload), or None when it has none."""
+    if not extra or "policy" not in extra:
+        return None
+    from repro_torch.core.policy import policy_from_dict
+    return policy_from_dict(extra["policy"])
 
 
 def strip_for_serving(qparams):

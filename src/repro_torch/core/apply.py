@@ -119,6 +119,52 @@ def dequantize_qt_tree(tree, dtype=torch.bfloat16, keep_fused: bool = False):
     return walk(tree)
 
 
+def fake_quantize_params(params, cfg, plan, bits: int = 4,
+                         quantize_embed: bool = True):
+    """Wrap every projection weight (and the embedding, unless
+    quantize_embed=False) in a QT with RTN codes — the layout transform of
+    a serving dry run; real deployments load COMQ codes. Per-channel over
+    the last dim, one grid per slice of the leading dims, as the JAX
+    package does for its stacked layers."""
+    from repro_torch.core.quantizer import init_per_channel, quantize_rtn
+
+    def to_qt(w):
+        shape = tuple(w.shape)
+        lead = shape[:-2]
+        w3 = w.reshape(-1, *shape[-2:]).float()           # (S, rows, cols)
+        S, rows, cols = w3.shape
+        # one per-channel grid per slice: the slices side by side as the
+        # columns of one (rows, S·cols) matrix
+        wm = w3.permute(1, 0, 2).reshape(rows, S * cols)
+        delta, z_lo, z_hi = init_per_channel(wm, bits, 1.0)
+        u = (quantize_rtn(wm, delta, z_lo, z_hi) - z_lo).to(torch.uint8)
+        u = u.reshape(rows, S, cols).permute(1, 0, 2).contiguous()
+        us, cpb = pack_codes(u, bits)
+        deltas, zs = delta.reshape(S, cols), z_lo.reshape(S, cols)
+        if lead:
+            us = us.reshape(*lead, *us.shape[1:])
+            deltas, zs = deltas.reshape(*lead, cols), zs.reshape(*lead, cols)
+        else:
+            us, deltas, zs = us[0], deltas[0], zs[0]
+        return QT(us, deltas, zs, shape, bits, cpb=cpb)
+
+    quantizable = set(FUSED_QT_LEAVES) | {"unembed"}
+    if quantize_embed:
+        quantizable.add("embed")
+
+    def walk(node, name=""):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, name) for v in node)
+        if name in quantizable and isinstance(node, Tensor) \
+                and node.dim() >= 2:
+            return to_qt(node)
+        return node
+
+    return walk(params)
+
+
 def qt_from_qtensor(t: dict) -> QT:
     """One pipeline QTensor (offset-binary uint8 codes, f32 per-column
     scales, int32 zero-points) -> a QT packed to its recorded width."""

@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.core.comq import QuantResult
 from repro_torch.core.comq_hessian import _h_error, _init_grid
+from repro_torch.core.guards import damped_inverse
 from repro_torch.core.quantizer import EPS, QuantSpec, quantize_rtn
 
 Tensor = torch.Tensor
@@ -24,28 +25,6 @@ def rtn_quantize(w: Tensor, spec: QuantSpec,
            else torch.zeros((), device=w.device))
     return QuantResult(q=q, delta=delta, z_lo=z_lo, z_hi=z_hi,
                        errors=err[None])
-
-
-def damped_inverse(h: Tensor, start: float = 0.01, diag_mean=None,
-                   max_tries: int = 4):
-    """(H + λI)⁻¹ with λ escalated ×10 per retry until the inverse is
-    finite (the port of `repro.core.guards.damped_inverse`). Returns
-    (hinv, final multiplier)."""
-    m = h.shape[-1]
-    if diag_mean is None:
-        diag_mean = torch.diagonal(h).mean()
-    base = torch.clamp(torch.as_tensor(diag_mean, dtype=torch.float32),
-                       min=EPS)
-    eye = torch.eye(m, dtype=h.dtype, device=h.device)
-    mult = start
-    hinv = torch.linalg.inv(h + eye * (mult * base))
-    for _ in range(max_tries):
-        if bool(torch.isfinite(hinv).all()):
-            break
-        mult *= 10.0
-        hinv = torch.linalg.inv(h + eye * (mult * base))
-    return torch.where(torch.isfinite(hinv), hinv,
-                       torch.zeros_like(hinv)), mult
 
 
 def gptq_quantize(h: Tensor, w: Tensor, spec: QuantSpec,

@@ -6,7 +6,28 @@ from typing import Dict
 
 import torch
 
+from repro_torch.device import DeviceLike, resolve_device
+
 Tensor = torch.Tensor
+
+
+class GramAccumulator:
+    """Streaming H = Σ XᵀX over calibration batches (f32), held on the
+    card unless `device="cpu"`."""
+
+    def __init__(self, dim: int, device: DeviceLike = None):
+        self.h = torch.zeros(dim, dim, dtype=torch.float32,
+                             device=resolve_device(device))
+        self.count = 0
+
+    def update(self, x: Tensor) -> "GramAccumulator":
+        x2 = x.reshape(-1, x.shape[-1]).float()
+        self.h = self.h + x2.T @ x2
+        self.count += x2.shape[0]
+        return self
+
+    def value(self) -> Tensor:
+        return self.h
 
 
 def gram_from_tap(tap: Tensor) -> Tensor:

@@ -1,32 +1,47 @@
-"""Whole-model COMQ, dense staged path (port of `repro.core.pipeline`).
+"""Whole-model COMQ, dense family (port of `repro.core.pipeline`).
 
 GPTQ-style sequential layer-by-layer quantization with quantized
-propagation, on the staged schedule: one forward per layer quantizes each
-leaf group in tap order (attn_in → wo_in → mlp_in → down_in) through the
-model's `quantize_cb` hook, so every downstream tap is computed with the
-already-quantized upstream sub-blocks. Each tap's Gram is computed once and
-its leaves are solved (column-fused when that is exact). Per-leaf errors
-stay on the device until one transfer at the end.
+propagation. Two schedules:
 
-Not ported yet (ROADMAP.md): numeric guards (a healthy run is identical
-with them off), the journal/resume path, fault injection, mixed-bit
-policies, data/column sharding, tracing/metrics, the legacy two-forward
-schedule, and the MoE/SSM/RWKV/VLM families.
+* ``staged`` (default): one forward per layer quantizes each leaf group in
+  tap order (attn_in → wo_in → mlp_in → down_in) through the model's
+  `quantize_cb` hook, so every downstream tap is computed with the
+  already-quantized upstream sub-blocks;
+* ``legacy``: a float forward collects the layer's taps, all its leaves
+  are solved, and a second forward propagates through the quantized
+  layer.
+
+Each tap's Gram is computed once. Every leaf is solved under the spec a
+`core.policy.QuantPolicy` resolves for it (a plain QuantSpec is the
+uniform policy); a group whose specs agree is column-fused when that is
+exact, a mixed-bit group solves leaf by leaf. With guards on (the
+default) the numeric guards of core/guards.py sanitize taps, Grams and
+weights and escalate failed solves; a healthy run gives the same codes as
+guards=False. Per-leaf errors stay on the device until one transfer at the
+end.
+
+Not ported yet (ROADMAP.md): the journal/resume path and fault injection
+(item 13), tracing/metrics (item 14), data/column sharding (item 15), and
+the MoE/SSM/RWKV/VLM families (item 12).
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core import calibrate
+from repro_torch.core import guards as _guards
 from repro_torch.core.baselines import gptq_quantize, rtn_quantize
 from repro_torch.core.comq_hessian import (comq_quantize_blocked,
                                            comq_quantize_h)
+from repro_torch.core.guards import GuardContext, GuardEvent, guarded_solve
+from repro_torch.core.policy import as_policy
 from repro_torch.core.quantizer import QuantSpec
 from repro_torch.models import transformer as tfm
+from repro_torch.models.common import apply_norm
 
 Tensor = torch.Tensor
 
@@ -89,12 +104,17 @@ class LayerReport:
     # host time spent dispatching this leaf's solve (the walk does not
     # wait for the device, so this is not its compute time)
     dispatch_seconds: float = 0.0
+    # comma-joined guard-event kinds for this leaf ("" = no intervention)
+    guard: str = ""
 
 
 @dataclass
 class QuantReport:
     layers: List[LayerReport] = field(default_factory=list)
     wall_seconds: float = 0.0   # whole walk, host clock, before the sync
+    # every numeric-guard intervention of the run (core/guards.GuardEvent);
+    # empty on a healthy run
+    guard_events: List[GuardEvent] = field(default_factory=list)
 
     def total_improvement(self) -> float:
         b = sum(r.err_before for r in self.layers)
@@ -106,11 +126,16 @@ class QuantReport:
 # solver dispatch + shared-tap fused solves
 # ---------------------------------------------------------------------------
 
-def solve(h: Tensor, w2d: Tensor, spec: QuantSpec, method: str = "comq"):
+def solve(h: Tensor, w2d: Tensor, spec: QuantSpec, method: str = "comq",
+          block: int = 256, schedule: Optional[str] = None):
+    """`schedule` applies to comq_blocked only (None = trailing); the
+    guards' fallback chain retries a failed trailing solve on the
+    per-panel-refresh schedule."""
     if method == "comq":
         return comq_quantize_h(h, w2d, spec)
     if method == "comq_blocked":
-        return comq_quantize_blocked(h, w2d, spec)
+        return comq_quantize_blocked(h, w2d, spec, block=block,
+                                     schedule=schedule or "trailing")
     if method == "rtn":
         return rtn_quantize(w2d, spec, h=h)
     if method == "gptq":
@@ -153,36 +178,79 @@ def _norm_of(e2: Tensor) -> Tensor:
     return torch.sqrt(torch.clamp(torch.sum(e2), min=0.0))
 
 
-def _solve_group(ws, h: Tensor, spec: QuantSpec, method: str):
-    """Solve the weight leaves `ws`, all calibrated by the Gram h. When
-    fusion is exact (`_fusable`) they are solved as one column-concatenated
-    matrix and split back; otherwise each leaf solves alone (comq_blocked
-    with the shared greedy order always does). Returns
+def _uniform(specs) -> bool:
+    return all(s == specs[0] for s in specs)
+
+
+def _solve_group(ws, h: Tensor, specs, method: str, block: int = 256, *,
+                 gctx: Optional[GuardContext] = None, layer: int = -1,
+                 names=None):
+    """Solve the weight leaves `ws`, all calibrated by the Gram h, each
+    under its own resolved spec (`specs`, same length).
+
+    When the specs agree and fusion is exact (`_fusable`) the leaves are
+    solved as one column-concatenated matrix and split back; otherwise
+    each leaf solves alone — a mixed-bit group always does, since the grid
+    init depends on the width. With an enabled `gctx` one health check
+    sanitizes non-finite values in H and the weights and counts dead Gram
+    columns, and the solves go through `guarded_solve`; a healthy group
+    runs the unguarded computation. Returns
     [(qtensor, err_before, err_after, seconds), ...]."""
     m = h.shape[0]
     w2ds = [_w2d(w, m) for w in ws]
-    if len(ws) > 1 and _fusable(spec, method):
+    spec0 = specs[0]
+    guarding = gctx is not None and gctx.enabled
+    if names is None:
+        names = [f"leaf{i}" for i in range(len(ws))]
+    if guarding:
+        n_bad_h, n_dead, n_bad_ws = _guards.gram_health(h, w2ds)
+        if n_bad_h:
+            h = _guards.zero_nonfinite(h)
+            for nm in names:
+                gctx.record(layer, nm, "nonfinite_gram", count=n_bad_h)
+        for i, (nb, nm) in enumerate(zip(n_bad_ws, names)):
+            if nb:
+                w2ds[i] = _guards.zero_nonfinite(w2ds[i])
+                gctx.record(layer, nm, "nonfinite_weight", count=nb)
+        if n_dead:
+            for nm in names:
+                gctx.record(layer, nm, "dead_columns", warn=False,
+                            count=n_dead)
+
+    if len(ws) > 1 and _uniform(specs) and _fusable(spec0, method):
         t0 = time.time()
         wcat = torch.cat([w.float() for w in w2ds], dim=1)
-        r = solve(h, wcat, spec, method)
+        if guarding:
+            r = guarded_solve(h, wcat, spec0, method, block=block, gctx=gctx,
+                              layer=layer, names=names, solve_fn=solve,
+                              presanitized=True)
+        else:
+            r = solve(h, wcat, spec0, method, block=block)
         e2_after = _col_err2(h, wcat, r.q.float() * r.delta)
-        rt = rtn_quantize(wcat, spec)
+        rt = rtn_quantize(wcat, spec0)
         e2_before = _col_err2(h, wcat, rt.q.float() * rt.delta)
         secs = (time.time() - t0) / len(ws)
         out, lo = [], 0
         for w, w2d in zip(ws, w2ds):
             hi = lo + w2d.shape[1]
             qt = make_qtensor(r.q[:, lo:hi], r.delta[lo:hi], r.z_lo[lo:hi],
-                              w.shape, bits=spec.bits)
+                              w.shape, bits=spec0.bits)
             out.append((qt, _norm_of(e2_before[lo:hi]),
                         _norm_of(e2_after[lo:hi]), secs))
             lo = hi
         return out
     out = []
-    for w, w2d in zip(ws, w2ds):
+    for i, (w, w2d, spec) in enumerate(zip(ws, w2ds, specs)):
         t0 = time.time()
-        r = solve(h, w2d, spec, method)
+        # err_before, and the guards' reference error
         rt = rtn_quantize(w2d, spec, h=h)
+        if guarding:
+            r = guarded_solve(h, w2d, spec, method, block=block, gctx=gctx,
+                              layer=layer, names=names[i:i + 1],
+                              solve_fn=solve, presanitized=True,
+                              ref_err=rt.errors[-1])
+        else:
+            r = solve(h, w2d, spec, method, block=block)
         qt = make_qtensor(r.q, r.delta, r.z_lo, w.shape, bits=spec.bits)
         out.append((qt, rt.errors[-1], r.errors[-1], time.time() - t0))
     return out
@@ -204,39 +272,93 @@ def _set_nested(lp, mod, leaf, value):
     return lp
 
 
-def _staged_cb(lp, groups, taps, spec: QuantSpec, method: str,
-               pending: List[tuple], layer_idx: int, holder: dict):
+def _group_specs(resolve, layer_idx: int, entries):
+    """Resolved per-leaf specs for one tap group, in entry order."""
+    return [resolve(layer_idx, f"{mod}.{leaf}") for mod, leaf in entries]
+
+
+def _sanitize_tap(gctx: GuardContext, tap: Tensor, layer: int,
+                  names) -> Tensor:
+    """Tap-collection NaN/Inf sentinel: zero (and record) non-finite
+    activations before they reach the Gram."""
+    if not gctx.enabled:
+        return tap
+    n_bad = _guards.nonfinite_count(tap)
+    if n_bad:
+        tap = _guards.zero_nonfinite(tap)
+        for nm in names:
+            gctx.record(layer, nm, "nonfinite_tap", count=n_bad)
+    return tap
+
+
+def _solve_tap_group(lp, entries, tap: Tensor, resolve, method: str,
+                     layer_idx: int, gctx: GuardContext):
+    """Sanitize the tap, take its Gram and solve its leaf group. Returns
+    [(mod, leaf, name, (qt, eb, ea, secs)), ...]."""
+    names = [f"{mod}.{leaf}" for mod, leaf in entries]
+    ws = [lp[mod][leaf] for mod, leaf in entries]
+    specs = _group_specs(resolve, layer_idx, entries)
+    h = calibrate.gram_from_tap(_sanitize_tap(gctx, tap, layer_idx, names))
+    results = _solve_group(ws, h, specs, method, gctx=gctx, layer=layer_idx,
+                           names=names)
+    return [(mod, leaf, nm, res)
+            for (mod, leaf), nm, res in zip(entries, names, results)]
+
+
+def _staged_cb(lp, groups, taps, resolve, method: str,
+               pending: List[tuple], layer_idx: int, holder: dict,
+               gctx: GuardContext):
     """The staged `quantize_cb`: invoked by the model's tap hooks
     mid-forward, right after tap `tapname` is recorded. Solves the tap's
-    leaf group, stashes the QTensors in `holder`, and returns dequantized
-    replacements so the rest of the forward runs on the quantized
-    sub-blocks."""
+    leaf group (each leaf under its resolved spec), stashes the QTensors
+    in `holder`, and returns dequantized replacements so the rest of the
+    forward runs on the quantized sub-blocks."""
     def cb(tapname: str):
         entries = groups.get(tapname)
         if not entries:
             return {}
-        ws = [lp[mod][leaf] for mod, leaf in entries]
-        h = calibrate.gram_from_tap(taps[tapname])
         repl = {}
-        for (mod, leaf), (qt, eb, ea, secs) in zip(
-                entries, _solve_group(ws, h, spec, method)):
+        for mod, leaf, nm, (qt, eb, ea, secs) in _solve_tap_group(
+                lp, entries, taps[tapname], resolve, method, layer_idx,
+                gctx):
             holder["lp_q"] = _set_nested(holder["lp_q"], mod, leaf, qt)
-            pending.append((layer_idx, f"{mod}.{leaf}", eb, ea, secs))
+            pending.append((layer_idx, nm, eb, ea, secs))
             repl[leaf] = dequant_qtensor(qt)
         return repl
     return cb
 
 
-def _quantize_layer_staged(lp, x, cfg, plan, tapmap, spec, method: str,
-                           pending: List[tuple], layer_idx: int):
+def _quantize_layer_staged(lp, x, cfg, plan, tapmap, resolve, method: str,
+                           pending: List[tuple], layer_idx: int,
+                           gctx: GuardContext):
     """One `layer_full` evaluation quantizes the layer in tap order and
     propagates x through the quantized sub-blocks. Returns (lp_q, new_x)."""
     taps: Dict[str, Tensor] = {}
     holder = {"lp_q": lp}
-    cb = _staged_cb(lp, _tap_groups(lp, tapmap), taps, spec, method,
-                    pending, layer_idx, holder)
+    cb = _staged_cb(lp, _tap_groups(lp, tapmap), taps, resolve, method,
+                    pending, layer_idx, holder, gctx)
     y, _ = tfm.layer_full(lp, x, cfg, plan, False, taps=taps, quantize_cb=cb)
     return holder["lp_q"], y
+
+
+def _quantize_layer_legacy(lp, x, cfg, plan, tapmap, resolve, method: str,
+                           pending: List[tuple], layer_idx: int,
+                           gctx: GuardContext):
+    """Legacy schedule: a float forward collects every tap of the layer,
+    each tap group is solved from its Gram, and a second
+    forward propagates x through the quantized layer. Returns
+    (lp_q, new_x)."""
+    taps: Dict[str, Tensor] = {}
+    tfm.layer_full(lp, x, cfg, plan, False, taps=taps)
+    lp_q = dict(lp)
+    for tapname, entries in _tap_groups(lp, tapmap).items():
+        for mod, leaf, nm, (qt, eb, ea, secs) in _solve_tap_group(
+                lp, entries, taps[tapname], resolve, method, layer_idx,
+                gctx):
+            lp_q = _set_nested(lp_q, mod, leaf, qt)
+            pending.append((layer_idx, nm, eb, ea, secs))
+    y, _ = tfm.layer_full(dequantize_tree(lp_q), x, cfg, plan, False)
+    return lp_q, y
 
 
 def _finalize_report(report: QuantReport, pending: List[tuple]):
@@ -258,40 +380,72 @@ def _calib_leaf_dims(cfg) -> Dict[str, int]:
             "down_in": cfg.d_ff}
 
 
-def quantize_model(params, cfg, plan, tokens: Tensor, spec: QuantSpec,
-                   method: str = "comq"):
-    """Quantize every projection weight of a dense LM on the staged
-    schedule. `tokens`: (B, T) calibration batch on the params' device.
+def quantize_model(params, cfg, plan, tokens: Tensor, spec,
+                   method: str = "comq", quantize_unembed: bool = False,
+                   propagation: str = "staged", *, guards: bool = True):
+    """Quantize every projection weight of a dense LM. `tokens`: (B, T)
+    calibration batch on the params' device.
+
+    `spec` is a QuantSpec (every leaf gets it) or a `core.policy.
+    QuantPolicy`, which resolves a spec per leaf (only the bit width
+    varies). propagation="staged" (default) runs one forward per layer;
+    "legacy" the two-forward schedule. quantize_unembed also solves the
+    unembedding on the final-norm activations. guards=True runs the
+    numeric guards (core/guards.py): a healthy run gives the same codes as
+    guards=False, and every intervention lands in
+    QuantReport.guard_events and the leaf's LayerReport.guard.
 
     Returns (qparams, QuantReport): qparams is `params` plus a
     "__qlayers__" side table {str(layer): layer params with QTensor
-    leaves}; use `materialize` (dense) or `core.apply.serving_params`
-    (packed) to run it."""
+    leaves} (and a QTensor "unembed" with quantize_unembed); use
+    `materialize` (dense) or `core.apply.serving_params` (packed) to run
+    it."""
     from repro_torch.data import check_calib_coverage, validate_calib_tokens
     from repro_torch.models.model import embed_tokens
-    if not isinstance(spec, QuantSpec):
-        raise NotImplementedError(
-            "per-leaf quantization policies are not ported to repro_torch "
-            "yet; pass a QuantSpec")
+    if propagation not in ("staged", "legacy"):
+        raise ValueError(f"unknown propagation {propagation!r}")
+    policy = as_policy(spec)
+    n_layers = cfg.n_layers
+
+    def resolve(layer_idx: int, name: str) -> QuantSpec:
+        return policy.resolve(name, layer_idx, n_layers)
+
     tapmap = taps_for(cfg)
     validate_calib_tokens(tokens, vocab_size=cfg.vocab_size)
     check_calib_coverage(int(tokens.shape[0]) * int(tokens.shape[1]),
                          _calib_leaf_dims(cfg))
+    layer_fn = (_quantize_layer_staged if propagation == "staged"
+                else _quantize_layer_legacy)
 
+    gctx = GuardContext(enabled=guards)
     t_start = time.time()
     report = QuantReport()
     pending: List[tuple] = []
     table = {}
+    qparams = dict(params)
     with torch.no_grad():
         x = embed_tokens(params, cfg, plan, tokens)
         for l, lp in enumerate(params["layers"]):
-            lp_q, x = _quantize_layer_staged(lp, x, cfg, plan, tapmap, spec,
-                                             method, pending, l)
+            lp_q, x = layer_fn(lp, x, cfg, plan, tapmap, resolve, method,
+                               pending, l, gctx)
             table[str(l)] = lp_q
-    qparams = dict(params)
+        if quantize_unembed and "unembed" in params:
+            names = ["unembed"]
+            xn = _sanitize_tap(gctx, apply_norm(params["final_norm"], x,
+                                                cfg), -1, names)
+            qt, eb, ea, secs = _solve_group(
+                [params["unembed"]], calibrate.gram_from_tap(xn),
+                [resolve(-1, "unembed")], method, gctx=gctx, layer=-1,
+                names=names)[0]
+            qparams["unembed"] = qt
+            pending.append((-1, "unembed", eb, ea, secs))
     qparams["__qlayers__"] = table
     _finalize_report(report, pending)
     report.wall_seconds = time.time() - t_start
+    report.guard_events = list(gctx.events)
+    gmap = gctx.by_leaf()
+    for lr in report.layers:
+        lr.guard = gmap.get((lr.layer, lr.name), "")
     return qparams, report
 
 

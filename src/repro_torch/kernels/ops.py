@@ -88,6 +88,7 @@ def reset_launch_counts() -> None:
     for mod, _, count in KERNELS:
         setattr(mod, count, 0)
     _paged.launches_quant_tc = 0     # the tensor-core share of launches_quant
+    _qmm.launches_by_cpb = dict.fromkeys(_qmm.launches_by_cpb, 0)
 
 
 def launch_counts() -> dict:

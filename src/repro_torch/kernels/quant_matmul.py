@@ -33,6 +33,7 @@ from repro_torch.kernels import build, ref
 Tensor = torch.Tensor
 NAME = "quant_matmul"
 launches = 0     # kernel launches since the last reset (chip_smoke reads it)
+launches_by_cpb = {1: 0, 2: 0, 4: 0}   # the same launches by code packing
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
              + [ctypes.c_int] * 6 + [ctypes.c_void_p])
@@ -118,4 +119,5 @@ def quant_matmul_cuda(x: Tensor, codes: Tensor, scale: Tensor, z_lo: Tensor,
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(NAME, rc)
     launches += 1
+    launches_by_cpb[cpb] += 1
     return y

@@ -4,6 +4,10 @@ calibrate → quantize → pack, then the fp and quantized eval loss.
     PYTHONPATH=src python -m repro_torch.launch.quantize --arch qwen2-7b \
         --smoke --method comq_blocked --bits 4 --device cpu
 
+    # per-leaf mixed precision, or a bits-per-param budget
+    ... --policy "*.w_down=8,first=8,last=8,kv=8"
+    ... --bits-budget 3.5 --policy kv=4
+
 Runs on the card unless `--device cpu` is given. Prints the JAX
 launcher's JSON summary keys (data_shards/model_shards are 1: the port
 runs on one device). Flags of the JAX launcher that this port does not
@@ -20,18 +24,20 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.ckpt import pack_tree, save_packed_ckpt, tree_bytes
+from repro_torch.ckpt import (pack_tree, policy_extra, save_packed_ckpt,
+                              tree_bytes)
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core import QuantSpec, materialize, quantize_model
+from repro_torch.core import (QuantPolicy, QuantSpec, materialize,
+                              parse_policy, policy_from_budget,
+                              quantize_model)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import BuildPlan, init_params, lm_loss
 
 # JAX launcher flags not ported yet, with whether each takes a value
-NOT_PORTED = {"--propagation": True, "--shard-data": False,
-              "--shard-solve": True, "--policy": True, "--bits-budget": True,
+NOT_PORTED = {"--shard-data": False, "--shard-solve": True,
               "--out-dir": True, "--journal": True, "--resume": False,
-              "--restarts": True, "--inject": True, "--no-guards": False,
-              "--trace": True, "--metrics": True}
+              "--restarts": True, "--inject": True, "--trace": True,
+              "--metrics": True}
 
 
 def set_precision() -> None:
@@ -47,9 +53,13 @@ class QuantizeRun:
     params: Any
     qparams: Any
     report: Any
-    spec: QuantSpec
+    spec: Any                   # the QuantSpec or the QuantPolicy solved
+    plan: BuildPlan             # with the policy's kv= rider applied
     calib_tokens: torch.Tensor
     eval_tokens: torch.Tensor
+    seconds: float              # quantize_model, synchronized, unrounded
+    alloc: Optional[Dict[str, int]] = None   # the --bits-budget allocation
+    sizes: Optional[Dict[str, int]] = None
 
 
 def _randint(seed: int, shape, high: int, dev) -> torch.Tensor:
@@ -57,33 +67,75 @@ def _randint(seed: int, shape, high: int, dev) -> torch.Tensor:
     return torch.randint(0, high, shape, generator=gen, device=dev)
 
 
+def resolve_policy(params, cfg, plan, tokens, base: QuantSpec,
+                   policy: Optional[str] = None, bits_budget: float = 0.0):
+    """The launcher's --policy / --bits-budget resolution, as the JAX
+    launcher does it: a budget allocation supersedes the bit rules but
+    keeps the kv= rider; kv=8 turns on the int8 static cache and int8
+    pages, kv=4 4-bit pages only. Returns (spec or policy, plan, alloc,
+    sizes)."""
+    spec, alloc, sizes = base, None, None
+    parsed = parse_policy(policy, base) if policy else None
+    if bits_budget:
+        if parsed is not None and (parsed.rules
+                                   or parsed.first_layer_bits is not None
+                                   or parsed.last_layer_bits is not None):
+            print("# note: --bits-budget supersedes the --policy bit "
+                  "rules; only its kv= rider is kept")
+        kv = parsed.kv_bits if parsed is not None else 0
+        spec, alloc, sizes = policy_from_budget(params, cfg, plan, tokens,
+                                                base, bits_budget,
+                                                kv_bits=kv)
+        hist: Dict[int, int] = {}
+        for b in alloc.values():
+            hist[b] = hist.get(b, 0) + 1
+        print(f"# bit allocation under {bits_budget} bits/param: "
+              f"{dict(sorted(hist.items()))}")
+    elif parsed is not None:
+        spec = parsed
+    if spec is not base and spec.kv_bits:
+        if spec.kv_bits not in (4, 8):
+            raise ValueError(f"kv={spec.kv_bits} unsupported (0, 4 or 8)")
+        if spec.kv_bits == 8:
+            plan = plan.replace(cache_quant=True)
+        plan = plan.replace(kv_bits=spec.kv_bits)
+    return spec, plan, alloc, sizes
+
+
 def quantize_and_eval(cfg, *, bits: int = 4,
                       granularity: str = "per_channel",
                       order: str = "greedy", sweeps: int = 3,
                       lam: float = 0.9, method: str = "comq",
                       calib_batch: int = 8, calib_seq: int = 128,
+                      policy: Optional[str] = None, bits_budget: float = 0.0,
+                      guards: bool = True, propagation: str = "staged",
                       save_packed: Optional[str] = None,
                       device: DeviceLike = None) -> QuantizeRun:
     """Init `cfg` from seed 0, quantize it on random calibration ids
-    (seed 0), and evaluate fp vs quantized loss on a held-out batch
-    (seed 7) — the JAX launcher's run."""
+    (seed 0) under `--bits` or the policy, and evaluate fp vs quantized
+    loss on a held-out batch (seed 7) — the JAX launcher's run."""
     dev = resolve_device(device)
     set_precision()
-    plan = BuildPlan()
     params = init_params(cfg, seed=0, device=dev)
     tokens = _randint(0, (calib_batch, calib_seq), cfg.vocab_size, dev)
-    spec = QuantSpec(bits=bits, granularity=granularity, lam=lam,
+    base = QuantSpec(bits=bits, granularity=granularity, lam=lam,
                      sweeps=sweeps, order=order)
+    spec, plan, alloc, sizes = resolve_policy(params, cfg, BuildPlan(),
+                                              tokens, base, policy,
+                                              bits_budget)
     t0 = time.time()
     qparams, report = quantize_model(params, cfg, plan, tokens, spec,
-                                     method=method)
+                                     method=method, propagation=propagation,
+                                     guards=guards)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.time() - t0
 
     packed = pack_tree(qparams["__qlayers__"])
     if save_packed:
-        save_packed_ckpt(save_packed, packed, arch=cfg.name, bits=bits)
+        save_packed_ckpt(save_packed, packed,
+                         **policy_extra(policy=spec, arch=cfg.name,
+                                        bits=bits))
 
     ev = _randint(7, (calib_batch, calib_seq), cfg.vocab_size, dev)
     batch = {"tokens": ev, "labels": ev}
@@ -94,8 +146,10 @@ def quantize_and_eval(cfg, *, bits: int = 4,
     dense_bytes = tree_bytes(params)
     summary = {
         "arch": cfg.name, "method": method, "bits": bits,
-        "mixed_policy": False, "bits_budget": None,
-        "propagation": "staged", "data_shards": 1, "model_shards": 1,
+        "mixed_policy": (isinstance(spec, QuantPolicy)
+                         and not spec.is_uniform()),
+        "bits_budget": bits_budget or None,
+        "propagation": propagation, "data_shards": 1, "model_shards": 1,
         "order": order, "granularity": granularity,
         "layers_quantized": len(report.layers),
         "comq_vs_rtn_error_improvement": round(report.total_improvement(), 4),
@@ -104,9 +158,11 @@ def quantize_and_eval(cfg, *, bits: int = 4,
         "ckpt_bytes": tree_bytes(packed),
         "dense_bytes": dense_bytes,
         "compression": round(dense_bytes / max(tree_bytes(packed), 1), 1),
-        "guard_events": 0, "resumed_leaves": 0, "faults_fired": 0,
+        "guard_events": len(report.guard_events), "resumed_leaves": 0,
+        "faults_fired": 0,
     }
-    return QuantizeRun(summary, params, qparams, report, spec, tokens, ev)
+    return QuantizeRun(summary, params, qparams, report, spec, plan, tokens,
+                       ev, dt, alloc, sizes)
 
 
 class NotPorted(argparse.Action):
@@ -142,6 +198,23 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["comq", "comq_blocked", "rtn", "gptq"])
     ap.add_argument("--calib-batch", type=int, default=8)
     ap.add_argument("--calib-seq", type=int, default=128)
+    ap.add_argument("--propagation", default="staged",
+                    choices=["staged", "legacy"],
+                    help="staged = one forward per layer (default); "
+                         "legacy = the two-forward schedule")
+    ap.add_argument("--policy", default=None, metavar="RULES",
+                    help="per-leaf mixed-precision rules, e.g. "
+                         "'*.w_down=8,first=8,last=8,kv=8' — patterns "
+                         "match '{layer}.{leaf}' then the bare leaf name "
+                         "(core/policy.py; --bits stays the base width)")
+    ap.add_argument("--bits-budget", type=float, default=0.0, metavar="BPP",
+                    help="allocate per-leaf bit widths (2/3/4/8) under "
+                         "this bits-per-param budget with the greedy "
+                         "backprop-free knapsack on layerwise H-space "
+                         "errors (overrides the --policy bit rules)")
+    ap.add_argument("--no-guards", action="store_true",
+                    help="disable the numeric guards (core/guards.py); "
+                         "healthy runs give the same codes either way")
     ap.add_argument("--save-packed", default=None, metavar="PATH",
                     help="save the packed tree as one atomic checksummed "
                          "file (readable by the JAX package)")
@@ -158,6 +231,8 @@ def main(argv=None) -> Dict[str, Any]:
         cfg, bits=args.bits, granularity=args.granularity, order=args.order,
         sweeps=args.sweeps, lam=args.lam, method=args.method,
         calib_batch=args.calib_batch, calib_seq=args.calib_seq,
+        policy=args.policy, bits_budget=args.bits_budget,
+        guards=not args.no_guards, propagation=args.propagation,
         save_packed=args.save_packed, device=args.device)
     print(json.dumps(run.summary))
     return run.summary

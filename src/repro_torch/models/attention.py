@@ -5,9 +5,10 @@
   — the Hopper kernel for CUDA tensors, its plain f32 version on the CPU.
   The JAX model used a jnp pair-scan here; the port makes the kernel the
   card's implementation. The non-causal branch stays `_dense_attention`.
-* Decode attends over a bf16 (B, S, KV, hd) cache with a position mask.
-  Caches are updated in place (one write per step instead of a copy of
-  the whole cache).
+* Decode attends over a (B, S, KV, hd) cache with a position mask: bf16,
+  or int8 codes with per-entry scales (`BuildPlan.cache_quant`),
+  dequantized before the attention. Caches are updated in place (one
+  write per step instead of a copy of the whole cache).
 * Paged decode (the serving runtime) writes one row per slot into a page
   pool, bf16/f32 or quantized, in place, and attends through
   `kernels.ops.paged_attention[_quant]`.
@@ -167,62 +168,110 @@ def _dense_attention(q: Tensor, k: Tensor, v: Tensor, head_map: Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# KV cache (bf16; full caches and SWA ring buffers)
+# KV cache (bf16 or int8; full caches and SWA ring buffers)
 # ---------------------------------------------------------------------------
 
 class KVCache(NamedTuple):
     k: Tensor          # (B, S_cache, KV, hd) — rope pre-applied
     v: Tensor          # (B, S_cache, KV, hd)
     pos: Tensor        # (B, S_cache) absolute positions, -1 = empty
+    # int8 cache (BuildPlan.cache_quant): k/v hold int8 codes and these
+    # the per-entry absmax/127 scales, (B, S_cache, KV) f32
+    k_scale: Optional[Tensor] = None
+    v_scale: Optional[Tensor] = None
 
 
 def init_kv_cache(batch: int, cache_len: int, n_kv: int, hd: int,
-                  dtype=torch.bfloat16, device=None) -> KVCache:
+                  dtype=torch.bfloat16, device=None,
+                  quantized: bool = False) -> KVCache:
+    pos = torch.full((batch, cache_len), -1, dtype=torch.int32,
+                     device=device)
+    if quantized:
+        shape = (batch, cache_len, n_kv, hd)
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device), pos=pos,
+            k_scale=torch.zeros(shape[:3], dtype=torch.float32,
+                                device=device),
+            v_scale=torch.zeros(shape[:3], dtype=torch.float32,
+                                device=device))
     return KVCache(
         k=torch.zeros(batch, cache_len, n_kv, hd, dtype=dtype, device=device),
         v=torch.zeros(batch, cache_len, n_kv, hd, dtype=dtype, device=device),
-        pos=torch.full((batch, cache_len), -1, dtype=torch.int32,
-                       device=device),
-    )
+        pos=pos)
+
+
+def _q8_kv(x: Tensor):
+    """(..., hd) -> int8 codes and the per-vector f32 scale absmax/127.
+    `torch.round` rounds half to even, as `jnp.round` does."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=-1)
+    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dq8_kv(q: Tensor, scale: Tensor, dtype) -> Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
 
 
 def cache_insert(cache: KVCache, k_new: Tensor, v_new: Tensor,
                  pos: int) -> KVCache:
-    """Write one token (B, 1, KV, hd) at absolute position `pos`, in place.
-    Ring semantics: slot = pos % cache_len."""
+    """Write one token (B, 1, KV, hd) at absolute position `pos`, in place
+    (quantized to int8 codes + scales for an int8 cache). Ring semantics:
+    slot = pos % cache_len."""
     slot = int(pos) % cache.k.shape[1]
-    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+    if cache.k_scale is not None:
+        for codes, scales, new in ((cache.k, cache.k_scale, k_new),
+                                   (cache.v, cache.v_scale, v_new)):
+            q, sc = _q8_kv(new[:, 0])
+            codes[:, slot] = q
+            scales[:, slot] = sc
+    else:
+        cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
     cache.pos[:, slot] = int(pos)
     return cache
 
 
 def cache_prefill(cache: KVCache, k: Tensor, v: Tensor) -> KVCache:
     """Write a full prefix (B, T, KV, hd) into the cache (ring-aware), in
-    place."""
+    place; an int8 cache takes codes and per-entry scales."""
     B, T = k.shape[0], k.shape[1]
     S = cache.k.shape[1]
+    if cache.k_scale is not None:
+        (kq, ks), (vq, vs) = _q8_kv(k), _q8_kv(v)
+        pairs = ((cache.k, kq), (cache.v, vq), (cache.k_scale, ks),
+                 (cache.v_scale, vs))
+    else:
+        pairs = ((cache.k, k.to(cache.k.dtype)),
+                 (cache.v, v.to(cache.v.dtype)))
     if T <= S:
-        cache.k[:, :T] = k.to(cache.k.dtype)
-        cache.v[:, :T] = v.to(cache.v.dtype)
+        for dst, src in pairs:
+            dst[:, :T] = src
         cache.pos[:, :T] = torch.arange(T, dtype=torch.int32,
                                         device=k.device)
         return cache
     # ring: keep the last S positions, rotated so that slot = pos % S
     shift = (T - S) % S
     pos = torch.arange(T - S, T, dtype=torch.int32, device=k.device)
-    cache.k.copy_(torch.roll(k[:, -S:].to(cache.k.dtype), shift, 1))
-    cache.v.copy_(torch.roll(v[:, -S:].to(cache.v.dtype), shift, 1))
+    for dst, src in pairs:
+        dst.copy_(torch.roll(src[:, -S:], shift, 1))
     cache.pos.copy_(torch.roll(pos, shift, 0).expand(B, S))
     return cache
 
 
 def decode_attend(q: Tensor, cache: KVCache, head_map: Tensor, *,
                   pos: int, window: int = 0) -> Tensor:
-    """q: (B, 1, Hp, hd) at absolute position `pos`."""
+    """q: (B, 1, Hp, hd) at absolute position `pos`. An int8 cache is
+    dequantized to q's dtype first."""
     B = q.shape[0]
     qp = torch.full((B, 1), int(pos), dtype=torch.int32, device=q.device)
-    return _dense_attention(q, cache.k, cache.v, head_map, causal=True,
+    k, v = cache.k, cache.v
+    if cache.k_scale is not None:
+        k = _dq8_kv(k, cache.k_scale, q.dtype)
+        v = _dq8_kv(v, cache.v_scale, q.dtype)
+    return _dense_attention(q, k, v, head_map, causal=True,
                             window=window, q_positions=qp,
                             kv_positions=cache.pos, kv_valid=cache.pos >= 0)
 

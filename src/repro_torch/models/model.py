@@ -127,12 +127,12 @@ def cache_len_for(cfg, seq_len: int) -> int:
 def init_cache(cfg, plan: BuildPlan, batch: int, seq_len: int,
                device: DeviceLike = None):
     """An empty per-layer cache list for decode at context length
-    seq_len."""
+    seq_len (int8 codes and scales with `plan.cache_quant`)."""
     dev = resolve_device(device)
     clen = cache_len_for(cfg, seq_len)
     return {"kv": [init_kv_cache(batch, clen, cfg.n_kv_heads,
                                  cfg.resolved_head_dim, plan.cache_dtype,
-                                 dev)
+                                 dev, quantized=plan.cache_quant)
                    for _ in range(cfg.n_layers)]}
 
 

@@ -3,8 +3,8 @@
 
 Layers run one at a time from a per-layer list of param dicts (the JAX
 package scans stacked params). `BuildPlan` keeps the facts the dense path
-reads: the KV-cache dtype, the prefill cache length and the paged pool's
-code width. The port runs on one device, so there is no TP head or vocab
+reads: the KV-cache dtype or its int8 form, the prefill cache length and
+the paged pool's code width. The port runs on one device, so there is no TP head or vocab
 padding (the JAX plan's tp=1).
 """
 from __future__ import annotations
@@ -29,6 +29,7 @@ Tensor = torch.Tensor
 @dataclass(frozen=True)
 class BuildPlan:
     cache_dtype: torch.dtype = torch.bfloat16
+    cache_quant: bool = False    # int8 KV cache (per-entry absmax scales)
     # prefill cache capacity (0 -> prompt length); decode callers set
     # prompt+max_new so decode continues without ring eviction
     prefill_cache_len: int = 0
@@ -91,7 +92,8 @@ def _self_attention_full(p, x, cfg, plan, make_cache: bool, taps=None,
         else:
             clen = max(plan.prefill_cache_len, T)
         cache = init_kv_cache(B, clen, cfg.n_kv_heads, cfg.resolved_head_dim,
-                              plan.cache_dtype, x.device)
+                              plan.cache_dtype, x.device,
+                              quantized=plan.cache_quant)
         cache = cache_prefill(cache, k, v)
     return attn_mod.out_project(ap, o), cache
 

@@ -101,9 +101,16 @@ class Runtime:
                     f"Runtime({name}=...) is not yet ported to repro_torch "
                     "(see ROADMAP.md Queue A)")
         check_dense(cfg)
+        # the paged path quantizes pages, not the static engine's per-entry
+        # int8 cache: an int8 cache plan means int8 pages, and the prefill
+        # forwards must produce float rows for write_prefill to quantize
         kv_bits = int(getattr(plan, "kv_bits", 0) or 0)
+        if plan.cache_quant and kv_bits == 0:
+            kv_bits = 8
         if kv_bits not in (0, 4, 8):
             raise ValueError(f"kv_bits must be 0, 4 or 8, got {kv_bits}")
+        if kv_bits:
+            plan = plan.replace(cache_quant=False, kv_bits=kv_bits)
         self.kv_bits = kv_bits
         self.device = resolve_device(device)
         check_params_device(params, self.device)

@@ -104,7 +104,7 @@ def test_cuda_default_raises_without_a_card():
         quantize.main(["--arch", "qwen2-7b", "--smoke"])
 
 
-@pytest.mark.parametrize("flag", ["--journal", "--shard-data", "--policy"])
+@pytest.mark.parametrize("flag", ["--journal", "--shard-data", "--trace"])
 def test_launcher_rejects_unported_flags(flag, capsys):
     from repro_torch.launch import quantize
     argv = ["--arch", "qwen2-7b", "--smoke", "--device", "cpu", flag]

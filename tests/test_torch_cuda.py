@@ -24,23 +24,33 @@ def cuda():
     return torch.device("cuda")
 
 
+def _code_range(bits: int):
+    """(z_lo, z_hi, spread): the code range of a b-bit grid centred on 0,
+    and how much wider its codes are than 4-bit ones (so a step δ is that
+    much finer): the ranges a policy solves at."""
+    return -(2 ** (bits - 1)), 2 ** (bits - 1) - 1, (2 ** bits - 1) / 15
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
 @pytest.mark.parametrize("B,n", [(256, 512), (56, 100), (37, 33)])
-def test_panel_matches_plain(cuda, B, n):
+def test_panel_matches_plain(cuda, B, n, bits):
+    lo, hi, spread = _code_range(bits)
     g = torch.Generator(device=cuda).manual_seed(B + n)
     x = torch.randn(4 * B, B, generator=g, device=cuda)
     h_bb = x.T @ x / (4 * B) + 0.1 * torch.eye(B, device=cuda)
     h_bb[-3:, :] = 0
     h_bb[:, -3:] = 0                      # padded rows keep their code
     args = (h_bb, torch.randn(B, n, generator=g, device=cuda),
-            torch.randn(B, n, generator=g, device=cuda) * 3,
-            torch.rand(n, generator=g, device=cuda) * 0.15 + 0.05,
-            torch.full((n,), -8.0, device=cuda),
-            torch.full((n,), 7.0, device=cuda),
+            torch.randn(B, n, generator=g, device=cuda) * 3 * spread,
+            (torch.rand(n, generator=g, device=cuda) * 0.15 + 0.05) / spread,
+            torch.full((n,), float(lo), device=cuda),
+            torch.full((n,), float(hi), device=cuda),
             torch.diagonal(h_bb).contiguous())
     qk, dk = comq_panel.comq_panel_dq_cuda(*args)
     qp, dp = comq_panel.comq_panel_dq_plain(*args)
     assert float((qk == qp).float().mean()) >= 0.999
-    assert torch.equal(qk[-3:], torch.clamp(torch.round(args[2][-3:]), -8, 7))
+    assert torch.equal(qk[-3:], torch.clamp(torch.round(args[2][-3:]), lo,
+                                            hi))
     assert torch.equal(dk[-3:], (qk[-3:] - args[2][-3:]) * args[3])
 
 
@@ -113,11 +123,15 @@ def test_flash_bf16_reads_strided_views(cuda):
 
 
 @pytest.mark.parametrize("M,K,N", [(8, 3584, 512), (5, 300, 44),
-                                   (70, 1000, 24)])
-@pytest.mark.parametrize("bits", [8, 4, 2])
-def test_quant_matmul_matches_plain(cuda, M, K, N, bits):
+                                   (70, 1000, 24), (8, 18944, 3584)])
+@pytest.mark.parametrize("bits", [8, 4, 3, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_matches_plain(cuda, M, K, N, bits, dtype):
+    """Every code width a policy stores (3-bit codes at cpb 2, values
+    0..7), including the model's 8-bit w_down (K=18944, N=3584, cpb 1)
+    and 2-bit wk (K=3584, N=512, cpb 4), with f32 and bf16 X."""
     g = torch.Generator(device=cuda).manual_seed(M + K + N + bits)
-    x = torch.randn(M, K, generator=g, device=cuda)
+    x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
     u = torch.randint(0, 2 ** bits, (K, N), generator=g, device=cuda,
                       dtype=torch.uint8)
     scale = torch.rand(N, generator=g, device=cuda) * 0.04 + 0.01
@@ -175,27 +189,30 @@ def test_quant_matmul_tiling_edges(cuda, M, bits, dtype):
     assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
 @pytest.mark.parametrize("B,n", [(16, 1), (40, 5), (100, 130), (255, 4097),
                                  (256, 20000)])
-def test_panel_tiling_edges(cuda, B, n):
+def test_panel_tiling_edges(cuda, B, n, bits):
     """B below 256 and off the 16-row sub-panels, n off every column
-    tile (4-32 a block), rows with h_tt <= 1e-12 inside the panel."""
+    tile (4-32 a block), rows with h_tt <= 1e-12 inside the panel, at the
+    code ranges of 2-, 3-, 4- and 8-bit leaves."""
+    lo, hi, spread = _code_range(bits)
     g = torch.Generator(device=cuda).manual_seed(B * 7 + n)
     x = torch.randn(4 * B, B, generator=g, device=cuda)
     h_bb = x.T @ x / (4 * B) + 0.1 * torch.eye(B, device=cuda)
     dead = torch.arange(B, device=cuda) % 13 == 5     # h_tt = 0 rows
     h_bb[dead, :] = 0
     h_bb[:, dead] = 0
-    qf = torch.randn(B, n, generator=g, device=cuda) * 3
-    delta = torch.rand(n, generator=g, device=cuda) * 0.15 + 0.05
+    qf = torch.randn(B, n, generator=g, device=cuda) * 3 * spread
+    delta = (torch.rand(n, generator=g, device=cuda) * 0.15 + 0.05) / spread
     args = (h_bb, torch.randn(B, n, generator=g, device=cuda), qf, delta,
-            torch.full((n,), -8.0, device=cuda),
-            torch.full((n,), 7.0, device=cuda),
+            torch.full((n,), float(lo), device=cuda),
+            torch.full((n,), float(hi), device=cuda),
             torch.diagonal(h_bb).contiguous())
     qk, dk = comq_panel.comq_panel_dq_cuda(*args)
     qp, _ = comq_panel.comq_panel_dq_plain(*args)
     assert float((qk == qp).float().mean()) >= 0.999
-    assert torch.equal(qk[dead], torch.clamp(torch.round(qf[dead]), -8, 7))
+    assert torch.equal(qk[dead], torch.clamp(torch.round(qf[dead]), lo, hi))
     assert torch.equal(dk, (qk - qf) * delta)
 
 
