@@ -64,11 +64,24 @@ no result line):
    3.5 bits a parameter, and 8 requests served at kv_bits 4.
    Phase 3 also holds comq_panel at the 2- and 8-bit code ranges and
    quant_matmul at 8-bit w_down and 2-bit wk shapes.
+10. moe — granite-moe-3b-a800m at full width (d_model 1536, 24/8 heads,
+   head_dim 64, 40 experts top-8, d_ff 512 an expert, vocab 49155),
+   n_layers cut 32 -> 4 (the only reduction). First its kernels: comq_panel
+   over 40 experts in one launch at B=256, n=512 / 1024 / 1536 against the
+   plain version and against 40 single-expert launches (bit for bit),
+   flash and both paged kernels at 24/8 heads, hd 64, quant_matmul at
+   K=1536, N=1536 / 512. Then the MoE path, counted: the launcher's
+   quantize (comq_blocked, 4-bit per-channel; per-expert Grams and one
+   panel launch a panel for all experts; seconds per layer), decode from
+   the packed codes against the plain versions (bf16, then f32 under the
+   precision gate), the phase-8 traffic at kv_bits 0, 8 and 4, and at f32
+   mixed == solo for all 16 requests.
 
 Launch counts: the quantize-and-decode path (phases 4-5), the serve path
-(phase 8) and the policy path (phase 9a) are each counted from 0; every
-kernel must launch on the main path as a whole. Then one JSON line of the
-kernels, and last the device line.
+(phase 8), the policy path (phase 9a) and the MoE path (phase 10) are each
+counted from 0; every kernel must launch on the main path as a whole, and
+each of the five on the MoE path. Then one JSON line of the kernels (the
+expert-batched panel launch as its own entry), and last the device line.
 """
 from __future__ import annotations
 
@@ -116,6 +129,11 @@ SERVE_PATH = ("flash_attention", "quant_matmul") + SERVE_NEW_KERNELS
 POLICY = "0.mlp.w_down=8,1.attn.wk=2,1.mlp.w_gate=3,kv=8"
 BUDGET = 3.5
 POLICY_PATH = SLICE1 + ("paged_attention_quant",)
+# phase 10: the MoE family at full width, depth cut to MOE_LAYERS
+MOE_ARCH, MOE_LAYERS = "granite-moe-3b-a800m", 4
+MOE_HEADS = (24, 8, 64)                # query heads, KV heads, head_dim
+MOE_PANEL_N = (512, 1024, 1536)        # w_gate / w_up alone, fused, w_down
+MOE_PATH = SLICE1 + SERVE_NEW_KERNELS
 
 
 class CheckFailed(RuntimeError):
@@ -272,13 +290,14 @@ def check_panel(torch, panel, dev, results):
                             bound_by=by, library_ms=None, max_abs_err=err)
 
 
-def check_flash(torch, flash, dev, results):
+def check_flash(torch, flash, dev, results, heads=(28, 4, 128), tag=()):
     """bf16 (the main path, tensor cores) at the quantize/decode shape
     B=8, T=128 and the serve-prefill shape B=1, T=512, each timed; then
-    the f32 (CUDA-core) kernel at B=8, T=128, checked only."""
+    the f32 (CUDA-core) kernel at B=8, T=128, checked only. `heads` is
+    (H, KV, hd); `tag` extends the result keys."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(2)
-    H, KV, hd = 28, 4, 128
+    H, KV, hd = heads
     for B, T in ((8, PROMPT), (1, SERVE_BUCKETS[-1])):
         q = torch.randn(B, T, H, hd, generator=gen, device=dev).bfloat16()
         k = torch.randn(B, T, KV, hd, generator=gen, device=dev).bfloat16()
@@ -309,7 +328,7 @@ def check_flash(torch, flash, dev, results):
             f"bound_ms {bms:.4f} ({by}), library_ms {lib} ({lib_note})")
         check(ok, f"flash_attention B={B} T={T} disagrees with its plain "
               f"version ({err})")
-        results[("flash_attention", B, T)] = dict(
+        results[("flash_attention", B, T) + tag] = dict(
             ms=t.ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
             library_ms=lib.ms if lib else None, max_abs_err=err)
     # the f32 instantiation (CUDA cores), the precision path of phase 5
@@ -328,14 +347,11 @@ def check_flash(torch, flash, dev, results):
           f"flash_attention f32 disagrees with its plain version ({err})")
 
 
-def check_qmm(torch, qmm, dev, results):
-    """f32 X (three bf16 planes in the kernel) at the decode shapes
-    (M=1 and 8), at M=1024 and at 8-/2-bit; bf16 X (what the bf16 decode
-    and serve paths hand over) at the decode shapes and M=1024. The bound
-    is the least time once codes are exact in bf16: max(bytes / HBM rate,
-    2*M*K*N / bf16 peak)."""
-    from repro_torch.core.quantizer import pack_codes, unpack_codes
-    gen = torch.Generator(device=dev).manual_seed(3)
+def qwen_qmm_cases(torch):
+    """(M, K, N, bits, X dtype) of phase 3: f32 X (three bf16 planes in
+    the kernel) at the decode shapes (M=1 and 8), at M=1024 and at
+    8-/2-bit; bf16 X (what the bf16 decode and serve paths hand over) at
+    the decode shapes and M=1024; the policy's widths at model shapes."""
     shapes = ((3584, 18944), (18944, 3584), (3584, 512))
     cases = [(M, K, N, 4, torch.float32) for M in (8, 1024)
              for K, N in shapes]
@@ -344,10 +360,18 @@ def check_qmm(torch, qmm, dev, results):
               (1, 3584, 18944, 4, torch.float32)]
     cases += [(M, K, N, 4, torch.bfloat16) for M, (K, N) in
               [(8, s) for s in shapes] + [(1, shapes[0]), (1024, shapes[0])]]
-    # the policy's widths at model shapes: 8-bit w_down (cpb 1) and 2-bit
-    # wk (cpb 4, 128 code bytes a row)
+    # 8-bit w_down (cpb 1) and 2-bit wk (cpb 4, 128 code bytes a row)
     cases += [(8, 18944, 3584, 8, torch.bfloat16),
               (8, 3584, 512, 2, torch.bfloat16)]
+    return cases
+
+
+def check_qmm(torch, qmm, dev, results, cases):
+    """quant_matmul against its plain version at `cases` ((M, K, N, bits,
+    X dtype)). The bound is the least time once codes are exact in bf16:
+    max(bytes / HBM rate, 2*M*K*N / bf16 peak)."""
+    from repro_torch.core.quantizer import pack_codes, unpack_codes
+    gen = torch.Generator(device=dev).manual_seed(3)
     for M, K, N, bits, xdt in cases:
         u = torch.randint(0, 2 ** bits, (K, N), generator=gen, device=dev,
                           dtype=torch.uint8)
@@ -406,14 +430,15 @@ def live_extent(lengths, window: int, bs: int):
     return pages, keys
 
 
-def check_paged(torch, paged, dev, results):
+def check_paged(torch, paged, dev, results, heads=(28, 4, 128), tag=()):
     """Both paged-attention kernels against their plain versions at the
     serve shapes: bf16 (main path) and f32 q, window 0 and 1024, bf16 /
-    f32 pages and int8 / 4-bit codes; times at bf16, window 0."""
+    f32 pages and int8 / 4-bit codes; times at bf16, window 0. `heads` is
+    (H, KV, hd); `tag` extends the result keys."""
     import torch.nn.functional as F
     from repro_torch.serve.kv_cache import kv_encode, kv_scale_of
     gen = torch.Generator(device=dev).manual_seed(4)
-    B, H, KV, hd, BS, MAXB = 8, 28, 4, 128, 16, 256
+    (H, KV, hd), B, BS, MAXB = heads, 8, 16, 256
     NB = B * MAXB
     lens = torch.randint(1, MAXB * BS + 1, (B,), generator=gen, device=dev,
                          dtype=torch.int32)
@@ -542,13 +567,163 @@ def check_paged(torch, paged, dev, results):
                     f"bound_ms {bms:.4f} ({by}; {pages} live pages, "
                     f"{nbytes / 1e6:.2f} MB), library_ms {lib} "
                     f"({lib_note})")
-                results[(name, kv_bits)] = dict(
+                results[(name, kv_bits) + tag] = dict(
                     ms=t.ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                     library_ms=lib.ms if lib else None, max_abs_err=err)
-    r = {k: results[("paged_attention_quant", k)]["ms"] for k in (8, 4)}
-    say(f"paged bf16 q, same run: tensor-core kernel for codes int8 "
-        f"{r[8]:.4f} ms, 4-bit {r[4]:.4f} ms; bf16 pages "
-        f"{results[('paged_attention', 0)]['ms']:.4f} ms")
+    r = {k: results[("paged_attention_quant", k) + tag]["ms"]
+         for k in (8, 4)}
+    say(f"paged bf16 q, H={H} KV={KV} hd={hd}, same run: tensor-core kernel "
+        f"for codes int8 {r[8]:.4f} ms, 4-bit {r[4]:.4f} ms; bf16 pages "
+        f"{results[('paged_attention', 0) + tag]['ms']:.4f} ms")
+
+
+def panel_stack(torch, dev, gen, E, B, n):
+    """E random 4-bit panels: h_bb (E, B, B), s0 / qf (E, B, n), delta /
+    z_lo / z_hi (E, n), hdiag (E, B)."""
+    x = torch.randn(E, 4 * B, B, generator=gen, device=dev)
+    h_bb = (torch.bmm(x.transpose(1, 2), x) / (4 * B)
+            + 0.1 * torch.eye(B, device=dev))
+    return (h_bb, torch.randn(E, B, n, generator=gen, device=dev),
+            torch.randn(E, B, n, generator=gen, device=dev) * 3,
+            torch.rand(E, n, generator=gen, device=dev) * 0.15 + 0.05,
+            torch.full((E, n), -8.0, device=dev),
+            torch.full((E, n), 7.0, device=dev),
+            torch.diagonal(h_bb, dim1=1, dim2=2).contiguous())
+
+
+def check_panel_batched(torch, panel, dev, results, E: int):
+    """comq_panel over E experts in one launch (the MoE solve's launch) at
+    B=256 and the expert leaves' n: against the plain version (each
+    expert's sweep) and against E single-expert launches of the kernel,
+    which must give the same result bit for bit; timed beside the E
+    single launches."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B = 256
+    for n in MOE_PANEL_N:
+        args = panel_stack(torch, dev, gen, E, B, n)
+        qk, dk = panel.comq_panel_dq_cuda(*args)
+        qp, _ = panel.comq_panel_dq_plain(*args)
+        singles = [panel.comq_panel_dq_cuda(*(a[e].contiguous()
+                                              for a in args))
+                   for e in range(E)]
+        torch.cuda.synchronize()
+        agree = float((qk == qp).float().mean())
+        err = float((qk - qp).abs().max())
+        same = all(torch.equal(qk[e], q1) and torch.equal(dk[e], d1)
+                   for e, (q1, d1) in enumerate(singles))
+        del singles
+        t = Timing(torch, lambda i: panel.comq_panel_dq_cuda(*args), 20)
+        parts = [tuple(a[e].contiguous() for a in args) for e in range(E)]
+        loop = Timing(torch, lambda i: [panel.comq_panel_dq_cuda(*pa)
+                                        for pa in parts], 5)
+        plain_ms = cuda_ms(torch, lambda i: panel.comq_panel_dq_plain(
+            *args), 1)
+        nbytes = 4 * E * (B * B + 2 * B * n + 3 * n + B) + 4 * 2 * E * B * n
+        flops = E * 2.0 * n * B * (B - 1) / 2
+        bms, by = bound_ms(nbytes, flops, "f32")
+        say(f"kernel comq_panel batched E={E} B={B} n={n} 4-bit: code "
+            f"agreement with plain {agree:.6f} (need >= "
+            f"{PANEL_MIN_CODE_AGREEMENT}), max|dq code| {err}; equal to {E} "
+            f"single launches bit for bit: {same}; ms {t}; {E} single "
+            f"launches ms {loop}; plain_ms {plain_ms:.3f}; bound_ms "
+            f"{bms:.4f} ({by}, {nbytes / 1e6:.1f} MB); library_ms null")
+        check(agree >= PANEL_MIN_CODE_AGREEMENT,
+              f"batched comq_panel E={E} n={n}: code agreement {agree}")
+        check(same, f"batched comq_panel E={E} n={n} differs from {E} "
+              f"single launches")
+        results[("comq_panel_batched", E, n)] = dict(
+            ms=t.ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            library_ms=None, max_abs_err=err)
+        del args, parts
+
+
+class DecodeTape:
+    """What a decode run decided, in call order, to hold a second run of
+    the same steps to it: each layer's input hidden state and each MoE
+    routing choice (expert ids).
+
+    The random-init model amplifies any rounding difference from layer to
+    layer: with the plain versions only, multiplying every attention
+    output by (1 + 1e-3 noise) moves the 4-layer MoE model's logits by
+    ~0.3 of max|logit| at bf16 and ~0.14 at f32, and by ~4e-3 / ~4e-4 in
+    lockstep (`tools/moe_sensitivity.py`, PERF.md). So at bf16 (ulp 4e-3)
+    a free-running comparison of kernels against plain versions measures
+    the model, not the kernels. Modes: `record` (the kernel run); `free`
+    (a run on its own, counting the routing choices that differ from the
+    recorded ones); `lockstep` (every layer starts from the recorded
+    hidden state and routes as recorded, with the weights from its own
+    logits: each layer's kernels against the plain versions, as phase 7
+    runs quantized pages in lockstep)."""
+
+    def __init__(self, torch, tfm, moe_mod):
+        self.torch, self.tfm, self.moe = torch, tfm, moe_mod
+        self.xs, self.ids = [], []
+        self.flips = self.pairs = 0
+
+    @contextlib.contextmanager
+    def mode(self, mode: str):
+        torch, tfm, moe = self.torch, self.tfm, self.moe
+        real = {"layer_full": tfm.layer_full,
+                "layer_decode": tfm.layer_decode}
+        real_route = moe.route_slots
+        layer_i, route_i = iter(range(1 << 30)), iter(range(1 << 30))
+
+        def stepped(name):
+            def layer(p, x, *a, **k):
+                if mode == "record":
+                    self.xs.append(x)
+                elif mode == "lockstep":
+                    x = self.xs[next(layer_i)]
+                return real[name](p, x, *a, **k)
+            return layer
+
+        def routed(x, router, n_real, top_k, capacity):
+            if mode == "record":
+                out = real_route(x, router, n_real, top_k, capacity)
+                self.ids.append(out[2])
+                return out
+            rec = self.ids[next(route_i)]
+            if mode == "free":
+                out = real_route(x, router, n_real, top_k, capacity)
+                self.flips += int((torch.sort(out[2], -1)[0]
+                                   != torch.sort(rec, -1)[0]).sum())
+                self.pairs += rec.numel()
+                return out
+            logits = x.float() @ router.float()
+            weights = torch.softmax(logits.gather(1, rec), dim=-1)
+            return (logits, weights, rec,
+                    *moe.slots_for(rec, router.shape[-1], capacity))
+
+        for name in real:
+            setattr(tfm, name, stepped(name))
+        moe.route_slots = routed
+        try:
+            yield
+        finally:
+            for name, fn in real.items():
+                setattr(tfm, name, fn)
+            moe.route_slots = real_route
+
+
+@contextlib.contextmanager
+def layer_clock(torch, pipeline, out: list):
+    """Time each layer of a staged quantize_model walk (synchronized before
+    and after it) into `out`."""
+    real = pipeline._quantize_layer_staged
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = real(*a, **k)
+        torch.cuda.synchronize()
+        out.append(time.time() - t0)
+        return res
+
+    pipeline._quantize_layer_staged = timed
+    try:
+        yield
+    finally:
+        pipeline._quantize_layer_staged = real
 
 
 # ---------------------------------------------------------------------------
@@ -875,6 +1050,135 @@ def phase_policy(torch, dev, cfg, cfg32, ops, kernels, prompts, qmm,
     return counts
 
 
+def check_moe_kernels(torch, dev, kernels, results, cfg):
+    """The kernels at the MoE model's shapes: the expert-batched panel,
+    flash and the paged kernels at its heads, quant_matmul at its
+    attention projections (M=8)."""
+    panel, flash, qmm, paged = kernels
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+    check(heads == MOE_HEADS, f"{cfg.name}: heads {heads}")
+    check_panel_batched(torch, panel, dev, results, cfg.moe.n_experts)
+    check_flash(torch, flash, dev, results, heads, ("moe",))
+    K = cfg.d_model
+    check_qmm(torch, qmm, dev, results,
+              [(8, K, N, 4, xdt)
+               for N in (K, cfg.n_kv_heads * cfg.resolved_head_dim)
+               for xdt in (torch.bfloat16, torch.float32)])
+    check_paged(torch, paged, dev, results, heads, ("moe",))
+
+
+def phase_moe(torch, dev, ops, kernels, cfg):
+    """The counted MoE path on `cfg` (granite-moe-3b-a800m at full width,
+    depth cut): quantize (per-expert blocked COMQ, one panel launch a
+    panel for all experts), decode from the packed codes against the plain
+    versions, and the phase-8 traffic served at kv_bits 0, 8 and 4; then
+    mixed == solo at f32. Returns (the path's launch counts, its batched
+    panel launches)."""
+    from repro_torch.core import pipeline
+    from repro_torch.core.apply import serving_params
+    from repro_torch.launch.quantize import quantize_and_eval
+    from repro_torch.models import BuildPlan
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import Runtime
+    panel, flash, qmm, paged = kernels
+
+    # quantize
+    ops.reset_launch_counts()
+    per_layer = []
+    t0 = time.time()
+    with layer_clock(torch, pipeline, per_layer):
+        run = quantize_and_eval(cfg, method="comq_blocked", calib_batch=8,
+                                calib_seq=PROMPT, device=dev)
+    s = run.summary
+    say(f"moe quantize: {json.dumps(s)}")
+    say(f"moe quantize: quantize_model {run.seconds:.3f} s (synchronized); "
+        f"per layer (synchronized) "
+        f"{[round(x, 3) for x in per_layer]} s; {time.time() - t0:.1f} s "
+        f"wall incl. init and eval; launches so far {ops.launch_counts()}, "
+        f"batched panel launches {panel.launches_batched}")
+    imp = s["comq_vs_rtn_error_improvement"]
+    check(math.isfinite(imp) and imp > 0,
+          f"moe comq_vs_rtn_error_improvement {imp}")
+    gap = abs(s["quant_loss"] - s["fp_loss"])
+    check(gap <= LOSS_GAP, f"moe |quant_loss - fp_loss| = {gap} > {LOSS_GAP}")
+    check(s["guard_events"] == 0, f"moe quantize: {s['guard_events']} guard "
+          f"events")
+    check(panel.launches_batched > 0,
+          "moe quantize: the expert-batched panel never launched")
+    qt = run.qparams["__qlayers__"]["0"]["moe"]["w_down"]
+    say(f"moe w_down QTensor: codes {tuple(qt['codes'].shape)}, scale "
+        f"{tuple(qt['scale'].shape)}, {qt['bits']} bits")
+
+    # decode from the packed codes (bf16, the main path), then the same
+    # steps at f32 compute, each against the plain versions (DecodeTape):
+    # gated layer by layer in lockstep at both types, and free-running at
+    # f32 (the precision gate); the bf16 free-running gap is printed
+    sp = serving_params(run.qparams, cfg)
+    plan = BuildPlan(prefill_cache_len=PROMPT + STEPS)
+    cfg32 = cfg.replace(compute_dtype="float32")
+    plan32 = plan.replace(cache_dtype=torch.float32)
+    fed = None
+    for label, c, pl in (("bfloat16", cfg, plan), ("float32", cfg32,
+                                                   plan32)):
+        tape = DecodeTape(torch, tfm, moe_mod)
+        t0 = time.time()
+        with torch.no_grad(), tape.mode("record"):
+            outs, fed = run_decode(torch, sp, c, pl, run.eval_tokens,
+                                   feed=fed)
+        say(f"moe decode {label}: prefill 8x{PROMPT} + {STEPS} steps in "
+            f"{time.time() - t0:.2f} s wall")
+
+        def rerun(mode, c=c, pl=pl, tape=tape):
+            with tape.mode(mode):
+                return run_decode(torch, sp, c, pl, run.eval_tokens,
+                                  feed=fed)[0]
+        free_gate = label == "float32"
+        compare_decode(torch, ops, kernels, lambda: rerun("free"), outs,
+                       label, what="moe decode, free-running",
+                       gate=free_gate)
+        say(f"moe decode {label}, free-running plain run: {tape.flips} of "
+            f"{tape.pairs} routed (token, expert) pairs differ from the "
+            f"kernel run's")
+        compare_decode(torch, ops, kernels, lambda: rerun("lockstep"), outs,
+                       label, what="moe decode, layers in lockstep")
+        del outs, tape
+
+    # serve the phase-8 traffic
+    prompts = serve_prompts(cfg.vocab_size)
+    with torch.no_grad():
+        for kv_bits in (0, 8, 4):
+            n0, tc0 = paged.launches_quant, paged.launches_quant_tc
+            serve_traffic(torch, dev, sp, cfg, BuildPlan(kv_bits=kv_bits),
+                          prompts, serve_config(),
+                          f"moe bf16 kv_bits={kv_bits}")
+            if kv_bits:
+                n = paged.launches_quant - n0
+                tc = paged.launches_quant_tc - tc0
+                check(n > 0 and tc == n, f"moe serve kv_bits={kv_bits}: "
+                      f"{tc} of {n} quantized-pool launches on tensor cores")
+    counts = ops.launch_counts()
+    batched = panel.launches_batched
+    say(f"moe path launches (quantize + decode + serve): {counts}; "
+        f"expert-batched comq_panel launches {batched}")
+    check(all(counts[k] > 0 for k in MOE_PATH),
+          f"a kernel of the moe path never launched: {counts}")
+
+    # f32: each request's tokens equal its solo run
+    p32 = BuildPlan(cache_dtype=torch.float32)
+    with torch.no_grad():
+        _, reqs = serve_traffic(torch, dev, sp, cfg32, p32, prompts,
+                                serve_config(), "moe f32 kv_bits=0 mixed")
+        solo_rt = Runtime(sp, cfg32, p32, serve_config(), device=dev)
+        solo = [solo_rt.generate([p], max_new_tokens=SERVE_NEW)[0].tolist()
+                for p in prompts]
+    same = sum(r.out_tokens == t for r, t in zip(reqs, solo))
+    say(f"moe serve f32: mixed == solo for {same}/{len(solo)} requests")
+    check(same == len(solo), "moe serve f32: a mixed-traffic request "
+          "differs from its solo run")
+    return counts, batched
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -928,7 +1232,7 @@ def main() -> int:
     results = {}
     check_panel(torch, panel, dev, results)
     check_flash(torch, flash, dev, results)
-    check_qmm(torch, qmm, dev, results)
+    check_qmm(torch, qmm, dev, results, qwen_qmm_cases(torch))
     check_paged(torch, paged, dev, results)
 
     # 4. quantize (main path, counted)
@@ -1091,10 +1395,23 @@ def main() -> int:
     # 9. mixed-precision policies (the policy path, counted)
     policy_counts = phase_policy(torch, dev, cfg, cfg32, ops, kernels,
                                  prompts, qmm, paged)
+    del sp, run
+
+    # 10. the MoE family: its kernels, then the MoE path, counted
+    moe_cfg = get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS)
+    say(f"moe reduced: n_layers 32 -> {MOE_LAYERS} (all widths full: "
+        f"d_model {moe_cfg.d_model}, heads {moe_cfg.n_heads}/"
+        f"{moe_cfg.n_kv_heads}, head_dim {moe_cfg.resolved_head_dim}, d_ff "
+        f"{moe_cfg.d_ff} an expert, {moe_cfg.moe.n_experts} experts top-"
+        f"{moe_cfg.moe.top_k}, vocab {moe_cfg.vocab_size})")
+    check_moe_kernels(torch, dev, kernels, results, moe_cfg)
+    moe_counts, moe_batched = phase_moe(torch, dev, ops, kernels, moe_cfg)
 
     # kernels line: launches on the main path as a whole
     src = "src/repro_torch/csrc/{}.cu"
-    launches = {n: totals[n] + policy_counts[n] for n in totals}
+    launches = {n: totals[n] + policy_counts[n] + moe_counts[n]
+                for n in totals}
+    launches["comq_panel_batched"] = moe_batched
     entries = [
         ("comq_panel", "comq_panel", results[("comq_panel", 18944)],
          "src/repro/kernels/comq_panel.py:79"),
@@ -1110,6 +1427,10 @@ def main() -> int:
         ("paged_attention_quant", "paged_attention",
          results[("paged_attention_quant", 8)],
          "src/repro/kernels/paged_attention.py:175"),
+        # the expert-batched launch of the panel kernel (phase 10)
+        ("comq_panel_batched", "comq_panel",
+         results[("comq_panel_batched", 40, 1024)],
+         "src/repro/kernels/comq_panel.py:79"),
     ]
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src.format(source),

@@ -1,8 +1,9 @@
 """Architecture registry (the port's copy of `repro.configs`).
 
-Only the architectures this slice of the port runs are registered: the
-dense GQA transformer qwen2-7b. Asking for another one raises a KeyError
-that says so (ROADMAP.md Queue A lists the families still to port)."""
+Only the architectures the port runs are registered: the dense GQA
+transformer qwen2-7b and the MoE family (granite-moe-3b-a800m,
+llama4-maverick-400b-a17b). Asking for another one raises a KeyError that
+says so (ROADMAP.md Queue A lists the families still to port)."""
 from __future__ import annotations
 
 from typing import Callable, Dict
@@ -46,6 +47,7 @@ def list_archs():
 
 
 # import for registration side effects
-from repro_torch.configs import qwen2_7b  # noqa: E402,F401
+from repro_torch.configs import (  # noqa: E402,F401
+    granite_moe_3b_a800m, llama4_maverick_400b_a17b, qwen2_7b)
 
 __all__ = ["ModelConfig", "get_config", "get_smoke_config", "list_archs"]

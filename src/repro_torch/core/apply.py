@@ -132,15 +132,12 @@ def fake_quantize_params(params, cfg, plan, bits: int = 4,
         shape = tuple(w.shape)
         lead = shape[:-2]
         w3 = w.reshape(-1, *shape[-2:]).float()           # (S, rows, cols)
-        S, rows, cols = w3.shape
-        # one per-channel grid per slice: the slices side by side as the
-        # columns of one (rows, S·cols) matrix
-        wm = w3.permute(1, 0, 2).reshape(rows, S * cols)
-        delta, z_lo, z_hi = init_per_channel(wm, bits, 1.0)
-        u = (quantize_rtn(wm, delta, z_lo, z_hi) - z_lo).to(torch.uint8)
-        u = u.reshape(rows, S, cols).permute(1, 0, 2).contiguous()
+        cols = w3.shape[-1]
+        # one per-channel grid per slice (S, cols)
+        deltas, zs, z_hi = init_per_channel(w3, bits, 1.0)
+        u = (quantize_rtn(w3, deltas[:, None], zs[:, None], z_hi[:, None])
+             - zs[:, None]).to(torch.uint8)
         us, cpb = pack_codes(u, bits)
-        deltas, zs = delta.reshape(S, cols), z_lo.reshape(S, cols)
         if lead:
             us = us.reshape(*lead, *us.shape[1:])
             deltas, zs = deltas.reshape(*lead, cols), zs.reshape(*lead, cols)

@@ -36,10 +36,18 @@ def gram_from_tap(tap: Tensor) -> Tensor:
     return x2.T @ x2
 
 
+def batched_gram(tap: Tensor) -> Tensor:
+    """(E, C, d) stacked-expert tap -> (E, d, d): one Gram per expert in
+    one batched product. Empty capacity slots are zero rows and add
+    nothing."""
+    t = tap.float()
+    return torch.bmm(t.transpose(1, 2), t)
+
+
 class TapGramCache:
     """One Gram per activation tap: leaves sharing a tap (wq/wk/wv on
-    attn_in, w_gate/w_up on mlp_in) reuse one H — 4 Gram matmuls per dense
-    layer instead of 7. Scope one instance per layer."""
+    attn_in, w_gate/w_up on mlp_in or expert_in) reuse one H — 4 Gram
+    matmuls per dense layer instead of 7. Scope one instance per layer."""
 
     def __init__(self):
         self._grams: Dict[str, Tensor] = {}
@@ -48,5 +56,12 @@ class TapGramCache:
     def gram(self, name: str, tap: Tensor) -> Tensor:
         if name not in self._grams:
             self._grams[name] = gram_from_tap(tap)
+            self.computed += 1
+        return self._grams[name]
+
+    def batched(self, name: str, tap: Tensor) -> Tensor:
+        """The per-expert Grams (E, d, d) of a stacked-expert tap."""
+        if name not in self._grams:
+            self._grams[name] = batched_gram(tap)
             self.computed += 1
         return self._grams[name]

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.comq import QuantResult, make_orders
 from repro_torch.core.quantizer import (EPS, QuantSpec, init_per_channel,
-                                        init_per_layer)
+                                        init_per_layer, quantize_rtn)
 
 Tensor = torch.Tensor
 
@@ -259,3 +259,98 @@ def comq_quantize_blocked(h: Tensor, w: Tensor, spec: QuantSpec,
     q = torch.clamp(torch.round(qf[:m]), zlo, zhi).to(torch.int32)
     return QuantResult(q=q[inv_perm], delta=delta, z_lo=z_lo, z_hi=z_hi,
                        errors=errs)
+
+
+# ---------------------------------------------------------------------------
+# blocked solver over a stack of experts
+# ---------------------------------------------------------------------------
+
+def per_expert(a: Tensor) -> Tensor:
+    """A per-expert grid parameter, (E, n) or (E,), as (E, 1, n) or
+    (E, 1, 1): broadcastable against (E, m, n)."""
+    return a[:, None, :] if a.dim() == 2 else a[:, None, None]
+
+
+def rtn_experts(w: Tensor, spec: QuantSpec) -> QuantResult:
+    """Round-to-nearest of every expert of w (E, m, n) on its COMQ grid
+    init (data-free; errors are not computed)."""
+    w = w.float()
+    delta, z_lo, z_hi = _init_grid(w, spec)
+    q = quantize_rtn(w, per_expert(delta), per_expert(z_lo),
+                     per_expert(z_hi))
+    return QuantResult(q=q, delta=delta, z_lo=z_lo, z_hi=z_hi,
+                       errors=torch.zeros(w.shape[0], 1, device=w.device))
+
+
+def comq_quantize_blocked_experts(hs: Tensor, ws: Tensor, spec: QuantSpec,
+                                  block: int = 256,
+                                  panel_fn=None) -> QuantResult:
+    """Blocked COMQ (trailing schedule) for E experts at once: hs (E, m, m)
+    the per-expert Grams, ws (E, m, n) the weights.
+
+    Each expert is the solve `comq_quantize_blocked` would run on
+    (hs[e], ws[e]): its own shared visit order, its own δ grid and δ
+    updates. The panel sweep is one `panel_fn` call for all experts, with
+    operands batched along a leading E axis (the default is the
+    `comq_panel` dispatch: one kernel launch per panel on the card), and
+    each trailing update is one `baddbmm_`. Returns a QuantResult with a
+    leading E axis: q (E, m, n), delta/z_lo/z_hi (E, n) (per layer (E,)),
+    errors (E, sweeps+1)."""
+    hs = hs.float()
+    ws = ws.float()
+    E, m, n = ws.shape
+    per_layer = spec.granularity == "per_layer"
+    delta, z_lo, z_hi = _init_grid(ws, spec)
+    perm = torch.stack([shared_order(hs[e], ws[e], spec) for e in range(E)])
+    inv_perm = torch.argsort(perm, dim=1)
+    eidx = torch.arange(E, device=ws.device)[:, None]
+    hp = hs[eidx[:, :, None], perm[:, :, None], perm[:, None, :]]
+    wp = ws[eidx, perm]
+    hdiag = torch.diagonal(hp, dim1=1, dim2=2).contiguous()
+    if panel_fn is None:
+        from repro_torch.kernels import ops
+        panel_fn = ops.comq_panel_dq
+
+    B = min(block, m)
+    m_pad = ((m + B - 1) // B) * B
+    if m_pad != m:
+        hp = F.pad(hp, (0, m_pad - m, 0, m_pad - m))
+        wp = F.pad(wp, (0, 0, 0, m_pad - m))
+        hdiag = F.pad(hdiag, (0, m_pad - m))
+
+    zlo, zhi = per_expert(z_lo).float(), per_expert(z_hi).float()
+    # the panel's (E, n) column parameters
+    zlo_v = zlo.expand(E, 1, n).reshape(E, n).contiguous()
+    zhi_v = zhi.expand(E, 1, n).reshape(E, n).contiguous()
+    db = per_expert(delta)
+    qf = wp / db
+    hw = torch.bmm(hp, wp)
+    p = torch.bmm(hp, wp - qf * db)
+
+    def h_err(p, qf, db):
+        r = wp - qf * db
+        return torch.sqrt(torch.clamp(torch.sum(r * p, dim=(1, 2)), min=0.0))
+
+    errs = [h_err(p, qf, db)]
+    for _ in range(spec.sweeps):
+        d_v = db.expand(E, 1, n).reshape(E, n).contiguous()
+        for b in range(m_pad // B):
+            sl = slice(b * B, (b + 1) * B)
+            qf_b, dq = panel_fn(hp[:, sl, sl].contiguous(),
+                                p[:, sl].contiguous(),
+                                qf[:, sl].contiguous(), d_v, zlo_v, zhi_v,
+                                hdiag[:, sl].contiguous())
+            qf[:, sl] = qf_b
+            p.baddbmm_(hp[:, :, sl], dq, alpha=-1.0)
+        safe = torch.where(db.abs() > EPS, db, torch.ones_like(db))
+        hq = (hw - p) / safe
+        dims = (1, 2) if per_layer else (1,)
+        num = torch.sum(qf * hw, dim=dims, keepdim=True)
+        den = torch.sum(qf * hq, dim=dims, keepdim=True)
+        db = torch.where(den > EPS, num / den, torch.ones_like(den))
+        p = hw - db * hq
+        errs.append(h_err(p, qf, db))
+    q = torch.clamp(torch.round(qf[:, :m]), zlo, zhi).to(torch.int32)
+    delta = db[:, 0, 0] if per_layer else db[:, 0, :]
+    return QuantResult(q=q[eidx, inv_perm], delta=delta, z_lo=z_lo,
+                       z_hi=z_hi, errors=torch.stack(errs, dim=1))

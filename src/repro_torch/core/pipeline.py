@@ -1,4 +1,5 @@
-"""Whole-model COMQ, dense family (port of `repro.core.pipeline`).
+"""Whole-model COMQ, dense and MoE families (port of
+`repro.core.pipeline`).
 
 GPTQ-style sequential layer-by-layer quantization with quantized
 propagation. Two schedules:
@@ -11,7 +12,10 @@ propagation. Two schedules:
   are solved, and a second forward propagates through the quantized
   layer.
 
-Each tap's Gram is computed once. Every leaf is solved under the spec a
+Each tap's Gram is computed once; a stacked-expert tap (E, C, d) gives one
+Gram per expert, and its leaves (E, d, f) solve every expert at once
+(`_solve_group_experts`, one `comq_panel` launch a panel for all
+experts). Every leaf is solved under the spec a
 `core.policy.QuantPolicy` resolves for it (a plain QuantSpec is the
 uniform policy); a group whose specs agree is column-fused when that is
 exact, a mixed-bit group solves leaf by leaf. With guards on (the
@@ -22,7 +26,7 @@ end.
 
 Not ported yet (ROADMAP.md): the journal/resume path and fault injection
 (item 13), tracing/metrics (item 14), data/column sharding (item 15), and
-the MoE/SSM/RWKV/VLM families (item 12).
+the SSM/RWKV/VLM families (item 12).
 """
 from __future__ import annotations
 
@@ -35,8 +39,11 @@ import torch
 from repro_torch.core import calibrate
 from repro_torch.core import guards as _guards
 from repro_torch.core.baselines import gptq_quantize, rtn_quantize
+from repro_torch.core.comq import QuantResult
 from repro_torch.core.comq_hessian import (comq_quantize_blocked,
-                                           comq_quantize_h)
+                                           comq_quantize_blocked_experts,
+                                           comq_quantize_h, per_expert,
+                                           rtn_experts)
 from repro_torch.core.guards import GuardContext, GuardEvent, guarded_solve
 from repro_torch.core.policy import as_policy
 from repro_torch.core.quantizer import QuantSpec
@@ -45,18 +52,24 @@ from repro_torch.models.common import apply_norm
 
 Tensor = torch.Tensor
 
-# which tap feeds which weight leaf (dense family)
+# which tap feeds which weight leaf, per layer family
 DENSE_TAPS = {
     ("attn", "wq"): "attn_in", ("attn", "wk"): "attn_in",
     ("attn", "wv"): "attn_in", ("attn", "wo"): "wo_in",
     ("mlp", "w_gate"): "mlp_in", ("mlp", "w_up"): "mlp_in",
     ("mlp", "w_down"): "down_in",
 }
+MOE_TAPS = {
+    ("attn", "wq"): "attn_in", ("attn", "wk"): "attn_in",
+    ("attn", "wv"): "attn_in", ("attn", "wo"): "wo_in",
+    ("moe", "w_gate"): "expert_in", ("moe", "w_up"): "expert_in",
+    ("moe", "w_down"): "expert_down_in",
+}
 
 
 def taps_for(cfg) -> Dict[Tuple[str, str], str]:
-    tfm.check_dense(cfg)
-    return dict(DENSE_TAPS)
+    tfm.check_ported(cfg)
+    return dict(MOE_TAPS if cfg.moe is not None else DENSE_TAPS)
 
 
 def is_qtensor(leaf) -> bool:
@@ -178,8 +191,24 @@ def _norm_of(e2: Tensor) -> Tensor:
     return torch.sqrt(torch.clamp(torch.sum(e2), min=0.0))
 
 
+def _expert_norm_sum(e2: Tensor) -> Tensor:
+    """(E, cols) per-column err² -> the sum over experts of each expert's
+    error norm (a leaf's MoE error, as the JAX package reports it)."""
+    return torch.sum(torch.sqrt(torch.clamp(torch.sum(e2, dim=1), min=0.0)))
+
+
 def _uniform(specs) -> bool:
     return all(s == specs[0] for s in specs)
+
+
+def _results_finite(results) -> bool:
+    """Every (qt, eb, ea, secs) row has finite scales and errors: one host
+    read (the expert group's post-solve guard sentinel)."""
+    flags = [torch.isfinite(qt["scale"]).all()
+             & torch.isfinite(torch.as_tensor(eb, dtype=torch.float32))
+             & torch.isfinite(torch.as_tensor(ea, dtype=torch.float32))
+             for qt, eb, ea, _ in results]
+    return bool(torch.stack(flags).all())
 
 
 def _solve_group(ws, h: Tensor, specs, method: str, block: int = 256, *,
@@ -256,6 +285,111 @@ def _solve_group(ws, h: Tensor, specs, method: str, block: int = 256, *,
     return out
 
 
+# ---------------------------------------------------------------------------
+# stacked-expert leaves
+# ---------------------------------------------------------------------------
+
+def solve_experts(hs: Tensor, ws: Tensor, spec: QuantSpec,
+                  method: str = "comq", block: int = 256) -> QuantResult:
+    """`solve` for every expert of a stack: hs (E, m, m), ws (E, m, n).
+    comq_blocked runs all experts in one batched solve; the other methods
+    solve expert by expert. The result carries a leading E axis."""
+    if method == "comq_blocked":
+        return comq_quantize_blocked_experts(hs, ws, spec, block=block)
+    rs = [solve(hs[e], ws[e], spec, method, block=block)
+          for e in range(ws.shape[0])]
+    return QuantResult(*(torch.stack([getattr(r, f) for r in rs])
+                         for f in ("q", "delta", "z_lo", "z_hi", "errors")))
+
+
+def _col_err2_experts(hs: Tensor, w: Tensor, wq: Tensor) -> Tensor:
+    """(E, n) per-column squared reconstruction errors of an expert stack."""
+    r = w - wq
+    return torch.sum(r * torch.bmm(hs, r), dim=1)
+
+
+def _expert_qtensor(q: Tensor, delta: Tensor, z_lo: Tensor, shape,
+                    bits: int) -> dict:
+    """An expert leaf's QTensor: codes (E, d, f), scale and zero-point
+    (E, 1, f) (per layer (E, 1, 1)), broadcasting against the codes."""
+    return make_qtensor(q, per_expert(delta.float()), per_expert(z_lo),
+                        shape, bits=bits)
+
+
+def _solve_group_experts(ws, hs: Tensor, specs, method: str, *,
+                         gctx: Optional[GuardContext] = None,
+                         layer: int = -1, names=None):
+    """Stacked-expert leaves (E, d, f_k) sharing the per-expert Grams hs
+    (E, d, d): every expert solved at once, column-fused across leaves
+    when that is exact (identical specs and `_fusable`), else leaf by
+    leaf.
+
+    The guard policy is group-batched, as in the JAX package (whose solve
+    is vmapped and cannot read the host per expert): non-finite Grams are
+    zeroed up front, the unguarded solve runs, and only if the group's
+    results are non-finite is the whole group retried under escalating
+    damping (DAMP_MULTS), then quantized by RTN. A healthy group is the
+    unguarded computation. Returns [(qtensor, err_before, err_after,
+    seconds), ...]."""
+    spec0 = specs[0]
+
+    def one(hs_in, w, spec, meth):
+        r = solve_experts(hs_in, w, spec, meth)
+        rt = rtn_experts(w, spec)
+        e2a = _col_err2_experts(hs_in, w,
+                                r.q.float() * per_expert(r.delta))
+        e2b = _col_err2_experts(hs_in, w,
+                                rt.q.float() * per_expert(rt.delta))
+        return r.q, r.delta, r.z_lo, e2a, e2b
+
+    def run(hs_in, meth):
+        if len(ws) > 1 and _uniform(specs) and _fusable(spec0, meth):
+            t0 = time.time()
+            wcat = torch.cat([w.float() for w in ws], dim=-1)
+            q, delta, z_lo, e2a, e2b = one(hs_in, wcat, spec0, meth)
+            secs = (time.time() - t0) / len(ws)
+            out, lo = [], 0
+            for w in ws:
+                hi = lo + w.shape[-1]
+                qt = _expert_qtensor(q[:, :, lo:hi], delta[:, lo:hi],
+                                     z_lo[:, lo:hi], w.shape, spec0.bits)
+                out.append((qt, _expert_norm_sum(e2b[:, lo:hi]),
+                            _expert_norm_sum(e2a[:, lo:hi]), secs))
+                lo = hi
+            return out
+        out = []
+        for w, spec in zip(ws, specs):
+            t0 = time.time()
+            q, delta, z_lo, e2a, e2b = one(hs_in, w.float(), spec, meth)
+            qt = _expert_qtensor(q, delta, z_lo, w.shape, spec.bits)
+            out.append((qt, _expert_norm_sum(e2b), _expert_norm_sum(e2a),
+                        time.time() - t0))
+        return out
+
+    if gctx is None or not gctx.enabled:
+        return run(hs, method)
+    if names is None:
+        names = [f"leaf{i}" for i in range(len(ws))]
+    n_bad = _guards.nonfinite_count(hs)
+    if n_bad:
+        hs = _guards.zero_nonfinite(hs)
+        for nm in names:
+            gctx.record(layer, nm, "nonfinite_gram", count=n_bad)
+    out = run(hs, method)
+    if _results_finite(out):
+        return out
+    for mult in _guards.DAMP_MULTS:
+        out = run(_guards.damp_hessian(hs, mult), method)
+        if _results_finite(out):
+            for nm in names:
+                gctx.record(layer, nm, "damping_escalated", mult=mult)
+            return out
+    out = run(hs, "rtn")
+    for nm in names:
+        gctx.record(layer, nm, "fallback", solver="rtn")
+    return out
+
+
 def _tap_groups(lp, tapmap) -> Dict[str, List[Tuple[str, str]]]:
     """tapname -> [(mod, leaf), ...] for the leaves present in this layer."""
     groups: Dict[str, List[Tuple[str, str]]] = {}
@@ -291,16 +425,23 @@ def _sanitize_tap(gctx: GuardContext, tap: Tensor, layer: int,
     return tap
 
 
-def _solve_tap_group(lp, entries, tap: Tensor, resolve, method: str,
-                     layer_idx: int, gctx: GuardContext):
-    """Sanitize the tap, take its Gram and solve its leaf group. Returns
+def _solve_tap_group(lp, tapname: str, entries, tap: Tensor, resolve,
+                     method: str, layer_idx: int, gctx: GuardContext):
+    """Sanitize the tap, take its Gram (per expert for a stacked-expert
+    tap) and solve its leaf group. Returns
     [(mod, leaf, name, (qt, eb, ea, secs)), ...]."""
     names = [f"{mod}.{leaf}" for mod, leaf in entries]
     ws = [lp[mod][leaf] for mod, leaf in entries]
     specs = _group_specs(resolve, layer_idx, entries)
-    h = calibrate.gram_from_tap(_sanitize_tap(gctx, tap, layer_idx, names))
-    results = _solve_group(ws, h, specs, method, gctx=gctx, layer=layer_idx,
-                           names=names)
+    tap = _sanitize_tap(gctx, tap, layer_idx, names)
+    if tapname.startswith("expert"):
+        results = _solve_group_experts(ws, calibrate.batched_gram(tap),
+                                       specs, method, gctx=gctx,
+                                       layer=layer_idx, names=names)
+    else:
+        results = _solve_group(ws, calibrate.gram_from_tap(tap), specs,
+                               method, gctx=gctx, layer=layer_idx,
+                               names=names)
     return [(mod, leaf, nm, res)
             for (mod, leaf), nm, res in zip(entries, names, results)]
 
@@ -319,8 +460,8 @@ def _staged_cb(lp, groups, taps, resolve, method: str,
             return {}
         repl = {}
         for mod, leaf, nm, (qt, eb, ea, secs) in _solve_tap_group(
-                lp, entries, taps[tapname], resolve, method, layer_idx,
-                gctx):
+                lp, tapname, entries, taps[tapname], resolve, method,
+                layer_idx, gctx):
             holder["lp_q"] = _set_nested(holder["lp_q"], mod, leaf, qt)
             pending.append((layer_idx, nm, eb, ea, secs))
             repl[leaf] = dequant_qtensor(qt)
@@ -337,7 +478,8 @@ def _quantize_layer_staged(lp, x, cfg, plan, tapmap, resolve, method: str,
     holder = {"lp_q": lp}
     cb = _staged_cb(lp, _tap_groups(lp, tapmap), taps, resolve, method,
                     pending, layer_idx, holder, gctx)
-    y, _ = tfm.layer_full(lp, x, cfg, plan, False, taps=taps, quantize_cb=cb)
+    y = tfm.layer_full(lp, x, cfg, plan, False, taps=taps,
+                       quantize_cb=cb)[0]
     return holder["lp_q"], y
 
 
@@ -353,11 +495,11 @@ def _quantize_layer_legacy(lp, x, cfg, plan, tapmap, resolve, method: str,
     lp_q = dict(lp)
     for tapname, entries in _tap_groups(lp, tapmap).items():
         for mod, leaf, nm, (qt, eb, ea, secs) in _solve_tap_group(
-                lp, entries, taps[tapname], resolve, method, layer_idx,
-                gctx):
+                lp, tapname, entries, taps[tapname], resolve, method,
+                layer_idx, gctx):
             lp_q = _set_nested(lp_q, mod, leaf, qt)
             pending.append((layer_idx, nm, eb, ea, secs))
-    y, _ = tfm.layer_full(dequantize_tree(lp_q), x, cfg, plan, False)
+    y = tfm.layer_full(dequantize_tree(lp_q), x, cfg, plan, False)[0]
     return lp_q, y
 
 
@@ -383,8 +525,9 @@ def _calib_leaf_dims(cfg) -> Dict[str, int]:
 def quantize_model(params, cfg, plan, tokens: Tensor, spec,
                    method: str = "comq", quantize_unembed: bool = False,
                    propagation: str = "staged", *, guards: bool = True):
-    """Quantize every projection weight of a dense LM. `tokens`: (B, T)
-    calibration batch on the params' device.
+    """Quantize every projection weight of a dense or MoE LM (the router
+    stays float). `tokens`: (B, T) calibration batch on the params'
+    device.
 
     `spec` is a QuantSpec (every leaf gets it) or a `core.policy.
     QuantPolicy`, which resolves a spec per leaf (only the bit width

@@ -18,8 +18,9 @@ forward per layer — no backprop.
 
 The pure part (resolution, parsing, the allocator) is plain Python and
 gives exactly the JAX package's results. The curve measurement covers the
-dense family; the MoE, RWKV, SSM and VLM branches wait for the port of
-those families (ROADMAP.md, Queue A item 12).
+dense and MoE families (an expert leaf priced for all its experts in one
+batched pass); the RWKV, SSM and VLM branches wait for the port of those
+families (ROADMAP.md, Queue A item 12).
 """
 from __future__ import annotations
 
@@ -228,16 +229,17 @@ def measure_bit_curves(params, cfg, plan, tokens, base: QuantSpec,
     layer-qualified names ("3.attn.wq", "unembed")."""
     from repro_torch.core import calibrate, pipeline
     from repro_torch.core.baselines import rtn_quantize
-    from repro_torch.core.comq_hessian import comq_quantize_blocked
+    from repro_torch.core.comq_hessian import (
+        comq_quantize_blocked, comq_quantize_blocked_experts, per_expert,
+        rtn_experts)
     from repro_torch.models import transformer as tfm
     from repro_torch.models.common import apply_norm
     from repro_torch.models.model import embed_tokens
 
     try:
-        tfm.check_dense(cfg)
+        tfm.check_ported(cfg)
     except NotImplementedError as e:
-        raise NotImplementedError(
-            f"measure_bit_curves: {e} (ROADMAP.md Queue A item 12)") from e
+        raise NotImplementedError(f"measure_bit_curves: {e}") from e
 
     def leaf_errs(h, w2d):
         out = {}
@@ -250,6 +252,23 @@ def measure_bit_curves(params, cfg, plan, tokens, base: QuantSpec,
             out[int(b)] = r.errors[-1]
         return out
 
+    def expert_errs(hs, w):
+        """A stacked-expert leaf: each width priced for all experts in
+        one batched pass, the per-expert error norms summed (the
+        pipeline's MoE error)."""
+        out = {}
+        for b in choices:
+            spec_b = dataclasses.replace(base, bits=int(b))
+            if curve_method == "comq_blocked":
+                e = comq_quantize_blocked_experts(hs, w, spec_b).errors[:, -1]
+            else:
+                rt = rtn_experts(w, spec_b)
+                r = w - rt.q.float() * per_expert(rt.delta)
+                e = torch.sqrt(torch.clamp(torch.sum(
+                    r * torch.bmm(hs, r), dim=(1, 2)), min=0.0))
+            out[int(b)] = torch.sum(e)
+        return out
+
     sizes: Dict[str, int] = {}
     pending: List[Tuple[str, Dict[int, torch.Tensor]]] = []
     tapmap = pipeline.taps_for(cfg)
@@ -257,8 +276,16 @@ def measure_bit_curves(params, cfg, plan, tokens, base: QuantSpec,
         x = embed_tokens(params, cfg, plan, tokens)
         for l, lp in enumerate(params["layers"]):
             taps: Dict[str, torch.Tensor] = {}
-            x, _ = tfm.layer_full(lp, x, cfg, plan, False, taps=taps)
+            x = tfm.layer_full(lp, x, cfg, plan, False, taps=taps)[0]
             for tapname, entries in pipeline._tap_groups(lp, tapmap).items():
+                if tapname.startswith("expert"):
+                    hs = calibrate.batched_gram(taps[tapname])
+                    for mod, leaf in entries:
+                        w = lp[mod][leaf].float()          # (E, d, f)
+                        name = f"{l}.{mod}.{leaf}"
+                        sizes[name] = int(w.numel())
+                        pending.append((name, expert_errs(hs, w)))
+                    continue
                 h = calibrate.gram_from_tap(taps[tapname])
                 for mod, leaf in entries:
                     w2d = pipeline._w2d(lp[mod][leaf], h.shape[0]).float()

@@ -37,19 +37,23 @@ class QuantSpec:
 
 
 def init_per_layer(w: Tensor, bits: int) -> Tuple[Tensor, Tensor, Tensor]:
-    """Returns (delta0 scalar, z_lo scalar, z_hi scalar)."""
-    col_inf = w.abs().amax(dim=0)
-    delta0 = torch.clamp(col_inf.mean() / (2.0 ** (bits - 1)), min=EPS)
+    """Returns (delta0, z_lo, z_hi), scalars for w: (m, n); for a stack
+    (..., m, n) one grid per matrix, each of shape (...)."""
+    col_inf = w.abs().amax(dim=-2)
+    delta0 = torch.clamp(col_inf.mean(dim=-1) / (2.0 ** (bits - 1)),
+                         min=EPS)
     z = -(2 ** (bits - 1))
     kw = dict(dtype=torch.int32, device=w.device)
-    return delta0, torch.tensor(z, **kw), torch.tensor(z + 2 ** bits - 1, **kw)
+    z_lo = torch.full(tuple(w.shape[:-2]), z, **kw)
+    return delta0, z_lo, z_lo + 2 ** bits - 1
 
 
 def init_per_channel(w: Tensor, bits: int, lam: float
                      ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Returns (delta0 (n,), z_lo (n,), z_hi (n,)) for w: (m, n)."""
-    wmax = w.amax(dim=0)
-    wmin = w.amin(dim=0)
+    """Returns (delta0 (n,), z_lo (n,), z_hi (n,)) for w: (m, n); for a
+    stack (..., m, n) one grid per matrix, each (..., n)."""
+    wmax = w.amax(dim=-2)
+    wmin = w.amin(dim=-2)
     delta0 = torch.clamp(lam * (wmax - wmin) / (2.0 ** bits - 1.0), min=EPS)
     z_lo = torch.round(wmin / delta0).to(torch.int32)
     return delta0, z_lo, z_lo + 2 ** bits - 1

@@ -9,7 +9,11 @@
 //   q'    = clip(rint(s_t / (delta_j * h_tt) + q_tj), z_lo_j, z_hi_j)
 //           (or clip(rint(q_tj)) when h_tt <= 1e-12)
 //   dW[t, j] = (q' - q_tj) * delta_j
-// and returns (q', dW), both (B, n) f32.
+// and returns (q', dW), both (B, n) f32. A stack of E panels (one per
+// expert: the JAX package's vmap of the panel call over the expert axis) is
+// one launch with the expert as the grid's y index; each block offsets its
+// pointers to its expert's operands and runs the single-panel code, so an
+// expert's result is that of a single launch on its slices, bit for bit.
 //
 // What bounds it on the H100: traffic is ~2*B*n*4 bytes in and out (~78 MB
 // at B=256, n=18944: ~23 us at 3.35 TB/s); the triangular products are
@@ -18,8 +22,8 @@
 // sets a block's latency; columns are independent.
 //
 // Design: a blocked sweep. The B rows are cut into sub-panels of kSub rows.
-// A block owns C columns (C = 32, 16, 8 or 4: fewer when n is small, so
-// that every SM gets a block) and 4 warps, and keeps the running s of all
+// A block owns C columns of one expert's panel (C = 32, 16, 8 or 4: fewer
+// when E * n is small, so that every SM gets a block) and 4 warps, and keeps the running s of all
 // B rows of its columns in shared memory, loaded from s0 up front. Per
 // sub-panel:
 //  1. sequential: thread c < C walks its column's kSub steps with the
@@ -132,6 +136,20 @@ comq_panel_dq_kernel(const float* __restrict__ h_bb,
                      const float* __restrict__ hdiag,
                      float* __restrict__ qf_out, float* __restrict__ dq_out,
                      int B, int n, int wc, int wh) {
+  // this block's expert: every operand at its expert's offset
+  {
+    const size_t e = blockIdx.y;
+    const size_t bn = (size_t)B * n;
+    h_bb += e * B * B;
+    s0 += e * bn;
+    qf += e * bn;
+    qf_out += e * bn;
+    dq_out += e * bn;
+    delta += e * n;
+    z_lo += e * n;
+    z_hi += e * n;
+    hdiag += e * B;
+  }
   using T = Tile<C>;
   constexpr int kHld = T::kHld, kStages = T::kStages;
   extern __shared__ float4 smem4[];
@@ -299,14 +317,14 @@ comq_panel_dq_kernel(const float* __restrict__ h_bb,
 template <int C>
 int launch(const float* h_bb, const float* s0, const float* qf,
            const float* delta, const float* z_lo, const float* z_hi,
-           const float* hdiag, float* qf_out, float* dq_out, int B, int n,
-           int wc, int wh, cudaStream_t stream) {
+           const float* hdiag, float* qf_out, float* dq_out, int E, int B,
+           int n, int wc, int wh, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)Tile<C>::smem_floats(B);
   cudaError_t e = cudaFuncSetAttribute(
       comq_panel_dq_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((n + C - 1) / C);
+  const dim3 grid((n + C - 1) / C, E);
   comq_panel_dq_kernel<C><<<grid, kThreads, smem, stream>>>(
       h_bb, s0, qf, delta, z_lo, z_hi, hdiag, qf_out, dq_out, B, n, wc, wh);
   return (int)cudaGetLastError();
@@ -341,23 +359,26 @@ int comq_panel_max_b() {
   return b;
 }
 
-// Columns a block takes for n columns on n_sm SMs: the most (of 32, 16, 8,
-// 4) that still gives every SM a block, else 4.
-int comq_panel_cols(int n, int n_sm) {
+// Columns a block takes for E panels of n columns on n_sm SMs: the most
+// (of 32, 16, 8, 4) that still gives every SM a block, else 4.
+int comq_panel_cols(int n, int E, int n_sm) {
   for (int c = 32; c > 4; c /= 2)
-    if ((n + c - 1) / c >= n_sm) return c;
+    if ((long long)E * ((n + c - 1) / c) >= n_sm) return c;
   return 4;
 }
 
-// All pointers are f32 device buffers: h_bb (B,B), s0/qf/qf_out/dq_out
-// (B,n) row-major, delta/z_lo/z_hi (n,), hdiag (B,).
+// All pointers are f32 device buffers, E panels back to back: h_bb
+// (E,B,B), s0/qf/qf_out/dq_out (E,B,n) row-major, delta/z_lo/z_hi (E,n),
+// hdiag (E,B). E = 1 is a single panel.
 int comq_panel_dq(const void* h_bb, const void* s0, const void* qf,
                   const void* delta, const void* z_lo, const void* z_hi,
-                  const void* hdiag, void* qf_out, void* dq_out, int B, int n,
-                  int n_sm, void* stream) {
-  if (B <= 0 || n <= 0 || smem_bytes(B, 4) > kSmemMax)
+                  const void* hdiag, void* qf_out, void* dq_out, int E, int B,
+                  int n, int n_sm, void* stream) {
+  if (E <= 0 || E > 65535 || B <= 0 || n <= 0 ||
+      smem_bytes(B, 4) > kSmemMax)
     return (int)cudaErrorInvalidValue;
-  // 16-byte copies where rows start on 16 bytes, else 4-byte ones
+  // 16-byte copies where rows start on 16 bytes, else 4-byte ones (an
+  // expert's operands then start on 16 bytes too)
   const int wc = (n % 4 == 0 && aligned16(s0) && aligned16(qf)) ? 16 : 4;
   const int wh = (B % 4 == 0 && kSub % 4 == 0 && aligned16(h_bb)) ? 16 : 4;
   const float* a[7] = {(const float*)h_bb, (const float*)s0,
@@ -368,21 +389,21 @@ int comq_panel_dq(const void* h_bb, const void* s0, const void* qf,
   float* dqo = (float*)dq_out;
   const cudaStream_t st = (cudaStream_t)stream;
   // fewer columns where a large B would not fit one block's shared memory
-  int cols = comq_panel_cols(n, n_sm);
+  int cols = comq_panel_cols(n, E, n_sm);
   while (cols > 4 && smem_bytes(B, cols) > kSmemMax) cols /= 2;
   switch (cols) {
     case 32:
-      return launch<32>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], qo, dqo, B,
-                        n, wc, wh, st);
+      return launch<32>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], qo, dqo, E,
+                        B, n, wc, wh, st);
     case 16:
-      return launch<16>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], qo, dqo, B,
-                        n, wc, wh, st);
+      return launch<16>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], qo, dqo, E,
+                        B, n, wc, wh, st);
     case 8:
-      return launch<8>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], qo, dqo, B,
-                       n, wc, wh, st);
+      return launch<8>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], qo, dqo, E,
+                       B, n, wc, wh, st);
     default:
-      return launch<4>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], qo, dqo, B,
-                       n, wc, wh, st);
+      return launch<4>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], qo, dqo, E,
+                       B, n, wc, wh, st);
   }
 }
 

@@ -7,7 +7,11 @@ bounds it on the H100 and how the design answers that; in short, a
 blocked sweep: the B rows are cut into sub-panels of 16, one thread a
 column walks a sub-panel's chain, then all warps of the block apply the
 rank-16 update to the rows after it; a block owns 4-32 columns, fewer
-when n is small, so that the card fills.
+when n is small, so that the card fills. A stack of E experts (operands
+with a leading E axis) is one launch: the experts are a grid dimension
+and each block runs the single-panel code on its expert's operands, so an
+expert's result is the one a single launch on its slices gives, bit for
+bit.
 
 Tolerance against the plain version: the kernel sums s_t in another order,
 so a code can flip where s_t lands on a rounding boundary; on random panels
@@ -27,16 +31,31 @@ from repro_torch.kernels import build
 Tensor = torch.Tensor
 NAME = "comq_panel"
 launches = 0     # kernel launches since the last reset (chip_smoke reads it)
-
-comq_panel_dq_plain = panel_sweep_dq_ref
-
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+launches_batched = 0   # the share of them over more than one expert
 
 
-def _vec(a, n: int, dev) -> Tensor:
-    """Scalar or (n,) grid parameter -> contiguous (n,) f32 on `dev`."""
+
+def comq_panel_dq_plain(h_bb: Tensor, s0: Tensor, qf: Tensor, delta, z_lo,
+                        z_hi, hdiag: Tensor):
+    """The plain version: `panel_sweep_dq_ref`, once per expert when the
+    operands carry a leading expert axis (h_bb (E, B, B), s0 / qf
+    (E, B, n), delta / z_lo / z_hi (E, n), hdiag (E, B))."""
+    if h_bb.dim() == 2:
+        return panel_sweep_dq_ref(h_bb, s0, qf, delta, z_lo, z_hi, hdiag)
+    outs = [panel_sweep_dq_ref(h_bb[e], s0[e], qf[e], delta[e], z_lo[e],
+                               z_hi[e], hdiag[e])
+            for e in range(h_bb.shape[0])]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
+
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def _vec(a, shape, dev) -> Tensor:
+    """Scalar, (n,) or (E, n) grid parameter -> contiguous `shape` f32 on
+    `dev`."""
     t = torch.as_tensor(a, device=dev).to(torch.float32)
-    return t.expand(n).contiguous() if t.dim() == 0 else t.contiguous()
+    return t.expand(shape).contiguous() if t.dim() == 0 else t.contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -48,18 +67,27 @@ def max_b() -> int:
 
 def comq_panel_dq_cuda(h_bb: Tensor, s0: Tensor, qf: Tensor, delta, z_lo,
                        z_hi, hdiag: Tensor):
-    """Launch the kernel: returns (qf', ΔW), each (B, n) f32. B may be at
-    most `max_b()`."""
-    global launches
+    """Launch the kernel: returns (qf', ΔW), each (B, n) f32, or (E, B, n)
+    for a stack of experts (h_bb (E, B, B), s0 / qf (E, B, n), delta /
+    z_lo / z_hi (E, n), hdiag (E, B)), all in one launch. B may be at most
+    `max_b()`."""
+    global launches, launches_batched
     dev = qf.device
     if dev.type != "cuda":
         raise RuntimeError(f"comq_panel kernel needs CUDA tensors, got {dev}")
-    B, n = qf.shape
-    delta, z_lo, z_hi = (_vec(a, n, dev) for a in (delta, z_lo, z_hi))
+    lead = tuple(qf.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(f"comq_panel: qf must be (B, n) or (E, B, n), got "
+                         f"{tuple(qf.shape)}")
+    E = lead[0] if lead else 1
+    B, n = qf.shape[-2:]
+    delta, z_lo, z_hi = (_vec(a, lead + (n,), dev)
+                         for a in (delta, z_lo, z_hi))
     for name, t, shape in (("h_bb", h_bb, (B, B)), ("s0", s0, (B, n)),
                            ("qf", qf, (B, n)), ("hdiag", hdiag, (B,)),
                            ("delta", delta, (n,)), ("z_lo", z_lo, (n,)),
                            ("z_hi", z_hi, (n,))):
+        shape = lead + shape
         if t.device != dev or t.dtype != torch.float32:
             raise TypeError(f"comq_panel: {name} must be f32 on {dev}, got "
                             f"{t.dtype} on {t.device}")
@@ -75,8 +103,10 @@ def comq_panel_dq_cuda(h_bb: Tensor, s0: Tensor, qf: Tensor, delta, z_lo,
     fn = build.load(NAME, "comq_panel_dq", _ARGTYPES)
     rc = fn(h_bb.data_ptr(), s0.data_ptr(), qf.data_ptr(), delta.data_ptr(),
             z_lo.data_ptr(), z_hi.data_ptr(), hdiag.data_ptr(),
-            qf_out.data_ptr(), dq.data_ptr(), B, n, build.sm_count(dev.index),
+            qf_out.data_ptr(), dq.data_ptr(), E, B, n,
+            build.sm_count(dev.index),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(NAME, rc)
     launches += 1
+    launches_batched += E > 1
     return qf_out, dq

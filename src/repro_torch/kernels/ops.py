@@ -24,8 +24,9 @@ def _plain(t: Tensor) -> bool:
 
 def comq_panel_dq(h_bb: Tensor, s0: Tensor, qf: Tensor, delta, z_lo, z_hi,
                   hdiag: Tensor):
-    """Fused intra-panel sweep returning (qf', ΔW) — the blocked solver's
-    default `panel_fn`."""
+    """Fused intra-panel sweep returning (qf', ΔW) — the blocked solvers'
+    default `panel_fn`; operands with a leading expert axis sweep every
+    expert's panel in one call."""
     if _plain(qf):
         return _panel.comq_panel_dq_plain(h_bb, s0, qf, delta, z_lo, z_hi,
                                           hdiag)
@@ -88,6 +89,7 @@ def reset_launch_counts() -> None:
     for mod, _, count in KERNELS:
         setattr(mod, count, 0)
     _paged.launches_quant_tc = 0     # the tensor-core share of launches_quant
+    _panel.launches_batched = 0      # the expert-batched share of launches
     _qmm.launches_by_cpb = dict.fromkeys(_qmm.launches_by_cpb, 0)
 
 

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import time
 from typing import Any, Dict
 
@@ -43,22 +42,13 @@ from repro_torch.core.apply import serving_params
 from repro_torch.device import resolve_device
 from repro_torch.launch.quantize import add_not_ported, set_precision
 from repro_torch.models import BuildPlan, init_params
-from repro_torch.models.attention import attn_param_shapes
+from repro_torch.models.model import param_count as count_params
 from repro_torch.serve import (Engine, Runtime, ServeConfig, blocks_for,
                                paged_cache_bytes)
 
 # JAX launcher flags not ported yet, with whether each takes a value
 NOT_PORTED = {"--journal": True, "--resume": False, "--restarts": True,
               "--inject": True, "--trace": True, "--metrics": True}
-
-
-def count_params(cfg) -> int:
-    """Parameters of the dense model (embeddings, layers, final norm)."""
-    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
-    per_layer = sum(math.prod(s) for s in attn_param_shapes(cfg).values())
-    per_layer += (2 if cfg.act == "gelu_mlp" else 3) * d * f + 2 * d
-    embeds = v * d * (1 if cfg.tie_embeddings else 2)
-    return embeds + cfg.n_layers * per_layer + d
 
 
 def _quantize(params, cfg, plan, bits: int, dev):

@@ -25,6 +25,10 @@ def dtype_of(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
+def pad_to_multiple(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
 # ---------------------------------------------------------------------------
 # initializers
 # ---------------------------------------------------------------------------

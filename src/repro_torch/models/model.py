@@ -1,4 +1,5 @@
-"""Top-level model API, dense family (port of `repro.models.model`).
+"""Top-level model API, dense and MoE families (port of
+`repro.models.model`).
 
     params = init_params(cfg, seed=0, device=None)
     logits, aux, cache = forward(params, cfg, plan, tokens, make_cache=...)
@@ -17,6 +18,7 @@ same against a paged KV pool with one position per slot (serve/).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import torch
@@ -34,17 +36,38 @@ Params = Dict[str, Any]
 
 def init_params(cfg, *, seed: int = 0, device: DeviceLike = None) -> Params:
     """Random weights from `torch.Generator(device).manual_seed(seed)`."""
-    tfm.check_dense(cfg)
+    tfm.check_ported(cfg)
+    plan = BuildPlan()
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, v = cfg.d_model, cfg.vocab_size
     p: Params = {"embed": embed_init(gen, (v, d), dev)}
     if not cfg.tie_embeddings:
         p["unembed"] = dense_init(gen, (d, v), dev)
-    p["layers"] = [tfm.init_layer(gen, cfg, dev)
+    p["layers"] = [tfm.init_layer(gen, cfg, plan, dev)
                    for _ in range(cfg.n_layers)]
     p["final_norm"] = norm_params(cfg, dev)
     return p
+
+
+def param_count(cfg, active_only: bool = False) -> int:
+    """Parameters of the model (embeddings, layers, final norm); with
+    `active_only`, an MoE model counts top_k of its experts a layer (the
+    JAX package's `count_params_analytic`)."""
+    from repro_torch.models.attention import attn_param_shapes
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    per_layer = sum(math.prod(s) for s in attn_param_shapes(cfg).values())
+    per_layer += 2 * d
+    n_ff_mats = 2 if cfg.act == "gelu_mlp" else 3
+    if cfg.moe is not None:
+        e = cfg.moe.n_experts
+        per_layer += d * e + 3 * e * d * f      # router, w_gate/w_up/w_down
+        if active_only:
+            per_layer -= (e - cfg.moe.top_k) * n_ff_mats * d * f
+    else:
+        per_layer += n_ff_mats * d * f
+    embeds = v * d * (1 if cfg.tie_embeddings else 2)
+    return embeds + cfg.n_layers * per_layer + d
 
 
 # ---------------------------------------------------------------------------
@@ -77,24 +100,28 @@ def unembed(p: Params, cfg, plan: BuildPlan, x: Tensor) -> Tensor:
 # ---------------------------------------------------------------------------
 
 def _run_layers(p: Params, cfg, plan, x, make_cache: bool):
+    """Returns (x, caches, aux): aux sums the layers' MoE load-balance
+    losses (0 for a dense model)."""
     from repro_torch.core.apply import dequantize_qt_tree
     cd = dtype_of(cfg.compute_dtype)
     caches = []
+    aux = torch.zeros((), device=x.device)
     for lp in p["layers"]:
-        x, cache = tfm.layer_full(dequantize_qt_tree(lp, cd), x, cfg, plan,
-                                  make_cache)
+        x, cache, a = tfm.layer_full(dequantize_qt_tree(lp, cd), x, cfg,
+                                     plan, make_cache)
         caches.append(cache)
-    return x, caches
+        if a is not None:
+            aux = aux + a
+    return x, caches, aux
 
 
 def forward(p: Params, cfg, plan: BuildPlan, tokens: Tensor,
             make_cache: bool = False):
     """Returns (logits, aux, cache_or_None)."""
     x = embed_tokens(p, cfg, plan, tokens)
-    x, caches = _run_layers(p, cfg, plan, x, make_cache)
+    x, caches, aux = _run_layers(p, cfg, plan, x, make_cache)
     x = apply_norm(p["final_norm"], x, cfg)
     logits = unembed(p, cfg, plan, x)
-    aux = torch.zeros((), device=x.device)
     return logits, aux, ({"kv": caches} if make_cache else None)
 
 
@@ -173,7 +200,7 @@ def decode_step_paged(p: Params, cfg, plan: BuildPlan, pool, block_tables,
     packed and run through quant_matmul (keep_fused). Returns
     (logits (B, V), pool)."""
     from repro_torch.core.apply import dequantize_qt_tree
-    tfm.check_dense(cfg)
+    tfm.check_ported(cfg)
     cd = dtype_of(cfg.compute_dtype)
     x = embed_tokens(p, cfg, plan, tokens)
     for i, lp in enumerate(p["layers"]):

@@ -1,10 +1,11 @@
-"""Decoder layer assembly, dense family (port of
+"""Decoder layer assembly, dense and MoE families (port of
 `repro.models.transformer`).
 
 Layers run one at a time from a per-layer list of param dicts (the JAX
-package scans stacked params). `BuildPlan` keeps the facts the dense path
-reads: the KV-cache dtype or its int8 form, the prefill cache length and
-the paged pool's code width. The port runs on one device, so there is no TP head or vocab
+package scans stacked params). `BuildPlan` keeps the facts the ported
+paths read: the KV-cache dtype or its int8 form, the prefill cache length,
+the paged pool's code width and the MoE token chunk and capacity rounding.
+The port runs on one device, so there is no TP head, expert or vocab
 padding (the JAX plan's tp=1).
 """
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (cache_insert, cache_prefill,
                                           decode_attend, flash_attention,
                                           head_to_kv_map, init_kv_cache,
@@ -36,26 +38,44 @@ class BuildPlan:
     # paged KV pool: 0 = pages in cache_dtype, 8 / 4 = integer page codes
     # with per-(layer, page, kv_head) scales (serve/kv_cache.py)
     kv_bits: int = 0
+    # MoE: the token chunk of the non-calibration paths, and the multiple
+    # the routing capacity is rounded up to
+    moe_token_chunk: int = 4096
+    moe_capacity_multiple: int = 1
+
+    def experts_padded(self, cfg) -> int:
+        return 0 if cfg.moe is None else cfg.moe.n_experts
 
     def replace(self, **kw) -> "BuildPlan":
         return dataclasses.replace(self, **kw)
 
 
-def check_dense(cfg) -> None:
-    if (cfg.family != "dense" or cfg.attn_free or cfg.moe is not None
-            or cfg.parallel_ssm_heads or cfg.cross_attn is not None
+def check_ported(cfg) -> None:
+    """Raise for a configuration whose family the port does not run yet:
+    it runs the dense GQA transformer and the MoE family (rmsnorm, causal,
+    self-attention only)."""
+    if (cfg.family not in ("dense", "moe")
+            or (cfg.family == "moe") != (cfg.moe is not None)
+            or cfg.attn_free or cfg.parallel_ssm_heads
+            or cfg.cross_attn is not None or not cfg.causal
             or cfg.norm_type != "rmsnorm"):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported to "
-            "repro_torch yet: only the dense transformer is")
+            "repro_torch yet: the dense and MoE transformers are "
+            "(ROADMAP.md Queue A item 12)")
 
 
-def init_layer(gen: torch.Generator, cfg, device) -> dict:
-    check_dense(cfg)
-    return {"ln1": norm_params(cfg, device),
-            "attn": attn_mod.init_attn(gen, cfg, device),
-            "ln2": norm_params(cfg, device),
-            "mlp": mlp_mod.init_mlp(gen, cfg, device)}
+def init_layer(gen: torch.Generator, cfg, plan: BuildPlan, device) -> dict:
+    check_ported(cfg)
+    p = {"ln1": norm_params(cfg, device),
+         "attn": attn_mod.init_attn(gen, cfg, device),
+         "ln2": norm_params(cfg, device)}
+    if cfg.moe is not None:
+        p["moe"] = moe_mod.init_moe(gen, cfg, plan.experts_padded(cfg),
+                                    device)
+    else:
+        p["mlp"] = mlp_mod.init_mlp(gen, cfg, device)
+    return p
 
 
 def _hmap(cfg, device):
@@ -98,24 +118,36 @@ def _self_attention_full(p, x, cfg, plan, make_cache: bool, taps=None,
     return attn_mod.out_project(ap, o), cache
 
 
+def _ffn_full(p: dict, xn: Tensor, cfg, plan: BuildPlan, taps=None,
+              quantize_cb=None):
+    """The feed-forward block: (out, aux loss or None)."""
+    if cfg.moe is not None:
+        return moe_mod.apply_moe(p["moe"], xn, cfg, plan.experts_padded(cfg),
+                                 plan.moe_token_chunk, taps=taps,
+                                 quantize_cb=quantize_cb,
+                                 capacity_multiple=plan.moe_capacity_multiple)
+    return mlp_mod.apply_mlp(p["mlp"], xn, cfg, taps=taps,
+                             quantize_cb=quantize_cb), None
+
+
 def layer_full(p: dict, x: Tensor, cfg, plan: BuildPlan, make_cache: bool,
                taps=None, quantize_cb=None):
-    """One layer over a full sequence. Returns (x, cache_or_None).
+    """One layer over a full sequence. Returns (x, cache_or_None, aux):
+    aux is the MoE load-balance loss, None for a dense layer.
 
     `quantize_cb` (calibration only, requires `taps`) is called once per
     activation tap right after the tap is recorded and before the weights
     it feeds are applied; it returns replacement (dequantized) leaves, so
     the rest of this forward runs on the already-quantized sub-blocks —
     the staged one-forward-per-layer calibration walk."""
-    check_dense(cfg)
+    check_ported(cfg)
     xn = apply_norm(p["ln1"], x, cfg)
     a_out, cache = _self_attention_full(p, xn, cfg, plan, make_cache, taps,
                                         quantize_cb)
     x = x + a_out
     xn = apply_norm(p["ln2"], x, cfg)
-    x = x + mlp_mod.apply_mlp(p["mlp"], xn, cfg, taps=taps,
-                              quantize_cb=quantize_cb)
-    return x, cache
+    m_out, aux = _ffn_full(p, xn, cfg, plan, taps, quantize_cb)
+    return x + m_out, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +158,7 @@ def layer_decode(p: dict, x: Tensor, cfg, plan: BuildPlan, kv_cache,
                  pos: int):
     """x: (B, 1, d) at absolute position `pos`. Returns (x, kv_cache); the
     cache is updated in place."""
-    check_dense(cfg)
+    check_ported(cfg)
     xn = apply_norm(p["ln1"], x, cfg)
     q, k, v = qkv_project(p["attn"], xn)
     B = x.shape[0]
@@ -137,12 +169,13 @@ def layer_decode(p: dict, x: Tensor, cfg, plan: BuildPlan, kv_cache,
     o = decode_attend(q, kv_cache, _hmap(cfg, x.device), pos=pos,
                       window=cfg.sliding_window)
     x = x + attn_mod.out_project(p["attn"], o)
-    return x + _decode_ffn(p, x, cfg), kv_cache
+    return x + _decode_ffn(p, x, cfg, plan), kv_cache
 
 
-def _decode_ffn(p: dict, x: Tensor, cfg) -> Tensor:
-    xn = apply_norm(p["ln2"], x, cfg)
-    return mlp_mod.apply_mlp(p["mlp"], xn, cfg)
+def _decode_ffn(p: dict, x: Tensor, cfg, plan: BuildPlan) -> Tensor:
+    """The feed-forward block of a decode step (all slots routed, the
+    inactive ones too, as in the JAX package)."""
+    return _ffn_full(p, apply_norm(p["ln2"], x, cfg), cfg, plan)[0]
 
 
 def layer_decode_paged(p: dict, x: Tensor, cfg, plan: BuildPlan,
@@ -162,7 +195,7 @@ def layer_decode_paged(p: dict, x: Tensor, cfg, plan: BuildPlan,
     k_scale/v_scale (NB, KV) the per-(page, kv_head) scales: the append
     re-quantizes under a running-max page scale and attention dequantizes
     in the kernel. Returns (x, k_pool, v_pool, k_scale, v_scale) then."""
-    check_dense(cfg)
+    check_ported(cfg)
     hmap = _hmap(cfg, x.device)
     xn = apply_norm(p["ln1"], x, cfg)
     q, k, v = qkv_project(p["attn"], xn)
@@ -181,7 +214,7 @@ def layer_decode_paged(p: dict, x: Tensor, cfg, plan: BuildPlan,
         o = paged_decode_attend(q, k_pool, v_pool, block_tables, lengths,
                                 hmap, window=cfg.sliding_window)
     x = x + attn_mod.out_project(p["attn"], o)
-    x = x + _decode_ffn(p, x, cfg)
+    x = x + _decode_ffn(p, x, cfg, plan)
     if plan.kv_bits:
         return x, k_pool, v_pool, k_scale, v_scale
     return x, k_pool, v_pool

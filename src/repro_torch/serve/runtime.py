@@ -16,7 +16,12 @@ The runtime ties together:
 
 The batch shape is fixed at `max_slots` rows and every kernel computes a
 row from that row's inputs alone, so a request's tokens do not depend on
-its batchmates: mixed traffic reproduces solo runs token for token.
+its batchmates: mixed traffic reproduces solo runs token for token. An
+MoE layer routes every slot, the inactive ones too, and at up to 8 slots
+no expert gets more pairs than the capacity floor of 8, so no decode
+token is dropped and the same holds. Prefill runs one request at a time
+with its padding after the prompt, so padding never takes a real token's
+capacity slot.
 
 Preemption is recompute-based: the victim's pages are freed and it
 re-queues; on re-admission the runtime re-prefills prompt + all emitted
@@ -41,7 +46,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import decode_step_paged, forward
-from repro_torch.models.transformer import check_dense
+from repro_torch.models.transformer import check_ported
 from repro_torch.serve.kv_cache import (BlockAllocator, blocks_for,
                                         init_paged_cache, paged_cache_bytes,
                                         write_prefill)
@@ -100,7 +105,7 @@ class Runtime:
                 raise NotImplementedError(
                     f"Runtime({name}=...) is not yet ported to repro_torch "
                     "(see ROADMAP.md Queue A)")
-        check_dense(cfg)
+        check_ported(cfg)
         # the paged path quantizes pages, not the static engine's per-entry
         # int8 cache: an int8 cache plan means int8 pages, and the prefill
         # forwards must produce float rows for write_prefill to quantize

@@ -531,3 +531,152 @@ def test_paged_quant_tensor_cores_read_a_page_out_of_range_as_zero(
                                         kv_bits=kv_bits)
     d, w = _paged_diff(got, want, lens)
     assert bool((d <= 8e-3 * w + 1e-3).all()), float(d.max())
+
+
+# ---------------------------------------------------------------------------
+# the MoE family (granite-moe-3b-a800m's shapes): the expert-batched
+# comq_panel launch, and the other kernels at 24 query / 8 KV heads, hd 64
+# ---------------------------------------------------------------------------
+
+def _panel_stack(dev, E, B, n, seed):
+    """E random panels: h_bb (E, B, B), s0 / qf (E, B, n), delta / z_lo /
+    z_hi (E, n), hdiag (E, B); the last 3 rows of expert 0 are padding."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(E, 4 * B, B, generator=g, device=dev)
+    h = (torch.bmm(x.transpose(1, 2), x) / (4 * B)
+         + 0.1 * torch.eye(B, device=dev))
+    h[0, -3:, :] = 0
+    h[0, :, -3:] = 0
+    return (h, torch.randn(E, B, n, generator=g, device=dev),
+            torch.randn(E, B, n, generator=g, device=dev) * 3,
+            torch.rand(E, n, generator=g, device=dev) * 0.15 + 0.05,
+            torch.full((E, n), -8.0, device=dev),
+            torch.full((E, n), 7.0, device=dev),
+            torch.diagonal(h, dim1=1, dim2=2).contiguous())
+
+
+@pytest.mark.parametrize("E,B,n", [(1, 256, 1024), (4, 256, 512),
+                                   (40, 256, 1024), (4, 37, 33),
+                                   (40, 64, 6)])
+def test_panel_batched_matches_plain_and_single_launches(cuda, E, B, n):
+    """One launch for E experts: >= 99.9% of codes equal to the plain
+    version, and each expert's result equal, bit for bit, to a launch on
+    its own slices (the per-column code is the single-panel kernel's)."""
+    args = _panel_stack(cuda, E, B, n, seed=E * B + n)
+    before = (comq_panel.launches, comq_panel.launches_batched)
+    qk, dk = comq_panel.comq_panel_dq_cuda(*args)
+    assert (comq_panel.launches, comq_panel.launches_batched) == (
+        before[0] + 1, before[1] + (E > 1))
+    qp, _ = comq_panel.comq_panel_dq_plain(*args)
+    assert qk.shape == (E, B, n)
+    assert float((qk == qp).float().mean()) >= 0.999
+    for e in range(E):
+        q1, d1 = comq_panel.comq_panel_dq_cuda(*(a[e].contiguous()
+                                                 for a in args))
+        assert torch.equal(qk[e], q1) and torch.equal(dk[e], d1)
+
+
+def test_panel_batched_wrapper_refuses_bad_stacks(cuda):
+    h, s0, qf, d, lo, hi, hd = _panel_stack(cuda, 3, 16, 8, seed=0)
+    with pytest.raises(ValueError):     # hdiag of another expert count
+        comq_panel.comq_panel_dq_cuda(h, s0, qf, d, lo, hi, hd[:2])
+    with pytest.raises(ValueError):     # a second leading axis
+        comq_panel.comq_panel_dq_cuda(h[None], s0[None], qf[None], d[None],
+                                      lo[None], hi[None], hd[None])
+    with pytest.raises(ValueError):     # one panel's delta for a stack
+        comq_panel.comq_panel_dq_cuda(h, s0, qf, d[0], lo, hi, hd)
+
+
+def test_batched_blocked_solve_on_the_card(cuda):
+    """comq_quantize_blocked_experts with the batched kernel against the
+    same solve with the plain panel version."""
+    from repro_torch.core.comq_hessian import comq_quantize_blocked_experts
+    from repro_torch.core.quantizer import QuantSpec
+    g = torch.Generator(device=cuda).manual_seed(3)
+    E, N, m, n = 6, 300, 200, 96
+    xs = torch.randn(E, N, m, generator=g, device=cuda)
+    hs = torch.bmm(xs.transpose(1, 2), xs)
+    ws = torch.randn(E, m, n, generator=g, device=cuda)
+    spec = QuantSpec(bits=4, lam=0.9)
+    before = comq_panel.launches_batched
+    rk = comq_quantize_blocked_experts(hs, ws, spec, block=64)
+    assert comq_panel.launches_batched - before == 4 * spec.sweeps
+    rp = comq_quantize_blocked_experts(
+        hs, ws, spec, block=64, panel_fn=comq_panel.comq_panel_dq_plain)
+    assert float((rk.q == rp.q).float().mean()) >= 0.999
+    torch.testing.assert_close(rk.errors, rp.errors, rtol=1e-3, atol=0)
+
+
+@pytest.mark.parametrize("B,T", [(8, 128), (1, 512), (2, 77)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_granite_heads(cuda, B, T, dtype):
+    g = torch.Generator(device=cuda).manual_seed(B * T)
+    q, k, v = (torch.randn(B, T, n, 64, generator=g, device=cuda).to(dtype)
+               for n in (24, 8, 8))
+    got = flash_attention.flash_attention_cuda(q, k, v)
+    want = flash_attention.flash_attention_plain(q, k, v)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 100])
+def test_paged_attention_granite_heads(cuda, dtype, window):
+    from repro_torch.kernels import paged_attention as pa
+    lens_l, BS, MAXB = [1, 544, 0, 255, 257, 100, 17, 33], 16, 40
+    q, k, v, bt, lens = _paged_inputs(cuda, 8, 24, 8, 64, 8 * MAXB, BS,
+                                      MAXB, lens_l, dtype, seed=window + 1)
+    if dtype == torch.bfloat16:
+        k, v = k.bfloat16(), v.bfloat16()
+    got = pa.paged_attention_cuda(q, k, v, bt, lens, window=window)
+    want = pa.paged_attention_plain(q, k, v, bt, lens, window=window)
+    d, w = _paged_diff(got, want, lens)
+    if dtype == torch.float32:
+        assert float(d.max()) <= 1e-4
+    else:
+        assert bool((d <= 8e-3 * w + 1e-3).all()), float(d.max())
+
+
+@pytest.mark.parametrize("kv_bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_quant_granite_heads(cuda, kv_bits, dtype):
+    """bf16 q takes the tensor-core kernel at hd 64 (group 3), f32 q the
+    CUDA-core one."""
+    from repro_torch.kernels import paged_attention as pa
+    lens_l, BS, MAXB = [1, 544, 0, 255, 257, 100, 17, 33], 16, 40
+    q, k, v, bt, lens = _paged_inputs(cuda, 8, 24, 8, 64, 8 * MAXB, BS,
+                                      MAXB, lens_l, dtype, seed=kv_bits)
+    kq, ks = _quantize_pool(k, kv_bits)
+    vq, vs = _quantize_pool(v, kv_bits)
+    tc = dtype == torch.bfloat16
+    assert (pa.quant_kernel(dtype, kv_bits, 64, BS) == pa.TENSOR_CORE) == tc
+    before = pa.launches_quant_tc
+    got = pa.paged_attention_quant_cuda(q, kq, vq, ks, vs, bt, lens,
+                                        kv_bits=kv_bits)
+    want = pa.paged_attention_quant_plain(q, kq, vq, ks, vs, bt, lens,
+                                          kv_bits=kv_bits)
+    assert pa.launches_quant_tc == before + tc
+    d, w = _paged_diff(got, want, lens)
+    if dtype == torch.float32:
+        assert float(d.max()) <= 1e-4
+    else:
+        assert bool((d <= 8e-3 * w + 1e-3).all()), float(d.max())
+
+
+@pytest.mark.parametrize("N", [1536, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_granite_shapes(cuda, N, dtype):
+    """granite's attention projections at decode: M=8, K=1536, 4-bit."""
+    M, K = 8, 1536
+    g = torch.Generator(device=cuda).manual_seed(N)
+    x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
+    u = torch.randint(0, 16, (K, N), generator=g, device=cuda,
+                      dtype=torch.uint8)
+    scale = torch.rand(N, generator=g, device=cuda) * 0.04 + 0.01
+    z = torch.randint(-8, 0, (N,), generator=g, device=cuda).float()
+    codes, cpb = pack_codes(u, 4)
+    got = quant_matmul.quant_matmul_cuda(x, codes, scale, z, cpb=cpb)
+    want = quant_matmul.quant_matmul_plain(x, codes, scale, z, cpb=cpb)
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
