@@ -76,12 +76,37 @@ no result line):
    the packed codes against the plain versions (bf16, then f32 under the
    precision gate), the phase-8 traffic at kv_bits 0, 8 and 4, and at f32
    mixed == solo for all 16 requests.
+11. hybrid — hymba-1.5b at full width (d_model 1600, 25/5 heads, head_dim
+   64, d_ff 5504, vocab 32001, a 1024-token window, a parallel Mamba
+   branch of d_inner 3200 and state 16), n_layers cut 32 -> 4 (the only
+   reduction). First its kernels: flash at 25/5 heads with the window
+   (B=8, T=128; B=1, T=2048, where the window binds; SDPA with the window
+   as a mask is the yardstick), quant_matmul at the decode projections
+   (M=8, K=1600 into N=1600 / 320 / 5504, K=5504 into N=1600), the panel
+   at n=6400 and 5504. Then the hybrid path, counted: the launcher's
+   quantize (the SSM leaves w_in / w_out among the solved ones, the SSM
+   state carried across layers; seconds per layer), decode from the
+   packed codes against the plain versions (8x128, and a B=1 prompt of
+   1016 tokens whose 16 steps cross position 1024 on the ring cache;
+   bf16 and f32 gated with every layer in lockstep — hidden and SSM
+   state — and printed free-running: with the plain versions alone, a
+   1e-6 change of the quant_matmul outputs moves this model's f32 logits
+   by ~1e-2 of max|logit|, `tools/decode_sensitivity.py`), and the static
+   Engine (what `launch.serve` runs for this family) on 8 prompts of 128
+   tokens, 32 greedy tokens: tok/s at bf16, and at f32 the plain
+   versions' greedy tokens with the layers in lockstep equal the
+   kernels' (free-running agreement printed). Last a quantize at full
+   depth (32 layers): wall time, seconds per layer and peak device
+   memory; gated on a finite improvement > 0.
 
 Launch counts: the quantize-and-decode path (phases 4-5), the serve path
-(phase 8), the policy path (phase 9a) and the MoE path (phase 10) are each
-counted from 0; every kernel must launch on the main path as a whole, and
-each of the five on the MoE path. Then one JSON line of the kernels (the
-expert-batched panel launch as its own entry), and last the device line.
+(phase 8), the policy path (phase 9a), the MoE path (phase 10) and the
+hybrid path (phase 11 b-d) are each counted from 0; every kernel must
+launch on the main path as a whole, each of the five on the MoE path and
+the three of the static engine on the hybrid path. Then one JSON line of
+the kernels (the expert-batched panel launch and hymba's new shapes as
+entries of their own, the latter with the hybrid path's launches), and
+last the device line.
 """
 from __future__ import annotations
 
@@ -134,6 +159,14 @@ MOE_ARCH, MOE_LAYERS = "granite-moe-3b-a800m", 4
 MOE_HEADS = (24, 8, 64)                # query heads, KV heads, head_dim
 MOE_PANEL_N = (512, 1024, 1536)        # w_gate / w_up alone, fused, w_down
 MOE_PATH = SLICE1 + SERVE_NEW_KERNELS
+# phase 11: the hybrid family at full width, depth cut to HYBRID_LAYERS; a
+# quantize at full depth (HYBRID_FULL_LAYERS) closes it
+HYBRID_ARCH, HYBRID_LAYERS, HYBRID_FULL_LAYERS = "hymba-1.5b", 4, 32
+HYBRID_HEADS = (25, 5, 64)             # query heads, KV heads, head_dim
+HYBRID_WINDOW = 1024
+HYBRID_LONG = 1016     # a B=1 prompt whose 16 decode steps cross 1024
+HYBRID_PANEL = ((6400, 4), (5504, 4))  # w_in's columns; w_gate / w_up's
+HYBRID_PATH = SLICE1   # the static engine: no paged kernel, as in JAX
 
 
 class CheckFailed(RuntimeError):
@@ -247,14 +280,18 @@ def plain_kernels(ops, modules):
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def check_panel(torch, panel, dev, results):
-    """4-bit codes at the model's n (512 / 3584 / 18944 columns), then the
-    2- and 8-bit code ranges a policy solves at, n=3584: qf and δ scale
-    with the range, so at 8 bits δ is 17x finer than at 4 and far more
-    steps land near a rounding boundary (the kernel's exact redo)."""
+QWEN_PANEL_CASES = ((512, 4), (3584, 4), (18944, 4), (3584, 2), (3584, 8))
+
+
+def check_panel(torch, panel, dev, results, cases=QWEN_PANEL_CASES):
+    """`cases` ((n, bits)): by default 4-bit codes at qwen's n (512 / 3584
+    / 18944 columns), then the 2- and 8-bit code ranges a policy solves
+    at, n=3584: qf and δ scale with the range, so at 8 bits δ is 17x finer
+    than at 4 and far more steps land near a rounding boundary (the
+    kernel's exact redo)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     B = 256
-    for n, bits in ((512, 4), (3584, 4), (18944, 4), (3584, 2), (3584, 8)):
+    for n, bits in cases:
         spread = (2 ** bits - 1) / 15
         x = torch.randn(4 * B, B, generator=gen, device=dev)
         h_bb = (x.T @ x) / (4 * B) + 0.1 * torch.eye(B, device=dev)
@@ -290,40 +327,53 @@ def check_panel(torch, panel, dev, results):
                             bound_by=by, library_ms=None, max_abs_err=err)
 
 
-def check_flash(torch, flash, dev, results, heads=(28, 4, 128), tag=()):
-    """bf16 (the main path, tensor cores) at the quantize/decode shape
-    B=8, T=128 and the serve-prefill shape B=1, T=512, each timed; then
-    the f32 (CUDA-core) kernel at B=8, T=128, checked only. `heads` is
-    (H, KV, hd); `tag` extends the result keys."""
+def check_flash(torch, flash, dev, results, heads=(28, 4, 128), tag=(),
+                shapes=((8, PROMPT), (1, SERVE_BUCKETS[-1])), window=0):
+    """bf16 (the main path, tensor cores) at `shapes` ((B, T): by default
+    the quantize/decode shape B=8, T=128 and the serve-prefill shape B=1,
+    T=512), each timed; then the f32 (CUDA-core) kernel at the first
+    shape, checked only. `heads` is (H, KV, hd); `window` the sliding
+    window (0: full causal); `tag` extends the result keys."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(2)
     H, KV, hd = heads
-    for B, T in ((8, PROMPT), (1, SERVE_BUCKETS[-1])):
+    for B, T in shapes:
         q = torch.randn(B, T, H, hd, generator=gen, device=dev).bfloat16()
         k = torch.randn(B, T, KV, hd, generator=gen, device=dev).bfloat16()
         v = torch.randn(B, T, KV, hd, generator=gen, device=dev).bfloat16()
-        got = flash.flash_attention_cuda(q, k, v, causal=True).float()
-        want = flash.flash_attention_plain(q, k, v, causal=True).float()
+        got = flash.flash_attention_cuda(q, k, v, causal=True,
+                                         window=window).float()
+        want = flash.flash_attention_plain(q, k, v, causal=True,
+                                           window=window).float()
         torch.cuda.synchronize()
         diff = (got - want).abs()
         err = float(diff.max())
         ok = bool((diff <= FLASH_BF16_RTOL * want.abs()
                    + FLASH_BF16_ATOL).all())
-        t = Timing(torch, lambda i: flash.flash_attention_cuda(q, k, v), 50)
+        t = Timing(torch, lambda i: flash.flash_attention_cuda(
+            q, k, v, window=window), 50)
         plain_ms = cuda_ms(torch, lambda i: flash.flash_attention_plain(
-            q, k, v), 10)
+            q, k, v, window=window), 10)
         lib, lib_note = None, "scaled_dot_product_attention, GQA, causal"
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        # the window as a boolean mask (SDPA has no window argument)
+        mask = (flash.attention_mask(T, T, True, window, dev) if window
+                else None)
+        if window:
+            lib_note += f", window {window} as a boolean mask"
         try:
             lib = Timing(torch, lambda i: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), 50)
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True), 50)
         except TypeError:   # torch without enable_gqa: no one-call yardstick
             lib_note = "torch has no enable_gqa"
         nbytes = 2 * (2 * q.numel() + 2 * k.numel())
-        flops = 4.0 * hd * B * H * T * (T + 1) / 2
+        pairs = sum(min(t + 1, window or T) for t in range(T))
+        flops = 4.0 * hd * B * H * pairs
         bms, by = bound_ms(nbytes, flops, "bf16")
         say(f"kernel flash_attention B={B} T={T} H={H} KV={KV} hd={hd} bf16 "
-            f"causal: max|d| {err:.3e} (tol {FLASH_BF16_RTOL}*|want|+"
+            f"causal window {window}: max|d| {err:.3e} (tol "
+            f"{FLASH_BF16_RTOL}*|want|+"
             f"{FLASH_BF16_ATOL}), ms {t}, plain_ms {plain_ms:.4f}, "
             f"bound_ms {bms:.4f} ({by}), library_ms {lib} ({lib_note})")
         check(ok, f"flash_attention B={B} T={T} disagrees with its plain "
@@ -332,17 +382,17 @@ def check_flash(torch, flash, dev, results, heads=(28, 4, 128), tag=()):
             ms=t.ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
             library_ms=lib.ms if lib else None, max_abs_err=err)
     # the f32 instantiation (CUDA cores), the precision path of phase 5
-    B, T = 8, PROMPT
+    B, T = shapes[0]
     q, k, v = (torch.randn(B, T, n, hd, generator=gen, device=dev)
                for n in (H, KV, KV))
-    got = flash.flash_attention_cuda(q, k, v, causal=True)
-    want = flash.flash_attention_plain(q, k, v, causal=True)
+    got = flash.flash_attention_cuda(q, k, v, causal=True, window=window)
+    want = flash.flash_attention_plain(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     diff = (got - want).abs()
     err = float(diff.max())
     say(f"kernel flash_attention B={B} T={T} H={H} KV={KV} hd={hd} f32 "
-        f"causal: max|d| {err:.3e} (tol {FLASH_F32_TOL}*|want|+"
-        f"{FLASH_F32_TOL})")
+        f"causal window {window}: max|d| {err:.3e} (tol {FLASH_F32_TOL}"
+        f"*|want|+{FLASH_F32_TOL})")
     check(bool((diff <= FLASH_F32_TOL * want.abs() + FLASH_F32_TOL).all()),
           f"flash_attention f32 disagrees with its plain version ({err})")
 
@@ -639,8 +689,8 @@ def check_panel_batched(torch, panel, dev, results, E: int):
 
 class DecodeTape:
     """What a decode run decided, in call order, to hold a second run of
-    the same steps to it: each layer's input hidden state and each MoE
-    routing choice (expert ids).
+    the same steps to it: each layer's input hidden state, a hybrid
+    layer's input SSM state, and each MoE routing choice (expert ids).
 
     The random-init model amplifies any rounding difference from layer to
     layer: with the plain versions only, multiplying every attention
@@ -653,11 +703,14 @@ class DecodeTape:
     recorded ones); `lockstep` (every layer starts from the recorded
     hidden state and routes as recorded, with the weights from its own
     logits: each layer's kernels against the plain versions, as phase 7
-    runs quantized pages in lockstep)."""
+    runs quantized pages in lockstep). In lockstep a hybrid layer also
+    starts from the recorded SSM state, as it does from the hidden state:
+    the recurrent state carries a rounding difference to every later
+    token of the layer."""
 
     def __init__(self, torch, tfm, moe_mod):
         self.torch, self.tfm, self.moe = torch, tfm, moe_mod
-        self.xs, self.ids = [], []
+        self.xs, self.ids, self.states = [], [], []
         self.flips = self.pairs = 0
 
     @contextlib.contextmanager
@@ -672,8 +725,12 @@ class DecodeTape:
             def layer(p, x, *a, **k):
                 if mode == "record":
                     self.xs.append(x)
+                    self.states.append(k.get("ssm_state"))
                 elif mode == "lockstep":
-                    x = self.xs[next(layer_i)]
+                    i = next(layer_i)
+                    x = self.xs[i]
+                    if self.states[i] is not None:
+                        k["ssm_state"] = self.states[i]
                 return real[name](p, x, *a, **k)
             return layer
 
@@ -732,10 +789,12 @@ def layer_clock(torch, pipeline, out: list):
 
 def run_decode(torch, sp, cfg, plan, tokens, feed=None, snapshots=None,
                lockstep=None):
-    """prefill + STEPS greedy decode steps; with `feed`, teacher-forced on
-    those tokens. `snapshots` (a list) collects a copy of the cache before
-    each step; with `lockstep` (such a list) step i runs from lockstep[i].
-    Returns (per-step logits, tokens fed)."""
+    """prefill of the (B, T) prompts + STEPS greedy decode steps; with
+    `feed`, teacher-forced on those tokens. `snapshots` (a list) collects a
+    copy of the cache before each step (a hybrid model's SSM states are
+    new tensors every step, so they are kept as they are); with
+    `lockstep` (such a list) step i runs from lockstep[i]. Returns
+    (per-step logits, tokens fed)."""
     from repro_torch.models import decode_step, prefill
     logits, cache = prefill(sp, cfg, plan, tokens)
     outs, fed = [logits.float()], []
@@ -743,13 +802,15 @@ def run_decode(torch, sp, cfg, plan, tokens, feed=None, snapshots=None,
         tok = feed[i] if feed is not None else outs[-1].argmax(-1)
         fed.append(tok)
         if snapshots is not None:
-            snapshots.append({"kv": [type(c)(*(None if t is None
-                                               else t.clone() for t in c))
-                                     for c in cache["kv"]]})
+            snap = {"kv": [type(c)(*(None if t is None else t.clone()
+                                     for t in c)) for c in cache["kv"]]}
+            if "ssm" in cache:
+                snap["ssm"] = list(cache["ssm"])
+            snapshots.append(snap)
         if lockstep is not None:
             cache = lockstep[i]
         logits, cache = decode_step(sp, cfg, plan, cache, tok[:, None],
-                                    PROMPT + i)
+                                    tokens.shape[1] + i)
         outs.append(logits.float())
     torch.cuda.synchronize()
     return outs, fed
@@ -1179,6 +1240,238 @@ def phase_moe(torch, dev, ops, kernels, cfg):
     return counts, batched
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the hybrid family (parallel SSM heads)
+# ---------------------------------------------------------------------------
+
+def check_hybrid_kernels(torch, dev, kernels, results, cfg):
+    """The three kernels of the hybrid path at hymba's shapes: flash at
+    25/5 heads, hd 64, window 1024 (B=8, T=128 and B=1, T=2048, where the
+    window binds), quant_matmul at the decode projections (M=8: K=1600
+    into N=1600 / 320 / 5504, K=5504 into N=1600), the panel at w_in's
+    6400 and w_gate's 5504 columns."""
+    panel, flash, qmm, _ = kernels
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+    check(heads == HYBRID_HEADS and cfg.sliding_window == HYBRID_WINDOW,
+          f"{cfg.name}: heads {heads}, window {cfg.sliding_window}")
+    check_panel(torch, panel, dev, results, HYBRID_PANEL)
+    time_plain_scan(torch, dev, cfg)
+    check_flash(torch, flash, dev, results, heads, ("hymba",),
+                shapes=((8, PROMPT), (1, 2 * HYBRID_WINDOW)),
+                window=HYBRID_WINDOW)
+    d, kvd = cfg.d_model, cfg.n_kv_heads * cfg.resolved_head_dim
+    check_qmm(torch, qmm, dev, results,
+              [(8, K, N, 4, xdt)
+               for K, N in ((d, d), (d, kvd), (d, cfg.d_ff), (cfg.d_ff, d))
+               for xdt in (torch.bfloat16, torch.float32)])
+
+
+def time_plain_scan(torch, dev, cfg):
+    """The chunked selective scan (`models.ssm._ssm_recurrence`, plain
+    PyTorch in both packages: JAX runs `lax.associative_scan`, no Pallas
+    kernel) at hymba's width: 8x128 (calibration, one chunk of 128) and
+    8x512 (prefill, one chunk of 512); mean of 5 eager calls, peak device
+    memory of one call, and the least time of the one-pass recurrence:
+    x (bf16) in, y (f32) and h out once, the x / dt / B / C projections
+    and ~7 f32 operations a (token, channel, state) element."""
+    from repro_torch.models import ssm as ssm_mod
+    gen = torch.Generator(device=dev).manual_seed(9)
+    p = ssm_mod.init_ssm(gen, cfg, dev)
+    sel = {k: p[k] for k in ("w_xproj", "w_dt", "b_dt", "a_log")}
+    _, di, n, dt_rank, _ = ssm_mod._dims(cfg)
+    for B, T in ((8, PROMPT), (8, 4 * PROMPT)):
+        xi = torch.randn(B, T, di, generator=gen, device=dev).bfloat16()
+        h0 = torch.zeros(B, di, n, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        ms = cuda_ms(torch, lambda i: ssm_mod._ssm_recurrence(
+            sel, xi, h0, cfg=cfg, chunk=T), 5)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        nbytes = (2 * xi.numel() + 4 * B * T * di + 2 * 4 * h0.numel()
+                  + 4 * sum(v.numel() for v in sel.values()))
+        flops = (2.0 * B * T * di * (dt_rank + 2 * n)
+                 + 2.0 * B * T * dt_rank * di + 7.0 * B * T * di * n)
+        bms, by = bound_ms(nbytes, flops, "f32")
+        say(f"plain selective scan B={B} T={T} d_inner={di} N={n} (one "
+            f"chunk): ms {ms:.4f} (eager mean), bound_ms {bms:.4f} ({by}), "
+            f"peak memory above its inputs {peak / 2 ** 20:.0f} MiB; no "
+            f"kernel in either package (ROADMAP Queue B, B4)")
+        del xi, h0
+
+
+def hybrid_decode(torch, ops, kernels, sp, cfg, plan, tokens, what):
+    """Decode from the packed codes (bf16, then f32 compute with an f32
+    cache), each against the plain versions with the layers in lockstep
+    (hidden and SSM state from the kernel run, `DecodeTape`) under the
+    precision gates, and free-running, printed: this model moves its
+    f32 logits by ~1e-2 of max|logit| when the quant_matmul outputs alone
+    change by 1e-6 with the plain versions only
+    (`tools/decode_sensitivity.py`, PERF.md §6 PR 18), the size of the
+    kernel's own f32 difference, so the free-running gap measures the
+    model."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    cfg32 = cfg.replace(compute_dtype="float32")
+    plan32 = plan.replace(cache_dtype=torch.float32)
+    fed = None
+    for label, c, pl in (("bfloat16", cfg, plan),
+                         ("float32", cfg32, plan32)):
+        tape = DecodeTape(torch, tfm, moe_mod)
+        t0 = time.time()
+        with torch.no_grad(), tape.mode("record"):
+            outs, fed = run_decode(torch, sp, c, pl, tokens, feed=fed)
+        say(f"{what} {label}: prefill {tokens.shape[0]}x{tokens.shape[1]} "
+            f"+ {STEPS} steps in {time.time() - t0:.2f} s wall")
+
+        def rerun(mode, c=c, pl=pl, tape=tape):
+            with tape.mode(mode):
+                return run_decode(torch, sp, c, pl, tokens, feed=fed)[0]
+        compare_decode(torch, ops, kernels, lambda: rerun("free"), outs,
+                       label, what=f"{what}, free-running", gate=False)
+        compare_decode(torch, ops, kernels, lambda: rerun("lockstep"), outs,
+                       label, what=f"{what}, layers in lockstep")
+        del outs, tape
+
+
+def phase_hybrid(torch, dev, ops, kernels, cfg):
+    """The counted hybrid path on `cfg` (hymba-1.5b at full width, depth
+    cut): quantize (blocked COMQ over the attention, SSM and MLP leaves;
+    the SSM state carried from layer to layer), decode from the packed
+    codes against the plain versions (8x128, and one B=1 prompt whose
+    steps cross the 1024 window on the ring cache), and serve through the
+    static Engine (the engine `launch.serve` runs for this family). Then a
+    quantize at full depth, outside the count. Returns the path's launch
+    counts."""
+    import numpy as np
+    from repro_torch.core import pipeline
+    from repro_torch.core.apply import serving_params
+    from repro_torch.launch.quantize import quantize_and_eval
+    from repro_torch.models import BuildPlan
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import Engine
+
+    # (b) quantize
+    ops.reset_launch_counts()
+    per_layer = []
+    t0 = time.time()
+    with layer_clock(torch, pipeline, per_layer):
+        run = quantize_and_eval(cfg, method="comq_blocked", calib_batch=8,
+                                calib_seq=PROMPT, device=dev)
+    s = run.summary
+    say(f"hybrid quantize: {json.dumps(s)}")
+    say(f"hybrid quantize: quantize_model {run.seconds:.3f} s "
+        f"(synchronized); per layer (synchronized) "
+        f"{[round(x, 3) for x in per_layer]} s; {time.time() - t0:.1f} s "
+        f"wall incl. init and eval; launches so far {ops.launch_counts()}")
+    imp = s["comq_vs_rtn_error_improvement"]
+    check(math.isfinite(imp) and imp > 0,
+          f"hybrid comq_vs_rtn_error_improvement {imp}")
+    gap = abs(s["quant_loss"] - s["fp_loss"])
+    check(gap <= LOSS_GAP,
+          f"hybrid |quant_loss - fp_loss| = {gap} > {LOSS_GAP}")
+    check(s["guard_events"] == 0,
+          f"hybrid quantize: {s['guard_events']} guard events")
+    for name in ("w_in", "w_out"):
+        qt = run.qparams["__qlayers__"]["0"]["ssm"][name]
+        say(f"hybrid ssm.{name} QTensor: codes {tuple(qt['codes'].shape)}, "
+            f"{qt['bits']} bits")
+
+    # (c) decode from the packed codes: the 8x128 eval batch, then one
+    # prompt of HYBRID_LONG tokens on a ring cache of the window's 1024
+    # rows, whose steps write positions 1016-1031
+    sp = serving_params(run.qparams, cfg)
+    ssm0 = sp["layers"][0]["ssm"]
+    ms = cuda_ms(torch, lambda i: (ssm0["w_in"].dequant(torch.bfloat16),
+                                   ssm0["w_out"].dequant(torch.bfloat16)),
+                 20)
+    say(f"hybrid decode: w_in {ssm0['w_in'].shape} + w_out "
+        f"{ssm0['w_out'].shape} dequantized to bf16 (every decode step, "
+        f"every layer, as in JAX): {ms:.4f} ms a layer (eager mean)")
+    hybrid_decode(torch, ops, kernels, sp, cfg,
+                  BuildPlan(prefill_cache_len=PROMPT + STEPS),
+                  run.eval_tokens, "hybrid decode")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    long = torch.randint(0, cfg.vocab_size, (1, HYBRID_LONG), generator=gen,
+                         device=dev)
+    hybrid_decode(torch, ops, kernels, sp, cfg, BuildPlan(), long,
+                  f"hybrid decode B=1 T={HYBRID_LONG} (ring of "
+                  f"{HYBRID_WINDOW})")
+
+    # (d) serve through the static Engine: 8 prompts of 128 tokens
+    prompts = np.random.RandomState(6).randint(
+        0, cfg.vocab_size, (SERVE_SLOTS, PROMPT)).astype(np.int32)
+    with torch.no_grad():
+        eng = Engine(sp, cfg, BuildPlan(), max_len=PROMPT + SERVE_NEW,
+                     device=dev)
+        eng.generate_batch(prompts, max_new_tokens=2)       # warm
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = eng.generate_batch(prompts, max_new_tokens=SERVE_NEW)
+        wall = time.time() - t0
+        say(f"hybrid serve bf16 (static Engine): {out.size} tokens in "
+            f"{wall:.3f} s: tok_per_s {out.size / wall:.1f} (prefill "
+            f"{SERVE_SLOTS}x{PROMPT} included)")
+        # f32: the plain versions' greedy tokens with every layer in
+        # lockstep with the kernel run (gated), and free-running (printed:
+        # a logit gap of ~1e-2 flips near-ties, and a flipped token
+        # changes the rest of its request)
+        cfg32 = cfg.replace(compute_dtype="float32")
+        p32 = BuildPlan(cache_dtype=torch.float32)
+
+        def engine_tokens():
+            return Engine(sp, cfg32, p32, max_len=PROMPT + SERVE_NEW,
+                          device=dev).generate_batch(
+                              prompts, max_new_tokens=SERVE_NEW)
+        tape = DecodeTape(torch, tfm, moe_mod)
+        with tape.mode("record"):
+            got = engine_tokens()
+        with plain_kernels(ops, kernels):
+            free = engine_tokens()
+            with tape.mode("lockstep"):
+                lock = engine_tokens()
+    for name, want in (("free-running", free), ("layers in lockstep", lock)):
+        say(f"hybrid serve f32, {name}: kernel tokens == plain versions' "
+            f"tokens for {int((got == want).all(axis=1).sum())}/"
+            f"{len(prompts)} requests ({int((got == want).sum())}/"
+            f"{got.size} tokens)")
+    check(bool((got == lock).all()),
+          "hybrid serve f32: with the layers in lockstep the plain "
+          "versions' greedy tokens differ from the kernels'")
+    counts = ops.launch_counts()
+    say(f"hybrid path launches (quantize + decode + serve): {counts}")
+    check(all(counts[k] > 0 for k in HYBRID_PATH),
+          f"a kernel of the hybrid path never launched: {counts}")
+    del sp, run
+
+    # (e) quantize at full depth
+    full = cfg.replace(n_layers=HYBRID_FULL_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    per_layer = []
+    t0 = time.time()
+    with layer_clock(torch, pipeline, per_layer):
+        deep = quantize_and_eval(full, method="comq_blocked", calib_batch=8,
+                                 calib_seq=PROMPT, device=dev)
+    wall = time.time() - t0
+    s = deep.summary
+    say(f"hybrid quantize, {HYBRID_FULL_LAYERS} layers: {json.dumps(s)}")
+    say(f"hybrid quantize, {HYBRID_FULL_LAYERS} layers: quantize_model "
+        f"{deep.seconds:.3f} s (synchronized), {wall:.1f} s wall incl. init "
+        f"and eval; per layer (synchronized) "
+        f"{[round(x, 3) for x in per_layer]} s; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB, "
+        f"{(torch.cuda.max_memory_allocated(dev) - held) / 2 ** 30:.2f} GiB "
+        f"above the {held / 2 ** 30:.2f} GiB held before the run")
+    imp = s["comq_vs_rtn_error_improvement"]
+    check(math.isfinite(imp) and imp > 0,
+          f"hybrid full-depth comq_vs_rtn_error_improvement {imp}")
+    del deep
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1407,11 +1700,26 @@ def main() -> int:
     check_moe_kernels(torch, dev, kernels, results, moe_cfg)
     moe_counts, moe_batched = phase_moe(torch, dev, ops, kernels, moe_cfg)
 
+    # 11. the hybrid family: its kernels, then the hybrid path, counted
+    hyb_cfg = get_config(HYBRID_ARCH).replace(n_layers=HYBRID_LAYERS)
+    say(f"hybrid reduced: n_layers 32 -> {HYBRID_LAYERS} (all widths full: "
+        f"d_model {hyb_cfg.d_model}, heads {hyb_cfg.n_heads}/"
+        f"{hyb_cfg.n_kv_heads}, head_dim {hyb_cfg.resolved_head_dim}, d_ff "
+        f"{hyb_cfg.d_ff}, vocab {hyb_cfg.vocab_size}, window "
+        f"{hyb_cfg.sliding_window}, SSM d_inner "
+        f"{hyb_cfg.ssm.expand * hyb_cfg.d_model} state "
+        f"{hyb_cfg.ssm.state_dim}); then {HYBRID_FULL_LAYERS} layers for "
+        f"the full-depth quantize")
+    check_hybrid_kernels(torch, dev, kernels, results, hyb_cfg)
+    hyb_counts = phase_hybrid(torch, dev, ops, kernels, hyb_cfg)
+
     # kernels line: launches on the main path as a whole
     src = "src/repro_torch/csrc/{}.cu"
     launches = {n: totals[n] + policy_counts[n] + moe_counts[n]
-                for n in totals}
+                + hyb_counts[n] for n in totals}
     launches["comq_panel_batched"] = moe_batched
+    for n in HYBRID_PATH:
+        launches[f"{n}@{HYBRID_ARCH}"] = hyb_counts[n]
     entries = [
         ("comq_panel", "comq_panel", results[("comq_panel", 18944)],
          "src/repro/kernels/comq_panel.py:79"),
@@ -1431,6 +1739,17 @@ def main() -> int:
         ("comq_panel_batched", "comq_panel",
          results[("comq_panel_batched", 40, 1024)],
          "src/repro/kernels/comq_panel.py:79"),
+        # hymba's new shapes (phase 11), with the hybrid path's launches
+        # (also counted in the kernel's own row above)
+        (f"comq_panel@{HYBRID_ARCH}", "comq_panel",
+         results[("comq_panel", 6400)],
+         "src/repro/kernels/comq_panel.py:79"),
+        (f"flash_attention@{HYBRID_ARCH}", "flash_attention",
+         results[("flash_attention", 1, 2 * HYBRID_WINDOW, "hymba")],
+         "src/repro/kernels/flash_attention.py:95"),
+        (f"quant_matmul@{HYBRID_ARCH}", "quant_matmul",
+         results[("quant_matmul", 8, 1600, 5504, 2, "bfloat16")],
+         "src/repro/kernels/quant_matmul.py:94"),
     ]
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src.format(source),

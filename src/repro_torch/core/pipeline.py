@@ -1,4 +1,4 @@
-"""Whole-model COMQ, dense and MoE families (port of
+"""Whole-model COMQ: the dense, MoE and hybrid families (port of
 `repro.core.pipeline`).
 
 GPTQ-style sequential layer-by-layer quantization with quantized
@@ -15,7 +15,11 @@ propagation. Two schedules:
 Each tap's Gram is computed once; a stacked-expert tap (E, C, d) gives one
 Gram per expert, and its leaves (E, d, f) solve every expert at once
 (`_solve_group_experts`, one `comq_panel` launch a panel for all
-experts). Every leaf is solved under the spec a
+experts). A hybrid layer (hymba) adds the SSM branch's taps, ssm_in
+(feeds w_in) and ssm_out_in (feeds w_out), and the walk carries the SSM
+state from layer to layer as the JAX walk does: layer l+1 starts from
+layer l's final state (`forward` starts every layer from zeros; ROADMAP,
+"Known behaviours of the reference"). Every leaf is solved under the spec a
 `core.policy.QuantPolicy` resolves for it (a plain QuantSpec is the
 uniform policy); a group whose specs agree is column-fused when that is
 exact, a mixed-bit group solves leaf by leaf. With guards on (the
@@ -26,7 +30,7 @@ end.
 
 Not ported yet (ROADMAP.md): the journal/resume path and fault injection
 (item 13), tracing/metrics (item 14), data/column sharding (item 15), and
-the SSM/RWKV/VLM families (item 12).
+the RWKV and VLM families (item 12).
 """
 from __future__ import annotations
 
@@ -65,11 +69,28 @@ MOE_TAPS = {
     ("moe", "w_gate"): "expert_in", ("moe", "w_up"): "expert_in",
     ("moe", "w_down"): "expert_down_in",
 }
+SSM_EXTRA_TAPS = {
+    ("ssm", "w_in"): "ssm_in", ("ssm", "w_out"): "ssm_out_in",
+}
 
 
 def taps_for(cfg) -> Dict[Tuple[str, str], str]:
     tfm.check_ported(cfg)
-    return dict(MOE_TAPS if cfg.moe is not None else DENSE_TAPS)
+    t = dict(MOE_TAPS if cfg.moe is not None else DENSE_TAPS)
+    if cfg.parallel_ssm_heads:
+        t.update(SSM_EXTRA_TAPS)
+    return t
+
+
+def layer_with_state(lp, x, state, cfg, plan, **kw):
+    """`layer_full` (no cache) from the walk's recurrent state: returns
+    (y, the layer's final state). The walk starts from None (a hybrid
+    layer's zero state); a state is passed on only once a layer returned
+    one, so the other families call `layer_full` exactly as before."""
+    if state is not None:
+        kw["ssm_state"] = state
+    out = tfm.layer_full(lp, x, cfg, plan, False, **kw)
+    return out[0], out[3]
 
 
 def is_qtensor(leaf) -> bool:
@@ -469,29 +490,30 @@ def _staged_cb(lp, groups, taps, resolve, method: str,
     return cb
 
 
-def _quantize_layer_staged(lp, x, cfg, plan, tapmap, resolve, method: str,
-                           pending: List[tuple], layer_idx: int,
-                           gctx: GuardContext):
+def _quantize_layer_staged(lp, x, state, cfg, plan, tapmap, resolve,
+                           method: str, pending: List[tuple],
+                           layer_idx: int, gctx: GuardContext):
     """One `layer_full` evaluation quantizes the layer in tap order and
-    propagates x through the quantized sub-blocks. Returns (lp_q, new_x)."""
+    propagates x (and the recurrent state) through the quantized
+    sub-blocks. Returns (lp_q, new_x, new_state)."""
     taps: Dict[str, Tensor] = {}
     holder = {"lp_q": lp}
     cb = _staged_cb(lp, _tap_groups(lp, tapmap), taps, resolve, method,
                     pending, layer_idx, holder, gctx)
-    y = tfm.layer_full(lp, x, cfg, plan, False, taps=taps,
-                       quantize_cb=cb)[0]
-    return holder["lp_q"], y
+    y, state = layer_with_state(lp, x, state, cfg, plan, taps=taps,
+                                quantize_cb=cb)
+    return holder["lp_q"], y, state
 
 
-def _quantize_layer_legacy(lp, x, cfg, plan, tapmap, resolve, method: str,
-                           pending: List[tuple], layer_idx: int,
-                           gctx: GuardContext):
+def _quantize_layer_legacy(lp, x, state, cfg, plan, tapmap, resolve,
+                           method: str, pending: List[tuple],
+                           layer_idx: int, gctx: GuardContext):
     """Legacy schedule: a float forward collects every tap of the layer,
     each tap group is solved from its Gram, and a second
-    forward propagates x through the quantized layer. Returns
-    (lp_q, new_x)."""
+    forward propagates x (and the recurrent state) through the quantized
+    layer. Returns (lp_q, new_x, new_state)."""
     taps: Dict[str, Tensor] = {}
-    tfm.layer_full(lp, x, cfg, plan, False, taps=taps)
+    layer_with_state(lp, x, state, cfg, plan, taps=taps)
     lp_q = dict(lp)
     for tapname, entries in _tap_groups(lp, tapmap).items():
         for mod, leaf, nm, (qt, eb, ea, secs) in _solve_tap_group(
@@ -499,8 +521,8 @@ def _quantize_layer_legacy(lp, x, cfg, plan, tapmap, resolve, method: str,
                 layer_idx, gctx):
             lp_q = _set_nested(lp_q, mod, leaf, qt)
             pending.append((layer_idx, nm, eb, ea, secs))
-    y = tfm.layer_full(dequantize_tree(lp_q), x, cfg, plan, False)[0]
-    return lp_q, y
+    y, state = layer_with_state(dequantize_tree(lp_q), x, state, cfg, plan)
+    return lp_q, y, state
 
 
 def _finalize_report(report: QuantReport, pending: List[tuple]):
@@ -525,9 +547,9 @@ def _calib_leaf_dims(cfg) -> Dict[str, int]:
 def quantize_model(params, cfg, plan, tokens: Tensor, spec,
                    method: str = "comq", quantize_unembed: bool = False,
                    propagation: str = "staged", *, guards: bool = True):
-    """Quantize every projection weight of a dense or MoE LM (the router
-    stays float). `tokens`: (B, T) calibration batch on the params'
-    device.
+    """Quantize every projection weight of a dense, MoE or hybrid LM (the
+    router and the SSM's small leaves stay float). `tokens`: (B, T)
+    calibration batch on the params' device.
 
     `spec` is a QuantSpec (every leaf gets it) or a `core.policy.
     QuantPolicy`, which resolves a spec per leaf (only the bit width
@@ -568,9 +590,10 @@ def quantize_model(params, cfg, plan, tokens: Tensor, spec,
     qparams = dict(params)
     with torch.no_grad():
         x = embed_tokens(params, cfg, plan, tokens)
+        state = None
         for l, lp in enumerate(params["layers"]):
-            lp_q, x = layer_fn(lp, x, cfg, plan, tapmap, resolve, method,
-                               pending, l, gctx)
+            lp_q, x, state = layer_fn(lp, x, state, cfg, plan, tapmap,
+                                      resolve, method, pending, l, gctx)
             table[str(l)] = lp_q
         if quantize_unembed and "unembed" in params:
             names = ["unembed"]

@@ -18,9 +18,10 @@ forward per layer — no backprop.
 
 The pure part (resolution, parsing, the allocator) is plain Python and
 gives exactly the JAX package's results. The curve measurement covers the
-dense and MoE families (an expert leaf priced for all its experts in one
-batched pass); the RWKV, SSM and VLM branches wait for the port of those
-families (ROADMAP.md, Queue A item 12).
+dense, MoE and hybrid families (an expert leaf priced for all its experts
+in one batched pass; a hybrid walk carries the SSM state from layer to
+layer as the JAX one does); the RWKV and VLM branches wait for the port
+of those families (ROADMAP.md, Queue A item 12).
 """
 from __future__ import annotations
 
@@ -274,9 +275,11 @@ def measure_bit_curves(params, cfg, plan, tokens, base: QuantSpec,
     tapmap = pipeline.taps_for(cfg)
     with torch.no_grad():
         x = embed_tokens(params, cfg, plan, tokens)
+        state = None
         for l, lp in enumerate(params["layers"]):
             taps: Dict[str, torch.Tensor] = {}
-            x = tfm.layer_full(lp, x, cfg, plan, False, taps=taps)[0]
+            x, state = pipeline.layer_with_state(lp, x, state, cfg, plan,
+                                                 taps=taps)
             for tapname, entries in pipeline._tap_groups(lp, tapmap).items():
                 if tapname.startswith("expert"):
                     hs = calibrate.batched_gram(taps[tapname])

@@ -110,14 +110,16 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, head_map: Tensor, *,
     """q: (B,T,Hp,hd); k,v: (B,T,KV,hd). Returns (B,T,Hp,hd).
 
     Causal (and sliding-window) attention runs the `flash_attention`
-    kernel dispatch; GQA maps head h to KV head h // (Hp/KV), so an uneven
-    head map (hymba) is not supported here."""
+    kernel dispatch; GQA maps head h to KV head h // (Hp/KV). On one device
+    every ported config divides evenly (hymba: 25 over 5); the uneven map
+    exists only under tensor-parallel head padding, which is not ported."""
     if not causal:
         return _dense_attention(q, k, v, head_map, causal=False, window=0)
     if q.shape[2] % k.shape[2]:
         raise NotImplementedError(
-            "flash_attention needs Hp % KV == 0 (the uneven hymba head map "
-            "is not ported)")
+            "flash_attention needs Hp % KV == 0 (an uneven head map, as "
+            "hymba's under tensor-parallel head padding, is not ported: "
+            "ROADMAP.md item 15)")
     from repro_torch.kernels import ops
     return ops.flash_attention(q, k, v, causal=True, window=window)
 
@@ -334,8 +336,9 @@ def paged_gather(pool: Tensor, block_tables: Tensor) -> Tensor:
 def _grouped_heads(q: Tensor, k_pool: Tensor) -> None:
     if q.shape[2] % k_pool.shape[2]:
         raise NotImplementedError(
-            "paged decode attention needs Hp % KV == 0 (the uneven hymba "
-            "head map is not ported)")
+            "paged decode attention needs Hp % KV == 0 (an uneven head map, "
+            "as hymba's under tensor-parallel head padding, is not ported: "
+            "ROADMAP.md item 15)")
 
 
 def paged_decode_attend(q: Tensor, k_pool: Tensor, v_pool: Tensor,

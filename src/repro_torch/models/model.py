@@ -1,4 +1,4 @@
-"""Top-level model API, dense and MoE families (port of
+"""Top-level model API: the dense, MoE and hybrid families (port of
 `repro.models.model`).
 
     params = init_params(cfg, seed=0, device=None)
@@ -15,6 +15,9 @@ Layer leaves may be QT (packed codes, core/apply.py): `forward`
 dequantizes them per layer, `decode_step` keeps the fused projections
 packed and runs them through quant_matmul; `decode_step_paged` does the
 same against a paged KV pool with one position per slot (serve/).
+A hybrid model (hymba) carries one SSM state per layer: `forward` starts
+every layer from zeros, the cache holds the states under "ssm", and
+`decode_step` threads them; the paged pool does not serve it.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import init_kv_cache
 from repro_torch.models.common import (apply_norm, dense_init, dtype_of,
@@ -58,6 +62,9 @@ def param_count(cfg, active_only: bool = False) -> int:
     d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
     per_layer = sum(math.prod(s) for s in attn_param_shapes(cfg).values())
     per_layer += 2 * d
+    if cfg.parallel_ssm_heads:
+        per_layer += sum(math.prod(s) for s in
+                         ssm_mod.ssm_param_shapes(cfg).values())
     n_ff_mats = 2 if cfg.act == "gelu_mlp" else 3
     if cfg.moe is not None:
         e = cfg.moe.n_experts
@@ -100,29 +107,39 @@ def unembed(p: Params, cfg, plan: BuildPlan, x: Tensor) -> Tensor:
 # ---------------------------------------------------------------------------
 
 def _run_layers(p: Params, cfg, plan, x, make_cache: bool):
-    """Returns (x, caches, aux): aux sums the layers' MoE load-balance
-    losses (0 for a dense model)."""
+    """Returns (x, caches, aux, states): aux sums the layers' MoE
+    load-balance losses (0 for a dense model); a hybrid model runs every
+    layer's SSM branch from the zero state (the JAX `_run_homogeneous`)
+    and `states` holds each layer's final one (None for the other
+    families)."""
     from repro_torch.core.apply import dequantize_qt_tree
     cd = dtype_of(cfg.compute_dtype)
-    caches = []
+    caches, states = [], []
     aux = torch.zeros((), device=x.device)
     for lp in p["layers"]:
-        x, cache, a = tfm.layer_full(dequantize_qt_tree(lp, cd), x, cfg,
-                                     plan, make_cache)
+        x, cache, a, st = tfm.layer_full(dequantize_qt_tree(lp, cd), x, cfg,
+                                         plan, make_cache)
         caches.append(cache)
+        states.append(st)
         if a is not None:
             aux = aux + a
-    return x, caches, aux
+    return x, caches, aux, (states if cfg.parallel_ssm_heads else None)
 
 
 def forward(p: Params, cfg, plan: BuildPlan, tokens: Tensor,
             make_cache: bool = False):
-    """Returns (logits, aux, cache_or_None)."""
+    """Returns (logits, aux, cache_or_None): the cache is {"kv": [...]}
+    and, for a hybrid model, "ssm": [...] (one state a layer)."""
     x = embed_tokens(p, cfg, plan, tokens)
-    x, caches, aux = _run_layers(p, cfg, plan, x, make_cache)
+    x, caches, aux, states = _run_layers(p, cfg, plan, x, make_cache)
     x = apply_norm(p["final_norm"], x, cfg)
     logits = unembed(p, cfg, plan, x)
-    return logits, aux, ({"kv": caches} if make_cache else None)
+    cache = None
+    if make_cache:
+        cache = {"kv": caches}
+        if states is not None:
+            cache["ssm"] = states
+    return logits, aux, cache
 
 
 def lm_loss(p: Params, cfg, plan: BuildPlan, batch: Dict[str, Tensor],
@@ -154,13 +171,18 @@ def cache_len_for(cfg, seq_len: int) -> int:
 def init_cache(cfg, plan: BuildPlan, batch: int, seq_len: int,
                device: DeviceLike = None):
     """An empty per-layer cache list for decode at context length
-    seq_len (int8 codes and scales with `plan.cache_quant`)."""
+    seq_len (int8 codes and scales with `plan.cache_quant`); a hybrid
+    model's cache adds one zero SSM state a layer under "ssm"."""
     dev = resolve_device(device)
     clen = cache_len_for(cfg, seq_len)
-    return {"kv": [init_kv_cache(batch, clen, cfg.n_kv_heads,
-                                 cfg.resolved_head_dim, plan.cache_dtype,
-                                 dev, quantized=plan.cache_quant)
-                   for _ in range(cfg.n_layers)]}
+    cache = {"kv": [init_kv_cache(batch, clen, cfg.n_kv_heads,
+                                  cfg.resolved_head_dim, plan.cache_dtype,
+                                  dev, quantized=plan.cache_quant)
+                    for _ in range(cfg.n_layers)]}
+    if cfg.parallel_ssm_heads:
+        cache["ssm"] = [ssm_mod.init_ssm_state(batch, cfg, device=dev)
+                        for _ in range(cfg.n_layers)]
+    return cache
 
 
 def prefill(p: Params, cfg, plan: BuildPlan, tokens: Tensor):
@@ -172,18 +194,27 @@ def decode_step(p: Params, cfg, plan: BuildPlan, cache, tokens: Tensor,
                 pos: int):
     """tokens: (B, 1); pos: absolute position (int). Fused-layout QT
     projections stay packed and run through quant_matmul (keep_fused);
-    the cache is updated in place and returned."""
+    other QT leaves (hymba's w_in / w_out) are dequantized each step, as
+    in the JAX package. The KV cache is updated in place; a hybrid
+    model's SSM states are threaded through the layers. Returns (logits,
+    the new cache)."""
     from repro_torch.core.apply import dequantize_qt_tree
     cd = dtype_of(cfg.compute_dtype)
     x = embed_tokens(p, cfg, plan, tokens)
-    new_kv = []
-    for lp, kv in zip(p["layers"], cache["kv"]):
+    states = cache.get("ssm") or [None] * len(p["layers"])
+    new_kv, new_ssm = [], []
+    for lp, kv, st in zip(p["layers"], cache["kv"], states):
         lp = dequantize_qt_tree(lp, cd, keep_fused=True)
-        x, kv = tfm.layer_decode(lp, x, cfg, plan, kv, pos)
+        x, kv, st = tfm.layer_decode(lp, x, cfg, plan, kv, pos,
+                                     ssm_state=st)
         new_kv.append(kv)
+        new_ssm.append(st)
     x = apply_norm(p["final_norm"], x, cfg)
     logits = unembed(p, cfg, plan, x)
-    return logits[:, 0], {"kv": new_kv}
+    new_cache = {"kv": new_kv}
+    if cfg.parallel_ssm_heads:
+        new_cache["ssm"] = new_ssm
+    return logits[:, 0], new_cache
 
 
 def decode_step_paged(p: Params, cfg, plan: BuildPlan, pool, block_tables,
@@ -200,7 +231,7 @@ def decode_step_paged(p: Params, cfg, plan: BuildPlan, pool, block_tables,
     packed and run through quant_matmul (keep_fused). Returns
     (logits (B, V), pool)."""
     from repro_torch.core.apply import dequantize_qt_tree
-    tfm.check_ported(cfg)
+    tfm.check_paged(cfg)
     cd = dtype_of(cfg.compute_dtype)
     x = embed_tokens(p, cfg, plan, tokens)
     for i, lp in enumerate(p["layers"]):

@@ -1,5 +1,5 @@
-"""Decoder layer assembly, dense and MoE families (port of
-`repro.models.transformer`).
+"""Decoder layer assembly: the dense, MoE and hybrid (parallel SSM heads)
+families (port of `repro.models.transformer`).
 
 Layers run one at a time from a per-layer list of param dicts (the JAX
 package scans stacked params). `BuildPlan` keeps the facts the ported
@@ -18,6 +18,7 @@ import torch
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (cache_insert, cache_prefill,
                                           decode_attend, flash_attention,
                                           head_to_kv_map, init_kv_cache,
@@ -52,24 +53,41 @@ class BuildPlan:
 
 def check_ported(cfg) -> None:
     """Raise for a configuration whose family the port does not run yet:
-    it runs the dense GQA transformer and the MoE family (rmsnorm, causal,
-    self-attention only)."""
-    if (cfg.family not in ("dense", "moe")
+    it runs the dense GQA transformer, the MoE family and the hybrid one
+    (attention with parallel SSM heads, hymba), rmsnorm, causal,
+    self-attention only."""
+    hybrid = cfg.family == "hybrid"
+    if (cfg.family not in ("dense", "moe", "hybrid")
             or (cfg.family == "moe") != (cfg.moe is not None)
-            or cfg.attn_free or cfg.parallel_ssm_heads
-            or cfg.cross_attn is not None or not cfg.causal
-            or cfg.norm_type != "rmsnorm"):
+            or hybrid != cfg.parallel_ssm_heads
+            or (hybrid and cfg.ssm is None)
+            or cfg.attn_free or cfg.cross_attn is not None
+            or not cfg.causal or cfg.norm_type != "rmsnorm"):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported to "
-            "repro_torch yet: the dense and MoE transformers are "
+            "repro_torch yet: the dense, MoE and hybrid transformers are "
             "(ROADMAP.md Queue A item 12)")
+
+
+def check_paged(cfg) -> None:
+    """The paged KV pool serves the attention families only; parallel-SSM
+    layers carry a recurrent state per sequence, so hymba decodes from the
+    dense-cache `decode_step` (serve.Engine), as in the JAX package."""
+    check_ported(cfg)
+    if cfg.parallel_ssm_heads:
+        raise NotImplementedError(
+            f"paged decode does not cover family={cfg.family!r} "
+            "(parallel-SSM archs use the dense-cache decode_step and "
+            "serve.Engine)")
 
 
 def init_layer(gen: torch.Generator, cfg, plan: BuildPlan, device) -> dict:
     check_ported(cfg)
     p = {"ln1": norm_params(cfg, device),
-         "attn": attn_mod.init_attn(gen, cfg, device),
-         "ln2": norm_params(cfg, device)}
+         "attn": attn_mod.init_attn(gen, cfg, device)}
+    if cfg.parallel_ssm_heads:
+        p["ssm"] = ssm_mod.init_ssm(gen, cfg, device)
+    p["ln2"] = norm_params(cfg, device)
     if cfg.moe is not None:
         p["moe"] = moe_mod.init_moe(gen, cfg, plan.experts_padded(cfg),
                                     device)
@@ -131,9 +149,13 @@ def _ffn_full(p: dict, xn: Tensor, cfg, plan: BuildPlan, taps=None,
 
 
 def layer_full(p: dict, x: Tensor, cfg, plan: BuildPlan, make_cache: bool,
-               taps=None, quantize_cb=None):
-    """One layer over a full sequence. Returns (x, cache_or_None, aux):
-    aux is the MoE load-balance loss, None for a dense layer.
+               taps=None, quantize_cb=None, ssm_state=None):
+    """One layer over a full sequence. Returns (x, cache_or_None, aux,
+    ssm_state): aux is the MoE load-balance loss, None for a dense layer;
+    a parallel-SSM layer (hymba) runs its SSM branch from `ssm_state` (the
+    zero state when None, as `forward` starts every layer) on the same
+    normed input as attention, averages the two, and returns the branch's
+    new state (None for the other families).
 
     `quantize_cb` (calibration only, requires `taps`) is called once per
     activation tap right after the tap is recorded and before the weights
@@ -144,10 +166,18 @@ def layer_full(p: dict, x: Tensor, cfg, plan: BuildPlan, make_cache: bool,
     xn = apply_norm(p["ln1"], x, cfg)
     a_out, cache = _self_attention_full(p, xn, cfg, plan, make_cache, taps,
                                         quantize_cb)
+    new_ssm = None
+    if cfg.parallel_ssm_heads:
+        if ssm_state is None:
+            ssm_state = ssm_mod.init_ssm_state(x.shape[0], cfg,
+                                               device=x.device)
+        s_out, new_ssm = ssm_mod.apply_ssm(p["ssm"], xn, cfg, ssm_state,
+                                           taps=taps, quantize_cb=quantize_cb)
+        a_out = 0.5 * (a_out + s_out)
     x = x + a_out
     xn = apply_norm(p["ln2"], x, cfg)
     m_out, aux = _ffn_full(p, xn, cfg, plan, taps, quantize_cb)
-    return x + m_out, cache, aux
+    return x + m_out, cache, aux, new_ssm
 
 
 # ---------------------------------------------------------------------------
@@ -155,9 +185,10 @@ def layer_full(p: dict, x: Tensor, cfg, plan: BuildPlan, make_cache: bool,
 # ---------------------------------------------------------------------------
 
 def layer_decode(p: dict, x: Tensor, cfg, plan: BuildPlan, kv_cache,
-                 pos: int):
-    """x: (B, 1, d) at absolute position `pos`. Returns (x, kv_cache); the
-    cache is updated in place."""
+                 pos: int, ssm_state=None):
+    """x: (B, 1, d) at absolute position `pos`. Returns (x, kv_cache,
+    ssm_state); the KV cache is updated in place, a parallel-SSM layer
+    steps its branch from `ssm_state` (None for the other families)."""
     check_ported(cfg)
     xn = apply_norm(p["ln1"], x, cfg)
     q, k, v = qkv_project(p["attn"], xn)
@@ -168,8 +199,13 @@ def layer_decode(p: dict, x: Tensor, cfg, plan: BuildPlan, kv_cache,
     kv_cache = cache_insert(kv_cache, k, v, pos)
     o = decode_attend(q, kv_cache, _hmap(cfg, x.device), pos=pos,
                       window=cfg.sliding_window)
-    x = x + attn_mod.out_project(p["attn"], o)
-    return x + _decode_ffn(p, x, cfg, plan), kv_cache
+    a_out = attn_mod.out_project(p["attn"], o)
+    new_ssm = None
+    if cfg.parallel_ssm_heads:
+        s_out, new_ssm = ssm_mod.decode_ssm(p["ssm"], xn, cfg, ssm_state)
+        a_out = 0.5 * (a_out + s_out)
+    x = x + a_out
+    return x + _decode_ffn(p, x, cfg, plan), kv_cache, new_ssm
 
 
 def _decode_ffn(p: dict, x: Tensor, cfg, plan: BuildPlan) -> Tensor:
@@ -195,7 +231,7 @@ def layer_decode_paged(p: dict, x: Tensor, cfg, plan: BuildPlan,
     k_scale/v_scale (NB, KV) the per-(page, kv_head) scales: the append
     re-quantizes under a running-max page scale and attention dequantizes
     in the kernel. Returns (x, k_pool, v_pool, k_scale, v_scale) then."""
-    check_ported(cfg)
+    check_paged(cfg)
     hmap = _hmap(cfg, x.device)
     xn = apply_norm(p["ln1"], x, cfg)
     q, k, v = qkv_project(p["attn"], xn)

@@ -46,7 +46,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import decode_step_paged, forward
-from repro_torch.models.transformer import check_ported
+from repro_torch.models.transformer import check_paged
 from repro_torch.serve.kv_cache import (BlockAllocator, blocks_for,
                                         init_paged_cache, paged_cache_bytes,
                                         write_prefill)
@@ -105,7 +105,7 @@ class Runtime:
                 raise NotImplementedError(
                     f"Runtime({name}=...) is not yet ported to repro_torch "
                     "(see ROADMAP.md Queue A)")
-        check_ported(cfg)
+        check_paged(cfg)
         # the paged path quantizes pages, not the static engine's per-entry
         # int8 cache: an int8 cache plan means int8 pages, and the prefill
         # forwards must produce float rows for write_prefill to quantize

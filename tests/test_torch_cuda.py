@@ -680,3 +680,71 @@ def test_quant_matmul_granite_shapes(cuda, N, dtype):
     got = quant_matmul.quant_matmul_cuda(x, codes, scale, z, cpb=cpb)
     want = quant_matmul.quant_matmul_plain(x, codes, scale, z, cpb=cpb)
     assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+# hymba-1.5b: 25/5 heads (group 5), hd 64, a 1024-token window at every
+# layer; its projections at decode (M=8): K=1600 (= 25 x 64) into wq/wo
+# (N=1600), wk/wv (N=320) and w_gate/w_up (N=5504), w_down K=5504; w_in's
+# 6400-column panels
+@pytest.mark.parametrize("B,T", [(2, 128), (1, 1016), (1, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_hymba_heads_and_window(cuda, B, T, dtype):
+    g = torch.Generator(device=cuda).manual_seed(T + 5)
+    q, k, v = (torch.randn(B, T, n, 64, generator=g, device=cuda).to(dtype)
+               for n in (25, 5, 5))
+    got = flash_attention.flash_attention_cuda(q, k, v, window=1024)
+    want = flash_attention.flash_attention_plain(q, k, v, window=1024)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("K,N", [(1600, 320), (1600, 1600), (1600, 5504),
+                                 (5504, 1600)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_hymba_shapes(cuda, K, N, dtype):
+    M = 8
+    g = torch.Generator(device=cuda).manual_seed(K + N)
+    x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
+    u = torch.randint(0, 16, (K, N), generator=g, device=cuda,
+                      dtype=torch.uint8)
+    scale = torch.rand(N, generator=g, device=cuda) * 0.04 + 0.01
+    z = torch.randint(-8, 0, (N,), generator=g, device=cuda).float()
+    codes, cpb = pack_codes(u, 4)
+    got = quant_matmul.quant_matmul_cuda(x, codes, scale, z, cpb=cpb)
+    want = quant_matmul.quant_matmul_plain(x, codes, scale, z, cpb=cpb)
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+def test_panel_hymba_w_in_width(cuda):
+    """B=256 against w_in's 6400 columns (d_model 1600 -> 2 x 3200)."""
+    B, n = 256, 6400
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(4 * B, B, generator=g, device=cuda)
+    h_bb = x.T @ x / (4 * B) + 0.1 * torch.eye(B, device=cuda)
+    args = (h_bb, torch.randn(B, n, generator=g, device=cuda),
+            torch.randn(B, n, generator=g, device=cuda) * 3,
+            torch.rand(n, generator=g, device=cuda) * 0.15 + 0.05,
+            torch.full((n,), -8.0, device=cuda),
+            torch.full((n,), 7.0, device=cuda),
+            torch.diagonal(h_bb).contiguous())
+    qk, dk = comq_panel.comq_panel_dq_cuda(*args)
+    qp, dp = comq_panel.comq_panel_dq_plain(*args)
+    assert float((qk == qp).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_h2o_danube_heads_and_window(cuda, dtype):
+    """h2o-danube-1.8b: 32/8 heads at hd 80 (a head width no other config
+    runs: five 16-wide k steps) and a 4096-token window that binds at
+    T=4608."""
+    g = torch.Generator(device=cuda).manual_seed(80)
+    q, k, v = (torch.randn(1, 4608, n, 80, generator=g, device=cuda).to(dtype)
+               for n in (32, 8, 8))
+    got = flash_attention.flash_attention_cuda(q, k, v, window=4096)
+    want = flash_attention.flash_attention_plain(q, k, v, window=4096)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        _bf16_close(got, want)

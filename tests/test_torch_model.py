@@ -1,7 +1,11 @@
 """The port's dense model against the JAX model on qwen2-7b smoke, both
 running the JAX init converted through numpy (repro_torch.convert):
 forward logits and activation taps, and prefill + teacher-forced decode
-from packed codes (the JAX quantize_model output converted)."""
+from packed codes (the JAX quantize_model output converted); the same two
+checks on the smoke configs of the other dense archs (deepseek-67b,
+mistral-large-123b, h2o-danube-1.8b with its sliding window)."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +30,7 @@ from repro_torch.models import transformer as tt
 torch.set_num_threads(2)
 
 ARCH = "qwen2-7b"
+DENSE_CONFIGS = ["deepseek-67b", "mistral-large-123b", "h2o-danube-1.8b"]
 
 
 def assert_close(got, want, cd, what=""):
@@ -46,10 +51,15 @@ def assert_close(got, want, cd, what=""):
     assert err.mean() <= 2e-2, (what, float(err.mean()))
 
 
+@functools.lru_cache(maxsize=None)
+def _jparams(arch):
+    return jax.device_get(jax_init(jax.random.PRNGKey(0), jax_cfg(arch),
+                                   JPlan(remat=False)))
+
+
 @pytest.fixture(scope="module")
 def jparams():
-    return jax.device_get(jax_init(jax.random.PRNGKey(0), jax_cfg(ARCH),
-                                   JPlan(remat=False)))
+    return _jparams(ARCH)
 
 
 def _tokens(seed, shape):
@@ -59,8 +69,12 @@ def _tokens(seed, shape):
 
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
 def test_forward_logits_and_taps_match_jax(jparams, cd):
-    jc = jax_cfg(ARCH).replace(compute_dtype=cd)
-    tc = get_smoke_config(ARCH).replace(compute_dtype=cd)
+    _check_forward(jparams, ARCH, cd)
+
+
+def _check_forward(jparams, arch, cd):
+    jc = jax_cfg(arch).replace(compute_dtype=cd)
+    tc = get_smoke_config(arch).replace(compute_dtype=cd)
     tok = _tokens(1, (2, 24))
     tp = params_from_numpy(jparams, "cpu")
     jl = np.asarray(jm.forward(jparams, jc, JPlan(remat=False),
@@ -83,23 +97,41 @@ def test_forward_logits_and_taps_match_jax(jparams, cd):
         assert_close(ttaps[name].float().numpy(), jtaps[name], cd, name)
 
 
-@pytest.fixture(scope="module")
-def jax_qparams(jparams):
+@functools.lru_cache(maxsize=None)
+def _jax_rtn(arch):
     # RTN codes: the point here is decoding from packed codes, and RTN keeps
     # the JAX solve out of this test's time (test_torch_pipeline compares
     # the comq_blocked solves)
     spec = JSpec(bits=4, granularity="per_channel", lam=0.9, sweeps=3,
                  order="greedy")
-    jq, _ = jax_quantize(jparams, jax_cfg(ARCH), JPlan(remat=False),
+    jq, _ = jax_quantize(_jparams(arch), jax_cfg(arch), JPlan(remat=False),
                          jnp.asarray(_tokens(2, (2, 80))), spec,
                          method="rtn", guards=False)
     return jq
 
 
+@pytest.fixture(scope="module")
+def jax_qparams(jparams):
+    return _jax_rtn(ARCH)
+
+
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
 def test_prefill_and_decode_from_packed_codes_match_jax(jax_qparams, cd):
-    jc = jax_cfg(ARCH).replace(compute_dtype=cd)
-    tc = get_smoke_config(ARCH).replace(compute_dtype=cd)
+    _check_decode(jax_qparams, ARCH, cd)
+
+
+@pytest.mark.parametrize("arch", DENSE_CONFIGS)
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_dense_configs_forward_and_decode_match_jax(arch, cd):
+    """The other dense archs need only their config files: forward logits
+    and taps, and decode from packed codes, as qwen2-7b's above."""
+    _check_forward(_jparams(arch), arch, cd)
+    _check_decode(_jax_rtn(arch), arch, cd)
+
+
+def _check_decode(jax_qparams, arch, cd):
+    jc = jax_cfg(arch).replace(compute_dtype=cd)
+    tc = get_smoke_config(arch).replace(compute_dtype=cd)
     tq = qparams_from_numpy(jax.device_get(jax_qparams), "cpu")
     jsp, tsp = jax_serving(jax_qparams, jc), serving_params(tq, tc)
     prompt, steps = _tokens(3, (2, 16)), 4
