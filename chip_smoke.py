@@ -98,15 +98,42 @@ no result line):
    kernels' (free-running agreement printed). Last a quantize at full
    depth (32 layers): wall time, seconds per layer and peak device
    memory; gated on a finite improvement > 0.
+12. audio — musicgen-large at full width (d_model 2048, 32/32 heads: MHA,
+   group 1; head_dim 64, d_ff 8192 in a plain GELU MLP, vocab 2048,
+   layernorm), n_layers cut 48 -> 4. First its kernels: the panel at
+   n=2048 / 6144 / 8192, flash at 32/32 heads (B=8, T=128; B=1, T=512),
+   quant_matmul at the decode projections (M=8: K=2048 into N=2048 /
+   8192, K=8192 into N=2048), both paged kernels at 32/32 heads, hd 64
+   (the tensor-core ones pad the group of 1 to a 16-row fragment). Then
+   the audio path, counted: the launcher's quantize (seconds per layer),
+   decode from the packed codes against the plain versions (8x128; bf16
+   and f32 gated with the layers in lockstep, free-running printed, as
+   for hymba), the phase-8 traffic at kv_bits 0, 8 and 4; then at f32
+   mixed == solo for all 16 requests and a small pool that preempts, and
+   a quantize at full depth (48 layers: wall time, seconds per layer,
+   peak memory; improvement > 0).
+13. rwkv — rwkv6-7b at full width (d_model 4096, 64 wkv heads of 64, d_ff
+   14336, vocab 65536, LoRA 64/64/32, layernorm, attention-free), n_layers
+   cut 32 -> 4. First the panel at n=4096 / 14336 and the plain chunked
+   wkv timed against the one-pass recurrence's bound (no kernel in either
+   package). Then the rwkv path, counted: the launcher's quantize (eight
+   projections a layer, the RWKV state carried across layers; TF32 must
+   be off), the recurrence's two forms from the packed codes at f32
+   (prefill 8x128 in chunks of 16 plus 16 decode steps, and a B=1 prompt
+   of 1000 tokens in chunks of 1 plus 16 steps, each against one forward
+   over the same tokens, within 1e-2 of max|logit|), and the static Engine
+   (what `launch.serve` runs for this family) on 8 prompts of 128 tokens,
+   32 greedy tokens: tok/s at bf16.
 
 Launch counts: the quantize-and-decode path (phases 4-5), the serve path
-(phase 8), the policy path (phase 9a), the MoE path (phase 10) and the
-hybrid path (phase 11 b-d) are each counted from 0; every kernel must
-launch on the main path as a whole, each of the five on the MoE path and
-the three of the static engine on the hybrid path. Then one JSON line of
-the kernels (the expert-batched panel launch and hymba's new shapes as
-entries of their own, the latter with the hybrid path's launches), and
-last the device line.
+(phase 8), the policy path (phase 9a), the MoE path (phase 10), the
+hybrid path (phase 11 b-d), the audio path (phase 12) and the rwkv path
+(phase 13) are each counted from 0; every kernel must launch on the main
+path as a whole, each of the five on the MoE and audio paths, the three
+of the static engine on the hybrid path and comq_panel on the rwkv path.
+Then one JSON line of the kernels (the expert-batched panel launch and
+hymba's, musicgen's and rwkv's new shapes as entries of their own, with
+their path's launches), and last the device line.
 """
 from __future__ import annotations
 
@@ -167,6 +194,17 @@ HYBRID_WINDOW = 1024
 HYBRID_LONG = 1016     # a B=1 prompt whose 16 decode steps cross 1024
 HYBRID_PANEL = ((6400, 4), (5504, 4))  # w_in's columns; w_gate / w_up's
 HYBRID_PATH = SLICE1   # the static engine: no paged kernel, as in JAX
+# phase 12: the audio decoder at full width, depth cut to AUDIO_LAYERS; a
+# quantize at full depth (AUDIO_FULL_LAYERS) closes it
+AUDIO_ARCH, AUDIO_LAYERS, AUDIO_FULL_LAYERS = "musicgen-large", 4, 48
+AUDIO_HEADS = (32, 32, 64)             # MHA: query group 1
+AUDIO_PANEL = ((2048, 4), (6144, 4), (8192, 4))   # wo / w_down; qkv; w_up
+AUDIO_PATH = SLICE1 + SERVE_NEW_KERNELS
+# phase 13: the attention-free family at full width, depth cut
+RWKV_ARCH, RWKV_LAYERS = "rwkv6-7b", 4
+RWKV_PANEL = ((4096, 4), (14336, 4))   # time-mix leaves; channel-mix w_k
+RWKV_LONG = 1000       # a B=1 prompt of 1000 tokens: chunks of 1 in prefill
+RWKV_PATH = ("comq_panel",)   # decode dequantizes every leaf, as in JAX
 
 
 class CheckFailed(RuntimeError):
@@ -1111,6 +1149,63 @@ def phase_policy(torch, dev, cfg, cfg32, ops, kernels, prompts, qmm,
     return counts
 
 
+def quantize_counted(torch, ops, cfg, dev, what):
+    """The launcher's quantize of `cfg` (comq_blocked, 4-bit per-channel)
+    with each layer timed; gated on improvement, loss gap and no guard
+    event. Returns the QuantizeRun."""
+    from repro_torch.core import pipeline
+    from repro_torch.launch.quantize import quantize_and_eval
+    per_layer = []
+    t0 = time.time()
+    with layer_clock(torch, pipeline, per_layer):
+        run = quantize_and_eval(cfg, method="comq_blocked", calib_batch=8,
+                                calib_seq=PROMPT, device=dev)
+    s = run.summary
+    say(f"{what} quantize: {json.dumps(s)}")
+    say(f"{what} quantize: quantize_model {run.seconds:.3f} s "
+        f"(synchronized); per layer (synchronized) "
+        f"{[round(x, 3) for x in per_layer]} s; {time.time() - t0:.1f} s "
+        f"wall incl. init and eval; launches so far {ops.launch_counts()}")
+    imp = s["comq_vs_rtn_error_improvement"]
+    check(math.isfinite(imp) and imp > 0,
+          f"{what} comq_vs_rtn_error_improvement {imp}")
+    gap = abs(s["quant_loss"] - s["fp_loss"])
+    check(gap <= LOSS_GAP, f"{what} |quant_loss - fp_loss| = {gap} > "
+          f"{LOSS_GAP}")
+    check(s["guard_events"] == 0,
+          f"{what} quantize: {s['guard_events']} guard events")
+    return run
+
+
+def quantize_full_depth(torch, dev, cfg, what):
+    """A quantize of `cfg` at its full depth, outside the counts: wall
+    time, seconds per layer and peak device memory; gated on a finite
+    improvement > 0."""
+    from repro_torch.core import pipeline
+    from repro_torch.launch.quantize import quantize_and_eval
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    per_layer = []
+    t0 = time.time()
+    with layer_clock(torch, pipeline, per_layer):
+        deep = quantize_and_eval(cfg, method="comq_blocked", calib_batch=8,
+                                 calib_seq=PROMPT, device=dev)
+    wall = time.time() - t0
+    s = deep.summary
+    peak = torch.cuda.max_memory_allocated(dev)
+    say(f"{what} quantize, {cfg.n_layers} layers: {json.dumps(s)}")
+    say(f"{what} quantize, {cfg.n_layers} layers: quantize_model "
+        f"{deep.seconds:.3f} s (synchronized), {wall:.1f} s wall incl. init "
+        f"and eval; per layer (synchronized) "
+        f"{[round(x, 3) for x in per_layer]} s; max_memory_allocated "
+        f"{peak / 2 ** 30:.2f} GiB, {(peak - held) / 2 ** 30:.2f} GiB above "
+        f"the {held / 2 ** 30:.2f} GiB held before the run")
+    imp = s["comq_vs_rtn_error_improvement"]
+    check(math.isfinite(imp) and imp > 0,
+          f"{what} full-depth comq_vs_rtn_error_improvement {imp}")
+
+
 def check_moe_kernels(torch, dev, kernels, results, cfg):
     """The kernels at the MoE model's shapes: the expert-batched panel,
     flash and the paged kernels at its heads, quant_matmul at its
@@ -1135,36 +1230,15 @@ def phase_moe(torch, dev, ops, kernels, cfg):
     versions, and the phase-8 traffic served at kv_bits 0, 8 and 4; then
     mixed == solo at f32. Returns (the path's launch counts, its batched
     panel launches)."""
-    from repro_torch.core import pipeline
     from repro_torch.core.apply import serving_params
-    from repro_torch.launch.quantize import quantize_and_eval
     from repro_torch.models import BuildPlan
-    from repro_torch.models import moe as moe_mod
-    from repro_torch.models import transformer as tfm
     from repro_torch.serve import Runtime
     panel, flash, qmm, paged = kernels
 
     # quantize
     ops.reset_launch_counts()
-    per_layer = []
-    t0 = time.time()
-    with layer_clock(torch, pipeline, per_layer):
-        run = quantize_and_eval(cfg, method="comq_blocked", calib_batch=8,
-                                calib_seq=PROMPT, device=dev)
-    s = run.summary
-    say(f"moe quantize: {json.dumps(s)}")
-    say(f"moe quantize: quantize_model {run.seconds:.3f} s (synchronized); "
-        f"per layer (synchronized) "
-        f"{[round(x, 3) for x in per_layer]} s; {time.time() - t0:.1f} s "
-        f"wall incl. init and eval; launches so far {ops.launch_counts()}, "
-        f"batched panel launches {panel.launches_batched}")
-    imp = s["comq_vs_rtn_error_improvement"]
-    check(math.isfinite(imp) and imp > 0,
-          f"moe comq_vs_rtn_error_improvement {imp}")
-    gap = abs(s["quant_loss"] - s["fp_loss"])
-    check(gap <= LOSS_GAP, f"moe |quant_loss - fp_loss| = {gap} > {LOSS_GAP}")
-    check(s["guard_events"] == 0, f"moe quantize: {s['guard_events']} guard "
-          f"events")
+    run = quantize_counted(torch, ops, cfg, dev, "moe")
+    say(f"moe quantize: batched panel launches {panel.launches_batched}")
     check(panel.launches_batched > 0,
           "moe quantize: the expert-batched panel never launched")
     qt = run.qparams["__qlayers__"]["0"]["moe"]["w_down"]
@@ -1176,34 +1250,10 @@ def phase_moe(torch, dev, ops, kernels, cfg):
     # gated layer by layer in lockstep at both types, and free-running at
     # f32 (the precision gate); the bf16 free-running gap is printed
     sp = serving_params(run.qparams, cfg)
-    plan = BuildPlan(prefill_cache_len=PROMPT + STEPS)
     cfg32 = cfg.replace(compute_dtype="float32")
-    plan32 = plan.replace(cache_dtype=torch.float32)
-    fed = None
-    for label, c, pl in (("bfloat16", cfg, plan), ("float32", cfg32,
-                                                   plan32)):
-        tape = DecodeTape(torch, tfm, moe_mod)
-        t0 = time.time()
-        with torch.no_grad(), tape.mode("record"):
-            outs, fed = run_decode(torch, sp, c, pl, run.eval_tokens,
-                                   feed=fed)
-        say(f"moe decode {label}: prefill 8x{PROMPT} + {STEPS} steps in "
-            f"{time.time() - t0:.2f} s wall")
-
-        def rerun(mode, c=c, pl=pl, tape=tape):
-            with tape.mode(mode):
-                return run_decode(torch, sp, c, pl, run.eval_tokens,
-                                  feed=fed)[0]
-        free_gate = label == "float32"
-        compare_decode(torch, ops, kernels, lambda: rerun("free"), outs,
-                       label, what="moe decode, free-running",
-                       gate=free_gate)
-        say(f"moe decode {label}, free-running plain run: {tape.flips} of "
-            f"{tape.pairs} routed (token, expert) pairs differ from the "
-            f"kernel run's")
-        compare_decode(torch, ops, kernels, lambda: rerun("lockstep"), outs,
-                       label, what="moe decode, layers in lockstep")
-        del outs, tape
+    decode_vs_plain(torch, ops, kernels, sp, cfg,
+                    BuildPlan(prefill_cache_len=PROMPT + STEPS),
+                    run.eval_tokens, "moe decode", gate_free=("float32",))
 
     # serve the phase-8 traffic
     prompts = serve_prompts(cfg.vocab_size)
@@ -1300,16 +1350,18 @@ def time_plain_scan(torch, dev, cfg):
         del xi, h0
 
 
-def hybrid_decode(torch, ops, kernels, sp, cfg, plan, tokens, what):
+def decode_vs_plain(torch, ops, kernels, sp, cfg, plan, tokens, what,
+                    gate_free=()):
     """Decode from the packed codes (bf16, then f32 compute with an f32
     cache), each against the plain versions with the layers in lockstep
-    (hidden and SSM state from the kernel run, `DecodeTape`) under the
-    precision gates, and free-running, printed: this model moves its
-    f32 logits by ~1e-2 of max|logit| when the quant_matmul outputs alone
-    change by 1e-6 with the plain versions only
-    (`tools/decode_sensitivity.py`, PERF.md §6 PR 18), the size of the
-    kernel's own f32 difference, so the free-running gap measures the
-    model."""
+    (hidden state, a hybrid layer's SSM state and an MoE layer's routing
+    from the kernel run, `DecodeTape`) under the precision gates, and
+    free-running, gated only for the types in `gate_free`, else printed:
+    hymba moves its f32 logits by ~1e-2 of max|logit| when the
+    quant_matmul outputs alone change by 1e-6 with the plain versions
+    only (`tools/decode_sensitivity.py`, PERF.md §6), the size of
+    the kernel's own f32 difference, and every random-init model here
+    does so at bf16, so there the free-running gap measures the model."""
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as tfm
     cfg32 = cfg.replace(compute_dtype="float32")
@@ -1328,7 +1380,12 @@ def hybrid_decode(torch, ops, kernels, sp, cfg, plan, tokens, what):
             with tape.mode(mode):
                 return run_decode(torch, sp, c, pl, tokens, feed=fed)[0]
         compare_decode(torch, ops, kernels, lambda: rerun("free"), outs,
-                       label, what=f"{what}, free-running", gate=False)
+                       label, what=f"{what}, free-running",
+                       gate=label in gate_free)
+        if tape.pairs:
+            say(f"{what} {label}, free-running plain run: {tape.flips} of "
+                f"{tape.pairs} routed (token, expert) pairs differ from the "
+                f"kernel run's")
         compare_decode(torch, ops, kernels, lambda: rerun("lockstep"), outs,
                        label, what=f"{what}, layers in lockstep")
         del outs, tape
@@ -1344,9 +1401,7 @@ def phase_hybrid(torch, dev, ops, kernels, cfg):
     quantize at full depth, outside the count. Returns the path's launch
     counts."""
     import numpy as np
-    from repro_torch.core import pipeline
     from repro_torch.core.apply import serving_params
-    from repro_torch.launch.quantize import quantize_and_eval
     from repro_torch.models import BuildPlan
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as tfm
@@ -1354,25 +1409,7 @@ def phase_hybrid(torch, dev, ops, kernels, cfg):
 
     # (b) quantize
     ops.reset_launch_counts()
-    per_layer = []
-    t0 = time.time()
-    with layer_clock(torch, pipeline, per_layer):
-        run = quantize_and_eval(cfg, method="comq_blocked", calib_batch=8,
-                                calib_seq=PROMPT, device=dev)
-    s = run.summary
-    say(f"hybrid quantize: {json.dumps(s)}")
-    say(f"hybrid quantize: quantize_model {run.seconds:.3f} s "
-        f"(synchronized); per layer (synchronized) "
-        f"{[round(x, 3) for x in per_layer]} s; {time.time() - t0:.1f} s "
-        f"wall incl. init and eval; launches so far {ops.launch_counts()}")
-    imp = s["comq_vs_rtn_error_improvement"]
-    check(math.isfinite(imp) and imp > 0,
-          f"hybrid comq_vs_rtn_error_improvement {imp}")
-    gap = abs(s["quant_loss"] - s["fp_loss"])
-    check(gap <= LOSS_GAP,
-          f"hybrid |quant_loss - fp_loss| = {gap} > {LOSS_GAP}")
-    check(s["guard_events"] == 0,
-          f"hybrid quantize: {s['guard_events']} guard events")
+    run = quantize_counted(torch, ops, cfg, dev, "hybrid")
     for name in ("w_in", "w_out"):
         qt = run.qparams["__qlayers__"]["0"]["ssm"][name]
         say(f"hybrid ssm.{name} QTensor: codes {tuple(qt['codes'].shape)}, "
@@ -1389,15 +1426,15 @@ def phase_hybrid(torch, dev, ops, kernels, cfg):
     say(f"hybrid decode: w_in {ssm0['w_in'].shape} + w_out "
         f"{ssm0['w_out'].shape} dequantized to bf16 (every decode step, "
         f"every layer, as in JAX): {ms:.4f} ms a layer (eager mean)")
-    hybrid_decode(torch, ops, kernels, sp, cfg,
-                  BuildPlan(prefill_cache_len=PROMPT + STEPS),
-                  run.eval_tokens, "hybrid decode")
+    decode_vs_plain(torch, ops, kernels, sp, cfg,
+                    BuildPlan(prefill_cache_len=PROMPT + STEPS),
+                    run.eval_tokens, "hybrid decode")
     gen = torch.Generator(device=dev).manual_seed(8)
     long = torch.randint(0, cfg.vocab_size, (1, HYBRID_LONG), generator=gen,
                          device=dev)
-    hybrid_decode(torch, ops, kernels, sp, cfg, BuildPlan(), long,
-                  f"hybrid decode B=1 T={HYBRID_LONG} (ring of "
-                  f"{HYBRID_WINDOW})")
+    decode_vs_plain(torch, ops, kernels, sp, cfg, BuildPlan(), long,
+                    f"hybrid decode B=1 T={HYBRID_LONG} (ring of "
+                    f"{HYBRID_WINDOW})")
 
     # (d) serve through the static Engine: 8 prompts of 128 tokens
     prompts = np.random.RandomState(6).randint(
@@ -1446,29 +1483,228 @@ def phase_hybrid(torch, dev, ops, kernels, cfg):
     del sp, run
 
     # (e) quantize at full depth
-    full = cfg.replace(n_layers=HYBRID_FULL_LAYERS)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    held = torch.cuda.memory_allocated(dev)
-    per_layer = []
+    quantize_full_depth(torch, dev, cfg.replace(n_layers=HYBRID_FULL_LAYERS),
+                        "hybrid")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the audio decoder (musicgen-large: MHA, layernorm, GELU MLP)
+# ---------------------------------------------------------------------------
+
+def check_audio_kernels(torch, dev, kernels, results, cfg):
+    """The five kernels at musicgen's shapes: the panel at n=2048 / 6144 /
+    8192, flash and the paged pair at 32/32 heads, hd 64 (group 1: the
+    tensor-core paged kernels pad one query row a KV head to a 16-row
+    fragment), quant_matmul at the decode projections (M=8: K=2048 into
+    N=2048 / 8192, K=8192 into N=2048)."""
+    panel, flash, qmm, paged = kernels
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+    check(heads == AUDIO_HEADS, f"{cfg.name}: heads {heads}")
+    check_panel(torch, panel, dev, results, AUDIO_PANEL)
+    check_flash(torch, flash, dev, results, heads, ("musicgen",))
+    d, f = cfg.d_model, cfg.d_ff
+    check_qmm(torch, qmm, dev, results,
+              [(8, K, N, 4, xdt) for K, N in ((d, d), (d, f), (f, d))
+               for xdt in (torch.bfloat16, torch.float32)])
+    check_paged(torch, paged, dev, results, heads, ("musicgen",))
+
+
+def phase_audio(torch, dev, ops, kernels, cfg):
+    """The counted audio path on `cfg` (musicgen-large at full width,
+    depth cut): quantize, decode from the packed codes against the plain
+    versions (8x128; gated with the layers in lockstep at both types,
+    free-running printed, as for hymba), the phase-8 traffic served at
+    kv_bits 0, 8 and 4; then, outside the count, mixed == solo at f32, a
+    small pool that preempts, and a quantize at full depth. Returns the
+    path's launch counts."""
+    from repro_torch.core.apply import serving_params
+    from repro_torch.models import BuildPlan
+    from repro_torch.serve import Runtime
+    panel, flash, qmm, paged = kernels
+
+    ops.reset_launch_counts()
+    run = quantize_counted(torch, ops, cfg, dev, "audio")
+    sp = serving_params(run.qparams, cfg)
+    # f32 free-running is gated too: this model's gap on the H100 is
+    # ~1e-3 of max|logit| (PERF.md §6), as qwen's is; bf16's is printed
+    decode_vs_plain(torch, ops, kernels, sp, cfg,
+                    BuildPlan(prefill_cache_len=PROMPT + STEPS),
+                    run.eval_tokens, "audio decode", gate_free=("float32",))
+    prompts = serve_prompts(cfg.vocab_size)
+    with torch.no_grad():
+        for kv_bits in (0, 8, 4):
+            n0, tc0 = paged.launches_quant, paged.launches_quant_tc
+            serve_traffic(torch, dev, sp, cfg, BuildPlan(kv_bits=kv_bits),
+                          prompts, serve_config(),
+                          f"audio bf16 kv_bits={kv_bits}")
+            if kv_bits:
+                n = paged.launches_quant - n0
+                tc = paged.launches_quant_tc - tc0
+                check(n > 0 and tc == n, f"audio serve kv_bits={kv_bits}: "
+                      f"{tc} of {n} quantized-pool launches on tensor cores")
+    counts = ops.launch_counts()
+    say(f"audio path launches (quantize + decode + serve): {counts}")
+    check(all(counts[k] > 0 for k in AUDIO_PATH),
+          f"a kernel of the audio path never launched: {counts}")
+
+    # f32: each request's tokens equal its solo run; a small pool preempts
+    cfg32 = cfg.replace(compute_dtype="float32")
+    p32 = BuildPlan(cache_dtype=torch.float32)
+    with torch.no_grad():
+        _, reqs = serve_traffic(torch, dev, sp, cfg32, p32, prompts,
+                                serve_config(), "audio f32 kv_bits=0 mixed")
+        solo_rt = Runtime(sp, cfg32, p32, serve_config(), device=dev)
+        solo = [solo_rt.generate([p], max_new_tokens=SERVE_NEW)[0].tolist()
+                for p in prompts]
+        same = sum(r.out_tokens == t for r, t in zip(reqs, solo))
+        say(f"audio serve f32: mixed == solo for {same}/{len(solo)} requests")
+        check(same == len(solo), "audio serve f32: a mixed-traffic request "
+              "differs from its solo run")
+        rt, reqs = serve_traffic(torch, dev, sp, cfg32, p32, prompts,
+                                 serve_config(num_blocks=SMALL_POOL),
+                                 f"audio f32 kv_bits=0 pool of {SMALL_POOL} "
+                                 f"pages")
+        check(rt.scheduler.preemptions > 0,
+              "audio serve f32: the small pool never preempted")
+        same = sum(r.out_tokens == t for r, t in zip(reqs, solo))
+        say(f"audio serve f32 under preemption: {same}/{len(solo)} requests "
+            f"equal their solo runs")
+    del sp, run
+    quantize_full_depth(torch, dev, cfg.replace(n_layers=AUDIO_FULL_LAYERS),
+                        "audio")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the attention-free family (rwkv6-7b)
+# ---------------------------------------------------------------------------
+
+def time_plain_wkv(torch, dev, cfg):
+    """The chunked wkv (`models.rwkv._wkv_scan`, plain PyTorch in both
+    packages: JAX runs einsums under `lax.scan`, no Pallas kernel) at
+    rwkv's width for one layer: 8x128 in chunks of 16 (calibration and
+    prefill), 8x1 (a decode step) and 1x1000 in chunks of 1 (a prefill
+    whose length 16 does not divide); mean of eager calls, against the
+    least time of the one-pass recurrence: r, k, v and log w in and the
+    output out once (f32), the state in and out, and ~5 f32 operations a
+    (token, head, k, v) element."""
+    from repro_torch.models import rwkv as rwkv_mod
+    gen = torch.Generator(device=dev).manual_seed(12)
+    d, H, hd = rwkv_mod._dims(cfg)
+    for B, T, C, iters in ((8, PROMPT, 16, 10), (8, 1, 1, 50),
+                           (1, RWKV_LONG, 1, 1)):
+        r, k, v = (torch.randn(B, T, H, hd, generator=gen, device=dev)
+                   for _ in range(3))
+        logw = -torch.rand(B, T, H, hd, generator=gen, device=dev) * 5 - 1e-6
+        u = torch.randn(H, hd, generator=gen, device=dev)
+        s0 = torch.randn(B, H, hd, hd, generator=gen, device=dev)
+        ms = cuda_ms(torch, lambda i: rwkv_mod._wkv_scan(
+            r, k, v, logw, u, s0, chunk=C), iters)
+        nbytes = 4 * (5 * B * T * d + 2 * s0.numel() + u.numel())
+        bms, by = bound_ms(nbytes, 5.0 * B * T * H * hd * hd, "f32")
+        say(f"plain wkv B={B} T={T} chunk {C} H={H} hd={hd} (one layer): "
+            f"ms {ms:.4f} (eager mean of {iters}), bound_ms {bms:.4f} "
+            f"({by}); no kernel in either package (ROADMAP Queue B)")
+        del r, k, v, logw, s0
+
+
+def rwkv_forms_agree(torch, sp, cfg, tokens, what):
+    """f32: prefill of tokens[:, :-STEPS] plus STEPS teacher-forced decode
+    steps (chunks of 1) against one forward over all the tokens: each
+    step's logits within LOGITS_REL of max|logit|."""
+    from repro_torch.models import BuildPlan, decode_step, forward, prefill
+    plan = BuildPlan()
+    T = tokens.shape[1] - STEPS
     t0 = time.time()
-    with layer_clock(torch, pipeline, per_layer):
-        deep = quantize_and_eval(full, method="comq_blocked", calib_batch=8,
-                                 calib_seq=PROMPT, device=dev)
-    wall = time.time() - t0
-    s = deep.summary
-    say(f"hybrid quantize, {HYBRID_FULL_LAYERS} layers: {json.dumps(s)}")
-    say(f"hybrid quantize, {HYBRID_FULL_LAYERS} layers: quantize_model "
-        f"{deep.seconds:.3f} s (synchronized), {wall:.1f} s wall incl. init "
-        f"and eval; per layer (synchronized) "
-        f"{[round(x, 3) for x in per_layer]} s; max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB, "
-        f"{(torch.cuda.max_memory_allocated(dev) - held) / 2 ** 30:.2f} GiB "
-        f"above the {held / 2 ** 30:.2f} GiB held before the run")
-    imp = s["comq_vs_rtn_error_improvement"]
-    check(math.isfinite(imp) and imp > 0,
-          f"hybrid full-depth comq_vs_rtn_error_improvement {imp}")
-    del deep
+    with torch.no_grad():
+        want = forward(sp, cfg, plan, tokens)[0].float()
+        logits, cache = prefill(sp, cfg, plan, tokens[:, :T])
+        got = [logits.float()]
+        for i in range(STEPS):
+            logits, cache = decode_step(sp, cfg, plan, cache,
+                                        tokens[:, T + i:T + i + 1], T + i)
+            got.append(logits.float())
+    torch.cuda.synchronize()
+    got = torch.stack(got[:-1], 1)
+    ref = want[:, T - 1:T + STEPS - 1]
+    rel = float((got - ref).abs().max()) / float(ref.abs().max())
+    say(f"{what}: prefill {tokens.shape[0]}x{T} + {STEPS} decode steps vs "
+        f"one forward over {T + STEPS} tokens, f32: max|d logits|/max|logit| "
+        f"{rel:.3e} (tol {LOGITS_REL['float32']}), greedy agreement "
+        f"{float((got.argmax(-1) == ref.argmax(-1)).float().mean()):.3f}; "
+        f"{time.time() - t0:.2f} s wall")
+    check(rel <= LOGITS_REL["float32"], f"{what}: rel {rel}")
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite logits")
+
+
+def phase_rwkv(torch, dev, ops, kernels, cfg):
+    """The counted attention-free path on `cfg` (rwkv6-7b at full width,
+    depth cut): quantize (the eight projections of each layer through
+    comq_panel, the RWKV state carried from layer to layer), the
+    recurrence's chunked and one-step forms against each other from the
+    packed codes, and the static Engine (what `launch.serve` runs for
+    this family; every projection dequantized each step, as in JAX).
+    Returns the path's launch counts."""
+    import numpy as np
+    from repro_torch.core.apply import serving_params
+    from repro_torch.models import BuildPlan
+    from repro_torch.serve import Engine
+    panel = kernels[0]
+
+    ops.reset_launch_counts()
+    run = quantize_counted(torch, ops, cfg, dev, "rwkv")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "rwkv: TF32 matmuls are on; the wkv's exponent-scaled operands "
+          "need full f32")
+    check(panel.launches > 0, "rwkv quantize: comq_panel never launched")
+    for mod, leaf in (("tm", "w_r"), ("cm", "w_k"), ("cm", "w_v")):
+        qt = run.qparams["__qlayers__"]["0"][mod][leaf]
+        say(f"rwkv {mod}.{leaf} QTensor: codes {tuple(qt['codes'].shape)}, "
+            f"{qt['bits']} bits")
+    sp = serving_params(run.qparams, cfg)
+    cfg32 = cfg.replace(compute_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    toks = torch.randint(0, cfg.vocab_size, (8, PROMPT + STEPS),
+                         generator=gen, device=dev)
+    rwkv_forms_agree(torch, sp, cfg32, toks,
+                     f"rwkv decode 8x{PROMPT} (chunks of 16)")
+    toks = torch.randint(0, cfg.vocab_size, (1, RWKV_LONG + STEPS),
+                         generator=gen, device=dev)
+    rwkv_forms_agree(torch, sp, cfg32, toks,
+                     f"rwkv decode 1x{RWKV_LONG} (chunks of 1)")
+
+    prompts = np.random.RandomState(6).randint(
+        0, cfg.vocab_size, (SERVE_SLOTS, PROMPT)).astype(np.int32)
+    with torch.no_grad():
+        eng = Engine(sp, cfg, BuildPlan(), max_len=PROMPT + SERVE_NEW,
+                     device=dev)
+        eng.generate_batch(prompts, max_new_tokens=2)       # warm
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = eng.generate_batch(prompts, max_new_tokens=SERVE_NEW)
+        wall = time.time() - t0
+    say(f"rwkv serve bf16 (static Engine): {out.size} tokens in {wall:.3f} "
+        f"s: tok_per_s {out.size / wall:.1f} (prefill {SERVE_SLOTS}x{PROMPT} "
+        f"included)")
+    check(out.shape == (SERVE_SLOTS, SERVE_NEW)
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"rwkv serve: tokens {out.shape}")
+    tm0 = sp["layers"][0]
+    ms = cuda_ms(torch, lambda i: [tm0[m][k].dequant(torch.bfloat16)
+                                   for m, k in (("tm", "w_r"), ("tm", "w_k"),
+                                                ("tm", "w_v"), ("tm", "w_g"),
+                                                ("tm", "w_o"), ("cm", "w_k"),
+                                                ("cm", "w_v"), ("cm", "w_r"))],
+                 10)
+    say(f"rwkv decode: the eight projections dequantized to bf16 (every "
+        f"decode step, every layer, as in JAX): {ms:.4f} ms a layer (eager "
+        f"mean)")
+    counts = ops.launch_counts()
+    say(f"rwkv path launches (quantize + decode + serve): {counts}")
+    check(all(counts[k] > 0 for k in RWKV_PATH),
+          f"a kernel of the rwkv path never launched: {counts}")
+    del sp, run
     return counts
 
 
@@ -1713,13 +1949,40 @@ def main() -> int:
     check_hybrid_kernels(torch, dev, kernels, results, hyb_cfg)
     hyb_counts = phase_hybrid(torch, dev, ops, kernels, hyb_cfg)
 
+    # 12. the audio decoder: its kernels, then the audio path, counted
+    audio_cfg = get_config(AUDIO_ARCH).replace(n_layers=AUDIO_LAYERS)
+    say(f"audio reduced: n_layers {AUDIO_FULL_LAYERS} -> {AUDIO_LAYERS} "
+        f"(all widths full: d_model {audio_cfg.d_model}, heads "
+        f"{audio_cfg.n_heads}/{audio_cfg.n_kv_heads}, head_dim "
+        f"{audio_cfg.resolved_head_dim}, d_ff {audio_cfg.d_ff}, vocab "
+        f"{audio_cfg.vocab_size}, {audio_cfg.norm_type}, {audio_cfg.act}); "
+        f"then {AUDIO_FULL_LAYERS} layers for the full-depth quantize")
+    check_audio_kernels(torch, dev, kernels, results, audio_cfg)
+    audio_counts = phase_audio(torch, dev, ops, kernels, audio_cfg)
+
+    # 13. the attention-free family: its panels, the plain wkv, then the
+    # rwkv path, counted
+    rwkv_cfg = get_config(RWKV_ARCH).replace(n_layers=RWKV_LAYERS)
+    say(f"rwkv reduced: n_layers 32 -> {RWKV_LAYERS} (all widths full: "
+        f"d_model {rwkv_cfg.d_model}, {rwkv_cfg.n_heads} wkv heads of "
+        f"{rwkv_cfg.rwkv.head_dim}, d_ff {rwkv_cfg.d_ff}, vocab "
+        f"{rwkv_cfg.vocab_size}, LoRA {rwkv_cfg.rwkv.decay_lora}/"
+        f"{rwkv_cfg.rwkv.gate_lora}/{rwkv_cfg.rwkv.token_shift_lora})")
+    check_panel(torch, panel, dev, results, RWKV_PANEL)
+    time_plain_wkv(torch, dev, rwkv_cfg)
+    rwkv_counts = phase_rwkv(torch, dev, ops, kernels, rwkv_cfg)
+
     # kernels line: launches on the main path as a whole
     src = "src/repro_torch/csrc/{}.cu"
     launches = {n: totals[n] + policy_counts[n] + moe_counts[n]
-                + hyb_counts[n] for n in totals}
+                + hyb_counts[n] + audio_counts[n] + rwkv_counts[n]
+                for n in totals}
     launches["comq_panel_batched"] = moe_batched
-    for n in HYBRID_PATH:
-        launches[f"{n}@{HYBRID_ARCH}"] = hyb_counts[n]
+    for arch, path, counts in ((HYBRID_ARCH, HYBRID_PATH, hyb_counts),
+                               (AUDIO_ARCH, AUDIO_PATH, audio_counts),
+                               (RWKV_ARCH, RWKV_PATH, rwkv_counts)):
+        for n in path:
+            launches[f"{n}@{arch}"] = counts[n]
     entries = [
         ("comq_panel", "comq_panel", results[("comq_panel", 18944)],
          "src/repro/kernels/comq_panel.py:79"),
@@ -1750,6 +2013,26 @@ def main() -> int:
         (f"quant_matmul@{HYBRID_ARCH}", "quant_matmul",
          results[("quant_matmul", 8, 1600, 5504, 2, "bfloat16")],
          "src/repro/kernels/quant_matmul.py:94"),
+        # musicgen's new shapes (phase 12), with the audio path's launches
+        (f"comq_panel@{AUDIO_ARCH}", "comq_panel",
+         results[("comq_panel", 8192)],
+         "src/repro/kernels/comq_panel.py:79"),
+        (f"flash_attention@{AUDIO_ARCH}", "flash_attention",
+         results[("flash_attention", 8, PROMPT, "musicgen")],
+         "src/repro/kernels/flash_attention.py:95"),
+        (f"quant_matmul@{AUDIO_ARCH}", "quant_matmul",
+         results[("quant_matmul", 8, 2048, 8192, 2, "bfloat16")],
+         "src/repro/kernels/quant_matmul.py:94"),
+        (f"paged_attention@{AUDIO_ARCH}", "paged_attention",
+         results[("paged_attention", 0, "musicgen")],
+         "src/repro/kernels/paged_attention.py:219"),
+        (f"paged_attention_quant@{AUDIO_ARCH}", "paged_attention",
+         results[("paged_attention_quant", 8, "musicgen")],
+         "src/repro/kernels/paged_attention.py:175"),
+        # rwkv's widest panel (phase 13), with the rwkv path's launches
+        (f"comq_panel@{RWKV_ARCH}", "comq_panel",
+         results[("comq_panel", 14336)],
+         "src/repro/kernels/comq_panel.py:79"),
     ]
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src.format(source),

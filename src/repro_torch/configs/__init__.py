@@ -3,7 +3,8 @@
 Only the architectures the port runs are registered: the dense GQA
 transformers (qwen2-7b, deepseek-67b, mistral-large-123b,
 h2o-danube-1.8b), the MoE family (granite-moe-3b-a800m,
-llama4-maverick-400b-a17b) and the hybrid hymba-1.5b. Asking for another
+llama4-maverick-400b-a17b), the hybrid hymba-1.5b, the attention-free
+rwkv6-7b and the audio decoder musicgen-large. Asking for another
 one raises a KeyError that says so (ROADMAP.md Queue A lists the families
 still to port)."""
 from __future__ import annotations
@@ -51,6 +52,7 @@ def list_archs():
 # import for registration side effects
 from repro_torch.configs import (  # noqa: E402,F401
     deepseek_67b, granite_moe_3b_a800m, h2o_danube_1_8b, hymba_1_5b,
-    llama4_maverick_400b_a17b, mistral_large_123b, qwen2_7b)
+    llama4_maverick_400b_a17b, mistral_large_123b, musicgen_large, qwen2_7b,
+    rwkv6_7b)
 
 __all__ = ["ModelConfig", "get_config", "get_smoke_config", "list_archs"]

@@ -145,9 +145,10 @@ def fake_quantize_params(params, cfg, plan, bits: int = 4,
             us, deltas, zs = us[0], deltas[0], zs[0]
         return QT(us, deltas, zs, shape, bits, cpb=cpb)
 
-    # the JAX package's list, for the ported families (hymba's SSM adds
-    # w_in, w_out and w_xproj)
-    quantizable = set(FUSED_QT_LEAVES) | {"w_in", "w_out", "w_xproj",
+    # the JAX package's list: RWKV's projections, hymba's SSM w_in, w_out
+    # and w_xproj, the unembedding
+    quantizable = set(FUSED_QT_LEAVES) | {"w_r", "w_k", "w_v", "w_g", "w_o",
+                                          "w_in", "w_out", "w_xproj",
                                           "unembed"}
     if quantize_embed:
         quantizable.add("embed")

@@ -1,5 +1,5 @@
-"""Whole-model COMQ: the dense, MoE and hybrid families (port of
-`repro.core.pipeline`).
+"""Whole-model COMQ: the dense (and audio), MoE, hybrid and RWKV families
+(port of `repro.core.pipeline`).
 
 GPTQ-style sequential layer-by-layer quantization with quantized
 propagation. Two schedules:
@@ -19,7 +19,10 @@ experts). A hybrid layer (hymba) adds the SSM branch's taps, ssm_in
 (feeds w_in) and ssm_out_in (feeds w_out), and the walk carries the SSM
 state from layer to layer as the JAX walk does: layer l+1 starts from
 layer l's final state (`forward` starts every layer from zeros; ROADMAP,
-"Known behaviours of the reference"). Every leaf is solved under the spec a
+"Known behaviours of the reference"). An RWKV layer has its own eight
+taps (RWKV_TAPS: time-mix r / k / v / g / o, channel-mix k / r / v) and
+the walk carries its RWKVState (token shifts and wkv state) the same
+way. Every leaf is solved under the spec a
 `core.policy.QuantPolicy` resolves for it (a plain QuantSpec is the
 uniform policy); a group whose specs agree is column-fused when that is
 exact, a mixed-bit group solves leaf by leaf. With guards on (the
@@ -30,7 +33,7 @@ end.
 
 Not ported yet (ROADMAP.md): the journal/resume path and fault injection
 (item 13), tracing/metrics (item 14), data/column sharding (item 15), and
-the RWKV and VLM families (item 12).
+the VLM and encoder families (item 12).
 """
 from __future__ import annotations
 
@@ -69,6 +72,13 @@ MOE_TAPS = {
     ("moe", "w_gate"): "expert_in", ("moe", "w_up"): "expert_in",
     ("moe", "w_down"): "expert_down_in",
 }
+RWKV_TAPS = {
+    ("tm", "w_r"): "tm_r_in", ("tm", "w_k"): "tm_k_in",
+    ("tm", "w_v"): "tm_v_in", ("tm", "w_g"): "tm_g_in",
+    ("tm", "w_o"): "tm_o_in",
+    ("cm", "w_k"): "cm_k_in", ("cm", "w_r"): "cm_r_in",
+    ("cm", "w_v"): "cm_v_in",
+}
 SSM_EXTRA_TAPS = {
     ("ssm", "w_in"): "ssm_in", ("ssm", "w_out"): "ssm_out_in",
 }
@@ -76,6 +86,8 @@ SSM_EXTRA_TAPS = {
 
 def taps_for(cfg) -> Dict[Tuple[str, str], str]:
     tfm.check_ported(cfg)
+    if cfg.attn_free:
+        return dict(RWKV_TAPS)
     t = dict(MOE_TAPS if cfg.moe is not None else DENSE_TAPS)
     if cfg.parallel_ssm_heads:
         t.update(SSM_EXTRA_TAPS)
@@ -84,11 +96,12 @@ def taps_for(cfg) -> Dict[Tuple[str, str], str]:
 
 def layer_with_state(lp, x, state, cfg, plan, **kw):
     """`layer_full` (no cache) from the walk's recurrent state: returns
-    (y, the layer's final state). The walk starts from None (a hybrid
-    layer's zero state); a state is passed on only once a layer returned
-    one, so the other families call `layer_full` exactly as before."""
+    (y, the layer's final state). The walk starts from None (a hybrid or
+    RWKV layer's zero state); a state is passed on only once a layer
+    returned one, so the other families call `layer_full` exactly as
+    before."""
     if state is not None:
-        kw["ssm_state"] = state
+        kw["rwkv_state" if cfg.attn_free else "ssm_state"] = state
     out = tfm.layer_full(lp, x, cfg, plan, False, **kw)
     return out[0], out[3]
 
@@ -539,16 +552,21 @@ def _finalize_report(report: QuantReport, pending: List[tuple]):
 
 
 def _calib_leaf_dims(cfg) -> Dict[str, int]:
-    return {"d_model": cfg.d_model,
-            "wo_in": cfg.n_heads * cfg.resolved_head_dim,
-            "down_in": cfg.d_ff}
+    """Leaf-class input dims for the calibration coverage check (an RWKV
+    model: d_model alone, as in the JAX package)."""
+    dims = {"d_model": cfg.d_model}
+    if not cfg.attn_free:
+        dims["wo_in"] = cfg.n_heads * cfg.resolved_head_dim
+        dims["down_in"] = cfg.d_ff
+    return dims
 
 
 def quantize_model(params, cfg, plan, tokens: Tensor, spec,
                    method: str = "comq", quantize_unembed: bool = False,
                    propagation: str = "staged", *, guards: bool = True):
-    """Quantize every projection weight of a dense, MoE or hybrid LM (the
-    router and the SSM's small leaves stay float). `tokens`: (B, T)
+    """Quantize every projection weight of a dense, MoE, hybrid or RWKV LM
+    (the router, the SSM's small leaves and RWKV's mixes, LoRAs and decay
+    stay float). `tokens`: (B, T)
     calibration batch on the params' device.
 
     `spec` is a QuantSpec (every leaf gets it) or a `core.policy.

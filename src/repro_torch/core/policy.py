@@ -18,10 +18,10 @@ forward per layer — no backprop.
 
 The pure part (resolution, parsing, the allocator) is plain Python and
 gives exactly the JAX package's results. The curve measurement covers the
-dense, MoE and hybrid families (an expert leaf priced for all its experts
-in one batched pass; a hybrid walk carries the SSM state from layer to
-layer as the JAX one does); the RWKV and VLM branches wait for the port
-of those families (ROADMAP.md, Queue A item 12).
+dense (and audio), MoE, hybrid and RWKV families (an expert leaf priced
+for all its experts in one batched pass; a hybrid or RWKV walk carries
+its recurrent state from layer to layer as the JAX one does); the VLM
+branch waits for the port of that family (ROADMAP.md, Queue A item 12).
 """
 from __future__ import annotations
 

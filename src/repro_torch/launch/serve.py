@@ -16,10 +16,10 @@ checkpoint, or from a fresh init.
 admission with preemption-by-page-reclaim (`--admission reserve` keeps
 full-lifetime reservation), mixed prompt lengths, staggered arrivals,
 bf16 or int8/4-bit pages (`--kv-bits`). `--engine static` runs the
-equal-length Engine baseline; a parallel-SSM arch (hymba-1.5b) always
-runs it (`--engine paged` switches with a note, as the JAX launcher
-does). `--materialize` dequantizes to a dense tree first; without it
-quantized params are served packed.
+equal-length Engine baseline; a parallel-SSM arch (hymba-1.5b) and an
+attention-free one (rwkv6-7b) always run it (`--engine paged` switches
+with a note, as the JAX launcher does). `--materialize` dequantizes to a
+dense tree first; without it quantized params are served packed.
 
 Runs on the card unless `--device cpu` is given, and prints one JSON line
 of run metrics. The JAX launcher's `--journal --resume --restarts --inject
@@ -125,7 +125,7 @@ def main(argv=None) -> Dict[str, Any]:
                   "engine's dense cache ignores it")
         else:
             plan = plan.replace(kv_bits=args.kv_bits)
-    if args.engine == "paged" and cfg.parallel_ssm_heads:
+    if args.engine == "paged" and (cfg.attn_free or cfg.parallel_ssm_heads):
         print(f"note: {cfg.family}/attention-free archs use the dense-"
               "cache static engine (paged runtime is attention-family "
               "only; see ROADMAP)")

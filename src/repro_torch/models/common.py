@@ -69,11 +69,25 @@ def rmsnorm(x: Tensor, weight: Tensor, eps: float) -> Tensor:
     return (out * weight.float()).to(dt)
 
 
+def layernorm(x: Tensor, weight: Tensor, bias: Tensor, eps: float) -> Tensor:
+    """f32 inside, cast back; the biased variance, as `jnp.var`."""
+    dt = x.dtype
+    x32 = x.float()
+    var, mu = torch.var_mean(x32, dim=-1, keepdim=True, correction=0)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(dt)
+
+
 def norm_params(cfg, device) -> dict:
-    return {"scale": ones_init((cfg.d_model,), device)}
+    d = cfg.d_model
+    if cfg.norm_type == "rmsnorm":
+        return {"scale": ones_init((d,), device)}
+    return {"scale": ones_init((d,), device), "bias": zeros_init((d,), device)}
 
 
 def apply_norm(params: dict, x: Tensor, cfg) -> Tensor:
+    if "bias" in params:
+        return layernorm(x, params["scale"], params["bias"], cfg.norm_eps)
     return rmsnorm(x, params["scale"], cfg.norm_eps)
 
 

@@ -1,5 +1,5 @@
-"""Top-level model API: the dense, MoE and hybrid families (port of
-`repro.models.model`).
+"""Top-level model API: the dense (and audio), MoE, hybrid and RWKV
+families (port of `repro.models.model`).
 
     params = init_params(cfg, seed=0, device=None)
     logits, aux, cache = forward(params, cfg, plan, tokens, make_cache=...)
@@ -17,7 +17,9 @@ packed and runs them through quant_matmul; `decode_step_paged` does the
 same against a paged KV pool with one position per slot (serve/).
 A hybrid model (hymba) carries one SSM state per layer: `forward` starts
 every layer from zeros, the cache holds the states under "ssm", and
-`decode_step` threads them; the paged pool does not serve it.
+`decode_step` threads them; the paged pool does not serve it. An RWKV
+model (attention-free) does the same with one RWKVState a layer under
+"rwkv" and has no KV cache.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import init_kv_cache
@@ -60,8 +63,15 @@ def param_count(cfg, active_only: bool = False) -> int:
     JAX package's `count_params_analytic`)."""
     from repro_torch.models.attention import attn_param_shapes
     d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    norm = 2 * d if cfg.norm_type == "layernorm" else d   # scale (+ bias)
+    embeds = v * d * (1 if cfg.tie_embeddings else 2)
+    if cfg.attn_free:
+        per_layer = 2 * norm + sum(
+            math.prod(s) for mod in rwkv_mod.rwkv_param_shapes(cfg).values()
+            for s in mod.values())
+        return embeds + cfg.n_layers * per_layer + norm
     per_layer = sum(math.prod(s) for s in attn_param_shapes(cfg).values())
-    per_layer += 2 * d
+    per_layer += 2 * norm
     if cfg.parallel_ssm_heads:
         per_layer += sum(math.prod(s) for s in
                          ssm_mod.ssm_param_shapes(cfg).values())
@@ -73,8 +83,7 @@ def param_count(cfg, active_only: bool = False) -> int:
             per_layer -= (e - cfg.moe.top_k) * n_ff_mats * d * f
     else:
         per_layer += n_ff_mats * d * f
-    embeds = v * d * (1 if cfg.tie_embeddings else 2)
-    return embeds + cfg.n_layers * per_layer + d
+    return embeds + cfg.n_layers * per_layer + norm
 
 
 # ---------------------------------------------------------------------------
@@ -108,9 +117,9 @@ def unembed(p: Params, cfg, plan: BuildPlan, x: Tensor) -> Tensor:
 
 def _run_layers(p: Params, cfg, plan, x, make_cache: bool):
     """Returns (x, caches, aux, states): aux sums the layers' MoE
-    load-balance losses (0 for a dense model); a hybrid model runs every
-    layer's SSM branch from the zero state (the JAX `_run_homogeneous`)
-    and `states` holds each layer's final one (None for the other
+    load-balance losses (0 for a dense model); a hybrid or RWKV model runs
+    every layer from the zero state (the JAX `_run_homogeneous`) and
+    `states` holds each layer's final one (None for the other
     families)."""
     from repro_torch.core.apply import dequantize_qt_tree
     cd = dtype_of(cfg.compute_dtype)
@@ -123,22 +132,30 @@ def _run_layers(p: Params, cfg, plan, x, make_cache: bool):
         states.append(st)
         if a is not None:
             aux = aux + a
-    return x, caches, aux, (states if cfg.parallel_ssm_heads else None)
+    return x, caches, aux, (states if _state_key(cfg) else None)
+
+
+def _state_key(cfg):
+    """The cache key of a family's per-layer recurrent states, or None."""
+    if cfg.attn_free:
+        return "rwkv"
+    return "ssm" if cfg.parallel_ssm_heads else None
 
 
 def forward(p: Params, cfg, plan: BuildPlan, tokens: Tensor,
             make_cache: bool = False):
     """Returns (logits, aux, cache_or_None): the cache is {"kv": [...]}
-    and, for a hybrid model, "ssm": [...] (one state a layer)."""
+    and, for a hybrid model, "ssm": [...] (one state a layer); an RWKV
+    model's is {"rwkv": [...]} alone."""
     x = embed_tokens(p, cfg, plan, tokens)
     x, caches, aux, states = _run_layers(p, cfg, plan, x, make_cache)
     x = apply_norm(p["final_norm"], x, cfg)
     logits = unembed(p, cfg, plan, x)
     cache = None
     if make_cache:
-        cache = {"kv": caches}
+        cache = {} if cfg.attn_free else {"kv": caches}
         if states is not None:
-            cache["ssm"] = states
+            cache[_state_key(cfg)] = states
     return logits, aux, cache
 
 
@@ -172,8 +189,12 @@ def init_cache(cfg, plan: BuildPlan, batch: int, seq_len: int,
                device: DeviceLike = None):
     """An empty per-layer cache list for decode at context length
     seq_len (int8 codes and scales with `plan.cache_quant`); a hybrid
-    model's cache adds one zero SSM state a layer under "ssm"."""
+    model's cache adds one zero SSM state a layer under "ssm"; an RWKV
+    model's holds only one zero RWKVState a layer under "rwkv"."""
     dev = resolve_device(device)
+    if cfg.attn_free:
+        return {"rwkv": [rwkv_mod.init_rwkv_state(batch, cfg, device=dev)
+                         for _ in range(cfg.n_layers)]}
     clen = cache_len_for(cfg, seq_len)
     cache = {"kv": [init_kv_cache(batch, clen, cfg.n_kv_heads,
                                   cfg.resolved_head_dim, plan.cache_dtype,
@@ -194,26 +215,29 @@ def decode_step(p: Params, cfg, plan: BuildPlan, cache, tokens: Tensor,
                 pos: int):
     """tokens: (B, 1); pos: absolute position (int). Fused-layout QT
     projections stay packed and run through quant_matmul (keep_fused);
-    other QT leaves (hymba's w_in / w_out) are dequantized each step, as
-    in the JAX package. The KV cache is updated in place; a hybrid
-    model's SSM states are threaded through the layers. Returns (logits,
-    the new cache)."""
+    other QT leaves (hymba's w_in / w_out, every RWKV projection) are
+    dequantized each step, as in the JAX package. The KV cache is updated
+    in place; a hybrid or RWKV model's states are threaded through the
+    layers. Returns (logits, the new cache)."""
     from repro_torch.core.apply import dequantize_qt_tree
     cd = dtype_of(cfg.compute_dtype)
     x = embed_tokens(p, cfg, plan, tokens)
-    states = cache.get("ssm") or [None] * len(p["layers"])
-    new_kv, new_ssm = [], []
-    for lp, kv, st in zip(p["layers"], cache["kv"], states):
+    n = len(p["layers"])
+    key = _state_key(cfg)
+    states = (cache.get(key) if key else None) or [None] * n
+    kvs = cache.get("kv") or [None] * n
+    new_kv, new_states = [], []
+    for lp, kv, st in zip(p["layers"], kvs, states):
         lp = dequantize_qt_tree(lp, cd, keep_fused=True)
-        x, kv, st = tfm.layer_decode(lp, x, cfg, plan, kv, pos,
-                                     ssm_state=st)
+        kw = {f"{key}_state": st} if key else {}
+        x, kv, st = tfm.layer_decode(lp, x, cfg, plan, kv, pos, **kw)
         new_kv.append(kv)
-        new_ssm.append(st)
+        new_states.append(st)
     x = apply_norm(p["final_norm"], x, cfg)
     logits = unembed(p, cfg, plan, x)
-    new_cache = {"kv": new_kv}
-    if cfg.parallel_ssm_heads:
-        new_cache["ssm"] = new_ssm
+    new_cache = {} if cfg.attn_free else {"kv": new_kv}
+    if key:
+        new_cache[key] = new_states
     return logits[:, 0], new_cache
 
 

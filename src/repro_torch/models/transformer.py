@@ -1,5 +1,6 @@
-"""Decoder layer assembly: the dense, MoE and hybrid (parallel SSM heads)
-families (port of `repro.models.transformer`).
+"""Decoder layer assembly: the dense (and audio), MoE, hybrid (parallel
+SSM heads) and attention-free (RWKV6) families (port of
+`repro.models.transformer`).
 
 Layers run one at a time from a per-layer list of param dicts (the JAX
 package scans stacked params). `BuildPlan` keeps the facts the ported
@@ -18,6 +19,7 @@ import torch
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (cache_insert, cache_prefill,
                                           decode_attend, flash_attention,
@@ -53,36 +55,45 @@ class BuildPlan:
 
 def check_ported(cfg) -> None:
     """Raise for a configuration whose family the port does not run yet:
-    it runs the dense GQA transformer, the MoE family and the hybrid one
-    (attention with parallel SSM heads, hymba), rmsnorm, causal,
-    self-attention only."""
+    it runs the dense GQA transformer (and the audio decoder, which is
+    one), the MoE family, the hybrid one (attention with parallel SSM
+    heads, hymba) and the attention-free one (RWKV6), with rmsnorm or
+    layernorm, causal, self-attention only."""
     hybrid = cfg.family == "hybrid"
-    if (cfg.family not in ("dense", "moe", "hybrid")
+    rwkv = cfg.family == "ssm"
+    if (cfg.family not in ("dense", "audio", "moe", "hybrid", "ssm")
             or (cfg.family == "moe") != (cfg.moe is not None)
             or hybrid != cfg.parallel_ssm_heads
             or (hybrid and cfg.ssm is None)
-            or cfg.attn_free or cfg.cross_attn is not None
-            or not cfg.causal or cfg.norm_type != "rmsnorm"):
+            or rwkv != cfg.attn_free or (rwkv and cfg.rwkv is None)
+            or cfg.cross_attn is not None or not cfg.causal
+            or cfg.norm_type not in ("rmsnorm", "layernorm")):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported to "
-            "repro_torch yet: the dense, MoE and hybrid transformers are "
-            "(ROADMAP.md Queue A item 12)")
+            "repro_torch yet: the dense, audio, MoE, hybrid and RWKV "
+            "decoders are (ROADMAP.md Queue A item 12)")
 
 
 def check_paged(cfg) -> None:
     """The paged KV pool serves the attention families only; parallel-SSM
-    layers carry a recurrent state per sequence, so hymba decodes from the
-    dense-cache `decode_step` (serve.Engine), as in the JAX package."""
+    and attention-free layers carry a recurrent state per sequence, so
+    hymba and RWKV decode from the dense-cache `decode_step`
+    (serve.Engine), as in the JAX package."""
     check_ported(cfg)
-    if cfg.parallel_ssm_heads:
+    if cfg.parallel_ssm_heads or cfg.attn_free:
         raise NotImplementedError(
             f"paged decode does not cover family={cfg.family!r} "
-            "(parallel-SSM archs use the dense-cache decode_step and "
-            "serve.Engine)")
+            "(parallel-SSM and attention-free archs use the dense-cache "
+            "decode_step and serve.Engine)")
 
 
 def init_layer(gen: torch.Generator, cfg, plan: BuildPlan, device) -> dict:
     check_ported(cfg)
+    if cfg.attn_free:
+        return {"ln1": norm_params(cfg, device),
+                "tm": rwkv_mod.init_time_mix(gen, cfg, device),
+                "ln2": norm_params(cfg, device),
+                "cm": rwkv_mod.init_channel_mix(gen, cfg, device)}
     p = {"ln1": norm_params(cfg, device),
          "attn": attn_mod.init_attn(gen, cfg, device)}
     if cfg.parallel_ssm_heads:
@@ -148,14 +159,33 @@ def _ffn_full(p: dict, xn: Tensor, cfg, plan: BuildPlan, taps=None,
                              quantize_cb=quantize_cb), None
 
 
+def _rwkv_layer(p: dict, x: Tensor, cfg, state, taps=None,
+                quantize_cb=None):
+    """An attention-free layer from `state` (the zero state when None):
+    time-mix on ln1(x), channel-mix on ln2 of the result. Returns (x,
+    the new RWKVState); its shifts carry the last *normed* rows."""
+    if state is None:
+        state = rwkv_mod.init_rwkv_state(x.shape[0], cfg, device=x.device)
+    h, new_tm, new_s = rwkv_mod.apply_time_mix(
+        p["tm"], apply_norm(p["ln1"], x, cfg), cfg, state, taps=taps,
+        quantize_cb=quantize_cb)
+    x = x + h
+    h, new_cm = rwkv_mod.apply_channel_mix(
+        p["cm"], apply_norm(p["ln2"], x, cfg), cfg, state.x_cm, taps=taps,
+        quantize_cb=quantize_cb)
+    return x + h, rwkv_mod.RWKVState(new_tm, new_cm, new_s)
+
+
 def layer_full(p: dict, x: Tensor, cfg, plan: BuildPlan, make_cache: bool,
-               taps=None, quantize_cb=None, ssm_state=None):
+               taps=None, quantize_cb=None, ssm_state=None, rwkv_state=None):
     """One layer over a full sequence. Returns (x, cache_or_None, aux,
-    ssm_state): aux is the MoE load-balance loss, None for a dense layer;
+    state): aux is the MoE load-balance loss, None for a dense layer;
     a parallel-SSM layer (hymba) runs its SSM branch from `ssm_state` (the
     zero state when None, as `forward` starts every layer) on the same
     normed input as attention, averages the two, and returns the branch's
-    new state (None for the other families).
+    new state; an attention-free layer (RWKV) runs from `rwkv_state` (the
+    zero state when None), makes no cache and returns its new RWKVState.
+    The other families return None.
 
     `quantize_cb` (calibration only, requires `taps`) is called once per
     activation tap right after the tap is recorded and before the weights
@@ -163,6 +193,9 @@ def layer_full(p: dict, x: Tensor, cfg, plan: BuildPlan, make_cache: bool,
     the rest of this forward runs on the already-quantized sub-blocks —
     the staged one-forward-per-layer calibration walk."""
     check_ported(cfg)
+    if cfg.attn_free:
+        x, state = _rwkv_layer(p, x, cfg, rwkv_state, taps, quantize_cb)
+        return x, None, None, state
     xn = apply_norm(p["ln1"], x, cfg)
     a_out, cache = _self_attention_full(p, xn, cfg, plan, make_cache, taps,
                                         quantize_cb)
@@ -185,11 +218,16 @@ def layer_full(p: dict, x: Tensor, cfg, plan: BuildPlan, make_cache: bool,
 # ---------------------------------------------------------------------------
 
 def layer_decode(p: dict, x: Tensor, cfg, plan: BuildPlan, kv_cache,
-                 pos: int, ssm_state=None):
+                 pos: int, ssm_state=None, rwkv_state=None):
     """x: (B, 1, d) at absolute position `pos`. Returns (x, kv_cache,
-    ssm_state); the KV cache is updated in place, a parallel-SSM layer
-    steps its branch from `ssm_state` (None for the other families)."""
+    state); the KV cache is updated in place, a parallel-SSM layer
+    steps its branch from `ssm_state`, an attention-free layer (no KV
+    cache) from `rwkv_state`, and returns the new one (None for the
+    other families)."""
     check_ported(cfg)
+    if cfg.attn_free:
+        x, state = _rwkv_layer(p, x, cfg, rwkv_state)
+        return x, None, state
     xn = apply_norm(p["ln1"], x, cfg)
     q, k, v = qkv_project(p["attn"], xn)
     B = x.shape[0]

@@ -119,4 +119,4 @@ def test_launcher_rejects_unported_flags(flag, capsys):
 def test_unported_arch_says_so():
     from repro_torch.configs import get_config
     with pytest.raises(KeyError, match="not ported"):
-        get_config("rwkv6-7b")
+        get_config("llama-3.2-vision-90b")

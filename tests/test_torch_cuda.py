@@ -748,3 +748,88 @@ def test_flash_h2o_danube_heads_and_window(cuda, dtype):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     else:
         _bf16_close(got, want)
+
+
+# musicgen-large: 32/32 heads (group 1: MHA), hd 64; its decode projections
+# (M=8): K=2048 into wq/wk/wv/wo (N=2048) and w_up (N=8192), w_down K=8192.
+# rwkv6-7b: the panel against channel-mix w_k's 14336 columns
+@pytest.mark.parametrize("B,T", [(8, 128), (1, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_musicgen_heads(cuda, B, T, dtype):
+    g = torch.Generator(device=cuda).manual_seed(T + 32)
+    q, k, v = (torch.randn(B, T, 32, 64, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    got = flash_attention.flash_attention_cuda(q, k, v)
+    want = flash_attention.flash_attention_plain(q, k, v)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("kv_bits", [0, 8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_pair_musicgen_heads(cuda, kv_bits, dtype):
+    """Group 1: the tensor-core kernels pad one query row a KV head to a
+    16-row fragment; bf16 pages, int8 and 4-bit codes."""
+    from repro_torch.kernels import paged_attention as pa
+    lens_l, BS, MAXB = [1, 544, 0, 255, 257, 100, 17, 33], 16, 40
+    q, k, v, bt, lens = _paged_inputs(cuda, 8, 32, 32, 64, 8 * MAXB, BS,
+                                      MAXB, lens_l, dtype, seed=kv_bits + 7)
+    if kv_bits:
+        kq, ks = _quantize_pool(k, kv_bits)
+        vq, vs = _quantize_pool(v, kv_bits)
+        tc = dtype == torch.bfloat16
+        assert (pa.quant_kernel(dtype, kv_bits, 64, BS)
+                == pa.TENSOR_CORE) == tc
+        before = pa.launches_quant_tc
+        got = pa.paged_attention_quant_cuda(q, kq, vq, ks, vs, bt, lens,
+                                            kv_bits=kv_bits)
+        want = pa.paged_attention_quant_plain(q, kq, vq, ks, vs, bt, lens,
+                                              kv_bits=kv_bits)
+        assert pa.launches_quant_tc == before + tc
+    else:
+        if dtype == torch.bfloat16:
+            k, v = k.bfloat16(), v.bfloat16()
+        got = pa.paged_attention_cuda(q, k, v, bt, lens)
+        want = pa.paged_attention_plain(q, k, v, bt, lens)
+    d, w = _paged_diff(got, want, lens)
+    if dtype == torch.float32:
+        assert float(d.max()) <= 1e-4
+    else:
+        assert bool((d <= 8e-3 * w + 1e-3).all()), float(d.max())
+
+
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 8192), (8192, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_musicgen_shapes(cuda, K, N, dtype):
+    M = 8
+    g = torch.Generator(device=cuda).manual_seed(K + 2 * N)
+    x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
+    u = torch.randint(0, 16, (K, N), generator=g, device=cuda,
+                      dtype=torch.uint8)
+    scale = torch.rand(N, generator=g, device=cuda) * 0.04 + 0.01
+    z = torch.randint(-8, 0, (N,), generator=g, device=cuda).float()
+    codes, cpb = pack_codes(u, 4)
+    got = quant_matmul.quant_matmul_cuda(x, codes, scale, z, cpb=cpb)
+    want = quant_matmul.quant_matmul_plain(x, codes, scale, z, cpb=cpb)
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("n", [4096, 14336])
+def test_panel_rwkv_widths(cuda, n):
+    """B=256 against rwkv's 4096-column time-mix leaves and channel-mix
+    w_k's 14336 columns."""
+    B = 256
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(4 * B, B, generator=g, device=cuda)
+    h_bb = x.T @ x / (4 * B) + 0.1 * torch.eye(B, device=cuda)
+    args = (h_bb, torch.randn(B, n, generator=g, device=cuda),
+            torch.randn(B, n, generator=g, device=cuda) * 3,
+            torch.rand(n, generator=g, device=cuda) * 0.15 + 0.05,
+            torch.full((n,), -8.0, device=cuda),
+            torch.full((n,), 7.0, device=cuda),
+            torch.diagonal(h_bb).contiguous())
+    qk, dk = comq_panel.comq_panel_dq_cuda(*args)
+    qp, dp = comq_panel.comq_panel_dq_plain(*args)
+    assert float((qk == qp).float().mean()) >= 0.999

@@ -202,7 +202,7 @@ def test_param_count_matches_init_and_jax():
 @pytest.mark.parametrize("change", [
     dict(attn_free=True), dict(parallel_ssm_heads=True),
     dict(family="vlm"), dict(family="encoder", causal=False),
-    dict(norm_type="layernorm"), dict(family="dense")])
+    dict(family="ssm", attn_free=True, moe=None), dict(family="dense")])
 def test_unported_families_still_raise(change):
     cfg = get_smoke_config(GRANITE).replace(**change)
     with pytest.raises(NotImplementedError, match="item 12"):

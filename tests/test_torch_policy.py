@@ -305,8 +305,7 @@ def test_measure_bit_curves_comq_blocked_is_the_solve_error(jparams,
 
 def test_measure_bit_curves_unembed_and_other_families(jparams, tokens):
     """include_unembed prices the unembedding on the final-norm
-    activations; families not ported yet (here the attention-free one)
-    raise."""
+    activations; families not ported yet (here the VLM one) raise."""
     cfg, p = get_smoke_config(ARCH), params_from_numpy(jparams, "cpu")
     tok = torch.from_numpy(tokens).long()
     c, s = measure_bit_curves(p, cfg, BuildPlan(), tok, QuantSpec(**SPEC),
@@ -315,7 +314,7 @@ def test_measure_bit_curves_unembed_and_other_families(jparams, tokens):
     u = c["unembed"]
     assert u[2] >= u[3] >= u[4] >= u[8] >= 0.0
     with pytest.raises(NotImplementedError, match="item 12"):
-        measure_bit_curves(p, cfg.replace(attn_free=True), BuildPlan(), tok,
+        measure_bit_curves(p, cfg.replace(family="vlm"), BuildPlan(), tok,
                            QuantSpec(**SPEC))
 
 
