@@ -124,16 +124,44 @@ no result line):
    over the same tokens, within 1e-2 of max|logit|), and the static Engine
    (what `launch.serve` runs for this family) on 8 prompts of 128 tokens,
    32 greedy tokens: tok/s at bf16.
+14. vlm — llama-3.2-vision-90b at full width (d_model 8192, 64/8 heads:
+   group 8, head_dim 128, d_ff 28672, vocab 128256, 1601 image tokens of
+   width 1280), n_layers cut 100 -> 5: one group of 4 self layers and 1
+   gated cross layer (the depth must divide into groups of 5, and two
+   groups would pass the card's memory). First its kernels: the panel at
+   n=1024 / 8192 / 28672, flash causal at B=8, T=128 and non-causal over
+   the 1601 image keys at Tq=128 (prefill) and Tq=1 (decode), SDPA with
+   GQA as the yardstick. Then the vlm path, counted: the launcher's
+   quantize with 8 images of seeded bf16 features (every cross leaf
+   solved; the cross gates are zero at init, so the loss gap cannot see
+   the cross layer), then with both gates at 0.5 decode from the
+   materialized codes (JAX serves a VLM materialized) against the plain
+   versions (gated in lockstep at both types, each layer's output and
+   the logits; free-running printed) and the static Engine on 8 prompts
+   of 128 tokens with their images, 32 greedy tokens: tok/s at bf16;
+   peak device memory.
+15. encoder — vit-base-16 at full width and depth (12 layers, d_model
+   768, 12/12 heads, d_ff 3072, 1000 classes, layernorm, non-causal).
+   First its kernel: flash non-causal at B=8, T=197. Then the encoder
+   path, counted: logits and loss of 8 seeded images of 197 patch
+   embeddings, dense and 4-bit fake-quantized (`fake_quantize_params`;
+   every QT leaf dequantized a layer at a time, as in JAX), kernels
+   against the plain versions at bf16 and f32, gated with the layers in
+   lockstep (each layer's output and the logits), free-running printed.
 
 Launch counts: the quantize-and-decode path (phases 4-5), the serve path
 (phase 8), the policy path (phase 9a), the MoE path (phase 10), the
-hybrid path (phase 11 b-d), the audio path (phase 12) and the rwkv path
-(phase 13) are each counted from 0; every kernel must launch on the main
-path as a whole, each of the five on the MoE and audio paths, the three
-of the static engine on the hybrid path and comq_panel on the rwkv path.
+hybrid path (phase 11 b-d), the audio path (phase 12), the rwkv path
+(phase 13), the vlm path (phase 14) and the encoder path (phase 15) are
+each counted from 0; every kernel must launch on the main path as a
+whole, each of the five on the MoE and audio paths, the three of the
+static engine on the hybrid path, comq_panel on the rwkv path, comq_panel
+and flash on the vlm path (its single-query launches, the cross layers'
+decode, also counted apart), flash on the encoder path.
 Then one JSON line of the kernels (the expert-batched panel launch and
-hymba's, musicgen's and rwkv's new shapes as entries of their own, with
-their path's launches), and last the device line.
+hymba's, musicgen's, rwkv's, the VLM's and the encoder's new shapes as
+entries of their own, with their path's launches), and last the device
+line.
 """
 from __future__ import annotations
 
@@ -205,6 +233,19 @@ RWKV_ARCH, RWKV_LAYERS = "rwkv6-7b", 4
 RWKV_PANEL = ((4096, 4), (14336, 4))   # time-mix leaves; channel-mix w_k
 RWKV_LONG = 1000       # a B=1 prompt of 1000 tokens: chunks of 1 in prefill
 RWKV_PATH = ("comq_panel",)   # decode dequantizes every leaf, as in JAX
+# phase 14: the VLM at full width, depth cut to one group (4 self layers +
+# 1 gated cross layer): n_layers must divide into groups of 5, and 10
+# layers' f32 weights, their materialized copy and the codes pass 80 GB
+VLM_ARCH, VLM_LAYERS = "llama-3.2-vision-90b", 5
+VLM_HEADS = (64, 8, 128)               # query heads, KV heads, head_dim
+# wk / wv; wq, wo, w_down, xattn.wq / wo; w_gate, w_up (greedy order: the
+# blocked solver fuses no columns, so each leaf is its own panel)
+VLM_PANEL = ((1024, 4), (8192, 4), (28672, 4))
+VLM_GATE = 0.5          # the cross gates for the decode and Engine gates
+VLM_PATH = ("comq_panel", "flash_attention")   # JAX serves it unpacked
+# phase 15: the encoder at full width and depth
+ENC_ARCH, ENC_T = "vit-base-16", 197   # 196 patches + cls
+ENC_PATH = ("flash_attention",)   # QT leaves dequantized, as in JAX
 
 
 class CheckFailed(RuntimeError):
@@ -366,22 +407,27 @@ def check_panel(torch, panel, dev, results, cases=QWEN_PANEL_CASES):
 
 
 def check_flash(torch, flash, dev, results, heads=(28, 4, 128), tag=(),
-                shapes=((8, PROMPT), (1, SERVE_BUCKETS[-1])), window=0):
-    """bf16 (the main path, tensor cores) at `shapes` ((B, T): by default
-    the quantize/decode shape B=8, T=128 and the serve-prefill shape B=1,
-    T=512), each timed; then the f32 (CUDA-core) kernel at the first
-    shape, checked only. `heads` is (H, KV, hd); `window` the sliding
-    window (0: full causal); `tag` extends the result keys."""
+                shapes=((8, PROMPT), (1, SERVE_BUCKETS[-1])), window=0,
+                causal=True):
+    """bf16 (the main path, tensor cores) at `shapes` ((B, T), or (B, Tq,
+    Tk) for Tq != Tk: by default the quantize/decode shape B=8, T=128 and
+    the serve-prefill shape B=1, T=512), each timed; then the f32
+    (CUDA-core) kernel at the first shape, checked only. `heads` is (H,
+    KV, hd); `window` the sliding window (0: full causal); `causal=False`
+    attends every query to every key (the encoder, the VLM's cross
+    layers); `tag` extends the result keys."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(2)
     H, KV, hd = heads
-    for B, T in shapes:
-        q = torch.randn(B, T, H, hd, generator=gen, device=dev).bfloat16()
-        k = torch.randn(B, T, KV, hd, generator=gen, device=dev).bfloat16()
-        v = torch.randn(B, T, KV, hd, generator=gen, device=dev).bfloat16()
-        got = flash.flash_attention_cuda(q, k, v, causal=True,
+    kind = f"causal window {window}" if causal else "non-causal"
+    for shape in shapes:
+        B, Tq, Tk = shape if len(shape) == 3 else (*shape, shape[1])
+        q = torch.randn(B, Tq, H, hd, generator=gen, device=dev).bfloat16()
+        k = torch.randn(B, Tk, KV, hd, generator=gen, device=dev).bfloat16()
+        v = torch.randn(B, Tk, KV, hd, generator=gen, device=dev).bfloat16()
+        got = flash.flash_attention_cuda(q, k, v, causal=causal,
                                          window=window).float()
-        want = flash.flash_attention_plain(q, k, v, causal=True,
+        want = flash.flash_attention_plain(q, k, v, causal=causal,
                                            window=window).float()
         torch.cuda.synchronize()
         diff = (got - want).abs()
@@ -389,47 +435,52 @@ def check_flash(torch, flash, dev, results, heads=(28, 4, 128), tag=(),
         ok = bool((diff <= FLASH_BF16_RTOL * want.abs()
                    + FLASH_BF16_ATOL).all())
         t = Timing(torch, lambda i: flash.flash_attention_cuda(
-            q, k, v, window=window), 50)
+            q, k, v, causal=causal, window=window), 50)
         plain_ms = cuda_ms(torch, lambda i: flash.flash_attention_plain(
-            q, k, v, window=window), 10)
-        lib, lib_note = None, "scaled_dot_product_attention, GQA, causal"
+            q, k, v, causal=causal, window=window), 10)
+        lib = None
+        lib_note = (f"scaled_dot_product_attention, GQA, "
+                    f"{'causal' if causal else 'non-causal'}")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         # the window as a boolean mask (SDPA has no window argument)
-        mask = (flash.attention_mask(T, T, True, window, dev) if window
+        mask = (flash.attention_mask(Tq, Tk, True, window, dev) if window
                 else None)
         if window:
             lib_note += f", window {window} as a boolean mask"
         try:
             lib = Timing(torch, lambda i: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-                enable_gqa=True), 50)
+                qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True), 50)
         except TypeError:   # torch without enable_gqa: no one-call yardstick
             lib_note = "torch has no enable_gqa"
         nbytes = 2 * (2 * q.numel() + 2 * k.numel())
-        pairs = sum(min(t + 1, window or T) for t in range(T))
+        pairs = (sum(min(t + 1, window or Tk) for t in range(Tq)) if causal
+                 else Tq * Tk)
         flops = 4.0 * hd * B * H * pairs
         bms, by = bound_ms(nbytes, flops, "bf16")
-        say(f"kernel flash_attention B={B} T={T} H={H} KV={KV} hd={hd} bf16 "
-            f"causal window {window}: max|d| {err:.3e} (tol "
+        say(f"kernel flash_attention B={B} Tq={Tq} Tk={Tk} H={H} KV={KV} "
+            f"hd={hd} bf16 {kind}: max|d| {err:.3e} (tol "
             f"{FLASH_BF16_RTOL}*|want|+"
             f"{FLASH_BF16_ATOL}), ms {t}, plain_ms {plain_ms:.4f}, "
             f"bound_ms {bms:.4f} ({by}), library_ms {lib} ({lib_note})")
-        check(ok, f"flash_attention B={B} T={T} disagrees with its plain "
-              f"version ({err})")
-        results[("flash_attention", B, T) + tag] = dict(
+        check(ok, f"flash_attention B={B} Tq={Tq} Tk={Tk} {kind} disagrees "
+              f"with its plain version ({err})")
+        results[("flash_attention",) + tuple(shape) + tag] = dict(
             ms=t.ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
             library_ms=lib.ms if lib else None, max_abs_err=err)
     # the f32 instantiation (CUDA cores), the precision path of phase 5
-    B, T = shapes[0]
-    q, k, v = (torch.randn(B, T, n, hd, generator=gen, device=dev)
-               for n in (H, KV, KV))
-    got = flash.flash_attention_cuda(q, k, v, causal=True, window=window)
-    want = flash.flash_attention_plain(q, k, v, causal=True, window=window)
+    B, Tq, Tk = shapes[0] if len(shapes[0]) == 3 else (*shapes[0],
+                                                       shapes[0][1])
+    q = torch.randn(B, Tq, H, hd, generator=gen, device=dev)
+    k, v = (torch.randn(B, Tk, KV, hd, generator=gen, device=dev)
+            for _ in range(2))
+    got = flash.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = flash.flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     diff = (got - want).abs()
     err = float(diff.max())
-    say(f"kernel flash_attention B={B} T={T} H={H} KV={KV} hd={hd} f32 "
-        f"causal window {window}: max|d| {err:.3e} (tol {FLASH_F32_TOL}"
+    say(f"kernel flash_attention B={B} Tq={Tq} Tk={Tk} H={H} KV={KV} "
+        f"hd={hd} f32 {kind}: max|d| {err:.3e} (tol {FLASH_F32_TOL}"
         f"*|want|+{FLASH_F32_TOL})")
     check(bool((diff <= FLASH_F32_TOL * want.abs() + FLASH_F32_TOL).all()),
           f"flash_attention f32 disagrees with its plain version ({err})")
@@ -744,23 +795,29 @@ class DecodeTape:
     runs quantized pages in lockstep). In lockstep a hybrid layer also
     starts from the recorded SSM state, as it does from the hidden state:
     the recurrent state carries a rounding difference to every later
-    token of the layer."""
+    token of the layer. A VLM's cross layers are held the same way
+    (`cross_layer_full`, which a cross decode step also runs). In lockstep
+    the logits see only the last layer's work, so each layer's output is
+    also held against the recorded one (`check_layers`)."""
 
     def __init__(self, torch, tfm, moe_mod):
         self.torch, self.tfm, self.moe = torch, tfm, moe_mod
-        self.xs, self.ids, self.states = [], [], []
+        self.xs, self.ys, self.ids, self.states = [], [], [], []
         self.flips = self.pairs = 0
+        self.held, self.worst, self.worst_at = 0, 0.0, None
 
     @contextlib.contextmanager
     def mode(self, mode: str):
         torch, tfm, moe = self.torch, self.tfm, self.moe
         real = {"layer_full": tfm.layer_full,
-                "layer_decode": tfm.layer_decode}
+                "layer_decode": tfm.layer_decode,
+                "cross_layer_full": tfm.cross_layer_full}
         real_route = moe.route_slots
         layer_i, route_i = iter(range(1 << 30)), iter(range(1 << 30))
 
         def stepped(name):
             def layer(p, x, *a, **k):
+                i = None
                 if mode == "record":
                     self.xs.append(x)
                     self.states.append(k.get("ssm_state"))
@@ -769,7 +826,13 @@ class DecodeTape:
                     x = self.xs[i]
                     if self.states[i] is not None:
                         k["ssm_state"] = self.states[i]
-                return real[name](p, x, *a, **k)
+                out = real[name](p, x, *a, **k)
+                y = out[0] if isinstance(out, tuple) else out
+                if mode == "record":
+                    self.ys.append(y)
+                elif i is not None:
+                    self.hold(i, name, y)
+                return out
             return layer
 
         def routed(x, router, n_real, top_k, capacity):
@@ -789,6 +852,8 @@ class DecodeTape:
             return (logits, weights, rec,
                     *moe.slots_for(rec, router.shape[-1], capacity))
 
+        if mode == "lockstep":
+            self.held, self.worst, self.worst_at = 0, 0.0, None
         for name in real:
             setattr(tfm, name, stepped(name))
         moe.route_slots = routed
@@ -798,6 +863,25 @@ class DecodeTape:
             for name, fn in real.items():
                 setattr(tfm, name, fn)
             moe.route_slots = real_route
+
+    def hold(self, i: int, name: str, y):
+        """One lockstep layer call's output against the recorded one."""
+        want = self.ys[i].float()
+        gap = (float((y.float() - want).abs().max())
+               / max(float(want.abs().max()), 1e-30))
+        self.held += 1
+        if gap >= self.worst:
+            self.worst, self.worst_at = gap, f"call {i} ({name})"
+
+    def check_layers(self, label: str, what: str):
+        """Gate the last lockstep run's layer outputs: the worst max|d| /
+        max|recorded output| under the precision gate of `label`."""
+        say(f"{what} {label}, layers in lockstep: {self.held} layer outputs "
+            f"held, worst max|d|/max|out| {self.worst:.3e} at "
+            f"{self.worst_at} (tol {LOGITS_REL[label]})")
+        check(self.held > 0 and self.worst <= LOGITS_REL[label],
+              f"{what} {label}: a layer output in lockstep differs from the "
+              f"kernel run's by {self.worst} ({self.worst_at})")
 
 
 @contextlib.contextmanager
@@ -826,15 +910,16 @@ def layer_clock(torch, pipeline, out: list):
 # ---------------------------------------------------------------------------
 
 def run_decode(torch, sp, cfg, plan, tokens, feed=None, snapshots=None,
-               lockstep=None):
-    """prefill of the (B, T) prompts + STEPS greedy decode steps; with
-    `feed`, teacher-forced on those tokens. `snapshots` (a list) collects a
-    copy of the cache before each step (a hybrid model's SSM states are
-    new tensors every step, so they are kept as they are); with
-    `lockstep` (such a list) step i runs from lockstep[i]. Returns
-    (per-step logits, tokens fed)."""
+               lockstep=None, vision_embeds=None):
+    """prefill of the (B, T) prompts (a VLM's with `vision_embeds`) +
+    STEPS greedy decode steps; with `feed`, teacher-forced on those
+    tokens. `snapshots` (a list) collects a copy of the cache before each
+    step (a hybrid model's SSM states are new tensors every step, so they
+    are kept as they are); with `lockstep` (such a list) step i runs from
+    lockstep[i]. Returns (per-step logits, tokens fed)."""
     from repro_torch.models import decode_step, prefill
-    logits, cache = prefill(sp, cfg, plan, tokens)
+    logits, cache = prefill(sp, cfg, plan, tokens,
+                            vision_embeds=vision_embeds)
     outs, fed = [logits.float()], []
     for i in range(STEPS):
         tok = feed[i] if feed is not None else outs[-1].argmax(-1)
@@ -1351,7 +1436,7 @@ def time_plain_scan(torch, dev, cfg):
 
 
 def decode_vs_plain(torch, ops, kernels, sp, cfg, plan, tokens, what,
-                    gate_free=()):
+                    gate_free=(), vision_embeds=None):
     """Decode from the packed codes (bf16, then f32 compute with an f32
     cache), each against the plain versions with the layers in lockstep
     (hidden state, a hybrid layer's SSM state and an MoE layer's routing
@@ -1372,13 +1457,15 @@ def decode_vs_plain(torch, ops, kernels, sp, cfg, plan, tokens, what,
         tape = DecodeTape(torch, tfm, moe_mod)
         t0 = time.time()
         with torch.no_grad(), tape.mode("record"):
-            outs, fed = run_decode(torch, sp, c, pl, tokens, feed=fed)
+            outs, fed = run_decode(torch, sp, c, pl, tokens, feed=fed,
+                                   vision_embeds=vision_embeds)
         say(f"{what} {label}: prefill {tokens.shape[0]}x{tokens.shape[1]} "
             f"+ {STEPS} steps in {time.time() - t0:.2f} s wall")
 
         def rerun(mode, c=c, pl=pl, tape=tape):
             with tape.mode(mode):
-                return run_decode(torch, sp, c, pl, tokens, feed=fed)[0]
+                return run_decode(torch, sp, c, pl, tokens, feed=fed,
+                                  vision_embeds=vision_embeds)[0]
         compare_decode(torch, ops, kernels, lambda: rerun("free"), outs,
                        label, what=f"{what}, free-running",
                        gate=label in gate_free)
@@ -1388,6 +1475,7 @@ def decode_vs_plain(torch, ops, kernels, sp, cfg, plan, tokens, what,
                 f"kernel run's")
         compare_decode(torch, ops, kernels, lambda: rerun("lockstep"), outs,
                        label, what=f"{what}, layers in lockstep")
+        tape.check_layers(label, what)
         del outs, tape
 
 
@@ -1476,6 +1564,7 @@ def phase_hybrid(torch, dev, ops, kernels, cfg):
     check(bool((got == lock).all()),
           "hybrid serve f32: with the layers in lockstep the plain "
           "versions' greedy tokens differ from the kernels'")
+    tape.check_layers("float32", "hybrid serve")
     counts = ops.launch_counts()
     say(f"hybrid path launches (quantize + decode + serve): {counts}")
     check(all(counts[k] > 0 for k in HYBRID_PATH),
@@ -1705,6 +1794,187 @@ def phase_rwkv(torch, dev, ops, kernels, cfg):
     check(all(counts[k] > 0 for k in RWKV_PATH),
           f"a kernel of the rwkv path never launched: {counts}")
     del sp, run
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the VLM (llama-3.2-vision-90b: gated cross-attention layers)
+# ---------------------------------------------------------------------------
+
+def check_vlm_kernels(torch, dev, kernels, results, cfg):
+    """The two kernels of the VLM path at its shapes: the panel at n=1024
+    / 8192 / 28672, flash at 64/8 heads (group 8), hd 128: causal self-
+    attention (B=8, T=128) and the cross layers' non-causal attention over
+    the 1601 image tokens, in prefill (Tq=128) and decode (Tq=1)."""
+    panel, flash, qmm, paged = kernels
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+    check(heads == VLM_HEADS, f"{cfg.name}: heads {heads}")
+    check_panel(torch, panel, dev, results, VLM_PANEL)
+    check_flash(torch, flash, dev, results, heads, ("vlm",),
+                shapes=((8, PROMPT),))
+    nv = cfg.cross_attn.n_vision_tokens
+    check_flash(torch, flash, dev, results, heads, ("vlm",),
+                shapes=((8, PROMPT, nv), (8, 1, nv)), causal=False)
+
+
+def gated(torch, params, gate: float):
+    """`params` with both gates of every cross layer set to `gate` (they
+    are zero at init, so a cross layer starts as the identity and nothing
+    downstream sees the cross-attention)."""
+    cross = [{**cp, "gate_attn": torch.full_like(cp["gate_attn"], gate),
+              "gate_mlp": torch.full_like(cp["gate_mlp"], gate)}
+             for cp in params["groups"]["cross"]]
+    return {**params, "groups": {**params["groups"], "cross": cross}}
+
+
+def phase_vlm(torch, dev, ops, kernels, cfg):
+    """The counted VLM path on `cfg` (llama-3.2-vision-90b at full width,
+    one group): the launcher's quantize with 8 images of 1601 features
+    (every self and cross leaf through the panel; the loss gap cannot see
+    the cross layer, whose gates are zero at init), then, with the gates
+    at VLM_GATE, decode from the materialized codes against the plain
+    versions (JAX serves a VLM materialized: `serving_params` refuses it;
+    gated in lockstep at both types, free-running printed) and the static
+    Engine with the images. Returns the path's launch counts."""
+    import numpy as np
+    from repro_torch.core import materialize
+    from repro_torch.models import BuildPlan
+    from repro_torch.serve import Engine
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    ops.reset_launch_counts()
+    run = quantize_counted(torch, ops, cfg, dev, "vlm")
+    spg = cfg.cross_attn.every - 1
+    cross = sorted(r.name for r in run.report.layers if r.layer == spg)
+    say(f"vlm quantize: cross layer (index {spg}) leaves {cross}; guard "
+        f"events {len(run.report.guard_events)}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    check(cross == ["cross.mlp.w_down", "cross.mlp.w_gate", "cross.mlp.w_up",
+                    "cross.xattn.wo", "cross.xattn.wq"],
+          f"vlm quantize: cross leaves {cross}")
+    table = run.qparams["__qlayers__"]
+    check(all(math.isfinite(r.err_after) for r in run.report.layers)
+          and "cross_0" in table and table["cross_0"]["xattn"]["wk"].dtype
+          == torch.float32, "vlm quantize: a cross leaf missing or "
+          "non-finite, or xattn.wk quantized")
+    ve, ev = run.vision_embeds, run.eval_tokens
+    mat = gated(torch, materialize(run.qparams, cfg), VLM_GATE)
+    del run, table
+    decode_vs_plain(torch, ops, kernels, mat, cfg,
+                    BuildPlan(prefill_cache_len=PROMPT + STEPS), ev,
+                    f"vlm decode (gates {VLM_GATE})", vision_embeds=ve)
+    prompts = np.random.RandomState(6).randint(
+        0, cfg.vocab_size, (SERVE_SLOTS, PROMPT)).astype(np.int32)
+    with torch.no_grad():
+        eng = Engine(mat, cfg, BuildPlan(), max_len=PROMPT + SERVE_NEW,
+                     device=dev)
+        eng.generate_batch(prompts, max_new_tokens=2, vision_embeds=ve)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = eng.generate_batch(prompts, max_new_tokens=SERVE_NEW,
+                                 vision_embeds=ve)
+        wall = time.time() - t0
+    say(f"vlm serve bf16 (static Engine, materialized, gates {VLM_GATE}, "
+        f"{ve.shape[1]} image tokens a prompt): {out.size} tokens in "
+        f"{wall:.3f} s: tok_per_s {out.size / wall:.1f} (prefill "
+        f"{SERVE_SLOTS}x{PROMPT} included)")
+    check(out.shape == (SERVE_SLOTS, SERVE_NEW)
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"vlm serve: tokens {out.shape}")
+    counts = ops.launch_counts()
+    counts["flash_attention/decode"] = kernels[1].launches_single_query
+    peak = torch.cuda.max_memory_allocated(dev)
+    say(f"vlm path launches (quantize + decode + serve; flash_attention/"
+        f"decode: its Tq = 1 share, the cross layers' decode): {counts}; "
+        f"max_memory_allocated {peak / 2 ** 30:.2f} GiB, "
+        f"{(peak - held) / 2 ** 30:.2f} GiB above the "
+        f"{held / 2 ** 30:.2f} GiB held before the phase")
+    check(all(counts[k] > 0 for k in VLM_PATH + ("flash_attention/decode",)),
+          f"a kernel of the vlm path never launched: {counts}")
+    del mat, eng
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the encoder (vit-base-16: non-causal, from patch embeddings)
+# ---------------------------------------------------------------------------
+
+def check_encoder_kernels(torch, dev, kernels, results, cfg):
+    """flash non-causal at 12/12 heads, hd 64 over 8 images of 197 tokens
+    (the encoder's only kernel: its forward dequantizes every QT leaf, as
+    the JAX package's does)."""
+    panel, flash, qmm, paged = kernels
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+    check_flash(torch, flash, dev, results, heads, ("vit",),
+                shapes=((8, ENC_T, ENC_T),), causal=False)
+
+
+def phase_encoder(torch, dev, ops, kernels, cfg):
+    """The counted encoder path on `cfg` (vit-base-16 at full width and
+    depth): logits and loss of 8 images of 197 patch embeddings (seeded),
+    dense and 4-bit fake-quantized (`fake_quantize_params`, as JAX runs
+    it; every QT leaf dequantized a layer at a time), each at bf16 and f32
+    against the plain versions with every layer in lockstep (each layer
+    from the kernel run's input, `DecodeTape`) under the precision gates,
+    and free-running, printed: the 12 random-init layers amplify a
+    rounding difference as the decoders' do (`tools/encoder_sensitivity.py`:
+    a 1e-7 change of the input moves the f32 logits by ~0.2 of
+    max|logit| with the plain versions alone). Returns the path's launch
+    counts."""
+    from repro_torch.core.apply import fake_quantize_params
+    from repro_torch.models import BuildPlan, forward, init_params, lm_loss
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    ops.reset_launch_counts()
+    params = init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    embeds = torch.randn(8, ENC_T, cfg.d_model, generator=gen, device=dev)
+    labels = torch.randint(0, cfg.vocab_size, (8,), generator=gen,
+                           device=dev)
+    fq = fake_quantize_params(params, cfg, BuildPlan(), bits=4)
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+    for name, p in (("dense", params), ("fake-quantized 4-bit", fq)):
+        for label in ("bfloat16", "float32"):
+            c = cfg.replace(compute_dtype=label)
+
+            def logits():
+                return forward(p, c, BuildPlan(), None, embeds=embeds)[0]
+            tape = DecodeTape(torch, tfm, moe_mod)
+            with torch.no_grad():
+                torch.cuda.synchronize()
+                t0 = time.time()
+                with tape.mode("record"):
+                    got = logits()
+                torch.cuda.synchronize()
+                ms = (time.time() - t0) * 1e3
+                loss = float(lm_loss(p, c, BuildPlan(),
+                                     {"embeds": embeds, "labels": labels})[0])
+                with plain_kernels(ops, kernels):
+                    free = logits()
+                    with tape.mode("lockstep"):
+                        lock = logits()
+            top1 = float((got.argmax(-1) == free.argmax(-1)).float().mean())
+            say(f"encoder {name} {label}: logits {tuple(got.shape)}, "
+                f"max|logit| {float(got.abs().max()):.4f}, kernels vs plain "
+                f"max|d|/max|logit|: layers in lockstep {rel(got, lock):.3e} "
+                f"(tol {LOGITS_REL[label]}), free-running "
+                f"{rel(got, free):.3e} (reported); top-1 agreement "
+                f"free-running {top1:.3f}; loss {loss:.4f}; forward "
+                f"{ms:.1f} ms wall")
+            check(rel(got, lock) <= LOGITS_REL[label] and math.isfinite(loss)
+                  and bool(torch.isfinite(got).all()),
+                  f"encoder {name} {label}: lockstep rel {rel(got, lock)}, "
+                  f"loss {loss}")
+            tape.check_layers(label, f"encoder {name}")
+            del tape
+    counts = ops.launch_counts()
+    say(f"encoder path launches (dense + fake-quantized forwards): {counts}")
+    check(all(counts[k] > 0 for k in ENC_PATH),
+          f"a kernel of the encoder path never launched: {counts}")
+    del params, fq
     return counts
 
 
@@ -1972,17 +2242,45 @@ def main() -> int:
     time_plain_wkv(torch, dev, rwkv_cfg)
     rwkv_counts = phase_rwkv(torch, dev, ops, kernels, rwkv_cfg)
 
+    # 14. the VLM: its kernels, then the vlm path, counted
+    vlm_cfg = get_config(VLM_ARCH).replace(n_layers=VLM_LAYERS)
+    ca = vlm_cfg.cross_attn
+    say(f"vlm reduced: n_layers 100 -> {VLM_LAYERS}, one group of "
+        f"{ca.every - 1} self layers + 1 gated cross layer (n_layers must "
+        f"divide into groups of {ca.every}; two groups' f32 weights, their "
+        f"materialized copy and the codes pass the card's 80 GB); all "
+        f"widths full: d_model {vlm_cfg.d_model}, heads {vlm_cfg.n_heads}/"
+        f"{vlm_cfg.n_kv_heads}, head_dim {vlm_cfg.resolved_head_dim}, d_ff "
+        f"{vlm_cfg.d_ff}, vocab {vlm_cfg.vocab_size}, {ca.n_vision_tokens} "
+        f"image tokens of width {ca.vision_dim}")
+    check_vlm_kernels(torch, dev, kernels, results, vlm_cfg)
+    vlm_counts = phase_vlm(torch, dev, ops, kernels, vlm_cfg)
+
+    # 15. the encoder: its kernels, then the encoder path, counted
+    enc_cfg = get_config(ENC_ARCH)
+    say(f"encoder: {ENC_ARCH} at full width and depth (n_layers "
+        f"{enc_cfg.n_layers}, d_model {enc_cfg.d_model}, heads "
+        f"{enc_cfg.n_heads}/{enc_cfg.n_kv_heads}, d_ff {enc_cfg.d_ff}, "
+        f"{enc_cfg.vocab_size} classes, {ENC_T} tokens an image)")
+    check_encoder_kernels(torch, dev, kernels, results, enc_cfg)
+    enc_counts = phase_encoder(torch, dev, ops, kernels, enc_cfg)
+
     # kernels line: launches on the main path as a whole
     src = "src/repro_torch/csrc/{}.cu"
     launches = {n: totals[n] + policy_counts[n] + moe_counts[n]
                 + hyb_counts[n] + audio_counts[n] + rwkv_counts[n]
+                + vlm_counts[n] + enc_counts[n]
                 for n in totals}
     launches["comq_panel_batched"] = moe_batched
     for arch, path, counts in ((HYBRID_ARCH, HYBRID_PATH, hyb_counts),
                                (AUDIO_ARCH, AUDIO_PATH, audio_counts),
-                               (RWKV_ARCH, RWKV_PATH, rwkv_counts)):
+                               (RWKV_ARCH, RWKV_PATH, rwkv_counts),
+                               (VLM_ARCH, VLM_PATH, vlm_counts),
+                               (ENC_ARCH, ENC_PATH, enc_counts)):
         for n in path:
             launches[f"{n}@{arch}"] = counts[n]
+    launches[f"flash_attention@{VLM_ARCH}/decode"] = vlm_counts[
+        "flash_attention/decode"]
     entries = [
         ("comq_panel", "comq_panel", results[("comq_panel", 18944)],
          "src/repro/kernels/comq_panel.py:79"),
@@ -2033,6 +2331,24 @@ def main() -> int:
         (f"comq_panel@{RWKV_ARCH}", "comq_panel",
          results[("comq_panel", 14336)],
          "src/repro/kernels/comq_panel.py:79"),
+        # the VLM's widest panel and its cross layers' non-causal flash in
+        # prefill and decode (phase 14), with the vlm path's launches
+        (f"comq_panel@{VLM_ARCH}", "comq_panel",
+         results[("comq_panel", 28672)],
+         "src/repro/kernels/comq_panel.py:79"),
+        (f"flash_attention@{VLM_ARCH}", "flash_attention",
+         results[("flash_attention", 8, PROMPT,
+                  vlm_cfg.cross_attn.n_vision_tokens, "vlm")],
+         "src/repro/kernels/flash_attention.py:95"),
+        (f"flash_attention@{VLM_ARCH}/decode", "flash_attention",
+         results[("flash_attention", 8, 1,
+                  vlm_cfg.cross_attn.n_vision_tokens, "vlm")],
+         "src/repro/kernels/flash_attention.py:95"),
+        # the encoder's non-causal flash (phase 15), with the encoder
+        # path's launches
+        (f"flash_attention@{ENC_ARCH}", "flash_attention",
+         results[("flash_attention", 8, ENC_T, ENC_T, "vit")],
+         "src/repro/kernels/flash_attention.py:95"),
     ]
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src.format(source),

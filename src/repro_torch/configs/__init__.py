@@ -1,12 +1,12 @@
 """Architecture registry (the port's copy of `repro.configs`).
 
-Only the architectures the port runs are registered: the dense GQA
+Every architecture of the JAX package is registered: the dense GQA
 transformers (qwen2-7b, deepseek-67b, mistral-large-123b,
 h2o-danube-1.8b), the MoE family (granite-moe-3b-a800m,
 llama4-maverick-400b-a17b), the hybrid hymba-1.5b, the attention-free
-rwkv6-7b and the audio decoder musicgen-large. Asking for another
-one raises a KeyError that says so (ROADMAP.md Queue A lists the families
-still to port)."""
+rwkv6-7b, the audio decoder musicgen-large, the VLM
+llama-3.2-vision-90b and the encoder vit-base-16. Asking for another
+name raises a KeyError that says so."""
 from __future__ import annotations
 
 from typing import Callable, Dict
@@ -33,7 +33,7 @@ def register_smoke(name: str):
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in _REGISTRY:
-        raise KeyError(f"arch {arch!r} is not ported to repro_torch yet; "
+        raise KeyError(f"arch {arch!r} is not ported to repro_torch; "
                        f"ported: {sorted(_REGISTRY)}")
     return _REGISTRY[arch]()
 
@@ -52,7 +52,7 @@ def list_archs():
 # import for registration side effects
 from repro_torch.configs import (  # noqa: E402,F401
     deepseek_67b, granite_moe_3b_a800m, h2o_danube_1_8b, hymba_1_5b,
-    llama4_maverick_400b_a17b, mistral_large_123b, musicgen_large, qwen2_7b,
-    rwkv6_7b)
+    llama4_maverick_400b_a17b, llama_3_2_vision_90b, mistral_large_123b,
+    musicgen_large, qwen2_7b, rwkv6_7b, vit_base_paper)
 
 __all__ = ["ModelConfig", "get_config", "get_smoke_config", "list_archs"]

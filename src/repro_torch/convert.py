@@ -4,9 +4,12 @@ same weights.
 
 * `params_from_numpy`: `{"embed", "unembed", "final_norm", "layers"}` with
   "layers" a tree of (L, ...) stacks -> "layers" a per-layer list of dicts
-  with the same leaf names and per-layer shapes.
+  with the same leaf names and per-layer shapes; a VLM's "groups" (self
+  (G, spg, ...) and cross (G, ...) stacks) -> per-group lists of
+  per-layer dicts and a per-group list of cross-layer dicts.
 * `qparams_from_numpy`: additionally converts a `quantize_model` output's
-  "__qlayers__" QTensor side table.
+  "__qlayers__" QTensor side table (keys "0", "1", ..., or a VLM's
+  "self_{g}_{s}" and "cross_{g}").
 
 Neither imports JAX: the caller hands over numpy arrays.
 """
@@ -38,23 +41,32 @@ def _layer_slice(node, i: int):
     return node[i]
 
 
+def _n_stacked(stacked) -> int:
+    leaf = stacked
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return int(leaf.shape[0])
+
+
+def _unstack(stacked, dev):
+    """A tree of (L, ...) stacks -> a list of L per-layer trees."""
+    return [_tree(_layer_slice(stacked, i), dev)
+            for i in range(_n_stacked(stacked))]
+
+
 def params_from_numpy(tree, device: DeviceLike = None):
-    """JAX dense-family params (numpy) -> the port's params."""
+    """JAX params (numpy) -> the port's params."""
     dev = resolve_device(device)
     out = {k: _tree(v, dev) for k, v in tree.items()
-           if k not in ("layers", "__qlayers__")}
+           if k not in ("layers", "groups", "__qlayers__")}
     if "layers" in tree:
-        leaves = []
-        stack = [tree["layers"]]
-        while stack:
-            n = stack.pop()
-            if isinstance(n, dict):
-                stack.extend(n.values())
-            else:
-                leaves.append(n)
-        L = int(leaves[0].shape[0])
-        out["layers"] = [_tree(_layer_slice(tree["layers"], i), dev)
-                         for i in range(L)]
+        out["layers"] = _unstack(tree["layers"], dev)
+    if "groups" in tree:
+        self_p = tree["groups"]["self"]
+        out["groups"] = {
+            "self": [_unstack(_layer_slice(self_p, g), dev)
+                     for g in range(_n_stacked(self_p))],
+            "cross": _unstack(tree["groups"]["cross"], dev)}
     return out
 
 

@@ -125,7 +125,8 @@ def fake_quantize_params(params, cfg, plan, bits: int = 4,
     quantize_embed=False) in a QT with RTN codes — the layout transform of
     a serving dry run; real deployments load COMQ codes. Per-channel over
     the last dim, one grid per slice of the leading dims, as the JAX
-    package does for its stacked layers."""
+    package does for its stacked layers. Walks any params tree (a VLM's
+    groups, an encoder's layers)."""
     from repro_torch.core.quantizer import init_per_channel, quantize_rtn
 
     def to_qt(w):
@@ -177,7 +178,8 @@ def qt_from_qtensor(t: dict) -> QT:
 def serving_params(qparams, cfg):
     """Fold a quantize_model output (__qlayers__ QTensor side table) into
     per-layer params with QT leaves — the packed serving form. No dense
-    copy of a quantized weight is built."""
+    copy of a quantized weight is built. A VLM's group table raises, as in
+    the JAX package: `materialize` it."""
     params = {k: v for k, v in qparams.items() if k != "__qlayers__"}
     for k, v in list(params.items()):
         if is_qtensor(v):
@@ -185,6 +187,10 @@ def serving_params(qparams, cfg):
     table = qparams.get("__qlayers__", {})
     if not table:
         return params
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            "packed-QT serving covers homogeneous stacks; materialize() "
+            "the VLM group table instead")
 
     def walk(node):
         if is_qtensor(node):

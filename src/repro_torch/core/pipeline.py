@@ -1,5 +1,5 @@
-"""Whole-model COMQ: the dense (and audio), MoE, hybrid and RWKV families
-(port of `repro.core.pipeline`).
+"""Whole-model COMQ: the dense (and audio), MoE, hybrid, RWKV and VLM
+families (port of `repro.core.pipeline`).
 
 GPTQ-style sequential layer-by-layer quantization with quantized
 propagation. Two schedules:
@@ -22,7 +22,11 @@ layer l's final state (`forward` starts every layer from zeros; ROADMAP,
 "Known behaviours of the reference"). An RWKV layer has its own eight
 taps (RWKV_TAPS: time-mix r / k / v / g / o, channel-mix k / r / v) and
 the walk carries its RWKVState (token shifts and wkv state) the same
-way. Every leaf is solved under the spec a
+way. A VLM walks its groups: each self layer as a dense one (layer index
+g·every + s), then the group's cross layer (index g·every + every-1) on
+its own taps (CROSS_TAPS: xattn.wq, xattn.wo and the MLP; its wk / wv read
+the image and stay float), its leaves named with the "cross." prefix.
+Every leaf is solved under the spec a
 `core.policy.QuantPolicy` resolves for it (a plain QuantSpec is the
 uniform policy); a group whose specs agree is column-fused when that is
 exact, a mixed-bit group solves leaf by leaf. With guards on (the
@@ -31,9 +35,10 @@ weights and escalate failed solves; a healthy run gives the same codes as
 guards=False. Per-leaf errors stay on the device until one transfer at the
 end.
 
-Not ported yet (ROADMAP.md): the journal/resume path and fault injection
-(item 13), tracing/metrics (item 14), data/column sharding (item 15), and
-the VLM and encoder families (item 12).
+The encoder has no walk, as in the JAX package (its `quantize_model`
+starts from `embed_tokens`). Not ported yet (ROADMAP.md): the
+journal/resume path and fault injection (item 13), tracing/metrics
+(item 14), data/column sharding (item 15).
 """
 from __future__ import annotations
 
@@ -82,6 +87,11 @@ RWKV_TAPS = {
 SSM_EXTRA_TAPS = {
     ("ssm", "w_in"): "ssm_in", ("ssm", "w_out"): "ssm_out_in",
 }
+CROSS_TAPS = {
+    ("xattn", "wq"): "xattn_q_in", ("xattn", "wo"): "xattn_wo_in",
+    ("mlp", "w_gate"): "mlp_in", ("mlp", "w_up"): "mlp_in",
+    ("mlp", "w_down"): "down_in",
+}
 
 
 def taps_for(cfg) -> Dict[Tuple[str, str], str]:
@@ -94,12 +104,15 @@ def taps_for(cfg) -> Dict[Tuple[str, str], str]:
     return t
 
 
-def layer_with_state(lp, x, state, cfg, plan, **kw):
+def layer_with_state(lp, x, state, cfg, plan, vision_kv=None, **kw):
     """`layer_full` (no cache) from the walk's recurrent state: returns
     (y, the layer's final state). The walk starts from None (a hybrid or
     RWKV layer's zero state); a state is passed on only once a layer
     returned one, so the other families call `layer_full` exactly as
-    before."""
+    before. With `vision_kv` the layer is a VLM cross layer
+    (`cross_layer_full`; no state)."""
+    if vision_kv is not None:
+        return tfm.cross_layer_full(lp, x, cfg, plan, vision_kv, **kw), None
     if state is not None:
         kw["rwkv_state" if cfg.attn_free else "ssm_state"] = state
     out = tfm.layer_full(lp, x, cfg, plan, False, **kw)
@@ -440,9 +453,10 @@ def _set_nested(lp, mod, leaf, value):
     return lp
 
 
-def _group_specs(resolve, layer_idx: int, entries):
+def _group_specs(resolve, layer_idx: int, entries, prefix: str = ""):
     """Resolved per-leaf specs for one tap group, in entry order."""
-    return [resolve(layer_idx, f"{mod}.{leaf}") for mod, leaf in entries]
+    return [resolve(layer_idx, f"{prefix}{mod}.{leaf}")
+            for mod, leaf in entries]
 
 
 def _sanitize_tap(gctx: GuardContext, tap: Tensor, layer: int,
@@ -460,13 +474,15 @@ def _sanitize_tap(gctx: GuardContext, tap: Tensor, layer: int,
 
 
 def _solve_tap_group(lp, tapname: str, entries, tap: Tensor, resolve,
-                     method: str, layer_idx: int, gctx: GuardContext):
+                     method: str, layer_idx: int, gctx: GuardContext,
+                     prefix: str = ""):
     """Sanitize the tap, take its Gram (per expert for a stacked-expert
-    tap) and solve its leaf group. Returns
-    [(mod, leaf, name, (qt, eb, ea, secs)), ...]."""
-    names = [f"{mod}.{leaf}" for mod, leaf in entries]
+    tap) and solve its leaf group; leaf names carry `prefix` ("cross." in
+    a VLM cross layer). Returns [(mod, leaf, name, (qt, eb, ea, secs)),
+    ...]."""
+    names = [f"{prefix}{mod}.{leaf}" for mod, leaf in entries]
     ws = [lp[mod][leaf] for mod, leaf in entries]
-    specs = _group_specs(resolve, layer_idx, entries)
+    specs = _group_specs(resolve, layer_idx, entries, prefix)
     tap = _sanitize_tap(gctx, tap, layer_idx, names)
     if tapname.startswith("expert"):
         results = _solve_group_experts(ws, calibrate.batched_gram(tap),
@@ -482,7 +498,7 @@ def _solve_tap_group(lp, tapname: str, entries, tap: Tensor, resolve,
 
 def _staged_cb(lp, groups, taps, resolve, method: str,
                pending: List[tuple], layer_idx: int, holder: dict,
-               gctx: GuardContext):
+               gctx: GuardContext, prefix: str = ""):
     """The staged `quantize_cb`: invoked by the model's tap hooks
     mid-forward, right after tap `tapname` is recorded. Solves the tap's
     leaf group (each leaf under its resolved spec), stashes the QTensors
@@ -495,7 +511,7 @@ def _staged_cb(lp, groups, taps, resolve, method: str,
         repl = {}
         for mod, leaf, nm, (qt, eb, ea, secs) in _solve_tap_group(
                 lp, tapname, entries, taps[tapname], resolve, method,
-                layer_idx, gctx):
+                layer_idx, gctx, prefix):
             holder["lp_q"] = _set_nested(holder["lp_q"], mod, leaf, qt)
             pending.append((layer_idx, nm, eb, ea, secs))
             repl[leaf] = dequant_qtensor(qt)
@@ -505,37 +521,69 @@ def _staged_cb(lp, groups, taps, resolve, method: str,
 
 def _quantize_layer_staged(lp, x, state, cfg, plan, tapmap, resolve,
                            method: str, pending: List[tuple],
-                           layer_idx: int, gctx: GuardContext):
+                           layer_idx: int, gctx: GuardContext,
+                           vision_kv=None, prefix: str = ""):
     """One `layer_full` evaluation quantizes the layer in tap order and
     propagates x (and the recurrent state) through the quantized
-    sub-blocks. Returns (lp_q, new_x, new_state)."""
+    sub-blocks; with `vision_kv` the layer is a VLM cross layer, its leaf
+    names prefixed with `prefix`. Returns (lp_q, new_x, new_state)."""
     taps: Dict[str, Tensor] = {}
     holder = {"lp_q": lp}
     cb = _staged_cb(lp, _tap_groups(lp, tapmap), taps, resolve, method,
-                    pending, layer_idx, holder, gctx)
-    y, state = layer_with_state(lp, x, state, cfg, plan, taps=taps,
+                    pending, layer_idx, holder, gctx, prefix)
+    y, state = layer_with_state(lp, x, state, cfg, plan,
+                                vision_kv=vision_kv, taps=taps,
                                 quantize_cb=cb)
     return holder["lp_q"], y, state
 
 
 def _quantize_layer_legacy(lp, x, state, cfg, plan, tapmap, resolve,
                            method: str, pending: List[tuple],
-                           layer_idx: int, gctx: GuardContext):
+                           layer_idx: int, gctx: GuardContext,
+                           vision_kv=None, prefix: str = ""):
     """Legacy schedule: a float forward collects every tap of the layer,
     each tap group is solved from its Gram, and a second
     forward propagates x (and the recurrent state) through the quantized
-    layer. Returns (lp_q, new_x, new_state)."""
+    layer; `vision_kv` and `prefix` as in `_quantize_layer_staged`.
+    Returns (lp_q, new_x, new_state)."""
     taps: Dict[str, Tensor] = {}
-    layer_with_state(lp, x, state, cfg, plan, taps=taps)
+    layer_with_state(lp, x, state, cfg, plan, vision_kv=vision_kv,
+                     taps=taps)
     lp_q = dict(lp)
     for tapname, entries in _tap_groups(lp, tapmap).items():
         for mod, leaf, nm, (qt, eb, ea, secs) in _solve_tap_group(
                 lp, tapname, entries, taps[tapname], resolve, method,
-                layer_idx, gctx):
+                layer_idx, gctx, prefix):
             lp_q = _set_nested(lp_q, mod, leaf, qt)
             pending.append((layer_idx, nm, eb, ea, secs))
-    y, state = layer_with_state(dequantize_tree(lp_q), x, state, cfg, plan)
+    y, state = layer_with_state(dequantize_tree(lp_q), x, state, cfg, plan,
+                                vision_kv=vision_kv)
     return lp_q, y, state
+
+
+def _quantize_vlm(params, cfg, plan, x, vision_embeds, layer_fn, resolve,
+                  method: str, pending: List[tuple], gctx: GuardContext):
+    """The VLM walk: group g's self layers (layer index g·(spg+1) + s,
+    DENSE_TAPS), then its cross layer (index g·(spg+1) + spg, CROSS_TAPS)
+    over the projected image's K/V. Returns the "__qlayers__" table, keyed
+    "self_{g}_{s}" and "cross_{g}"."""
+    from repro_torch.models.model import vlm_group_counts
+    _, spg = vlm_group_counts(cfg)
+    cd = x.dtype
+    ve = torch.einsum("bnv,vd->bnd", vision_embeds.to(cd),
+                      params["vision_proj"].to(cd))
+    table = {}
+    for gi, (gp_self, cp) in enumerate(zip(params["groups"]["self"],
+                                           params["groups"]["cross"])):
+        for si, lp in enumerate(gp_self):
+            table[f"self_{gi}_{si}"], x, _ = layer_fn(
+                lp, x, None, cfg, plan, DENSE_TAPS, resolve, method,
+                pending, gi * (spg + 1) + si, gctx)
+        vkv = tfm.vision_kv_for_layer(cp, ve)
+        table[f"cross_{gi}"], x, _ = layer_fn(
+            cp, x, None, cfg, plan, CROSS_TAPS, resolve, method, pending,
+            gi * (spg + 1) + spg, gctx, vision_kv=vkv, prefix="cross.")
+    return table
 
 
 def _finalize_report(report: QuantReport, pending: List[tuple]):
@@ -563,11 +611,13 @@ def _calib_leaf_dims(cfg) -> Dict[str, int]:
 
 def quantize_model(params, cfg, plan, tokens: Tensor, spec,
                    method: str = "comq", quantize_unembed: bool = False,
-                   propagation: str = "staged", *, guards: bool = True):
-    """Quantize every projection weight of a dense, MoE, hybrid or RWKV LM
-    (the router, the SSM's small leaves and RWKV's mixes, LoRAs and decay
-    stay float). `tokens`: (B, T)
-    calibration batch on the params' device.
+                   propagation: str = "staged", *, guards: bool = True,
+                   vision_embeds: Optional[Tensor] = None):
+    """Quantize every projection weight of a dense, MoE, hybrid, RWKV or
+    VLM LM (the router, the SSM's small leaves, RWKV's mixes, LoRAs and
+    decay, and a cross layer's wk / wv and gates stay float). `tokens`:
+    (B, T) calibration batch on the params' device; a VLM also needs
+    `vision_embeds` (B, N, vision_dim), checked like the tokens.
 
     `spec` is a QuantSpec (every leaf gets it) or a `core.policy.
     QuantPolicy`, which resolves a spec per leaf (only the bit width
@@ -580,13 +630,21 @@ def quantize_model(params, cfg, plan, tokens: Tensor, spec,
 
     Returns (qparams, QuantReport): qparams is `params` plus a
     "__qlayers__" side table {str(layer): layer params with QTensor
-    leaves} (and a QTensor "unembed" with quantize_unembed); use
-    `materialize` (dense) or `core.apply.serving_params` (packed) to run
-    it."""
-    from repro_torch.data import check_calib_coverage, validate_calib_tokens
+    leaves} (a VLM's keys are "self_{g}_{s}" and "cross_{g}"; and a
+    QTensor "unembed" with quantize_unembed, which a VLM ignores, as the
+    JAX package does); use `materialize` (dense) or
+    `core.apply.serving_params` (packed; not a VLM) to run it."""
+    from repro_torch.data import (check_calib_coverage,
+                                  validate_calib_features,
+                                  validate_calib_tokens)
     from repro_torch.models.model import embed_tokens
     if propagation not in ("staged", "legacy"):
         raise ValueError(f"unknown propagation {propagation!r}")
+    if cfg.family == "encoder":
+        raise NotImplementedError(
+            "quantize_model has no encoder walk: the JAX package's starts "
+            "from embed_tokens (repro/core/pipeline.py), which an encoder "
+            "does not have")
     policy = as_policy(spec)
     n_layers = cfg.n_layers
 
@@ -595,6 +653,8 @@ def quantize_model(params, cfg, plan, tokens: Tensor, spec,
 
     tapmap = taps_for(cfg)
     validate_calib_tokens(tokens, vocab_size=cfg.vocab_size)
+    if cfg.family == "vlm":
+        validate_calib_features(vision_embeds)
     check_calib_coverage(int(tokens.shape[0]) * int(tokens.shape[1]),
                          _calib_leaf_dims(cfg))
     layer_fn = (_quantize_layer_staged if propagation == "staged"
@@ -608,8 +668,12 @@ def quantize_model(params, cfg, plan, tokens: Tensor, spec,
     qparams = dict(params)
     with torch.no_grad():
         x = embed_tokens(params, cfg, plan, tokens)
+        if cfg.family == "vlm":
+            table = _quantize_vlm(params, cfg, plan, x, vision_embeds,
+                                  layer_fn, resolve, method, pending, gctx)
+            quantize_unembed = False
         state = None
-        for l, lp in enumerate(params["layers"]):
+        for l, lp in enumerate(params.get("layers", ())):
             lp_q, x, state = layer_fn(lp, x, state, cfg, plan, tapmap,
                                       resolve, method, pending, l, gctx)
             table[str(l)] = lp_q
@@ -638,10 +702,16 @@ def quantize_model(params, cfg, plan, tokens: Tensor, spec,
 # ---------------------------------------------------------------------------
 
 def materialize(qparams, cfg) -> Any:
-    """Fold the __qlayers__ side table back into dense per-layer params."""
+    """Fold the __qlayers__ side table back into dense per-layer params (a
+    VLM's into per-group lists). A stripped checkpoint
+    (`ckpt.strip_for_serving`, no dense layers) rebuilds them from the
+    table alone, which holds every per-layer leaf."""
     params = {k: v for k, v in qparams.items() if k != "__qlayers__"}
     table = qparams.get("__qlayers__", {})
     if not table:
+        return params
+    if cfg.family == "vlm":
+        params["groups"] = _materialize_groups(table, params.get("groups"))
         return params
     dense = params.get("layers")
     layers = []
@@ -654,6 +724,23 @@ def materialize(qparams, cfg) -> Any:
     if is_qtensor(params.get("unembed")):
         params["unembed"] = dequant_qtensor(params["unembed"])
     return params
+
+
+def _materialize_groups(table, dense):
+    """The VLM table's "self_{g}_{s}" / "cross_{g}" entries as per-group
+    lists of dense layers, in the dense groups' dtypes when given."""
+    def deq(key, like):
+        out = dequantize_tree(table[key])
+        return out if like is None else _match_dtypes(out, like)
+
+    n_groups = sum(k.startswith("cross_") for k in table)
+    spg = sum(k.startswith("self_0_") for k in table)
+    return {
+        "self": [[deq(f"self_{g}_{s}",
+                      dense and dense["self"][g][s]) for s in range(spg)]
+                 for g in range(n_groups)],
+        "cross": [deq(f"cross_{g}", dense and dense["cross"][g])
+                  for g in range(n_groups)]}
 
 
 def _match_dtypes(tree, like):

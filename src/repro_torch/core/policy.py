@@ -17,11 +17,13 @@ errors (`allocate_bits`), measured by `measure_bit_curves` from one float
 forward per layer — no backprop.
 
 The pure part (resolution, parsing, the allocator) is plain Python and
-gives exactly the JAX package's results. The curve measurement covers the
-dense (and audio), MoE, hybrid and RWKV families (an expert leaf priced
-for all its experts in one batched pass; a hybrid or RWKV walk carries
-its recurrent state from layer to layer as the JAX one does); the VLM
-branch waits for the port of that family (ROADMAP.md, Queue A item 12).
+gives exactly the JAX package's results; a VLM cross layer's leaves
+resolve under their "cross." names ("cross.mlp.w_down", "9.cross.*").
+The curve measurement covers the dense (and audio), MoE, hybrid and RWKV
+families (an expert leaf priced for all its experts in one batched pass;
+a hybrid or RWKV walk carries its recurrent state from layer to layer as
+the JAX one does); for a VLM it raises, as the JAX package's does (its
+policies are resolved from explicit rules).
 """
 from __future__ import annotations
 
@@ -241,6 +243,10 @@ def measure_bit_curves(params, cfg, plan, tokens, base: QuantSpec,
         tfm.check_ported(cfg)
     except NotImplementedError as e:
         raise NotImplementedError(f"measure_bit_curves: {e}") from e
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            "bit-curve measurement covers homogeneous stacks; resolve VLM "
+            "policies with explicit rules instead")
 
     def leaf_errs(h, w2d):
         out = {}

@@ -1,5 +1,6 @@
 """Up-front calibration validation (port of the part of
-`repro.data.loader` the quantization pipeline uses)."""
+`repro.data.loader` the quantization pipeline uses: tokens, a VLM's image
+features, coverage)."""
 from __future__ import annotations
 
 import warnings
@@ -35,6 +36,28 @@ def validate_calib_tokens(tokens, vocab_size: Optional[int] = None):
             f"calibration token ids out of range [{lo}, {hi}] for vocab "
             f"size {vocab_size}")
     return tokens
+
+
+def validate_calib_features(x, name: str = "vision_embeds"):
+    """Check a floating calibration feature batch (a VLM's image
+    embeddings): non-empty, floating, all-finite, raising
+    CalibrationDataError. Non-finite *input* features are a data bug;
+    non-finite values that appear inside the activation stream are the
+    numeric guards' job (core/guards.py). Returns `x` unchanged."""
+    if x is None:
+        raise CalibrationDataError(f"{name} is None")
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    if t.numel() == 0:
+        raise CalibrationDataError(
+            f"{name} is empty (shape {tuple(t.shape)})")
+    if not t.is_floating_point():
+        raise CalibrationDataError(
+            f"{name} must be floating, got dtype {t.dtype}")
+    n_bad = int((~torch.isfinite(t)).sum())
+    if n_bad:
+        raise CalibrationDataError(
+            f"{name} contains {n_bad} non-finite entries")
+    return x
 
 
 def check_calib_coverage(n_tokens: int, leaf_dims: Dict[str, int]) -> bool:

@@ -31,6 +31,7 @@ Tensor = torch.Tensor
 NAME = "flash_attention"
 NEG_INF = -1e30
 launches = 0     # kernel launches since the last reset (chip_smoke reads it)
+launches_single_query = 0     # the share with Tq = 1 (a cross decode step)
 
 _ARGTYPES = ([ctypes.c_void_p] * 5
              + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
@@ -72,7 +73,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
                          causal: bool = True, window: int = 0) -> Tensor:
     """Launch the kernel on (B, Tq, H, hd) / (B, Tk, KV, hd) tensors."""
-    global launches
+    global launches, launches_single_query
     dev = q.device
     if dev.type != "cuda":
         raise RuntimeError(f"flash_attention kernel needs CUDA tensors, got "
@@ -107,4 +108,5 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(NAME, rc)
     launches += 1
+    launches_single_query += Tq == 1
     return o

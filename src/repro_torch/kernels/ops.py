@@ -90,6 +90,7 @@ def reset_launch_counts() -> None:
         setattr(mod, count, 0)
     _paged.launches_quant_tc = 0     # the tensor-core share of launches_quant
     _panel.launches_batched = 0      # the expert-batched share of launches
+    _flash.launches_single_query = 0     # the Tq = 1 share of launches
     _qmm.launches_by_cpb = dict.fromkeys(_qmm.launches_by_cpb, 0)
 
 

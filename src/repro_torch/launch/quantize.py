@@ -8,6 +8,11 @@ calibrate → quantize → pack, then the fp and quantized eval loss.
     ... --policy "*.w_down=8,first=8,last=8,kv=8"
     ... --bits-budget 3.5 --policy kv=4
 
+A VLM (llama-3.2-vision-90b) calibrates and evaluates on random image
+features (calib_batch, n_vision_tokens, vision_dim), bf16 normals from a
+seeded generator, as the JAX launcher does. An encoder (vit-base-16) exits
+2: the JAX package has no encoder walk to port.
+
 Runs on the card unless `--device cpu` is given. Prints the JAX
 launcher's JSON summary keys (data_shards/model_shards are 1: the port
 runs on one device). Flags of the JAX launcher that this port does not
@@ -60,11 +65,22 @@ class QuantizeRun:
     seconds: float              # quantize_model, synchronized, unrounded
     alloc: Optional[Dict[str, int]] = None   # the --bits-budget allocation
     sizes: Optional[Dict[str, int]] = None
+    vision_embeds: Optional[torch.Tensor] = None   # a VLM's image features
 
 
 def _randint(seed: int, shape, high: int, dev) -> torch.Tensor:
     gen = torch.Generator(device=dev).manual_seed(seed)
     return torch.randint(0, high, shape, generator=gen, device=dev)
+
+
+def vision_features(cfg, batch: int, dev) -> torch.Tensor:
+    """A VLM's stand-in image features (batch, n_vision_tokens,
+    vision_dim): bf16 standard normals from a generator seeded 0 (the
+    vision frontend is a stub in both packages)."""
+    ca = cfg.cross_attn
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return torch.randn(batch, ca.n_vision_tokens, ca.vision_dim,
+                       generator=gen, device=dev).to(torch.bfloat16)
 
 
 def resolve_policy(params, cfg, plan, tokens, base: QuantSpec,
@@ -118,6 +134,8 @@ def quantize_and_eval(cfg, *, bits: int = 4,
     set_precision()
     params = init_params(cfg, seed=0, device=dev)
     tokens = _randint(0, (calib_batch, calib_seq), cfg.vocab_size, dev)
+    ve = (vision_features(cfg, calib_batch, dev)
+          if cfg.family == "vlm" else None)
     base = QuantSpec(bits=bits, granularity=granularity, lam=lam,
                      sweeps=sweeps, order=order)
     spec, plan, alloc, sizes = resolve_policy(params, cfg, BuildPlan(),
@@ -126,7 +144,7 @@ def quantize_and_eval(cfg, *, bits: int = 4,
     t0 = time.time()
     qparams, report = quantize_model(params, cfg, plan, tokens, spec,
                                      method=method, propagation=propagation,
-                                     guards=guards)
+                                     guards=guards, vision_embeds=ve)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.time() - t0
@@ -139,6 +157,8 @@ def quantize_and_eval(cfg, *, bits: int = 4,
 
     ev = _randint(7, (calib_batch, calib_seq), cfg.vocab_size, dev)
     batch = {"tokens": ev, "labels": ev}
+    if ve is not None:
+        batch["vision_embeds"] = ve
     with torch.no_grad():
         fp_loss = float(lm_loss(params, cfg, plan, batch)[0])
         q_loss = float(lm_loss(materialize(qparams, cfg), cfg, plan,
@@ -162,7 +182,7 @@ def quantize_and_eval(cfg, *, bits: int = 4,
         "faults_fired": 0,
     }
     return QuantizeRun(summary, params, qparams, report, spec, plan, tokens,
-                       ev, dt, alloc, sizes)
+                       ev, dt, alloc, sizes, ve)
 
 
 class NotPorted(argparse.Action):
@@ -225,8 +245,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> Dict[str, Any]:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "encoder":
+        ap.exit(2, f"{ap.prog}: {cfg.name} is an encoder, and quantize_model "
+                   "has no encoder walk (the JAX package's starts from "
+                   "embed_tokens, which an encoder does not have)\n")
     run = quantize_and_eval(
         cfg, bits=args.bits, granularity=args.granularity, order=args.order,
         sweeps=args.sweeps, lam=args.lam, method=args.method,

@@ -16,9 +16,13 @@ checkpoint, or from a fresh init.
 admission with preemption-by-page-reclaim (`--admission reserve` keeps
 full-lifetime reservation), mixed prompt lengths, staggered arrivals,
 bf16 or int8/4-bit pages (`--kv-bits`). `--engine static` runs the
-equal-length Engine baseline; a parallel-SSM arch (hymba-1.5b) and an
-attention-free one (rwkv6-7b) always run it (`--engine paged` switches
-with a note, as the JAX launcher does). `--materialize` dequantizes to a
+equal-length Engine baseline; a parallel-SSM arch (hymba-1.5b), an
+attention-free one (rwkv6-7b) and a VLM always run it (`--engine paged`
+switches with a note, as the JAX launcher does). A VLM then exits 1: the
+launcher has no source of image features (the JAX launcher calls
+`generate_batch` without them and fails); serve one from Python with
+`Engine.generate_batch(prompts, vision_embeds=...)`. `--materialize`
+dequantizes to a
 dense tree first; without it quantized params are served packed.
 
 Runs on the card unless `--device cpu` is given, and prints one JSON line
@@ -125,11 +129,22 @@ def main(argv=None) -> Dict[str, Any]:
                   "engine's dense cache ignores it")
         else:
             plan = plan.replace(kv_bits=args.kv_bits)
-    if args.engine == "paged" and (cfg.attn_free or cfg.parallel_ssm_heads):
+    if args.engine == "paged" and (cfg.attn_free or cfg.parallel_ssm_heads
+                                   or cfg.family == "vlm"):
         print(f"note: {cfg.family}/attention-free archs use the dense-"
               "cache static engine (paged runtime is attention-family "
               "only; see ROADMAP)")
         args.engine = "static"
+    if cfg.family == "vlm":
+        raise SystemExit(
+            f"{cfg.name}: the serve launcher has no source of image "
+            "features for the VLM's cross layers (the JAX launcher calls "
+            "Engine.generate_batch without them and fails in _run_vlm); "
+            "call serve.Engine.generate_batch(prompts, vision_embeds=...) "
+            "from Python instead")
+    if cfg.family == "encoder":
+        raise SystemExit(f"{cfg.name} is an encoder: it has no decode to "
+                         "serve")
     bf16_bytes = 2 * count_params(cfg)
 
     params = qparams = None

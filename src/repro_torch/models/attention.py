@@ -1,10 +1,12 @@
 """Grouped-query attention, dense half (port of `repro.models.attention`).
 
 * One device, so no TP head padding: qwen2 keeps its 28 query heads.
-* Full-sequence causal attention goes through `kernels.ops.flash_attention`
-  — the Hopper kernel for CUDA tensors, its plain f32 version on the CPU.
-  The JAX model used a jnp pair-scan here; the port makes the kernel the
-  card's implementation. The non-causal branch stays `_dense_attention`.
+* Full-sequence attention — causal, windowed or non-causal (the encoder,
+  and the VLM's cross-attention over the image, Tq != Tk) — goes through
+  `kernels.ops.flash_attention`: the Hopper kernel for CUDA tensors, its
+  plain f32 version on the CPU. The JAX model uses a jnp pair-scan for
+  causal calls and `_dense_attention` for the others; the port makes the
+  kernel the card's implementation of both.
 * Decode attends over a (B, S, KV, hd) cache with a position mask: bf16,
   or int8 codes with per-entry scales (`BuildPlan.cache_quant`),
   dequantized before the attention. Caches are updated in place (one
@@ -107,21 +109,23 @@ def out_project(p: dict, o: Tensor) -> Tensor:
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, head_map: Tensor, *,
                     causal: bool = True, window: int = 0) -> Tensor:
-    """q: (B,T,Hp,hd); k,v: (B,T,KV,hd). Returns (B,T,Hp,hd).
+    """q: (B,Tq,Hp,hd); k,v: (B,Tk,KV,hd). Returns (B,Tq,Hp,hd).
 
-    Causal (and sliding-window) attention runs the `flash_attention`
-    kernel dispatch; GQA maps head h to KV head h // (Hp/KV). On one device
-    every ported config divides evenly (hymba: 25 over 5); the uneven map
-    exists only under tensor-parallel head padding, which is not ported."""
-    if not causal:
-        return _dense_attention(q, k, v, head_map, causal=False, window=0)
+    Every call runs the `flash_attention` kernel dispatch: causal (and
+    sliding-window) self-attention, or non-causal attention with Tq and
+    Tk free (the encoder; the VLM's cross-attention over the image, where
+    the JAX package calls `_dense_attention`: the same function). GQA maps
+    head h to KV head h // (Hp/KV). On one device every ported config
+    divides evenly (hymba: 25 over 5); the uneven map exists only under
+    tensor-parallel head padding, which is not ported."""
     if q.shape[2] % k.shape[2]:
         raise NotImplementedError(
             "flash_attention needs Hp % KV == 0 (an uneven head map, as "
             "hymba's under tensor-parallel head padding, is not ported: "
             "ROADMAP.md item 15)")
     from repro_torch.kernels import ops
-    return ops.flash_attention(q, k, v, causal=True, window=window)
+    return ops.flash_attention(q, k, v, causal=causal,
+                               window=window if causal else 0)
 
 
 def _dense_attention(q: Tensor, k: Tensor, v: Tensor, head_map: Tensor, *,
@@ -129,7 +133,7 @@ def _dense_attention(q: Tensor, k: Tensor, v: Tensor, head_map: Tensor, *,
                      q_positions: Optional[Tensor] = None,
                      kv_positions: Optional[Tensor] = None,
                      kv_valid: Optional[Tensor] = None) -> Tensor:
-    """Dense masked attention: non-causal layers and decode over a cache.
+    """Dense masked attention: decode over a (dense) cache.
 
     kv_positions/kv_valid: (B, S) absolute positions + validity;
     q_positions: (B, Tq). Grouped GQA einsum when Hp % KV == 0."""

@@ -1,11 +1,14 @@
-"""Decoder layer assembly: the dense (and audio), MoE, hybrid (parallel
-SSM heads) and attention-free (RWKV6) families (port of
+"""Layer assembly: the dense (and audio), MoE, hybrid (parallel SSM
+heads), attention-free (RWKV6), VLM (gated cross-attention layers over the
+image) and encoder (non-causal) families (port of
 `repro.models.transformer`).
 
 Layers run one at a time from a per-layer list of param dicts (the JAX
-package scans stacked params). `BuildPlan` keeps the facts the ported
-paths read: the KV-cache dtype or its int8 form, the prefill cache length,
-the paged pool's code width and the MoE token chunk and capacity rounding.
+package scans stacked params; its VLM scans groups of `every`-1 self
+layers and one cross layer, which the port holds as per-group lists).
+`BuildPlan` keeps the facts the ported paths read: the KV-cache dtype or
+its int8 form, the prefill cache length, the paged pool's code width and
+the MoE token chunk and capacity rounding.
 The port runs on one device, so there is no TP head, expert or vocab
 padding (the JAX plan's tp=1).
 """
@@ -26,7 +29,8 @@ from repro_torch.models.attention import (cache_insert, cache_prefill,
                                           head_to_kv_map, init_kv_cache,
                                           paged_decode_attend, paged_insert,
                                           qkv_project)
-from repro_torch.models.common import apply_norm, apply_rope, norm_params
+from repro_torch.models.common import (apply_norm, apply_rope, norm_params,
+                                       zeros_init)
 
 Tensor = torch.Tensor
 
@@ -53,38 +57,49 @@ class BuildPlan:
         return dataclasses.replace(self, **kw)
 
 
+FAMILIES = ("dense", "audio", "moe", "hybrid", "ssm", "vlm", "encoder")
+
+
 def check_ported(cfg) -> None:
-    """Raise for a configuration whose family the port does not run yet:
-    it runs the dense GQA transformer (and the audio decoder, which is
-    one), the MoE family, the hybrid one (attention with parallel SSM
-    heads, hymba) and the attention-free one (RWKV6), with rmsnorm or
-    layernorm, causal, self-attention only."""
-    hybrid = cfg.family == "hybrid"
-    rwkv = cfg.family == "ssm"
-    if (cfg.family not in ("dense", "audio", "moe", "hybrid", "ssm")
-            or (cfg.family == "moe") != (cfg.moe is not None)
+    """Raise for a configuration the port does not run: one whose family
+    is not one of the JAX package's, or whose fields do not fit its family
+    as the JAX configs define them — experts only in the MoE family,
+    parallel SSM heads (with an SSMConfig) only in the hybrid one, RWKV
+    (attention-free, with an RWKVConfig) only in the "ssm" one, cross-
+    attention only in the VLM, non-causal attention only in the encoder
+    (a layernorm one), rmsnorm or layernorm."""
+    fam = cfg.family
+    hybrid, rwkv = fam == "hybrid", fam == "ssm"
+    encoder = fam == "encoder"
+    if (fam not in FAMILIES
+            or (fam == "moe") != (cfg.moe is not None)
             or hybrid != cfg.parallel_ssm_heads
             or (hybrid and cfg.ssm is None)
             or rwkv != cfg.attn_free or (rwkv and cfg.rwkv is None)
-            or cfg.cross_attn is not None or not cfg.causal
-            or cfg.norm_type not in ("rmsnorm", "layernorm")):
+            or (fam == "vlm") != (cfg.cross_attn is not None)
+            or encoder == cfg.causal
+            or cfg.norm_type not in ("rmsnorm", "layernorm")
+            or (encoder and cfg.norm_type != "layernorm")):
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported to "
-            "repro_torch yet: the dense, audio, MoE, hybrid and RWKV "
-            "decoders are (ROADMAP.md Queue A item 12)")
+            f"family {cfg.family!r} ({cfg.name}) with these fields is not "
+            "a configuration the port runs: it runs the dense, audio, MoE, "
+            "hybrid, RWKV, VLM and encoder families as the JAX package's "
+            "configs define them")
 
 
 def check_paged(cfg) -> None:
-    """The paged KV pool serves the attention families only; parallel-SSM
-    and attention-free layers carry a recurrent state per sequence, so
-    hymba and RWKV decode from the dense-cache `decode_step`
-    (serve.Engine), as in the JAX package."""
+    """The paged KV pool serves the self-attention decoders only:
+    parallel-SSM and attention-free layers carry a recurrent state per
+    sequence and a VLM's cross layers the image's K/V, so hymba, RWKV and
+    the VLM decode from the dense-cache `decode_step` (serve.Engine), as
+    in the JAX package; an encoder does not decode."""
     check_ported(cfg)
-    if cfg.parallel_ssm_heads or cfg.attn_free:
+    if (cfg.parallel_ssm_heads or cfg.attn_free
+            or cfg.family in ("vlm", "encoder")):
         raise NotImplementedError(
             f"paged decode does not cover family={cfg.family!r} "
-            "(parallel-SSM and attention-free archs use the dense-cache "
-            "decode_step and serve.Engine)")
+            "(parallel-SSM, attention-free and VLM archs use the dense-"
+            "cache decode_step and serve.Engine)")
 
 
 def init_layer(gen: torch.Generator, cfg, plan: BuildPlan, device) -> dict:
@@ -105,6 +120,19 @@ def init_layer(gen: torch.Generator, cfg, plan: BuildPlan, device) -> dict:
     else:
         p["mlp"] = mlp_mod.init_mlp(gen, cfg, device)
     return p
+
+
+def init_cross_layer(gen: torch.Generator, cfg, device) -> dict:
+    """A VLM cross-attention layer: `xattn` (its wk / wv read the projected
+    image, width d_model) and the scalar gates gate_attn / gate_mlp, zero
+    at init as in the JAX package (tanh(0) = 0: the layer starts as the
+    identity)."""
+    return {"ln1": norm_params(cfg, device),
+            "xattn": attn_mod.init_attn(gen, cfg, device),
+            "gate_attn": zeros_init((), device),
+            "ln2": norm_params(cfg, device),
+            "mlp": mlp_mod.init_mlp(gen, cfg, device),
+            "gate_mlp": zeros_init((), device)}
 
 
 def _hmap(cfg, device):
@@ -211,6 +239,45 @@ def layer_full(p: dict, x: Tensor, cfg, plan: BuildPlan, make_cache: bool,
     xn = apply_norm(p["ln2"], x, cfg)
     m_out, aux = _ffn_full(p, xn, cfg, plan, taps, quantize_cb)
     return x + m_out, cache, aux, new_ssm
+
+
+def cross_layer_full(p: dict, x: Tensor, cfg, plan: BuildPlan, vision_kv,
+                     taps=None, quantize_cb=None) -> Tensor:
+    """A VLM cross layer over a full sequence: x + tanh(gate_attn) ·
+    xattn(ln1(x), image) then x + tanh(gate_mlp) · mlp(ln2(x)). Taps
+    xattn_q_in (feeds xattn.wq), xattn_wo_in (xattn.wo), mlp_in and
+    down_in; `quantize_cb` as in `layer_full`. `vision_kv` is the
+    (k, v) pair of `vision_kv_for_layer`; the attention over it is
+    non-causal through the flash dispatch (Tq = T, or 1 in decode, over
+    Tk = n_vision_tokens)."""
+    cd = x.dtype
+    xn = apply_norm(p["ln1"], x, cfg)
+    xp = p["xattn"]
+    if taps is not None:
+        taps["xattn_q_in"] = xn
+        if quantize_cb is not None:
+            xp = {**xp, **quantize_cb("xattn_q_in")}
+    k, v = vision_kv
+    o = flash_attention(attn_mod._project_in(xp["wq"], xn, cd), k.to(cd),
+                        v.to(cd), _hmap(cfg, x.device), causal=False)
+    if taps is not None:
+        taps["xattn_wo_in"] = o.reshape(*o.shape[:2], -1)
+        if quantize_cb is not None:
+            xp = {**xp, **quantize_cb("xattn_wo_in")}
+    x = x + torch.tanh(p["gate_attn"]).to(cd) * attn_mod.out_project(xp, o)
+    xn = apply_norm(p["ln2"], x, cfg)
+    return x + torch.tanh(p["gate_mlp"]).to(cd) * mlp_mod.apply_mlp(
+        p["mlp"], xn, cfg, taps=taps, quantize_cb=quantize_cb)
+
+
+def vision_kv_for_layer(p_cross: dict, vision_embeds: Tensor):
+    """The cross layer's K/V from the projected image (B, N, d): the dense
+    xattn.wk / wv, which are never quantized (no tap feeds them)."""
+    cd = vision_embeds.dtype
+    xp = p_cross["xattn"]
+    k = torch.einsum("bnd,dhk->bnhk", vision_embeds, xp["wk"].to(cd))
+    v = torch.einsum("bnd,dhk->bnhk", vision_embeds, xp["wv"].to(cd))
+    return k, v
 
 
 # ---------------------------------------------------------------------------

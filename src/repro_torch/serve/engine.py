@@ -29,14 +29,20 @@ class Engine:
         self.gen = torch.Generator(device=self.device).manual_seed(rng_seed)
 
     def generate_batch(self, prompts: np.ndarray, *,
-                       max_new_tokens: int = 32,
-                       temperature: float = 0.0) -> np.ndarray:
-        """prompts: (B, T) int (equal length). Returns (B, max_new_tokens)
-        int32. Tokens stay on the device until the end."""
+                       max_new_tokens: int = 32, temperature: float = 0.0,
+                       vision_embeds=None) -> np.ndarray:
+        """prompts: (B, T) int (equal length); a VLM also takes the image
+        features `vision_embeds` (B, N, vision_dim), a tensor or an array.
+        Returns (B, max_new_tokens) int32. Tokens stay on the device until
+        the end."""
         B, T = prompts.shape
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
                                  device=self.device)
-        logits, cache = prefill(self.params, self.cfg, self.plan, tokens)
+        if vision_embeds is not None:
+            vision_embeds = torch.as_tensor(vision_embeds,
+                                            device=self.device)
+        logits, cache = prefill(self.params, self.cfg, self.plan, tokens,
+                                vision_embeds=vision_embeds)
         out = torch.zeros(B, max_new_tokens, dtype=torch.int32,
                           device=self.device)
         for i in range(max_new_tokens):

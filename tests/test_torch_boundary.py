@@ -117,6 +117,9 @@ def test_launcher_rejects_unported_flags(flag, capsys):
 
 
 def test_unported_arch_says_so():
-    from repro_torch.configs import get_config
+    """Every JAX architecture is registered; a name outside the registry
+    says it is not ported."""
+    from repro_torch.configs import get_config, list_archs
+    assert {"llama-3.2-vision-90b", "vit-base-16"} <= set(list_archs())
     with pytest.raises(KeyError, match="not ported"):
-        get_config("llama-3.2-vision-90b")
+        get_config("llama-3.2-vision-11b")

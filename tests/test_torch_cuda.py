@@ -833,3 +833,91 @@ def test_panel_rwkv_widths(cuda, n):
     qk, dk = comq_panel.comq_panel_dq_cuda(*args)
     qp, dp = comq_panel.comq_panel_dq_plain(*args)
     assert float((qk == qp).float().mean()) >= 0.999
+
+
+NONCAUSAL_CASES = [
+    dict(B=8, Tq=128, Tk=1601, H=64, KV=8, hd=128),   # VLM cross prefill
+    dict(B=8, Tq=1, Tk=1601, H=64, KV=8, hd=128),     # VLM cross decode
+    dict(B=8, Tq=197, Tk=197, H=12, KV=12, hd=64),    # vit-base-16
+    dict(B=2, Tq=12, Tk=17, H=4, KV=2, hd=16),        # VLM smoke cross
+    dict(B=3, Tq=65, Tk=64, H=8, KV=1, hd=32)]        # Tq one past a tile
+
+
+@pytest.mark.parametrize("case", NONCAUSAL_CASES,
+                         ids=lambda c: "-".join(f"{k}{v}"
+                                                for k, v in c.items()))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_noncausal_matches_plain(cuda, case, dtype):
+    """causal=0 with Tq != Tk: ragged Tk (1601 = 25 tiles of 64 + 1 key:
+    the last tile scores its 63 absent keys -inf), one query row in a
+    block, Tq ending mid-warp, group 8 at hd 128."""
+    B, Tq, Tk, H, KV, hd = (case[k] for k in ("B", "Tq", "Tk", "H", "KV",
+                                               "hd"))
+    g = torch.Generator(device=cuda).manual_seed(Tq + Tk)
+    q = torch.randn(B, Tq, H, hd, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, Tk, KV, hd, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=False)
+    want = flash_attention.flash_attention_plain(q, k, v, causal=False)
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_noncausal_reads_a_strided_image_cache(cuda, dtype):
+    """The cross layer's K/V as non-contiguous views: group 1 of an image
+    cache that holds K and V side by side, (G, B, N, 2, KV, hd)."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    xkv = torch.randn(2, 3, 1601, 2, 8, 128, generator=g,
+                      device=cuda).to(dtype)
+    k, v = xkv[1, :, :, 0], xkv[1, :, :, 1]
+    assert not k.is_contiguous()
+    q = torch.randn(3, 5, 64, 128, generator=g, device=cuda).to(dtype)
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=False)
+    want = flash_attention.flash_attention_plain(q, k, v, causal=False)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        _bf16_close(got, want)
+
+
+def test_model_noncausal_attention_launches_the_kernel(cuda):
+    """models.attention.flash_attention(causal=False) on CUDA tensors runs
+    csrc/flash_attention.cu (the launch counter moves), as the encoder's
+    layers and the VLM's cross layers call it."""
+    from repro_torch.models import attention
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(2, 7, 8, 64, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(2, 33, 2, 64, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    n0 = flash_attention.launches
+    s0 = flash_attention.launches_single_query
+    got = attention.flash_attention(q, k, v, None, causal=False)
+    assert flash_attention.launches == n0 + 1
+    _bf16_close(got, flash_attention.flash_attention_plain(q, k, v,
+                                                           causal=False))
+    attention.flash_attention(q[:, :1], k, v, None, causal=False)
+    assert flash_attention.launches == n0 + 2
+    assert flash_attention.launches_single_query == s0 + 1   # Tq = 1
+
+
+@pytest.mark.parametrize("n", [1024, 8192, 28672])
+def test_panel_vlm_widths(cuda, n):
+    """B=256 against llama-3.2-vision's leaves: wk / wv (1024 columns), wq
+    / wo / w_down (8192), w_gate / w_up (28672)."""
+    B = 256
+    g = torch.Generator(device=cuda).manual_seed(n + 1)
+    x = torch.randn(4 * B, B, generator=g, device=cuda)
+    h_bb = x.T @ x / (4 * B) + 0.1 * torch.eye(B, device=cuda)
+    args = (h_bb, torch.randn(B, n, generator=g, device=cuda),
+            torch.randn(B, n, generator=g, device=cuda) * 3,
+            torch.rand(n, generator=g, device=cuda) * 0.15 + 0.05,
+            torch.full((n,), -8.0, device=cuda),
+            torch.full((n,), 7.0, device=cuda),
+            torch.diagonal(h_bb).contiguous())
+    qk, dk = comq_panel.comq_panel_dq_cuda(*args)
+    qp, dp = comq_panel.comq_panel_dq_plain(*args)
+    assert float((qk == qp).float().mean()) >= 0.999

@@ -305,7 +305,8 @@ def test_measure_bit_curves_comq_blocked_is_the_solve_error(jparams,
 
 def test_measure_bit_curves_unembed_and_other_families(jparams, tokens):
     """include_unembed prices the unembedding on the final-norm
-    activations; families not ported yet (here the VLM one) raise."""
+    activations; a configuration the port does not run (here a VLM
+    without cross-attention) raises."""
     cfg, p = get_smoke_config(ARCH), params_from_numpy(jparams, "cpu")
     tok = torch.from_numpy(tokens).long()
     c, s = measure_bit_curves(p, cfg, BuildPlan(), tok, QuantSpec(**SPEC),
@@ -313,7 +314,7 @@ def test_measure_bit_curves_unembed_and_other_families(jparams, tokens):
     assert s["unembed"] == cfg.d_model * cfg.vocab_size and len(c) == 15
     u = c["unembed"]
     assert u[2] >= u[3] >= u[4] >= u[8] >= 0.0
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="not a configuration"):
         measure_bit_curves(p, cfg.replace(family="vlm"), BuildPlan(), tok,
                            QuantSpec(**SPEC))
 

@@ -414,15 +414,16 @@ def test_param_count_matches_init_and_jax(arch):
 
 
 def test_family_checks():
-    """The RWKV family runs; the paged paths refuse it as JAX's do; VLM,
-    encoder, non-causal and attention-free-without-rwkv configs still
-    raise, naming item 12."""
+    """The RWKV family runs; the paged paths refuse it as JAX's do; a VLM
+    without cross-attention, an attention-free encoder, non-causal RWKV
+    and attention-free-without-rwkv configs raise: the JAX configs define
+    none of them."""
     cfg = get_smoke_config(ARCH)
     tt.check_ported(cfg)
     for change in (dict(rwkv=None), dict(family="vlm"),
                    dict(family="encoder", causal=False), dict(causal=False),
                    dict(attn_free=False), dict(norm_type="groupnorm")):
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(NotImplementedError, match="not a configuration"):
             tt.check_ported(cfg.replace(**change))
     with pytest.raises(NotImplementedError, match="paged decode"):
         tt.check_paged(cfg)

@@ -32,6 +32,28 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 
+@contextlib.contextmanager
+def perturbed(torch, ops, names, eps, dev):
+    """Multiply the outputs of the `ops` dispatches `names` by
+    (1 + eps * N(0, 1)), from a fixed seed."""
+    saved = {n: getattr(ops, n) for n in names}
+    gen = torch.Generator(device=dev).manual_seed(123)
+
+    def wrap(fn):
+        def call(*a, **k):
+            y = fn(*a, **k)
+            noise = torch.randn(y.shape, generator=gen, device=dev)
+            return (y.float() * (1 + eps * noise)).to(y.dtype)
+        return call
+    for n in names:
+        setattr(ops, n, wrap(saved[n]))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="hymba-1.5b")
@@ -63,32 +85,13 @@ def main() -> int:
     plan32 = BuildPlan(prefill_cache_len=cs.PROMPT + cs.STEPS,
                        cache_dtype=torch.float32)
 
-    @contextlib.contextmanager
-    def perturbed(names, eps):
-        saved = {n: getattr(ops, n) for n in names}
-        gen = torch.Generator(device=dev).manual_seed(123)
-
-        def wrap(fn):
-            def call(*a, **k):
-                y = fn(*a, **k)
-                noise = torch.randn(y.shape, generator=gen, device=dev)
-                return (y.float() * (1 + eps * noise)).to(y.dtype)
-            return call
-        for n in names:
-            setattr(ops, n, wrap(saved[n]))
-        try:
-            yield
-        finally:
-            for n, fn in saved.items():
-                setattr(ops, n, fn)
-
     sites = {"flash": ("flash_attention",), "qmm": ("quant_matmul",),
              "both": ("flash_attention", "quant_matmul")}
     with torch.no_grad(), cs.plain_kernels(ops, kernels):
         base, fed = cs.run_decode(torch, sp, cfg32, plan32, run.eval_tokens)
         for eps in args.eps:
             for site, names in sites.items():
-                with perturbed(names, eps):
+                with perturbed(torch, ops, names, eps, dev):
                     outs, _ = cs.run_decode(torch, sp, cfg32, plan32,
                                             run.eval_tokens, feed=fed)
                 rel = [float((a - b).abs().max()) / float(b.abs().max())
