@@ -149,8 +149,34 @@ no result line):
    against the plain versions at bf16 and f32, gated with the layers in
    lockstep (each layer's output and the logits), free-running printed.
 
+16. durability — runs right after phase 9, while the phase-4 model is on
+   the card. (a) qwen2-7b at full width, n_layers cut 28 -> 4,
+   comq_blocked 4-bit per-channel, calibration 8x128 (seed 0): a clean
+   quantize_model, a journaled one, and one killed after layer 1
+   (`kill:2`) under `quantize_supervised(restarts=3)`: QT trees, report
+   rows and .qpk bytes equal the clean run's; check_integrity covers
+   every leaf; resumed_leaves are layers 0-1's; the resumed attempt
+   launches comq_panel only past the kill, as often as the clean run did
+   there; its peak device memory is at most 1.1x the clean run's. Wall
+   times and peaks printed. (b) granite-moe-3b-a800m, 4 layers, policy
+   first=8, kill:1: the same oracle. (c) ci.yml's "Quantize fault smoke"
+   through the port's launcher on the card (subprocesses, no --device):
+   cmp of the two .qpk files, each --out-dir step_0 restored to the .qpk
+   arrays. (d) ckpt_write:1 (the torn spill is never journaled; the
+   resume completes, codes equal) and nan_tap:1 (a nonfinite_tap guard
+   event, a finite run). (e) the phase-8 traffic at f32 on the phase-4
+   model: a journaled Runtime killed at its 20th step (and, so that some
+   requests have retired, at its 40th), recovered through recover_runtime
+   under run_with_restarts(max_restarts=2): 16/16 requests
+   token-identical to an uninterrupted run, none retired before the kill
+   re-run, replayed == in flight at the kill; decode_step:5,
+   page_alloc:3+7 and callback:2 each finish all 16 (decode_step and
+   callback token-identical; the callback error on one request only);
+   the kill run at bf16 kv_bits 0 and 8 printed, not gated.
+
 Launch counts: the quantize-and-decode path (phases 4-5), the serve path
-(phase 8), the policy path (phase 9a), the MoE path (phase 10), the
+(phase 8), the policy path (phase 9a), the durability runs (phase 16:
+its quantize walks, then its serve runs), the MoE path (phase 10), the
 hybrid path (phase 11 b-d), the audio path (phase 12), the rwkv path
 (phase 13), the vlm path (phase 14) and the encoder path (phase 15) are
 each counted from 0; every kernel must launch on the main path as a
@@ -1978,6 +2004,452 @@ def phase_encoder(torch, dev, ops, kernels, cfg):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 16: durability — journal, resume and fault injection
+# ---------------------------------------------------------------------------
+
+DUR_LAYERS = 4            # qwen2-7b and granite-moe-3b-a800m, depth cut
+DUR_KILL = 2              # kill after layer 1: layers 0-1 journaled
+DUR_MOE_POLICY, DUR_MOE_KILL = "first=8", 1
+DUR_MEM_RATIO = 1.1       # supervised peak <= this x the clean run's
+# Runtime.step occurrences to kill at: 12 steps into the drain (nothing
+# retired yet), and 32 (the first 8 requests retired)
+DUR_SERVE_KILLS = (20, 40)
+CI_SMOKE = ("--arch", "qwen2-7b", "--smoke", "--bits", "4", "--method",
+            "comq_blocked", "--sweeps", "2", "--calib-batch", "2",
+            "--calib-seq", "48")        # ci.yml's "Quantize fault smoke"
+
+
+def host_equal(a, b) -> bool:
+    """Two host trees (`ckpt.to_host`) with the same structure, dtypes and
+    values, bit for bit."""
+    import numpy as np
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and list(a) == list(b)
+                and all(host_equal(a[k], b[k]) for k in a))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and a.shape == b.shape and a.tobytes() == b.tobytes())
+    return type(a) is type(b) and a == b
+
+
+def report_rows(report):
+    return [(r.layer, r.name, r.err_before, r.err_after, r.guard)
+            for r in report.layers]
+
+
+def write_qpk(path: Path, table) -> bytes:
+    from repro_torch.ckpt import pack_tree, save_packed_ckpt
+    save_packed_ckpt(str(path), pack_tree(table))
+    return path.read_bytes()
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def durable_quantize(torch, panel, dev, cfg, spec, kill, work, what, card,
+                     full=False):
+    """One configuration's quantize under phase 16's oracle: a clean run, a
+    journaled uninterrupted run, and a journaled run killed at the `kill`-th
+    layer end under `quantize_supervised(restarts=3)` — trees, report rows
+    and .qpk bytes identical; the journal's integrity; the resumed attempt
+    launching comq_panel only for the layers past the kill (as many times as
+    the clean run did there). With `full` (the dense run), the peak-memory
+    gate and a ckpt_write and a nan_tap fault. Prints wall times and peak
+    memory."""
+    import shutil
+    import numpy as np
+    from repro_torch.ckpt import to_host
+    from repro_torch.core import quantize_model
+    from repro_torch.ft import FaultInjector, InjectedFault, QuantJournal
+    from repro_torch.launch.quantize import _randint, quantize_supervised
+    from repro_torch.models import BuildPlan, init_params
+    params = init_params(cfg, seed=0, device=dev)
+    tokens = _randint(0, (8, PROMPT), cfg.vocab_size, dev)
+    plan = BuildPlan()
+    marks = []
+
+    def mark(layer):
+        marks.append((layer, panel.launches, time.time()))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0, torch.cuda.max_memory_allocated()
+
+    gib = 2.0 ** 30
+    held = torch.cuda.memory_allocated()
+    start = panel.launches
+    (q, rep), t_clean, peak_clean = timed(lambda: quantize_model(
+        params, cfg, plan, tokens, spec, method="comq_blocked",
+        progress_cb=mark))
+    clean = list(marks)
+    ref, rows = to_host(q["__qlayers__"]), report_rows(rep)
+    ref_qpk = write_qpk(work / "clean.qpk", q["__qlayers__"])
+    del q, rep
+    n_leaves = len(rows)
+
+    jd = work / "journal_clean"
+    (q, rep), t_journal, _ = timed(lambda: quantize_model(
+        params, cfg, plan, tokens, spec, method="comq_blocked",
+        journal=str(jd)))
+    check(host_equal(to_host(q["__qlayers__"]), ref)
+          and report_rows(rep) == rows,
+          f"{what}: a journaled run differs from the clean run")
+    spilled = dir_bytes(jd / "leaves")
+    del q, rep
+    shutil.rmtree(jd)
+
+    marks.clear()
+    jd = work / "journal_kill"
+    inj = FaultInjector({"kill": [kill]})
+    (q, rep), t_sup, peak_sup = timed(lambda: quantize_supervised(
+        params, cfg, plan, tokens, spec, method="comq_blocked",
+        journal=str(jd), restarts=3, injector=inj, progress_cb=mark))
+    t_end = time.time()
+    at_kill = marks[kill - 1]
+    resumed_launches = marks[-1][1] - at_kill[1]
+    replayed_launches = marks[2 * kill - 1][1] - at_kill[1]
+    clean_after = clean[-1][1] - clean[kill - 1][1]
+    same_tree = host_equal(to_host(q["__qlayers__"]), ref)
+    same_rows = report_rows(rep) == rows
+    same_qpk = write_qpk(work / "resumed.qpk", q["__qlayers__"]) == ref_qpk
+    st = QuantJournal.replay(str(jd))
+    verified = QuantJournal.check_integrity(str(jd))
+    before_kill = sum(r[0] < kill for r in rows)
+    say(f"{what}: clean quantize_model {t_clean:.3f} s, journaled "
+        f"{t_journal:.3f} s ({(t_journal - t_clean) / cfg.n_layers:.3f} s a "
+        f"layer more; {spilled / 2 ** 20:.1f} MiB of spills), killed at "
+        f"layer end {kill} and resumed under run_with_restarts "
+        f"{t_sup:.3f} s (resumed attempt {t_end - at_kill[2]:.3f} s); on "
+        f"{card}")
+    say(f"{what}: comq_panel launches clean {clean[-1][1] - start} (after "
+        f"layer {kill - 1}: {clean_after}), resumed attempt "
+        f"{resumed_launches} ({replayed_launches} while re-applying layers "
+        f"0-{kill - 1}); faults fired {inj.fired}; resumed_leaves "
+        f"{rep.resumed_leaves} of {n_leaves}; check_integrity {verified} of "
+        f"{len(st.leaves)} journaled")
+    say(f"{what}: peak device memory clean {peak_clean / gib:.2f} GiB, "
+        f"supervised {peak_sup / gib:.2f} GiB (ratio "
+        f"{peak_sup / peak_clean:.4f}; {held / gib:.2f} GiB held before the "
+        f"phase); trees {same_tree}, report rows {same_rows}, .qpk bytes "
+        f"{same_qpk}")
+    check(same_tree and same_rows and same_qpk,
+          f"{what}: the resumed run differs from the clean run (trees "
+          f"{same_tree}, rows {same_rows}, .qpk {same_qpk})")
+    check(st.done and verified == len(st.leaves) == n_leaves,
+          f"{what}: journal integrity {verified} of {len(st.leaves)}")
+    check(rep.resumed_leaves == before_kill > 0,
+          f"{what}: resumed {rep.resumed_leaves} leaves, expected "
+          f"{before_kill}")
+    check(inj.fired == [("kill", kill)], f"{what}: faults {inj.fired}")
+    check(resumed_launches == clean_after > 0 and replayed_launches == 0,
+          f"{what}: the resumed attempt launched comq_panel "
+          f"{resumed_launches} times ({replayed_launches} on re-applied "
+          f"layers); the clean run {clean_after} past the kill")
+    if full:
+        check(peak_sup <= DUR_MEM_RATIO * peak_clean,
+              f"{what}: supervised peak {peak_sup} > {DUR_MEM_RATIO} x the "
+              f"clean run's {peak_clean}")
+    del q, rep
+    shutil.rmtree(jd)
+
+    if full:
+        # ckpt_write: the torn spill is never journaled; a resume completes
+        jd = work / "journal_torn"
+        inj = FaultInjector({"ckpt_write": [1]})
+        try:
+            quantize_model(params, cfg, plan, tokens, spec,
+                           method="comq_blocked", journal=str(jd),
+                           injector=inj)
+            check(False, f"{what}: the ckpt_write fault did not fire")
+        except InjectedFault:
+            pass
+        st = QuantJournal.replay(str(jd))
+        torn = sorted(p.name for p in (jd / "leaves").glob("*.tmp"))
+        check(len(torn) == 1 and not st.leaves
+              and not (jd / "leaves" / torn[0][:-4]).exists(),
+              f"{what}: ckpt_write left {torn}, journal {list(st.leaves)}")
+        q, rep = quantize_model(params, cfg, plan, tokens, spec,
+                                method="comq_blocked", journal=str(jd),
+                                resume=True)
+        ok = host_equal(to_host(q["__qlayers__"]), ref)
+        say(f"{what}: ckpt_write:1 left {torn[0]} unjournaled; the resume "
+            f"completed ({QuantJournal.check_integrity(str(jd))} leaves "
+            f"verified), codes equal to the clean run: {ok}")
+        check(ok, f"{what}: the run resumed after ckpt_write differs")
+        del q, rep
+        shutil.rmtree(jd)
+        # nan_tap: a guard event, a finite run
+        import warnings
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            q, rep = quantize_model(params, cfg, plan, tokens, spec,
+                                    method="comq_blocked",
+                                    injector=FaultInjector({"nan_tap": [1]}))
+        kinds = sorted({(e.layer, e.name, e.kind) for e in rep.guard_events})
+        finite = (all(np.isfinite(r.err_after) for r in rep.layers)
+                  and all(bool(torch.isfinite(v["scale"]).all())
+                          for lp in q["__qlayers__"].values()
+                          for leaves in lp.values()
+                          for v in leaves.values() if isinstance(v, dict)))
+        say(f"{what}: nan_tap:1 guard events {kinds}; finite {finite}")
+        check(("nonfinite_tap" in {k for _, _, k in kinds}) and finite,
+              f"{what}: nan_tap gave {kinds}, finite {finite}")
+        del q, rep
+    del params, tokens
+    return t_clean, t_journal, t_sup, peak_clean, peak_sup
+
+
+def ci_fault_smoke(work):
+    """ci.yml's "Quantize fault smoke", as CI writes it, on the card: the
+    port's launcher clean and with --inject kill:2 --restarts 3 (no
+    --device: both on the card); the .qpk files compared byte for byte,
+    and each --out-dir step_0 restored to the .qpk's arrays."""
+    import filecmp
+    import os
+    import numpy as np
+    from repro_torch.ckpt import CheckpointManager, load_packed_ckpt
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = {"ref": ("--out-dir", str(work / "q_ref"), "--save-packed",
+                    str(work / "ref.qpk")),
+            "fault": ("--out-dir", str(work / "q_fault"), "--journal",
+                      str(work / "qjournal"), "--inject", "kill:2",
+                      "--restarts", "3", "--save-packed",
+                      str(work / "fault.qpk"))}
+    for name, extra in runs.items():
+        t0 = time.time()
+        p = subprocess.run([sys.executable, "-m",
+                            "repro_torch.launch.quantize", *CI_SMOKE,
+                            *extra], env=env, cwd=str(work),
+                           capture_output=True, text=True, timeout=600)
+        check(p.returncode == 0, f"CI fault smoke {name}: exit "
+              f"{p.returncode}\n{p.stdout[-2000:]}\n{p.stderr[-2000:]}")
+        say(f"CI fault smoke {name} ({time.time() - t0:.1f} s wall): "
+            f"{p.stdout.strip().splitlines()[-1]}")
+    same = filecmp.cmp(work / "ref.qpk", work / "fault.qpk", shallow=False)
+    say(f"CI fault smoke: cmp ref.qpk fault.qpk -> "
+        f"{'identical' if same else 'DIFFER'} "
+        f"({(work / 'ref.qpk').stat().st_size} bytes)")
+    check(same, "CI fault smoke: the resumed .qpk differs from the clean one")
+    tree = load_packed_ckpt(str(work / "ref.qpk"))["tree"]
+    for d in ("q_ref", "q_fault"):
+        out, _ = CheckpointManager(str(work / d)).restore(0, tree)
+        check(host_equal(out, tree), f"CI fault smoke: {d}/step_0 restores "
+              "to other arrays than the .qpk holds")
+    say("CI fault smoke: both step_0 checkpoints restore to the .qpk arrays")
+
+
+def staggered(rt, prompts, reqs, retry=()):
+    """SERVE_SLOTS of `prompts` ((prompt, submit kwargs) pairs) up front,
+    the rest one per step, then drained; each request is appended to
+    `reqs` as it is submitted (so a killed run leaves them there). A step
+    that raises one of `retry` runs again (the in-process retry of a
+    transient fault). Returns the number of retried steps."""
+    retried = 0
+
+    def step():
+        nonlocal retried
+        while True:
+            try:
+                return rt.step()
+            except retry:
+                retried += 1
+
+    for p, kw in prompts[:SERVE_SLOTS]:
+        reqs.append(rt.submit(p, max_new_tokens=SERVE_NEW, **kw))
+    for p, kw in prompts[SERVE_SLOTS:]:
+        step()
+        reqs.append(rt.submit(p, max_new_tokens=SERVE_NEW, **kw))
+    while not rt.scheduler.idle:
+        step()
+    return retried
+
+
+def serve_killed(torch, dev, sp, cfg, plan, prompts, jd, kill):
+    """The serve launcher's supervised run on the phase-8 traffic: a
+    journaled Runtime killed at its `kill`-th step, recovered through
+    recover_runtime under run_with_restarts(max_restarts=2); the dead
+    attempt's runtime is dropped before the next allocates. Returns
+    (tokens by rid, in flight at the kill, the recovery's journal state,
+    rids the recovered runtime completed, the final journal state, wall
+    seconds)."""
+    import gc
+    from repro_torch.ft import (FaultInjector, Journal, SimulatedKill,
+                                run_with_restarts)
+    from repro_torch.serve import Runtime, recover_runtime
+    inj = FaultInjector({"kill": [kill]})
+    box = {"first": []}
+
+    def attempt(_):
+        prev = box.pop("rt", None)
+        if prev is not None:
+            prev.journal.close()
+            del prev
+            gc.collect()
+        if Journal.replay(str(jd)).records:
+            rt, st = recover_runtime(sp, cfg, plan, str(jd), serve_config(),
+                                     injector=inj, device=dev)
+            box["rt"], box["state"] = rt, st
+            for p in prompts[st.max_rid + 1:]:
+                rt.submit(p, max_new_tokens=SERVE_NEW)
+            rt.run()
+            return
+        rt = Runtime(sp, cfg, plan, serve_config(), journal=Journal(str(jd)),
+                     injector=inj, device=dev)
+        box["rt"] = rt
+        staggered(rt, [(p, {}) for p in prompts], box["first"])
+
+    t0 = time.time()
+    run_with_restarts(attempt, lambda: len(Journal.replay(str(jd)).completed),
+                      max_restarts=2, exceptions=(SimulatedKill,),
+                      backoff_s=0.0)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    rt = box.pop("rt")
+    rt.journal.close()
+    check(inj.fired == [("kill", kill)], f"serve kill: faults {inj.fired}")
+    final = Journal.replay(str(jd))
+    tokens = {rid: final.completed_tokens(rid) for rid in final.completed}
+    inflight = sum(r.state != "done" for r in box["first"])
+    redone = {r.rid for r in rt.scheduler.completed}
+    return tokens, inflight, box["state"], redone, final, wall
+
+
+def phase_durability(torch, dev, ops, kernels, sp, cfg, prompts, smi):
+    """Phase 16: the quantize walk and the paged runtime journaled,
+    killed, resumed and fault-injected on the card. Returns the launch
+    counts of its quantize runs plus its serve runs."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.core import QuantSpec, parse_policy
+    from repro_torch.ft import FaultInjector, InjectedFault
+    from repro_torch.models import BuildPlan
+    from repro_torch.serve import Runtime
+    panel = kernels[0]
+    cfg32 = cfg.replace(compute_dtype="float32")
+    work = ROOT / "build" / "durability"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    say(f"durability: card {smi}")
+    t_phase = time.time()
+    spec = QuantSpec(bits=4, granularity="per_channel", lam=0.9, sweeps=3,
+                     order="greedy")
+
+    # a, b, d: the quantize walks (counted)
+    ops.reset_launch_counts()
+    dense = get_config("qwen2-7b").replace(n_layers=DUR_LAYERS)
+    durable_quantize(torch, panel, dev, dense, spec, DUR_KILL, work,
+                     "durability qwen2-7b", smi, full=True)
+    moe = get_config(MOE_ARCH).replace(n_layers=DUR_LAYERS)
+    durable_quantize(torch, panel, dev, moe,
+                     parse_policy(DUR_MOE_POLICY, spec), DUR_MOE_KILL, work,
+                     f"durability {MOE_ARCH} policy {DUR_MOE_POLICY}", smi)
+    q_counts = ops.launch_counts()
+    say(f"durability quantize path launches: {q_counts}")
+    check(q_counts["comq_panel"] > 0 and q_counts["flash_attention"] > 0,
+          f"durability: the quantize walks did not launch: {q_counts}")
+
+    # c: the CI gate, through the launcher, on the card
+    ci_fault_smoke(work)
+
+    # e: serve (counted): kill and recover at f32, faults that do not kill
+    ops.reset_launch_counts()
+    plan32 = BuildPlan(cache_dtype=torch.float32)
+    with torch.no_grad():
+        _, ref_reqs = serve_traffic(torch, dev, sp, cfg32, plan32, prompts,
+                                    serve_config(), "f32 kv_bits=0 "
+                                    "uninterrupted")
+        want = {r.rid: r.out_tokens for r in ref_reqs}
+        for kill in DUR_SERVE_KILLS:
+            tokens, inflight, st, redone, final, wall = serve_killed(
+                torch, dev, sp, cfg32, plan32, prompts,
+                work / f"serve_f32_{kill}", kill)
+            same = sum(tokens.get(rid) == t for rid, t in want.items())
+            replayed = sum(r["ev"] == "replayed" for r in final.records)
+            say(f"serve f32 kill at step {kill} ({wall:.3f} s wall incl. "
+                f"recovery): {len(st.completed)} retired before the kill, "
+                f"{inflight} in flight, {replayed} replayed; {same}/"
+                f"{len(want)} requests token-identical to the uninterrupted "
+                "run")
+            check(same == len(want), f"serve f32 kill at step {kill}: a "
+                  "recovered request's tokens differ from the uninterrupted "
+                  "run")
+            check(redone == set(st.inflight)
+                  and not redone & set(st.completed),
+                  f"serve f32 kill at step {kill}: the recovery ran "
+                  f"{sorted(redone)}, in flight {sorted(st.inflight)}")
+            check(replayed == inflight == len(st.inflight) > 0,
+                  f"serve f32 kill at step {kill}: replayed {replayed}, in "
+                  f"flight at the kill {inflight}, journal in flight "
+                  f"{len(st.inflight)}")
+        check(len(st.completed) > 0, f"serve f32: nothing retired before "
+              f"the kill at step {kill}")
+
+        for spec_, label in (({"decode_step": [5]}, "decode_step:5"),
+                             ({"page_alloc": [3, 7]}, "page_alloc:3+7"),
+                             ({"callback": [2]}, "callback:2")):
+            inj = FaultInjector(spec_)
+            rt = Runtime(sp, cfg32, plan32, serve_config(), injector=inj,
+                         device=dev)
+            seen = {}
+
+            def cb(r, t):
+                seen[r.rid] = seen.get(r.rid, 0) + 1
+
+            reqs = []
+            retried = staggered(rt, [(p, {"stream_cb": cb})
+                                     for p in prompts], reqs,
+                                retry=(InjectedFault,))
+            finished = sum(len(r.out_tokens) == SERVE_NEW for r in reqs)
+            same = sum(r.out_tokens == want[r.rid] for r in reqs)
+            errs = {r.rid: len(r.cb_errors) for r in reqs if r.cb_errors}
+            short = {r.rid for r in reqs if seen.get(r.rid) != SERVE_NEW}
+            say(f"serve f32 {label}: fired {inj.fired}, steps retried "
+                f"{retried}, {finished}/{len(reqs)} finished, {same}/"
+                f"{len(reqs)} token-identical to the uninterrupted run, "
+                f"preemptions {rt.scheduler.preemptions}, callback errors "
+                f"{errs}")
+            check(inj.fired and finished == len(reqs),
+                  f"serve f32 {label}: fired {inj.fired}, {finished} "
+                  "finished")
+            rt.allocator.check_integrity()
+            if label != "page_alloc:3+7":      # no re-prefill: same steps
+                check(same == len(reqs), f"serve f32 {label}: tokens differ")
+            if label == "callback:2":
+                check(len(errs) == 1 and short == set(errs),
+                      f"serve f32 callback: errors {errs}, short streams "
+                      f"{short}")
+            del rt
+
+        # printed, not gated: the kill run at bf16, and over int8 pages
+        for label, plan in (("bf16 kv_bits=0", BuildPlan()),
+                            ("bf16 kv_bits=8", BuildPlan(kv_bits=8))):
+            _, refs = serve_traffic(torch, dev, sp, cfg, plan, prompts,
+                                    serve_config(), f"{label} uninterrupted")
+            tokens, inflight, st, _, _, wall = serve_killed(
+                torch, dev, sp, cfg, plan, prompts,
+                work / f"serve_{label.replace(' ', '_')}",
+                DUR_SERVE_KILLS[0])
+            same = sum(tokens.get(r.rid) == r.out_tokens for r in refs)
+            say(f"serve {label} kill at step {DUR_SERVE_KILLS[0]} "
+                f"({wall:.3f} s wall): {inflight} in flight replayed; "
+                f"{same}/{len(refs)} "
+                "requests token-identical to the uninterrupted run (printed)")
+    s_counts = ops.launch_counts()
+    say(f"durability serve path launches: {s_counts}")
+    check(all(s_counts[n] > 0 for n in SERVE_PATH),
+          f"durability: a kernel of the serve runs never launched: "
+          f"{s_counts}")
+    shutil.rmtree(work)
+    say(f"durability: phase 16 took {time.time() - t_phase:.1f} s wall")
+    return {n: q_counts[n] + s_counts[n] for n in q_counts}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2013,7 +2485,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    say(f"device: {smi.stdout.strip().splitlines()[0]}")
+    card = smi.stdout.strip().splitlines()[0]
+    say(f"device: {card}")
     say(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
 
@@ -2194,7 +2667,13 @@ def main() -> int:
     # 9. mixed-precision policies (the policy path, counted)
     policy_counts = phase_policy(torch, dev, cfg, cfg32, ops, kernels,
                                  prompts, qmm, paged)
-    del sp, run
+    del run
+
+    # 16. durability (its quantize and serve runs counted), while the
+    # phase-4 model is still on the card
+    dur_counts = phase_durability(torch, dev, ops, kernels, sp, cfg, prompts,
+                                  card)
+    del sp
 
     # 10. the MoE family: its kernels, then the MoE path, counted
     moe_cfg = get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS)
@@ -2267,9 +2746,9 @@ def main() -> int:
 
     # kernels line: launches on the main path as a whole
     src = "src/repro_torch/csrc/{}.cu"
-    launches = {n: totals[n] + policy_counts[n] + moe_counts[n]
-                + hyb_counts[n] + audio_counts[n] + rwkv_counts[n]
-                + vlm_counts[n] + enc_counts[n]
+    launches = {n: totals[n] + policy_counts[n] + dur_counts[n]
+                + moe_counts[n] + hyb_counts[n] + audio_counts[n]
+                + rwkv_counts[n] + vlm_counts[n] + enc_counts[n]
                 for n in totals}
     launches["comq_panel_batched"] = moe_batched
     for arch, path, counts in ((HYBRID_ARCH, HYBRID_PATH, hyb_counts),

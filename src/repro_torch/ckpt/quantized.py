@@ -138,10 +138,13 @@ class PackedCkptError(RuntimeError):
     checksum mismatch, wrong format/version)."""
 
 
-def save_packed_ckpt(path: str, tree, **meta) -> int:
+def save_packed_ckpt(path: str, tree, fault_cb=None, **meta) -> int:
     """Write a packed quantized tree as one self-describing file, atomically
     (tmp + fsync + rename). Torch tensors are stored as numpy arrays.
-    Returns the payload crc32."""
+    `fault_cb` (fault injection) runs between the durable tmp write and the
+    rename: the torn-write window the quantization journal's ordering must
+    survive. Returns the payload crc32 (what the journal records per
+    spilled leaf)."""
     payload = pickle.dumps({"tree": to_host(tree), **meta})
     crc = zlib.crc32(payload)
     blob = {"format": PACKED_FORMAT, "version": PACKED_VERSION,
@@ -151,6 +154,8 @@ def save_packed_ckpt(path: str, tree, **meta) -> int:
         pickle.dump(blob, f)
         f.flush()
         os.fsync(f.fileno())
+    if fault_cb is not None:
+        fault_cb()
     os.replace(tmp, path)
     return crc
 

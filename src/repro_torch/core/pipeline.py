@@ -33,19 +33,31 @@ exact, a mixed-bit group solves leaf by leaf. With guards on (the
 default) the numeric guards of core/guards.py sanitize taps, Grams and
 weights and escalate failed solves; a healthy run gives the same codes as
 guards=False. Per-leaf errors stay on the device until one transfer at the
-end.
+end, unless the run is journaled.
+
+Crash safety (`_RunCtx`): with a journal every solved tap group is pulled
+to the host once, each leaf spilled atomically and then journaled
+(ft/journal.QuantJournal); a resumed run re-applies a group's journaled
+leaves through the same callback, skipping its Gram and solve, so the
+forward, every later tap and every later solve repeat the uninterrupted
+run's bit for bit. A fault injector (ft/inject.FaultInjector) arms the
+pipeline's fault points (gram_accumulate, leaf_solve, ckpt_write, kill
+between layers, nan_tap).
 
 The encoder has no walk, as in the JAX package (its `quantize_model`
-starts from `embed_tokens`). Not ported yet (ROADMAP.md): the
-journal/resume path and fault injection (item 13), tracing/metrics
+starts from `embed_tokens`). Not ported yet (ROADMAP.md): tracing/metrics
 (item 14), data/column sharding (item 15).
 """
 from __future__ import annotations
 
+import json
+import sys
 import time
-from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+import zlib
+from dataclasses import asdict, dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import calibrate
@@ -57,8 +69,10 @@ from repro_torch.core.comq_hessian import (comq_quantize_blocked,
                                            comq_quantize_h, per_expert,
                                            rtn_experts)
 from repro_torch.core.guards import GuardContext, GuardEvent, guarded_solve
-from repro_torch.core.policy import as_policy
+from repro_torch.core.policy import as_policy, policy_to_dict
 from repro_torch.core.quantizer import QuantSpec
+from repro_torch.ft.inject import InjectedFault, SimulatedKill
+from repro_torch.ft.journal import QuantJournal, ResumeMismatch
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import apply_norm
 
@@ -175,6 +189,8 @@ class QuantReport:
     # every numeric-guard intervention of the run (core/guards.GuardEvent);
     # empty on a healthy run
     guard_events: List[GuardEvent] = field(default_factory=list)
+    # leaves re-applied from the journal instead of solved
+    resumed_leaves: int = 0
 
     def total_improvement(self) -> float:
         b = sum(r.err_before for r in self.layers)
@@ -473,47 +489,183 @@ def _sanitize_tap(gctx: GuardContext, tap: Tensor, layer: int,
     return tap
 
 
-def _solve_tap_group(lp, tapname: str, entries, tap: Tensor, resolve,
-                     method: str, layer_idx: int, gctx: GuardContext,
-                     prefix: str = ""):
-    """Sanitize the tap, take its Gram (per expert for a stacked-expert
-    tap) and solve its leaf group; leaf names carry `prefix` ("cross." in
-    a VLM cross layer). Returns [(mod, leaf, name, (qt, eb, ea, secs)),
-    ...]."""
+# ---------------------------------------------------------------------------
+# crash-safe run context: journaling, resume, fault injection
+# ---------------------------------------------------------------------------
+
+def _spec_digest(spec: QuantSpec, method: str) -> int:
+    """crc32 of the resolved spec + solver, part of the journal key: a
+    journaled leaf is re-applied only under the spec a re-solve would get
+    (the JAX package's digest)."""
+    payload = {**asdict(spec), "method": method}
+    return zlib.crc32(json.dumps(payload, sort_keys=True).encode())
+
+
+def _run_digest(cfg, policy, method: str, propagation: str, tokens,
+                quantize_unembed: bool) -> int:
+    """crc32 over everything that must match for journaled leaves to equal
+    a fresh solve: architecture, solver, policy, schedule and the
+    calibration token bytes, hashed as int32 (the JAX launcher's token
+    type), so both packages give one digest for one run. The port runs on
+    one device: its mesh term is None."""
+    tok = tokens.cpu().numpy().astype(np.int32)
+    payload = {
+        "arch": cfg.name, "family": cfg.family, "n_layers": cfg.n_layers,
+        "method": method, "propagation": propagation,
+        "policy": policy_to_dict(policy),
+        "unembed": bool(quantize_unembed),
+        "tokens": [zlib.crc32(tok.tobytes()), list(tok.shape),
+                   str(tok.dtype)],
+        "mesh": None,
+    }
+    return zlib.crc32(json.dumps(payload, sort_keys=True).encode())
+
+
+class _RunCtx:
+    """Per-run plumbing threaded through the layer walk: the guard context
+    (core/guards), the quantization journal (resume lookup + durable leaf
+    commit) and the fault injector. Without journal and injector every
+    hook is a no-op."""
+
+    def __init__(self, method: str, gctx: GuardContext, device,
+                 journal: Optional[QuantJournal] = None, solved=None,
+                 injector=None, progress_cb=None):
+        self.method = method
+        self.gctx = gctx
+        self.device = device
+        self.journal = journal
+        self.solved = dict(solved or {})   # (layer, name) -> leaf record
+        self.injector = injector
+        self.progress_cb = progress_cb
+        self.resumed = 0
+
+    def fault(self, point: str, exc=InjectedFault) -> None:
+        if self.injector is not None:
+            self.injector.check(point, exc=exc)
+
+    def poison_tap(self, tap: Tensor) -> Tensor:
+        """nan_tap fault: poison one tap entry instead of raising."""
+        if self.injector is not None and self.injector.fire("nan_tap"):
+            tap = tap.clone()
+            tap[(0,) * tap.dim()] = float("nan")
+        return tap
+
+    def lookup(self, layer: int, names, specs):
+        """All-or-nothing journal hit for one tap group: every leaf must be
+        journaled under its current spec digest, else the whole group
+        re-solves (a partial hit would change the fused solve). Returns
+        [(qtensor, leaf record), ...] or None."""
+        if self.journal is None or not self.solved:
+            return None
+        recs = []
+        for nm, spec in zip(names, specs):
+            rec = self.solved.get((layer, nm))
+            if rec is None or rec["spec"] != _spec_digest(spec, self.method):
+                return None
+            recs.append(rec)
+        loaded = []
+        for rec in recs:
+            qt_host = QuantJournal.load_leaf(self.journal.dir, rec)
+            # intern the keys: a spill unpickles fresh string objects, and
+            # pickle memoizes strings by object, so a later .qpk of the
+            # resumed tree would differ in bytes from a fresh run's
+            qt = {sys.intern(str(k)): (torch.tensor(v, device=self.device)
+                                       if isinstance(v, np.ndarray) else v)
+                  for k, v in qt_host.items()}
+            loaded.append((qt, rec))
+        self.resumed += len(loaded)
+        return loaded
+
+    def commit(self, layer: int, names, specs, results):
+        """Durably persist each solved leaf — spill (atomic packed file)
+        strictly before its journal record — and return the rows with
+        host-float errors. Journaling pulls each group to the host once;
+        without a journal the walk stays sync-free."""
+        if self.journal is None:
+            return results
+        errs = torch.stack([torch.stack([torch.as_tensor(eb).float(),
+                                         torch.as_tensor(ea).float()])
+                            for _, eb, ea, _ in results]).cpu().tolist()
+        rows = []
+        for nm, spec, (qt, _, _, secs), (ebf, eaf) in zip(names, specs,
+                                                         results, errs):
+            qt_host = {k: v.detach().cpu().numpy()
+                       if isinstance(v, Tensor) else v for k, v in qt.items()}
+            fname, crc = self.journal.spill_leaf(
+                layer, nm, qt_host, fault_cb=self._ckpt_write_fault)
+            self.journal.record_leaf(layer, nm,
+                                     _spec_digest(spec, self.method),
+                                     fname, crc, ebf, eaf)
+            rows.append((qt, ebf, eaf, secs))
+        return rows
+
+    def _ckpt_write_fault(self) -> None:
+        self.fault("ckpt_write")
+
+    def layer_done(self, layer: int) -> None:
+        """End of a layer: journal the marker, report progress, and give
+        the kill fault point its between-layers shot, after the layer's
+        leaves are durably journaled."""
+        if self.journal is not None:
+            self.journal.record_layer_done(layer)
+        if self.progress_cb is not None:
+            self.progress_cb(layer)
+        self.fault("kill", SimulatedKill)
+
+
+def _quantize_tap_group(lp, tapname: str, entries, tap: Tensor, resolve,
+                        method: str, layer_idx: int, ctx: _RunCtx,
+                        pending: List[tuple], prefix: str = ""):
+    """One tap group: re-apply its journaled leaves, or poison (nan_tap),
+    sanitize the tap, take its Gram (per expert for a stacked-expert tap),
+    solve the group and commit it. Leaf names carry `prefix` ("cross." in
+    a VLM cross layer). Appends the report rows to `pending`; returns
+    [(mod, leaf, qtensor), ...]."""
     names = [f"{prefix}{mod}.{leaf}" for mod, leaf in entries]
-    ws = [lp[mod][leaf] for mod, leaf in entries]
     specs = _group_specs(resolve, layer_idx, entries, prefix)
-    tap = _sanitize_tap(gctx, tap, layer_idx, names)
-    if tapname.startswith("expert"):
-        results = _solve_group_experts(ws, calibrate.batched_gram(tap),
-                                       specs, method, gctx=gctx,
-                                       layer=layer_idx, names=names)
+    cached = ctx.lookup(layer_idx, names, specs)
+    if cached is not None:
+        rows = [(qt, rec["err_before"], rec["err_after"], 0.0)
+                for qt, rec in cached]
     else:
-        results = _solve_group(ws, calibrate.gram_from_tap(tap), specs,
-                               method, gctx=gctx, layer=layer_idx,
-                               names=names)
-    return [(mod, leaf, nm, res)
-            for (mod, leaf), nm, res in zip(entries, names, results)]
+        ctx.fault("gram_accumulate")
+        tap = _sanitize_tap(ctx.gctx, ctx.poison_tap(tap), layer_idx, names)
+        for _ in names:
+            ctx.fault("leaf_solve")
+        ws = [lp[mod][leaf] for mod, leaf in entries]
+        if tapname.startswith("expert"):
+            rows = _solve_group_experts(ws, calibrate.batched_gram(tap),
+                                        specs, method, gctx=ctx.gctx,
+                                        layer=layer_idx, names=names)
+        else:
+            rows = _solve_group(ws, calibrate.gram_from_tap(tap), specs,
+                                method, gctx=ctx.gctx, layer=layer_idx,
+                                names=names)
+        rows = ctx.commit(layer_idx, names, specs, rows)
+    out = []
+    for (mod, leaf), nm, (qt, eb, ea, secs) in zip(entries, names, rows):
+        pending.append((layer_idx, nm, eb, ea, secs))
+        out.append((mod, leaf, qt))
+    return out
 
 
 def _staged_cb(lp, groups, taps, resolve, method: str,
                pending: List[tuple], layer_idx: int, holder: dict,
-               gctx: GuardContext, prefix: str = ""):
+               ctx: _RunCtx, prefix: str = ""):
     """The staged `quantize_cb`: invoked by the model's tap hooks
-    mid-forward, right after tap `tapname` is recorded. Solves the tap's
-    leaf group (each leaf under its resolved spec), stashes the QTensors
-    in `holder`, and returns dequantized replacements so the rest of the
-    forward runs on the quantized sub-blocks."""
+    mid-forward, right after tap `tapname` is recorded. Quantizes the
+    tap's leaf group (or re-applies it from the journal), stashes the
+    QTensors in `holder`, and returns dequantized replacements so the rest
+    of the forward runs on the quantized sub-blocks."""
     def cb(tapname: str):
         entries = groups.get(tapname)
         if not entries:
             return {}
         repl = {}
-        for mod, leaf, nm, (qt, eb, ea, secs) in _solve_tap_group(
+        for mod, leaf, qt in _quantize_tap_group(
                 lp, tapname, entries, taps[tapname], resolve, method,
-                layer_idx, gctx, prefix):
+                layer_idx, ctx, pending, prefix):
             holder["lp_q"] = _set_nested(holder["lp_q"], mod, leaf, qt)
-            pending.append((layer_idx, nm, eb, ea, secs))
             repl[leaf] = dequant_qtensor(qt)
         return repl
     return cb
@@ -521,7 +673,7 @@ def _staged_cb(lp, groups, taps, resolve, method: str,
 
 def _quantize_layer_staged(lp, x, state, cfg, plan, tapmap, resolve,
                            method: str, pending: List[tuple],
-                           layer_idx: int, gctx: GuardContext,
+                           layer_idx: int, ctx: _RunCtx,
                            vision_kv=None, prefix: str = ""):
     """One `layer_full` evaluation quantizes the layer in tap order and
     propagates x (and the recurrent state) through the quantized
@@ -530,7 +682,7 @@ def _quantize_layer_staged(lp, x, state, cfg, plan, tapmap, resolve,
     taps: Dict[str, Tensor] = {}
     holder = {"lp_q": lp}
     cb = _staged_cb(lp, _tap_groups(lp, tapmap), taps, resolve, method,
-                    pending, layer_idx, holder, gctx, prefix)
+                    pending, layer_idx, holder, ctx, prefix)
     y, state = layer_with_state(lp, x, state, cfg, plan,
                                 vision_kv=vision_kv, taps=taps,
                                 quantize_cb=cb)
@@ -539,7 +691,7 @@ def _quantize_layer_staged(lp, x, state, cfg, plan, tapmap, resolve,
 
 def _quantize_layer_legacy(lp, x, state, cfg, plan, tapmap, resolve,
                            method: str, pending: List[tuple],
-                           layer_idx: int, gctx: GuardContext,
+                           layer_idx: int, ctx: _RunCtx,
                            vision_kv=None, prefix: str = ""):
     """Legacy schedule: a float forward collects every tap of the layer,
     each tap group is solved from its Gram, and a second
@@ -551,18 +703,17 @@ def _quantize_layer_legacy(lp, x, state, cfg, plan, tapmap, resolve,
                      taps=taps)
     lp_q = dict(lp)
     for tapname, entries in _tap_groups(lp, tapmap).items():
-        for mod, leaf, nm, (qt, eb, ea, secs) in _solve_tap_group(
+        for mod, leaf, qt in _quantize_tap_group(
                 lp, tapname, entries, taps[tapname], resolve, method,
-                layer_idx, gctx, prefix):
+                layer_idx, ctx, pending, prefix):
             lp_q = _set_nested(lp_q, mod, leaf, qt)
-            pending.append((layer_idx, nm, eb, ea, secs))
     y, state = layer_with_state(dequantize_tree(lp_q), x, state, cfg, plan,
                                 vision_kv=vision_kv)
     return lp_q, y, state
 
 
 def _quantize_vlm(params, cfg, plan, x, vision_embeds, layer_fn, resolve,
-                  method: str, pending: List[tuple], gctx: GuardContext):
+                  method: str, pending: List[tuple], ctx: _RunCtx):
     """The VLM walk: group g's self layers (layer index g·(spg+1) + s,
     DENSE_TAPS), then its cross layer (index g·(spg+1) + spg, CROSS_TAPS)
     over the projected image's K/V. Returns the "__qlayers__" table, keyed
@@ -576,27 +727,56 @@ def _quantize_vlm(params, cfg, plan, x, vision_embeds, layer_fn, resolve,
     for gi, (gp_self, cp) in enumerate(zip(params["groups"]["self"],
                                            params["groups"]["cross"])):
         for si, lp in enumerate(gp_self):
+            lidx = gi * (spg + 1) + si
             table[f"self_{gi}_{si}"], x, _ = layer_fn(
                 lp, x, None, cfg, plan, DENSE_TAPS, resolve, method,
-                pending, gi * (spg + 1) + si, gctx)
+                pending, lidx, ctx)
+            ctx.layer_done(lidx)
         vkv = tfm.vision_kv_for_layer(cp, ve)
+        lidx = gi * (spg + 1) + spg
         table[f"cross_{gi}"], x, _ = layer_fn(
             cp, x, None, cfg, plan, CROSS_TAPS, resolve, method, pending,
-            gi * (spg + 1) + spg, gctx, vision_kv=vkv, prefix="cross.")
+            lidx, ctx, vision_kv=vkv, prefix="cross.")
+        ctx.layer_done(lidx)
     return table
 
 
 def _finalize_report(report: QuantReport, pending: List[tuple]):
-    """Move every per-leaf error scalar to the host in one transfer."""
-    if not pending:
-        return report
-    errs = torch.stack([torch.stack([torch.as_tensor(eb).float(),
-                                     torch.as_tensor(ea).float()])
-                        for (_, _, eb, ea, _) in pending]).cpu().tolist()
-    for (li, name, _, _, secs), (eb, ea) in zip(pending, errs):
+    """Move every per-leaf error scalar still on the device to the host in
+    one transfer (a journaled run's are host floats already)."""
+    on_dev = [v for row in pending for v in row[2:4]
+              if isinstance(v, Tensor)]
+    host = iter(torch.stack([v.float() for v in on_dev]).cpu().tolist()
+                if on_dev else ())
+    for li, name, eb, ea, secs in pending:
+        eb = next(host) if isinstance(eb, Tensor) else eb
+        ea = next(host) if isinstance(ea, Tensor) else ea
         report.layers.append(LayerReport(li, name, float(eb), float(ea),
                                          secs))
     return report
+
+
+def _quantize_unembed(params, cfg, x: Tensor, resolve, method: str,
+                      ctx: _RunCtx, pending: List[tuple]) -> dict:
+    """The unembedding, solved on the final-norm activations (layer -1) or
+    re-applied from the journal; returns its QTensor."""
+    names, specs = ["unembed"], [resolve(-1, "unembed")]
+    cached = ctx.lookup(-1, names, specs)
+    if cached is not None:
+        qt, rec = cached[0]
+        row = (qt, rec["err_before"], rec["err_after"], 0.0)
+    else:
+        ctx.fault("gram_accumulate")
+        xn = _sanitize_tap(ctx.gctx, ctx.poison_tap(
+            apply_norm(params["final_norm"], x, cfg)), -1, names)
+        ctx.fault("leaf_solve")
+        rows = _solve_group([params["unembed"]], calibrate.gram_from_tap(xn),
+                            specs, method, gctx=ctx.gctx, layer=-1,
+                            names=names)
+        row = ctx.commit(-1, names, specs, rows)[0]
+    qt, eb, ea, secs = row
+    pending.append((-1, "unembed", eb, ea, secs))
+    return qt
 
 
 def _calib_leaf_dims(cfg) -> Dict[str, int]:
@@ -612,7 +792,9 @@ def _calib_leaf_dims(cfg) -> Dict[str, int]:
 def quantize_model(params, cfg, plan, tokens: Tensor, spec,
                    method: str = "comq", quantize_unembed: bool = False,
                    propagation: str = "staged", *, guards: bool = True,
-                   vision_embeds: Optional[Tensor] = None):
+                   vision_embeds: Optional[Tensor] = None,
+                   journal=None, resume: bool = False, injector=None,
+                   progress_cb: Optional[Callable[[int], None]] = None):
     """Quantize every projection weight of a dense, MoE, hybrid, RWKV or
     VLM LM (the router, the SSM's small leaves, RWKV's mixes, LoRAs and
     decay, and a cross layer's wk / wv and gates stay float). `tokens`:
@@ -627,6 +809,16 @@ def quantize_model(params, cfg, plan, tokens: Tensor, spec,
     numeric guards (core/guards.py): a healthy run gives the same codes as
     guards=False, and every intervention lands in
     QuantReport.guard_events and the leaf's LayerReport.guard.
+
+    Crash safety, all optional, as in the JAX package: `journal` (a
+    directory or an ft.QuantJournal) spills and journals every solved
+    leaf; resume=True re-applies the journaled leaves instead of solving
+    them, giving the uninterrupted run's codes, scales and report rows bit
+    for bit (QuantReport.resumed_leaves counts them); a journal written by
+    another run (arch, policy, method, schedule or calibration tokens
+    differ) raises ft.ResumeMismatch. `injector` (ft.FaultInjector) arms
+    the pipeline's fault points; progress_cb(layer) runs after each
+    durably journaled layer.
 
     Returns (qparams, QuantReport): qparams is `params` plus a
     "__qlayers__" side table {str(layer): layer params with QTensor
@@ -660,37 +852,66 @@ def quantize_model(params, cfg, plan, tokens: Tensor, spec,
     layer_fn = (_quantize_layer_staged if propagation == "staged"
                 else _quantize_layer_legacy)
 
+    qj: Optional[QuantJournal] = None
+    own_journal = False
+    solved: Dict[Tuple[int, str], Dict] = {}
+    if journal is not None:
+        own_journal = not isinstance(journal, QuantJournal)
+        qj = QuantJournal(journal) if own_journal else journal
+        digest = _run_digest(cfg, policy, method, propagation, tokens,
+                             quantize_unembed)
+        st = QuantJournal.replay(qj.dir)
+        if resume and st.run is not None:
+            if int(st.run["run"]) != digest:
+                if own_journal:
+                    qj.close()
+                raise ResumeMismatch(
+                    f"journal {qj.dir} was written by run digest "
+                    f"{st.run['run']}, current run digest is {digest} "
+                    "(arch/policy/method/calibration changed) — refusing "
+                    "to mix journaled leaves into a different run")
+            solved = dict(st.leaves)
+            qj.record_resume(len(solved))
+        else:
+            qj.record_run_start(digest, arch=cfg.name, method=method,
+                                propagation=propagation,
+                                n_layers=cfg.n_layers)
+
     gctx = GuardContext(enabled=guards)
+    ctx = _RunCtx(method, gctx, tokens.device, journal=qj, solved=solved,
+                  injector=injector, progress_cb=progress_cb)
     t_start = time.time()
     report = QuantReport()
     pending: List[tuple] = []
     table = {}
     qparams = dict(params)
-    with torch.no_grad():
-        x = embed_tokens(params, cfg, plan, tokens)
-        if cfg.family == "vlm":
-            table = _quantize_vlm(params, cfg, plan, x, vision_embeds,
-                                  layer_fn, resolve, method, pending, gctx)
-            quantize_unembed = False
-        state = None
-        for l, lp in enumerate(params.get("layers", ())):
-            lp_q, x, state = layer_fn(lp, x, state, cfg, plan, tapmap,
-                                      resolve, method, pending, l, gctx)
-            table[str(l)] = lp_q
-        if quantize_unembed and "unembed" in params:
-            names = ["unembed"]
-            xn = _sanitize_tap(gctx, apply_norm(params["final_norm"], x,
-                                                cfg), -1, names)
-            qt, eb, ea, secs = _solve_group(
-                [params["unembed"]], calibrate.gram_from_tap(xn),
-                [resolve(-1, "unembed")], method, gctx=gctx, layer=-1,
-                names=names)[0]
-            qparams["unembed"] = qt
-            pending.append((-1, "unembed", eb, ea, secs))
+    try:
+        with torch.no_grad():
+            x = embed_tokens(params, cfg, plan, tokens)
+            if cfg.family == "vlm":
+                table = _quantize_vlm(params, cfg, plan, x, vision_embeds,
+                                      layer_fn, resolve, method, pending,
+                                      ctx)
+                quantize_unembed = False
+            state = None
+            for l, lp in enumerate(params.get("layers", ())):
+                lp_q, x, state = layer_fn(lp, x, state, cfg, plan, tapmap,
+                                          resolve, method, pending, l, ctx)
+                table[str(l)] = lp_q
+                ctx.layer_done(l)
+            if quantize_unembed and "unembed" in params:
+                qparams["unembed"] = _quantize_unembed(
+                    params, cfg, x, resolve, method, ctx, pending)
+        if qj is not None:
+            qj.record_run_done()
+    finally:
+        if own_journal:
+            qj.close()
     qparams["__qlayers__"] = table
     _finalize_report(report, pending)
     report.wall_seconds = time.time() - t_start
     report.guard_events = list(gctx.events)
+    report.resumed_leaves = ctx.resumed
     gmap = gctx.by_leaf()
     for lr in report.layers:
         lr.guard = gmap.get((lr.layer, lr.name), "")

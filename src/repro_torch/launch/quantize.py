@@ -8,6 +8,22 @@ calibrate → quantize → pack, then the fp and quantized eval loss.
     ... --policy "*.w_down=8,first=8,last=8,kv=8"
     ... --bits-budget 3.5 --policy kv=4
 
+    # crash-safe: journal every solved leaf, supervise with restarts, and
+    # resume after a kill injected at the end of the second layer
+    ... --journal DIR --inject kill:2 --restarts 3 --save-packed q.qpk
+
+`--journal DIR` journals every solved leaf durably (solve → spill →
+journal) and runs the walk under `ft.run_with_restarts`: `--restarts N`
+allows N restarts without progress (journaled-leaf count), each resuming
+from the journal after `QuantJournal.check_integrity`, which re-applies
+the journaled leaves bit for bit instead of solving them; a
+`ft.Heartbeat` in the journal directory beats after each layer.
+`--inject` arms the pipeline's fault points (`ft.FaultInjector.parse`).
+`--out-dir DIR` saves the packed tree as a `CheckpointManager` step 0
+with the policy metadata (the JAX launcher always saves one, to a
+default directory; the port only when asked). A resumed run's
+`.qpk` is byte-identical to an uninterrupted run's on the same device.
+
 A VLM (llama-3.2-vision-90b) calibrates and evaluates on random image
 features (calib_batch, n_vision_tokens, vision_dim), bf16 normals from a
 seeded generator, as the JAX launcher does. An encoder (vit-base-16) exits
@@ -17,11 +33,13 @@ Runs on the card unless `--device cpu` is given. Prints the JAX
 launcher's JSON summary keys (data_shards/model_shards are 1: the port
 runs on one device). Flags of the JAX launcher that this port does not
 have yet exit with a message saying so; none is silently ignored.
-`quantize_and_eval` is the same run as a function of a ModelConfig.
+`quantize_and_eval` is the same run as a function of a ModelConfig, and
+`quantize_supervised` its crash-safe walk.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import time
 from dataclasses import dataclass
@@ -29,20 +47,20 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.ckpt import (pack_tree, policy_extra, save_packed_ckpt,
-                              tree_bytes)
+from repro_torch.ckpt import (CheckpointManager, pack_tree, policy_extra,
+                              save_packed_ckpt, tree_bytes)
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import (QuantPolicy, QuantSpec, materialize,
                               parse_policy, policy_from_budget,
                               quantize_model)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.ft import (FaultInjector, Heartbeat, QuantJournal,
+                            run_with_restarts)
 from repro_torch.models import BuildPlan, init_params, lm_loss
 
 # JAX launcher flags not ported yet, with whether each takes a value
 NOT_PORTED = {"--shard-data": False, "--shard-solve": True,
-              "--out-dir": True, "--journal": True, "--resume": False,
-              "--restarts": True, "--inject": True, "--trace": True,
-              "--metrics": True}
+              "--trace": True, "--metrics": True}
 
 
 def set_precision() -> None:
@@ -118,6 +136,45 @@ def resolve_policy(params, cfg, plan, tokens, base: QuantSpec,
     return spec, plan, alloc, sizes
 
 
+def quantize_supervised(params, cfg, plan, tokens, spec, *, journal: str,
+                        resume: bool = False, restarts: int = 0,
+                        injector=None, progress_cb=None, **kw):
+    """`quantize_model` journaled in `journal` under `run_with_restarts`,
+    as the launcher runs it: up to `restarts` restarts without progress
+    (the journaled-leaf count), each attempt resuming whenever the
+    journal already holds leaves (after `QuantJournal.check_integrity`),
+    a `Heartbeat` in the journal directory beating after each layer
+    before `progress_cb(layer)`. A failed attempt's frames are collected
+    before the next one allocates, so a retry starts from the memory one
+    clean run holds. `kw` goes to `quantize_model`."""
+    hb = Heartbeat(journal, host_id=0)
+    box: Dict[str, Any] = {"attempts": 0}
+
+    def on_layer(layer: int) -> None:
+        hb.beat(layer)
+        if progress_cb is not None:
+            progress_cb(layer)
+
+    def attempt(_):
+        if box["attempts"]:
+            gc.collect()
+        box["attempts"] += 1
+        again = resume or bool(QuantJournal.replay(journal).leaves)
+        if again:
+            QuantJournal.check_integrity(journal)
+        box["out"] = quantize_model(params, cfg, plan, tokens, spec,
+                                    journal=journal, resume=again,
+                                    injector=injector, progress_cb=on_layer,
+                                    **kw)
+
+    def progress():
+        return len(QuantJournal.replay(journal).leaves)
+
+    run_with_restarts(attempt, progress, max_restarts=restarts,
+                      exceptions=(RuntimeError,), backoff_s=0.0)
+    return box["out"]
+
+
 def quantize_and_eval(cfg, *, bits: int = 4,
                       granularity: str = "per_channel",
                       order: str = "greedy", sweeps: int = 3,
@@ -126,10 +183,14 @@ def quantize_and_eval(cfg, *, bits: int = 4,
                       policy: Optional[str] = None, bits_budget: float = 0.0,
                       guards: bool = True, propagation: str = "staged",
                       save_packed: Optional[str] = None,
+                      out_dir: Optional[str] = None,
+                      journal: Optional[str] = None, resume: bool = False,
+                      restarts: int = 0, injector=None,
                       device: DeviceLike = None) -> QuantizeRun:
     """Init `cfg` from seed 0, quantize it on random calibration ids
     (seed 0) under `--bits` or the policy, and evaluate fp vs quantized
-    loss on a held-out batch (seed 7) — the JAX launcher's run."""
+    loss on a held-out batch (seed 7) — the JAX launcher's run. With
+    `journal` the walk is `quantize_supervised`'s."""
     dev = resolve_device(device)
     set_precision()
     params = init_params(cfg, seed=0, device=dev)
@@ -142,14 +203,24 @@ def quantize_and_eval(cfg, *, bits: int = 4,
                                               tokens, base, policy,
                                               bits_budget)
     t0 = time.time()
-    qparams, report = quantize_model(params, cfg, plan, tokens, spec,
-                                     method=method, propagation=propagation,
-                                     guards=guards, vision_embeds=ve)
+    kw = dict(method=method, propagation=propagation, guards=guards,
+              vision_embeds=ve)
+    if journal:
+        qparams, report = quantize_supervised(
+            params, cfg, plan, tokens, spec, journal=journal, resume=resume,
+            restarts=restarts, injector=injector, **kw)
+    else:
+        qparams, report = quantize_model(params, cfg, plan, tokens, spec,
+                                         injector=injector, **kw)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.time() - t0
 
     packed = pack_tree(qparams["__qlayers__"])
+    if out_dir:
+        CheckpointManager(out_dir, keep=2).save(
+            0, packed, extra=policy_extra(policy=spec, arch=cfg.name,
+                                          bits=bits))
     if save_packed:
         save_packed_ckpt(save_packed, packed,
                          **policy_extra(policy=spec, arch=cfg.name,
@@ -178,8 +249,9 @@ def quantize_and_eval(cfg, *, bits: int = 4,
         "ckpt_bytes": tree_bytes(packed),
         "dense_bytes": dense_bytes,
         "compression": round(dense_bytes / max(tree_bytes(packed), 1), 1),
-        "guard_events": len(report.guard_events), "resumed_leaves": 0,
-        "faults_fired": 0,
+        "guard_events": len(report.guard_events),
+        "resumed_leaves": report.resumed_leaves,
+        "faults_fired": len(injector.fired) if injector is not None else 0,
     }
     return QuantizeRun(summary, params, qparams, report, spec, plan, tokens,
                        ev, dt, alloc, sizes, ve)
@@ -237,7 +309,27 @@ def build_parser() -> argparse.ArgumentParser:
                          "healthy runs give the same codes either way")
     ap.add_argument("--save-packed", default=None, metavar="PATH",
                     help="save the packed tree as one atomic checksummed "
-                         "file (readable by the JAX package)")
+                         "file (readable by the JAX package; byte-"
+                         "deterministic, so a resumed run's equals an "
+                         "uninterrupted run's)")
+    ap.add_argument("--out-dir", default=None, metavar="DIR",
+                    help="save the packed tree as CheckpointManager step 0 "
+                         "with the policy metadata (none when omitted)")
+    ap.add_argument("--journal", default=None, metavar="DIR",
+                    help="journal directory: durably record every solved "
+                         "leaf so a crashed run resumes bit-identically "
+                         "(ft.QuantJournal)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from --journal (also implied when the "
+                         "journal already holds leaves)")
+    ap.add_argument("--restarts", type=int, default=0, metavar="N",
+                    help="restart up to N times without progress "
+                         "(journaled-leaf count), resuming from --journal")
+    ap.add_argument("--inject", default=None, metavar="SPEC",
+                    help="deterministic fault injection, e.g. 'kill:2' or "
+                         "'leaf_solve:3,ckpt_write:1' (ft.FaultInjector; "
+                         "points: gram_accumulate, leaf_solve, ckpt_write, "
+                         "kill, nan_tap)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     add_not_ported(ap, NOT_PORTED)
@@ -247,6 +339,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> Dict[str, Any]:
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.restarts and not args.journal:
+        raise SystemExit("--restarts needs --journal (resume source)")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.family == "encoder":
         ap.exit(2, f"{ap.prog}: {cfg.name} is an encoder, and quantize_model "
@@ -258,7 +352,10 @@ def main(argv=None) -> Dict[str, Any]:
         calib_batch=args.calib_batch, calib_seq=args.calib_seq,
         policy=args.policy, bits_budget=args.bits_budget,
         guards=not args.no_guards, propagation=args.propagation,
-        save_packed=args.save_packed, device=args.device)
+        save_packed=args.save_packed, out_dir=args.out_dir,
+        journal=args.journal, resume=args.resume, restarts=args.restarts,
+        injector=FaultInjector.parse(args.inject) if args.inject else None,
+        device=args.device)
     print(json.dumps(run.summary))
     return run.summary
 

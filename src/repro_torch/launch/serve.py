@@ -25,13 +25,24 @@ launcher has no source of image features (the JAX launcher calls
 dequantizes to a
 dense tree first; without it quantized params are served packed.
 
+Crash-safe serving: `--journal DIR` records every request's lifecycle
+(ft.Journal); `--restarts N` supervises the run with ft.run_with_restarts,
+each restart recovering through `serve.recover_runtime` (retired requests
+are not re-run, in-flight ones replay token for token; a crash inside the
+staggered submits re-submits the prompts that were never journaled);
+`--resume` recovers from an existing journal; `--inject` arms the
+runtime's fault points (page_alloc, decode_step, callback, kill):
+
+    ... --journal DIR --inject kill:20 --restarts 2
+
 Runs on the card unless `--device cpu` is given, and prints one JSON line
-of run metrics. The JAX launcher's `--journal --resume --restarts --inject
---trace --metrics` are not ported yet and exit 2 saying so.
+of run metrics. The JAX launcher's `--trace --metrics` are not ported yet
+and exit 2 saying so.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import time
 from typing import Any, Dict
@@ -46,15 +57,16 @@ from repro_torch.convert import qparams_from_numpy
 from repro_torch.core import QuantSpec, materialize, quantize_model
 from repro_torch.core.apply import serving_params
 from repro_torch.device import resolve_device
+from repro_torch.ft import (FaultInjector, Heartbeat, Journal, SimulatedKill,
+                            run_with_restarts)
 from repro_torch.launch.quantize import add_not_ported, set_precision
 from repro_torch.models import BuildPlan, init_params
 from repro_torch.models.model import param_count as count_params
 from repro_torch.serve import (Engine, Runtime, ServeConfig, blocks_for,
-                               paged_cache_bytes)
+                               paged_cache_bytes, recover_runtime)
 
 # JAX launcher flags not ported yet, with whether each takes a value
-NOT_PORTED = {"--journal": True, "--resume": False, "--restarts": True,
-              "--inject": True, "--trace": True, "--metrics": True}
+NOT_PORTED = {"--trace": True, "--metrics": True}
 
 
 def _quantize(params, cfg, plan, bits: int, dev):
@@ -112,6 +124,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--priorities", default=None, metavar="CSV",
                     help="per-request priority classes (lower = more "
                          "urgent), cycled if shorter than --num-requests")
+    ap.add_argument("--journal", default=None, metavar="DIR",
+                    help="crash-replay request journal directory "
+                         "(ft.Journal; paged engine)")
+    ap.add_argument("--resume", action="store_true",
+                    help="recover from --journal: skip retired requests, "
+                         "replay the in-flight ones")
+    ap.add_argument("--restarts", type=int, default=0, metavar="N",
+                    help="supervise the run: up to N restarts without "
+                         "progress (retired count), each recovering from "
+                         "--journal")
+    ap.add_argument("--inject", default=None, metavar="SPEC",
+                    help="deterministic fault injection, e.g. "
+                         "'page_alloc:3+7,kill:5' (ft.FaultInjector)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     add_not_ported(ap, NOT_PORTED)
     return ap
@@ -145,6 +170,8 @@ def main(argv=None) -> Dict[str, Any]:
     if cfg.family == "encoder":
         raise SystemExit(f"{cfg.name} is an encoder: it has no decode to "
                          "serve")
+    if (args.resume or args.restarts) and not args.journal:
+        raise SystemExit("--resume/--restarts need --journal DIR")
     bf16_bytes = 2 * count_params(cfg)
 
     params = qparams = None
@@ -236,15 +263,74 @@ def main(argv=None) -> Dict[str, Any]:
         kw = dict(max_new_tokens=args.max_new, temperature=args.temperature,
                   top_k=args.top_k, top_p=args.top_p,
                   stop_tokens=tuple(args.stop_token))
-        rt = Runtime(params, cfg, plan, serve_cfg, device=dev)
-        n_up_front = args.stagger if args.stagger > 0 else len(prompts)
-        reqs = [rt.submit(p, priority=pr, **kw)
-                for p, pr in zip(prompts[:n_up_front],
-                                 priorities[:n_up_front])]
-        for p, pr in zip(prompts[n_up_front:], priorities[n_up_front:]):
-            rt.step()
-            reqs.append(rt.submit(p, priority=pr, **kw))
-        metrics = rt.run()
+        injector = FaultInjector.parse(args.inject) if args.inject else None
+        hb = Heartbeat(args.journal, host_id=0) if args.journal else None
+        # box["rt"] is set as soon as a runtime exists, so a crash inside
+        # build() still lets the supervisor close that attempt's journal
+        box: Dict[str, Any] = {}
+
+        def build(resume: bool):
+            if resume:
+                rt, state = recover_runtime(params, cfg, plan, args.journal,
+                                            serve_cfg, injector=injector,
+                                            device=dev)
+                box["rt"] = rt
+                print(f"resume: {len(state.completed)} retired in journal, "
+                      f"replaying {len(state.inflight)} in-flight")
+                reqs = list(rt.scheduler.queue)
+                if not args.resume:
+                    # a restart of this launch: prompts map 1:1 to rids in
+                    # submission order, so a prompt past max_rid crashed
+                    # before its submit was journaled — submit it now
+                    for p, pr in zip(prompts[state.max_rid + 1:],
+                                     priorities[state.max_rid + 1:]):
+                        reqs.append(rt.submit(p, priority=pr, **kw))
+                return rt, reqs
+            journal = Journal(args.journal) if args.journal else None
+            rt = Runtime(params, cfg, plan, serve_cfg, journal=journal,
+                         injector=injector, device=dev)
+            box["rt"] = rt
+            n_up_front = args.stagger if args.stagger > 0 else len(prompts)
+            reqs = [rt.submit(p, priority=pr, **kw)
+                    for p, pr in zip(prompts[:n_up_front],
+                                     priorities[:n_up_front])]
+            for p, pr in zip(prompts[n_up_front:], priorities[n_up_front:]):
+                rt.step()
+                reqs.append(rt.submit(p, priority=pr, **kw))
+            return rt, reqs
+
+        if args.restarts > 0:
+            def attempt(_):
+                prev = box.pop("rt", None)
+                if prev is not None:
+                    # drop the dead attempt's pool before the next one
+                    # allocates its own
+                    prev.journal.close()
+                    del prev
+                    gc.collect()
+                # a crash inside build() has already journaled some
+                # requests, so decide resume from the journal itself
+                resume = args.resume or bool(
+                    Journal.replay(args.journal).records)
+                rt, reqs = build(resume)
+                box["reqs"] = reqs
+                hb.beat(rt.steps, metrics=rt.metrics_snapshot())
+                out = rt.run()
+                hb.beat(rt.steps, metrics=rt.metrics_snapshot())
+                return out
+
+            def progress():
+                return len(Journal.replay(args.journal).completed)
+
+            metrics = run_with_restarts(
+                attempt, progress, max_restarts=args.restarts,
+                exceptions=(RuntimeError, SimulatedKill), backoff_s=0.0)
+            rt, reqs = box["rt"], box["reqs"]
+        else:
+            rt, reqs = build(args.resume)
+            metrics = rt.run()
+            if hb is not None:
+                hb.beat(rt.steps, metrics=rt.metrics_snapshot())
 
     metrics.update({
         "arch": cfg.name, "engine": "paged", "device": str(dev),
@@ -254,6 +340,8 @@ def main(argv=None) -> Dict[str, Any]:
         "ttft_s": [round(t, 4) for t in metrics["ttft_s"]],
         "sample": reqs[0].out_tokens[:8] if reqs else [],
     })
+    if injector is not None:
+        metrics["faults_fired"] = injector.fired
     metrics = {k: (round(v, 4) if isinstance(v, float) else v)
                for k, v in metrics.items()}
     print(json.dumps(metrics))

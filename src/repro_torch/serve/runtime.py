@@ -12,7 +12,13 @@ The runtime ties together:
   staggered arrivals) share every decode step; its attention runs the
   `paged_attention[_quant]` kernels on the card;
 * `serve/sampler.py::sample_batch_seeded` — per-slot sampling settings,
-  with every draw a pure function of (request seed, token index).
+  with every draw a pure function of (request seed, token index);
+* `ft/journal.py` — optional crash-replay request journal: submits, first
+  tokens and retirements are fsync-gated, and `recover_runtime` rebuilds
+  the queue after a process death, replaying in-flight requests token for
+  token (deterministic decode + seeded sampling);
+* `ft/inject.py` — optional deterministic fault injection (page-alloc
+  failure, decode-step exception, callback error, simulated kill).
 
 The batch shape is fixed at `max_slots` rows and every kernel computes a
 row from that row's inputs alone, so a request's tokens do not depend on
@@ -31,9 +37,8 @@ uninterrupted run.
 
 Per decode step the host uploads the tokens and positions, re-uploads
 the block tables only when they changed, and pulls the sampled tokens:
-that pull is the step's one host sync. The JAX runtime's journal, fault
-injector, tracer, metrics registry and mesh are not ported yet; passing
-any of them raises.
+that pull is the step's one host sync. The JAX runtime's tracer, metrics
+registry and mesh are not ported yet; passing any of them raises.
 """
 from __future__ import annotations
 
@@ -45,6 +50,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.ft.inject import InjectedFault, SimulatedKill
+from repro_torch.ft.journal import Journal
 from repro_torch.models.model import decode_step_paged, forward
 from repro_torch.models.transformer import check_paged
 from repro_torch.serve.kv_cache import (BlockAllocator, blocks_for,
@@ -93,13 +100,16 @@ def check_params_device(params, dev: torch.device) -> None:
 class Runtime:
     """Continuous-batching runtime: submit() requests, run() to drain.
 
-    Runs on the card unless `device="cpu"`."""
+    Runs on the card unless `device="cpu"`. `journal` (ft.Journal) records
+    each request's lifecycle for `recover_runtime`; `injector`
+    (ft.FaultInjector) arms the page_alloc, decode_step, callback and kill
+    fault points."""
 
     def __init__(self, params, cfg, plan, serve_cfg: ServeConfig = None,
-                 journal=None, injector=None, tracer=None, metrics=None,
-                 mesh=None, device: DeviceLike = None):
-        for name, arg in (("journal", journal), ("injector", injector),
-                          ("tracer", tracer), ("metrics", metrics),
+                 journal: Optional[Journal] = None, injector=None,
+                 tracer=None, metrics=None, mesh=None,
+                 device: DeviceLike = None):
+        for name, arg in (("tracer", tracer), ("metrics", metrics),
                           ("mesh", mesh)):
             if arg is not None:
                 raise NotImplementedError(
@@ -124,7 +134,12 @@ class Runtime:
         self.plan = plan
         sc = serve_cfg or ServeConfig()
         self.serve_cfg = sc
-        self.allocator = BlockAllocator(sc.num_blocks)
+        self.journal = journal
+        self.injector = injector
+        fail_hook = None
+        if injector is not None:
+            fail_hook = lambda: injector.fire("page_alloc")  # noqa: E731
+        self.allocator = BlockAllocator(sc.num_blocks, fail_hook=fail_hook)
         self.scheduler = Scheduler(sc.max_slots, self.allocator,
                                    buckets=sc.buckets,
                                    block_size=sc.block_size,
@@ -178,9 +193,32 @@ class Runtime:
             # deterministic per-request default
             req.seed = (self.serve_cfg.rng_seed * 1_000_003
                         + req.rid) & 0x7FFFFFFF
+        if self.journal is not None:
+            self.journal.record_submit(req)
         return req
 
     # -- serving loop --------------------------------------------------------
+
+    def _emit(self, req: Request, token: int, now: float) -> None:
+        """Append one token to `req`'s stream; with an injector the
+        callback fault point wraps its stream callback (its error stays on
+        `req.cb_errors`)."""
+        inj = self.injector
+        if inj is not None and req.stream_cb is not None:
+            orig = req.stream_cb
+
+            def guarded(r, t):
+                if inj.fire("callback"):
+                    raise InjectedFault("injected stream-callback failure")
+                orig(r, t)
+
+            req.stream_cb = guarded
+            try:
+                req.emit(token, now)
+            finally:
+                req.stream_cb = orig
+        else:
+            req.emit(token, now)
 
     def _clear_slot(self, req: Request) -> None:
         """Scheduler preemption callback: wipe the victim's slot state
@@ -196,6 +234,8 @@ class Runtime:
         self._count[s] = 0
         self._bt_dirty = True
         self._any_sampling = bool((self._temp > 0.0).any())
+        if self.journal is not None:
+            self.journal.record_preempt(req)
 
     def _prefill(self, tokens_in: np.ndarray, bucket: int):
         """Prefill one right-padded request; returns (logits (1, bucket,
@@ -248,6 +288,8 @@ class Runtime:
         if resume:
             self._tok[s] = req.out_tokens[-1]
             self._count[s] = len(req.out_tokens)
+            if self.journal is not None:
+                self.journal.record_resume(req)
             return 0
         # first token comes straight from the prefill logits (TTFT token)
         last = logits[:, tlen - 1]
@@ -258,9 +300,11 @@ class Runtime:
                 last, [req.seed or 0], [0], temperature=[req.temperature],
                 top_k=[req.top_k], top_p=[req.top_p])
         first = int(first[0])        # the TTFT token must reach the stream
-        req.emit(first, time.time())
+        self._emit(req, first, time.time())
         self._tok[s] = first
         self._count[s] = 1
+        if self.journal is not None:
+            self.journal.record_first_token(req, first)
         if req.finished():       # max_new == 1, or the TTFT token is a stop
             self._retire(req)
         return 1
@@ -268,6 +312,11 @@ class Runtime:
     def _retire(self, req: Request) -> None:
         s = req.slot
         req.finished()               # ensure finish_reason is set
+        # the retire record is durable before the pages are reused: a crash
+        # can re-stream a request's tokens but never lose or re-run a
+        # retired request
+        if self.journal is not None:
+            self.journal.record_retire(req)
         self.scheduler.release(req)
         self._pos[s] = -1
         self._bt[s] = 0
@@ -286,6 +335,8 @@ class Runtime:
         grow pages for the rows this step writes (possibly preempting),
         then run one decode step for all active slots. Returns the number
         of tokens emitted (prefill first-tokens included)."""
+        if self.injector is not None:
+            self.injector.check("kill", SimulatedKill)
         emitted = 0
         for req in self.scheduler.admit(on_preempt=self._clear_slot):
             emitted += self._admit_one(req)
@@ -308,6 +359,8 @@ class Runtime:
         if self._bt_dirty or self._bt_dev is None:
             self._bt_dev = self._upload(self._bt)
             self._bt_dirty = False
+        if self.injector is not None:
+            self.injector.check("decode_step")
         logits, self.pool = decode_step_paged(
             self.params, self.cfg, self.plan, self.pool, self._bt_dev,
             self._upload(self._tok[:, None]), self._upload(self._pos))
@@ -322,7 +375,7 @@ class Runtime:
         self.steps += 1
         self.decode_seconds += now - t0
         for s, req in running.items():
-            req.emit(int(toks[s]), now)
+            self._emit(req, int(toks[s]), now)
             emitted += 1
             self._pos[s] += 1
             self._tok[s] = int(toks[s])
@@ -400,3 +453,30 @@ class Runtime:
                 for p in prompts]
         self.run()
         return [np.asarray(r.out_tokens, np.int32) for r in reqs]
+
+
+def recover_runtime(params, cfg, plan, journal_dir: str,
+                    serve_cfg: ServeConfig = None, injector=None,
+                    fsync: bool = True, device: DeviceLike = None):
+    """Crash recovery: rebuild a Runtime from a request journal after a
+    process death. Retired requests are never re-run (their tokens live in
+    the journal); every in-flight request is re-submitted once under its
+    original rid, seed and settings, so draining the returned runtime
+    replays each stream token for token. Returns (runtime, journal state);
+    `journal_state.completed` holds the pre-crash outputs."""
+    state = Journal.replay(journal_dir)
+    journal = Journal(journal_dir, fsync=fsync)
+    rt = Runtime(params, cfg, plan, serve_cfg, journal=journal,
+                 injector=injector, device=device)
+    rt.scheduler.advance_rids(state.max_rid)
+    for rid in sorted(state.inflight):
+        rec = state.inflight[rid]
+        req = Request(prompt=np.asarray(rec["prompt"], np.int32),
+                      max_new_tokens=rec["max_new_tokens"],
+                      temperature=rec["temperature"],
+                      top_k=rec["top_k"], top_p=rec["top_p"],
+                      stop_tokens=tuple(rec["stop_tokens"]),
+                      priority=rec["priority"], seed=rec["seed"])
+        rt.scheduler.resubmit(req, rid)
+        journal.record_replayed(rid)
+    return rt, state

@@ -104,10 +104,19 @@ def test_cuda_default_raises_without_a_card():
         quantize.main(["--arch", "qwen2-7b", "--smoke"])
 
 
+# the JAX quantize launcher's flags that the port once refused: the ones
+# still in NOT_PORTED must exit 2, the ported ones must run
 @pytest.mark.parametrize("flag", ["--journal", "--shard-data", "--trace"])
-def test_launcher_rejects_unported_flags(flag, capsys):
+def test_launcher_rejects_unported_flags(flag, capsys, tmp_path):
     from repro_torch.launch import quantize
     argv = ["--arch", "qwen2-7b", "--smoke", "--device", "cpu", flag]
+    if flag not in quantize.NOT_PORTED:
+        assert flag == "--journal"
+        out = quantize.main(argv + [str(tmp_path), "--method", "rtn",
+                                    "--calib-batch", "2", "--calib-seq",
+                                    "48"])
+        assert out["layers_quantized"] == 14 and out["resumed_leaves"] == 0
+        return
     if quantize.NOT_PORTED[flag]:
         argv.append("x")
     with pytest.raises(SystemExit) as e:

@@ -29,6 +29,7 @@ from repro_torch.core import (GuardContext, QuantSpec, damped_inverse,
 from repro_torch.core import pipeline as pl
 from repro_torch.core.guards import (DAMP_MULTS, gram_health,
                                      sanitize_array, solver_chain)
+from repro_torch.ft import FaultInjector as TFaultInjector
 from repro_torch.models import transformer as tt
 
 torch.set_num_threads(2)
@@ -309,33 +310,7 @@ def tokens():
         np.int32)
 
 
-def _poison_first_tap(monkeypatch):
-    """The port has no fault injector yet (ROADMAP item 13): poison the
-    first recorded tap's entry (0, 0, 0) with NaN right before its group
-    is solved — what the JAX injector's `nan_tap` fault does."""
-    real = tt.layer_full
-    fired = []
-
-    def layer_full(p, x, cfg, plan, make_cache, taps=None, quantize_cb=None):
-        if quantize_cb is not None:
-            inner = quantize_cb
-
-            def quantize_cb(tapname):
-                if not fired:
-                    fired.append(tapname)
-                    bad = taps[tapname].clone()
-                    bad[0, 0, 0] = float("nan")
-                    taps[tapname] = bad
-                return inner(tapname)
-        return real(p, x, cfg, plan, make_cache, taps=taps,
-                    quantize_cb=quantize_cb)
-
-    monkeypatch.setattr(pl.tfm, "layer_full", layer_full)
-    return fired
-
-
-def test_nan_tap_on_the_fused_path_matches_jax(jparams, tokens,
-                                               monkeypatch):
+def test_nan_tap_on_the_fused_path_matches_jax(jparams, tokens):
     """A NaN in the first tap (the wq|wk|wv shared tap, column-fused under
     the cyclic order): the sentinel zeroes it, records nonfinite_tap for
     each leaf of the group, annotates the per-leaf report, and the run
@@ -346,13 +321,14 @@ def test_nan_tap_on_the_fused_path_matches_jax(jparams, tokens,
         _, jrep = jax_quantize(jparams, jax_cfg(ARCH), JPlan(remat=False),
                                jnp.asarray(tokens), JSpec(**spec),
                                method="comq_blocked", injector=inj)
-    fired = _poison_first_tap(monkeypatch)
+    tinj = TFaultInjector({"nan_tap": [1]})
     with pytest.warns(UserWarning, match="nonfinite_tap"):
         qp, rep = quantize_model(params_from_numpy(jparams, "cpu"),
                                  get_smoke_config(ARCH), tt.BuildPlan(),
                                  torch.from_numpy(tokens).long(),
-                                 QuantSpec(**spec), method="comq_blocked")
-    assert fired == ["attn_in"]
+                                 QuantSpec(**spec), method="comq_blocked",
+                                 injector=tinj)
+    assert tinj.fired == inj.fired == [("nan_tap", 1)]
     taps = [(e.layer, e.name, e.detail) for e in rep.guard_events
             if e.kind == "nonfinite_tap"]
     assert taps == [(0, n, {"count": 1})

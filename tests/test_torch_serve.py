@@ -466,24 +466,50 @@ def test_launcher_cpu_json_line(tmp_path, capsys):
     assert static["new_tokens"] == 6
 
 
-@pytest.mark.parametrize("flag", sorted(launch_serve.NOT_PORTED))
-def test_launcher_rejects_unported_flags(flag, capsys):
-    argv = ["--arch", "qwen2-7b", "--smoke", "--device", "cpu", flag]
-    if launch_serve.NOT_PORTED[flag]:
-        argv.append("x")
-    with pytest.raises(SystemExit) as e:
-        launch_serve.main(argv)
-    assert e.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+# the JAX serve launcher's flags that the port once refused: the ones
+# still in NOT_PORTED must exit 2, the ported ones must run
+@pytest.mark.parametrize("flag", ["--inject", "--journal", "--metrics",
+                                  "--restarts", "--resume", "--trace"])
+def test_launcher_rejects_unported_flags(flag, capsys, tmp_path):
+    if flag in launch_serve.NOT_PORTED:
+        argv = ["--arch", "qwen2-7b", "--smoke", "--device", "cpu", flag]
+        if launch_serve.NOT_PORTED[flag]:
+            argv.append("x")
+        with pytest.raises(SystemExit) as e:
+            launch_serve.main(argv)
+        assert e.value.code == 2
+        assert "not yet ported" in capsys.readouterr().err
+        return
+    assert flag in ("--inject", "--journal", "--restarts", "--resume")
+    extra = {"--inject": ["--inject", "decode_step:99"],
+             "--journal": ["--journal", str(tmp_path)],
+             "--restarts": ["--journal", str(tmp_path), "--restarts", "1"],
+             "--resume": ["--journal", str(tmp_path), "--resume"]}[flag]
+    out = launch_serve.main(["--arch", "qwen2-7b", "--smoke", "--device",
+                             "cpu", "--num-requests", "2", "--prompt-len",
+                             "8", "--max-new", "2"] + extra)
+    # --resume over an empty journal has nothing in flight to replay
+    assert out["requests"] == (0 if flag == "--resume" else 2)
 
 
+# Runtime's arguments that the port once refused: tracer, metrics and mesh
+# still raise; a journal and an injector are taken
 @pytest.mark.parametrize("arg", ["journal", "injector", "tracer", "metrics",
                                  "mesh"])
-def test_runtime_rejects_unported_arguments(setup, arg):
+def test_runtime_rejects_unported_arguments(setup, arg, tmp_path):
+    from repro_torch.ft import FaultInjector, Journal
     cfg, params = setup
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Runtime(params, cfg, _plan(), ServeConfig(**SC), device="cpu",
-                **{arg: object()})
+    if arg in ("tracer", "metrics", "mesh"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            Runtime(params, cfg, _plan(), ServeConfig(**SC), device="cpu",
+                    **{arg: object()})
+        return
+    value = (Journal(str(tmp_path)) if arg == "journal"
+             else FaultInjector())
+    rt = Runtime(params, cfg, _plan(), ServeConfig(**SC), device="cpu",
+                 **{arg: value})
+    assert getattr(rt, arg) is value
+    assert len(rt.generate(_prompts(1, [5]), max_new_tokens=2)[0]) == 2
 
 
 def test_cuda_default_raises_without_a_card(setup):
