@@ -173,10 +173,36 @@ no result line):
    page_alloc:3+7 and callback:2 each finish all 16 (decode_step and
    callback token-identical; the callback error on one request only);
    the kill run at bf16 kv_bits 0 and 8 printed, not gated.
+17. observability — runs right after phase 16, on the phase-4 model. (a)
+   qwen2-7b at full width, n_layers cut 28 -> 2, comq_blocked 4-bit
+   per-channel, calibration 8x128: quantize_model untraced, traced (a
+   live obs.Tracer and MetricsRegistry), traced, untraced: QT trees equal
+   bit for bit; one leaf_solve span per tap group (their leaves are the
+   report's rows) and one layer span per layer; every wall_seconds > 0
+   traced and 0.0 untraced, their sum at most the report's wall; the
+   quant.* counters and histogram counts equal the report's; the walks'
+   seconds printed. (b) the phase-8 traffic at bf16 kv_bits 0 and 8 and
+   the f32 small pool, each untraced then traced: tokens identical
+   request for request, every timeline rebuilt from the trace validates
+   and carries the delivered tokens, the registry's tokens, preemptions
+   and retirements equal the runtime's, and the small pool preempts and
+   resumes. (c) the per-step hook sequence of a live tracer and registry
+   at 16 live slots (the decode_step span with record_function, 16
+   token_events, 3 gauges), microbenchmarked, over the median untraced
+   bf16 step wall of (b): < 2% (JAX's budget, benchmarks/serve_bench.py).
+   (d) under torch.profiler (CPU and CUDA) a traced 1-layer quantize and
+   4 traced decode steps: a comq_panel kernel inside a leaf_solve
+   annotation and a paged-attention kernel inside a decode_step one (by
+   the launch's correlation id, or the kernel's interval). (e) ci.yml's
+   "Observability smoke" through the port's launchers in subprocesses on
+   the card (no --device): both exit 0, repro_torch.obs.validate passes
+   the quantize trace and, with --timelines --require-preempt, the serve
+   trace; metrics.jsonl and metrics.prom are non-empty; the report runs.
 
 Launch counts: the quantize-and-decode path (phases 4-5), the serve path
 (phase 8), the policy path (phase 9a), the durability runs (phase 16:
-its quantize walks, then its serve runs), the MoE path (phase 10), the
+its quantize walks, then its serve runs), the observability runs (phase
+17 a, b and d), the MoE path (phase 10), the
 hybrid path (phase 11 b-d), the audio path (phase 12), the rwkv path
 (phase 13), the vlm path (phase 14) and the encoder path (phase 15) are
 each counted from 0; every kernel must launch on the main path as a
@@ -2450,6 +2476,399 @@ def phase_durability(torch, dev, ops, kernels, sp, cfg, prompts, smi):
     return {n: q_counts[n] + s_counts[n] for n in q_counts}
 
 
+
+# ---------------------------------------------------------------------------
+# phase 17: observability
+# ---------------------------------------------------------------------------
+
+OBS_LAYERS = 2            # qwen2-7b depth cut for the traced walks (phase 4's)
+OBS_HOOK_SLOTS = 16       # live slots in the hook microbenchmark
+OBS_HOOK_REPS = 10000     # calls a timing, each from an empty tracer
+OBS_BUDGET = 0.02         # hook cost / median untraced step wall (JAX's)
+OBS_PROFILE_STEPS = 4
+CI_OBS_QUANT = ("--arch", "qwen2-7b", "--smoke", "--bits", "4", "--sweeps",
+                "1", "--calib-batch", "2", "--calib-seq", "32")
+CI_OBS_SERVE = ("--arch", "qwen2-7b", "--smoke", "--engine", "paged",
+                "--num-requests", "6", "--prompt-len", "24", "--max-new",
+                "12", "--num-blocks", "8", "--admission", "preempt",
+                "--stagger", "2", "--priorities", "0,0,1,1,2,2")
+# ci.yml's "Observability smoke" (its launchers and flags, on the port)
+
+
+def obs_serve(torch, dev, sp, cfg, plan, prompts, sc, **rt_kw):
+    """The phase-8 traffic through one Runtime (`staggered`), each step
+    timed on the host clock (a step ends in its token pull). Returns
+    (runtime, requests, step walls)."""
+    from repro_torch.serve import Runtime
+    rt = Runtime(sp, cfg, plan, sc, device=dev, **rt_kw)
+    walls, step = [], rt.step
+
+    def timed_step():
+        t0 = time.perf_counter()
+        out = step()
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    rt.step = timed_step
+    reqs = []
+    staggered(rt, [(p, {}) for p in prompts], reqs)
+    check(all(len(r.out_tokens) == SERVE_NEW for r in reqs),
+          "obs serve: a request did not run to its length")
+    return rt, reqs, walls
+
+
+def check_timelines(rt, reqs, tracer, registry, what):
+    """Every request's timeline rebuilds from the trace, validates and
+    carries the delivered tokens; the registry's counts equal the
+    runtime's. Returns the number of requests preempted and resumed."""
+    from repro_torch.obs import (reconstruct_timelines, validate_timeline,
+                                 validate_trace)
+    check(validate_trace(tracer.to_chrome_trace()) == [],
+          f"{what}: the trace fails the schema")
+    tls = reconstruct_timelines(tracer.events)
+    check(sorted(tls) == sorted(r.rid for r in reqs),
+          f"{what}: timelines for {sorted(tls)}")
+    for r in reqs:
+        tl = tls[r.rid]
+        probs = validate_timeline(tl)
+        check(tl.complete and not probs, f"{what}: rid {r.rid}: {probs}")
+        check([t for _, t in tl.tokens] == list(r.out_tokens),
+              f"{what}: rid {r.rid}'s timeline tokens differ from its "
+              "stream")
+    snap = registry.snapshot()
+    want = {"serve.tokens_emitted": sum(len(r.out_tokens) for r in reqs),
+            "serve.preemptions": rt.scheduler.preemptions,
+            "serve.requests_retired": len(reqs)}
+    got = {k: snap[k] for k in want}
+    check(got == want, f"{what}: registry {got}, runtime {want}")
+    both = sum(bool(tl.preempts and tl.resumes) for tl in tls.values())
+    say(f"{what}: {len(tls)} timelines valid, {both} preempted and resumed; "
+        f"registry {got} == the runtime's")
+    return both
+
+
+def annotated_kernels(path, annotation, kernel_part):
+    """From a torch.profiler Chrome trace: the kernels whose name holds
+    `kernel_part`, and how many of them fall inside an `annotation` user
+    annotation — by their launch's correlation id (the launch call's CPU
+    time inside the annotation), or, where no launch call was recorded,
+    by the kernel's own interval. Returns (kernels, by correlation, by
+    interval, annotations, event categories)."""
+    doc = json.loads(Path(path).read_text())
+    evs = [e for e in doc.get("traceEvents", []) if e.get("ph") == "X"]
+    cats = {}
+    for e in evs:
+        cats[e.get("cat", "")] = cats.get(e.get("cat", ""), 0) + 1
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+             for e in evs if e.get("cat") == "user_annotation"
+             and e.get("name") == annotation]
+    launch_ts = {e["args"]["correlation"]: float(e["ts"]) for e in evs
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    kernels = [e for e in evs if e.get("cat") == "kernel"
+               and kernel_part in e.get("name", "")]
+
+    def inside(t0, t1=None):
+        t1 = t0 if t1 is None else t1
+        return any(a <= t0 and t1 <= b for a, b in spans)
+
+    by_corr = by_time = 0
+    for k in kernels:
+        corr = k.get("args", {}).get("correlation")
+        if corr in launch_ts:
+            by_corr += inside(launch_ts[corr])
+        else:
+            by_time += inside(float(k["ts"]),
+                              float(k["ts"]) + float(k.get("dur", 0)))
+    return len(kernels), by_corr, by_time, len(spans), cats
+
+
+def phase_observability(torch, dev, ops, kernels, sp, cfg, prompts, smi):
+    """Phase 17: the quantize walk and the paged runtime traced and metered
+    on the card. Returns the launch counts of (a), (b) and (d)."""
+    import gc
+    import shutil
+    import statistics as stats
+    from repro_torch.ckpt import to_host
+    from repro_torch.configs import get_config
+    from repro_torch.core import QuantSpec, quantize_model
+    from repro_torch.launch.quantize import _randint
+    from repro_torch.models import BuildPlan, init_params
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.serve import Runtime
+    work = ROOT / "build" / "observability"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    say(f"observability: card {smi}")
+    t_phase = time.time()
+    ops.reset_launch_counts()
+
+    # a: the traced walk at full width against untraced ones
+    dense = get_config("qwen2-7b").replace(n_layers=OBS_LAYERS)
+    params = init_params(dense, seed=0, device=dev)
+    tokens = _randint(0, (8, PROMPT), dense.vocab_size, dev)
+    spec = QuantSpec(bits=4, granularity="per_channel", lam=0.9, sweeps=3,
+                     order="greedy")
+    walks = []
+    for traced in (False, True, True, False):
+        tr, reg = ((Tracer(run="quantize"), MetricsRegistry(run="quantize"))
+                   if traced else (None, None))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        q, rep = quantize_model(params, dense, BuildPlan(), tokens, spec,
+                                method="comq_blocked", tracer=tr,
+                                metrics=reg)
+        torch.cuda.synchronize()
+        walks.append((traced, time.time() - t0, to_host(q["__qlayers__"]),
+                      rep, tr, reg))
+        del q
+    ref = walks[0][2]
+    for traced, secs, tree, rep, tr, reg in walks:
+        check(host_equal(tree, ref), "observability: a traced walk's QT "
+              "trees differ from the untraced one's")
+        walls = [r.wall_seconds for r in rep.layers]
+        if not traced:
+            check(all(w == 0.0 for w in walls),
+                  "observability: an untraced walk measured a leaf wall")
+            continue
+        check(all(w > 0.0 for w in walls) and sum(walls) <= rep.wall_seconds,
+              f"observability: leaf walls {sum(walls)} s, walk "
+              f"{rep.wall_seconds} s")
+        spans = [e for e in tr.events if e["ph"] == "X"]
+        solves = [e["args"] for e in spans if e["name"] == "leaf_solve"]
+        n_layer = sum(e["name"] == "layer" for e in spans)
+        # one span per tap group: the spans' leaves are the report's rows
+        leaves = sorted((a["layer"], nm) for a in solves
+                        for nm in a["leaves"].split(","))
+        check(len(solves) == 4 * OBS_LAYERS and n_layer == OBS_LAYERS
+              and leaves == sorted((r.layer, r.name) for r in rep.layers),
+              f"observability: {len(solves)} leaf_solve spans, {n_layer} "
+              "layer spans")
+        snap = reg.snapshot()
+        want = {"quant.layers_done": OBS_LAYERS,
+                "quant.leaves_solved": len(rep.layers),
+                "quant.guard_events": len(rep.guard_events),
+                "quant.resumed_leaves": rep.resumed_leaves}
+        got = {k: snap[k] for k in want}
+        check(got == want, f"observability: counters {got}, report {want}")
+        check(all(snap[h]["count"] == len(rep.layers) for h in (
+            "quant.leaf_err_after", "quant.leaf_dispatch_seconds",
+            "quant.leaf_wall_seconds")), "observability: histogram counts")
+    plain_s = [s for t, s, *_ in walks if not t]
+    traced_s = [s for t, s, *_ in walks if t]
+    rep = walks[1][3]
+    say(f"observability a: qwen2-7b {OBS_LAYERS} layers, untraced walks "
+        f"{[round(s, 4) for s in plain_s]} s, traced "
+        f"{[round(s, 4) for s in traced_s]} s (synchronized); traced extra "
+        f"a layer {(sum(traced_s) - sum(plain_s)) / (2 * OBS_LAYERS):.4f} s; "
+        f"report.wall_seconds traced {rep.wall_seconds:.4f} s, leaf walls "
+        f"sum {sum(r.wall_seconds for r in rep.layers):.4f} s, dispatch sum "
+        f"{sum(r.dispatch_seconds for r in rep.layers):.4f} s; QT trees "
+        f"identical; {4 * OBS_LAYERS} leaf_solve + {OBS_LAYERS} layer "
+        "spans; counters == report")
+    del walks, ref
+
+    # b: traced serve at full width against untraced runs, in turns
+    plan32 = BuildPlan(cache_dtype=torch.float32)
+    cfg32 = cfg.replace(compute_dtype="float32")
+    step_walls = None
+    with torch.no_grad():
+        for label, c, plan, sc in (
+                ("bf16 kv_bits=0", cfg, BuildPlan(), serve_config()),
+                ("bf16 kv_bits=8", cfg, BuildPlan(kv_bits=8), serve_config()),
+                (f"f32 pool of {SMALL_POOL} pages", cfg32, plan32,
+                 serve_config(num_blocks=SMALL_POOL))):
+            walls = {False: [], True: []}
+            ref = None
+            for traced in (False, True, True, False):
+                tr, reg = ((Tracer(run="serve"), MetricsRegistry(run="serve"))
+                           if traced else (None, None))
+                rt, reqs, w = obs_serve(torch, dev, sp, c, plan, prompts, sc,
+                                        tracer=tr, metrics=reg)
+                walls[traced] += w
+                toks = [r.out_tokens for r in reqs]
+                ref = toks if ref is None else ref
+                same = sum(a == b for a, b in zip(ref, toks))
+                check(same == len(reqs), f"observability: serve {label}: "
+                      f"{same}/{len(reqs)} requests' tokens equal the "
+                      "untraced run's")
+                if not traced:
+                    continue
+                both = check_timelines(rt, reqs, tr, reg,
+                                       f"observability b: serve {label}")
+                if label.startswith("f32"):
+                    check(rt.scheduler.preemptions > 0 and both > 0,
+                          f"observability: the small pool preempted "
+                          f"{rt.scheduler.preemptions}, resumed {both}")
+                # a decode step's hooks are its span and a token event a
+                # live slot (the first tokens come from the prefills):
+                # what (c) replays
+                slots = sum(e["args"]["slots"] for e in tr.events
+                            if e["name"] == "decode_step")
+                n_tok = sum(e["name"] == "token" for e in tr.events)
+                check(n_tok == slots + len(reqs), f"observability: "
+                      f"{n_tok} token events for {slots} slot-steps")
+                del rt, reqs
+            say(f"observability b: serve {label}: untraced, traced, traced, "
+                f"untraced: tokens identical request for request; median "
+                f"step wall untraced {stats.median(walls[False]) * 1e3:.4f} "
+                f"ms, traced {stats.median(walls[True]) * 1e3:.4f} ms "
+                f"({len(walls[False]) // 2} steps a run)")
+            if step_walls is None:
+                step_walls = walls[False]
+
+    # c: the per-step hook sequence's cost against the untraced step, and
+    # its parts
+    tr, reg = Tracer(run="hooks"), MetricsRegistry(run="hooks")
+    m_tok = reg.counter("serve.tokens_emitted")
+    m_free = reg.gauge("serve.pool_free_blocks")
+    m_occ = reg.gauge("serve.pool_live_occupancy")
+    m_kvb = reg.gauge("serve.pool_kv_bytes")
+
+    def span(i, device=True):
+        with tr.span("decode_step", device=device, step=i,
+                     slots=OBS_HOOK_SLOTS):
+            pass
+
+    def token_hooks(i):
+        now_us = time.time() * 1e6
+        for s in range(OBS_HOOK_SLOTS):
+            tr.token_event(s, i, 42, now_us)
+            m_tok.inc()
+
+    def gauges(i):
+        m_free.set(8)
+        m_occ.set(0.5)
+        m_kvb.set(123456)
+
+    def hooks(i):
+        span(i)
+        token_hooks(i)
+        gauges(i)
+
+    hooks(0)
+    check(len(tr.events) == 1 + OBS_HOOK_SLOTS, "observability: the hook "
+          f"replay emits {len(tr.events)} events a step")
+
+    def per_call(fn, collect=True):
+        """Seconds a call of fn, over OBS_HOOK_REPS calls from an empty
+        tracer (a trace's growth makes its appends dearer) after a full
+        collection (so no earlier phase's garbage is charged to it); with
+        collect=False, with Python's cyclic collector off."""
+        nonlocal tr
+        tr = Tracer(run="hooks")
+        gc.collect()
+        if not collect:
+            gc.disable()
+        try:
+            t0 = time.perf_counter()
+            for i in range(OBS_HOOK_REPS):
+                fn(i)
+            return (time.perf_counter() - t0) / OBS_HOOK_REPS
+        finally:
+            gc.enable()
+
+    hook_s = per_call(hooks)
+    parts = {"span+record_function": per_call(span),
+             "span alone": per_call(lambda i: span(i, False)),
+             f"{OBS_HOOK_SLOTS} token_events": per_call(token_hooks),
+             "3 gauges": per_call(gauges),
+             "all, cyclic collector off": per_call(hooks, collect=False)}
+    med = stats.median(step_walls)
+    share = hook_s / med
+    say(f"observability c: hook sequence ({OBS_HOOK_SLOTS} slots, span with "
+        f"record_function, {OBS_HOOK_SLOTS} token_events, 3 gauges) "
+        f"{hook_s * 1e6:.3f} us a step (parts: "
+        + ", ".join(f"{k} {v * 1e6:.3f} us" for k, v in parts.items())
+        + f"); median untraced step wall {med * 1e3:.4f} ms (bf16 "
+        f"kv_bits=0, {len(step_walls)} steps); share {share:.5f} (budget "
+        f"{OBS_BUDGET})")
+    check(share < OBS_BUDGET, f"observability: hooks cost {share:.4f} of a "
+          f"step, over the {OBS_BUDGET} budget")
+    del tr, reg
+
+    # d: the device bridge under torch.profiler
+    from torch.profiler import ProfilerActivity, profile
+    one = dense.replace(n_layers=1)
+    p1 = dict(params, layers=params["layers"][:1])
+    rt = Runtime(sp, cfg, BuildPlan(), serve_config(), device=dev,
+                 tracer=Tracer(run="profile"))
+    with torch.no_grad():
+        for p in prompts[:SERVE_SLOTS]:
+            rt.submit(p, max_new_tokens=SERVE_NEW)
+        rt.step()                   # the admissions' prefills
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            quantize_model(p1, one, BuildPlan(), tokens, spec,
+                           method="comq_blocked", tracer=Tracer(run="p"))
+            for _ in range(OBS_PROFILE_STEPS):
+                rt.step()
+            torch.cuda.synchronize()
+    path = work / "profile.trace.json"
+    prof.export_chrome_trace(str(path))
+    del rt, p1
+    found = {}
+    for ann, part in (("leaf_solve", "comq_panel"),
+                      ("decode_step", "paged_")):
+        n, by_corr, by_time, n_ann, cats = annotated_kernels(path, ann, part)
+        found[ann] = by_corr + by_time
+        say(f"observability d: {n_ann} {ann} annotations; {n} {part}* "
+            f"kernels, {by_corr} inside one by launch correlation, "
+            f"{by_time} by kernel interval")
+        check(n_ann > 0 and found[ann] > 0, f"observability: no {part} "
+              f"kernel inside a {ann} annotation (trace categories {cats})")
+    dev_us = {e.key: e.device_time_total for e in prof.key_averages()
+              if "comq_panel" in e.key or "paged_" in e.key}
+    say(f"observability d: profiler device time by kernel (us) {dev_us}")
+    counts = ops.launch_counts()
+    say(f"observability path launches: {counts}")
+    check(all(v > 0 for v in counts.values()),
+          f"observability: a kernel of the traced path never launched: "
+          f"{counts}")
+
+    # e: ci.yml's Observability smoke through the port's launchers
+    import glob
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def run(*argv, what):
+        t0 = time.time()
+        p = subprocess.run([sys.executable, "-m", *argv], env=env,
+                           cwd=str(work), capture_output=True, text=True,
+                           timeout=600)
+        check(p.returncode == 0, f"CI obs smoke {what}: exit {p.returncode}"
+              f"\n{p.stdout[-2000:]}\n{p.stderr[-2000:]}")
+        lines = p.stdout.strip().splitlines()
+        say(f"CI obs smoke {what} ({time.time() - t0:.1f} s wall): "
+            f"{lines[-1] if lines else ''}")
+        return p.stdout
+
+    q, s = work / "obs_q", work / "obs_s"
+    run("repro_torch.launch.quantize", *CI_OBS_QUANT, "--out-dir",
+        str(q / "ckpt"), "--trace", str(q / "trace"), "--metrics",
+        str(q / "metrics"), what="quantize")
+    run("repro_torch.launch.serve", *CI_OBS_SERVE, "--trace",
+        str(s / "trace"), "--metrics", str(s / "metrics"), what="serve")
+    run("repro_torch.obs.validate",
+        *sorted(glob.glob(str(q / "trace" / "*.trace.json"))),
+        what="validate quantize trace")
+    out = run("repro_torch.obs.validate", "--timelines", "--require-preempt",
+              *sorted(glob.glob(str(s / "trace" / "*.trace.json"))),
+              what="validate --timelines --require-preempt")
+    say(f"CI obs smoke: {out.strip().splitlines()[-1]}")
+    for f in (q / "metrics" / "metrics.jsonl", s / "metrics" / "metrics.prom"):
+        check(f.is_file() and f.stat().st_size > 0,
+              f"CI obs smoke: {f.name} empty or missing")
+    rep_out = run("repro_torch.obs.report", str(s / "trace"),
+                  what="report")
+    check("== requests ==" in rep_out, "CI obs smoke: the report has no "
+          "requests section")
+    shutil.rmtree(work)
+    say(f"observability: phase 17 took {time.time() - t_phase:.1f} s wall")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2673,6 +3092,10 @@ def main() -> int:
     # phase-4 model is still on the card
     dur_counts = phase_durability(torch, dev, ops, kernels, sp, cfg, prompts,
                                   card)
+
+    # 17. observability (its traced runs counted), on the phase-4 model
+    obs_counts = phase_observability(torch, dev, ops, kernels, sp, cfg,
+                                     prompts, card)
     del sp
 
     # 10. the MoE family: its kernels, then the MoE path, counted
@@ -2747,7 +3170,7 @@ def main() -> int:
     # kernels line: launches on the main path as a whole
     src = "src/repro_torch/csrc/{}.cu"
     launches = {n: totals[n] + policy_counts[n] + dur_counts[n]
-                + moe_counts[n] + hyb_counts[n] + audio_counts[n]
+                + obs_counts[n] + moe_counts[n] + hyb_counts[n] + audio_counts[n]
                 + rwkv_counts[n] + vlm_counts[n] + enc_counts[n]
                 for n in totals}
     launches["comq_panel_batched"] = moe_batched

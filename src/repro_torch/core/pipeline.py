@@ -44,9 +44,18 @@ run's bit for bit. A fault injector (ft/inject.FaultInjector) arms the
 pipeline's fault points (gram_accumulate, leaf_solve, ckpt_write, kill
 between layers, nan_tap).
 
+Observability (`_RunCtx`, as in the JAX package): with an obs.Tracer each
+layer runs under a `layer` span and each tap group's solve under a
+`leaf_solve` span (`device=True`: a `torch.profiler` user annotation
+around its kernels); the span waits for the group's codes before it
+closes, which gives LayerReport.wall_seconds. Without a tracer the walk
+adds no sync and wall_seconds is 0.0. An obs.MetricsRegistry counts
+layers, solved, resumed leaves and guard events, and observes each leaf's
+error and seconds from the report's host values.
+
 The encoder has no walk, as in the JAX package (its `quantize_model`
-starts from `embed_tokens`). Not ported yet (ROADMAP.md): tracing/metrics
-(item 14), data/column sharding (item 15).
+starts from `embed_tokens`). Not ported yet (ROADMAP.md): data/column
+sharding and its `dist.bytes_all_reduced` counter (item 15).
 """
 from __future__ import annotations
 
@@ -75,6 +84,8 @@ from repro_torch.ft.inject import InjectedFault, SimulatedKill
 from repro_torch.ft.journal import QuantJournal, ResumeMismatch
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import apply_norm
+from repro_torch.obs.metrics import NULL_METRICS
+from repro_torch.obs.trace import NULL_TRACER
 
 Tensor = torch.Tensor
 
@@ -178,8 +189,18 @@ class LayerReport:
     # host time spent dispatching this leaf's solve (the walk does not
     # wait for the device, so this is not its compute time)
     dispatch_seconds: float = 0.0
+    # the leaf's solve wall time (dispatch + device), from its tap group's
+    # `leaf_solve` span, which waits for the codes before it closes; split
+    # evenly across a group like dispatch_seconds. Only measured with a
+    # tracer: 0.0 (unmeasured) on an untraced, sync-free walk
+    wall_seconds: float = 0.0
     # comma-joined guard-event kinds for this leaf ("" = no intervention)
     guard: str = ""
+
+    @property
+    def seconds(self) -> float:
+        """The JAX package's alias of dispatch_seconds (not wall time)."""
+        return self.dispatch_seconds
 
 
 @dataclass
@@ -524,12 +545,14 @@ def _run_digest(cfg, policy, method: str, propagation: str, tokens,
 class _RunCtx:
     """Per-run plumbing threaded through the layer walk: the guard context
     (core/guards), the quantization journal (resume lookup + durable leaf
-    commit) and the fault injector. Without journal and injector every
+    commit), the fault injector, and the tracer and metrics registry (the
+    null singletons when not given). Without journal and injector every
     hook is a no-op."""
 
     def __init__(self, method: str, gctx: GuardContext, device,
                  journal: Optional[QuantJournal] = None, solved=None,
-                 injector=None, progress_cb=None):
+                 injector=None, progress_cb=None, tracer=None,
+                 metrics=None):
         self.method = method
         self.gctx = gctx
         self.device = device
@@ -538,6 +561,10 @@ class _RunCtx:
         self.injector = injector
         self.progress_cb = progress_cb
         self.resumed = 0
+        self.tracer = tracer or NULL_TRACER
+        self.metrics = metrics or NULL_METRICS
+        self.m_layers = self.metrics.counter("quant.layers_done")
+        self.m_leaves = self.metrics.counter("quant.leaves_solved")
 
     def fault(self, point: str, exc=InjectedFault) -> None:
         if self.injector is not None:
@@ -585,10 +612,10 @@ class _RunCtx:
             return results
         errs = torch.stack([torch.stack([torch.as_tensor(eb).float(),
                                          torch.as_tensor(ea).float()])
-                            for _, eb, ea, _ in results]).cpu().tolist()
+                            for _, eb, ea, *_ in results]).cpu().tolist()
         rows = []
-        for nm, spec, (qt, _, _, secs), (ebf, eaf) in zip(names, specs,
-                                                         results, errs):
+        for nm, spec, (qt, _, _, secs, wall), (ebf, eaf) in zip(
+                names, specs, results, errs):
             qt_host = {k: v.detach().cpu().numpy()
                        if isinstance(v, Tensor) else v for k, v in qt.items()}
             fname, crc = self.journal.spill_leaf(
@@ -596,7 +623,7 @@ class _RunCtx:
             self.journal.record_leaf(layer, nm,
                                      _spec_digest(spec, self.method),
                                      fname, crc, ebf, eaf)
-            rows.append((qt, ebf, eaf, secs))
+            rows.append((qt, ebf, eaf, secs, wall))
         return rows
 
     def _ckpt_write_fault(self) -> None:
@@ -608,9 +635,32 @@ class _RunCtx:
         leaves are durably journaled."""
         if self.journal is not None:
             self.journal.record_layer_done(layer)
+        self.m_layers.inc()
         if self.progress_cb is not None:
             self.progress_cb(layer)
         self.fault("kill", SimulatedKill)
+
+
+def _timed_solve(ctx: _RunCtx, layer: int, tapname: str, names,
+                 solve_thunk):
+    """Run one tap group's solve under a `leaf_solve` span and extend each
+    (qt, eb, ea, secs) row with its wall seconds. With a tracer the span
+    waits for the solved codes before it closes (the current stream's
+    synchronize on the card), so its duration, split evenly across the
+    group, is the solve's wall time; without one the solve runs bare, the
+    walk stays sync-free and the wall is 0.0 (unmeasured)."""
+    if not ctx.tracer.enabled:
+        results = solve_thunk()
+        ctx.m_leaves.inc(len(results))
+        return [r + (0.0,) for r in results]
+    with ctx.tracer.span("leaf_solve", device=True, layer=layer,
+                         tap=tapname, leaves=",".join(names)) as sp:
+        results = solve_thunk()
+        if ctx.device.type == "cuda":
+            torch.cuda.current_stream(ctx.device).synchronize()
+        wall = sp.elapsed_s / max(len(results), 1)
+    ctx.m_leaves.inc(len(results))
+    return [r + (wall,) for r in results]
 
 
 def _quantize_tap_group(lp, tapname: str, entries, tap: Tensor, resolve,
@@ -625,7 +675,7 @@ def _quantize_tap_group(lp, tapname: str, entries, tap: Tensor, resolve,
     specs = _group_specs(resolve, layer_idx, entries, prefix)
     cached = ctx.lookup(layer_idx, names, specs)
     if cached is not None:
-        rows = [(qt, rec["err_before"], rec["err_after"], 0.0)
+        rows = [(qt, rec["err_before"], rec["err_after"], 0.0, 0.0)
                 for qt, rec in cached]
     else:
         ctx.fault("gram_accumulate")
@@ -634,17 +684,22 @@ def _quantize_tap_group(lp, tapname: str, entries, tap: Tensor, resolve,
             ctx.fault("leaf_solve")
         ws = [lp[mod][leaf] for mod, leaf in entries]
         if tapname.startswith("expert"):
-            rows = _solve_group_experts(ws, calibrate.batched_gram(tap),
-                                        specs, method, gctx=ctx.gctx,
-                                        layer=layer_idx, names=names)
+            hs = calibrate.batched_gram(tap)
+            rows = _timed_solve(
+                ctx, layer_idx, tapname, names,
+                lambda: _solve_group_experts(ws, hs, specs, method,
+                                             gctx=ctx.gctx, layer=layer_idx,
+                                             names=names))
         else:
-            rows = _solve_group(ws, calibrate.gram_from_tap(tap), specs,
-                                method, gctx=ctx.gctx, layer=layer_idx,
-                                names=names)
+            h = calibrate.gram_from_tap(tap)
+            rows = _timed_solve(
+                ctx, layer_idx, tapname, names,
+                lambda: _solve_group(ws, h, specs, method, gctx=ctx.gctx,
+                                     layer=layer_idx, names=names))
         rows = ctx.commit(layer_idx, names, specs, rows)
     out = []
-    for (mod, leaf), nm, (qt, eb, ea, secs) in zip(entries, names, rows):
-        pending.append((layer_idx, nm, eb, ea, secs))
+    for (mod, leaf), nm, (qt, *errs_secs) in zip(entries, names, rows):
+        pending.append((layer_idx, nm, *errs_secs))
         out.append((mod, leaf, qt))
     return out
 
@@ -741,18 +796,27 @@ def _quantize_vlm(params, cfg, plan, x, vision_embeds, layer_fn, resolve,
     return table
 
 
-def _finalize_report(report: QuantReport, pending: List[tuple]):
+def _finalize_report(report: QuantReport, pending: List[tuple],
+                     metrics=NULL_METRICS):
     """Move every per-leaf error scalar still on the device to the host in
-    one transfer (a journaled run's are host floats already)."""
+    one transfer (a journaled run's are host floats already). Per-leaf
+    metrics (final error, dispatch and wall seconds) are observed here,
+    from the host values, never mid-walk."""
     on_dev = [v for row in pending for v in row[2:4]
               if isinstance(v, Tensor)]
     host = iter(torch.stack([v.float() for v in on_dev]).cpu().tolist()
                 if on_dev else ())
-    for li, name, eb, ea, secs in pending:
+    h_err = metrics.histogram("quant.leaf_err_after")
+    h_disp = metrics.histogram("quant.leaf_dispatch_seconds")
+    h_wall = metrics.histogram("quant.leaf_wall_seconds")
+    for li, name, eb, ea, secs, wall in pending:
         eb = next(host) if isinstance(eb, Tensor) else eb
         ea = next(host) if isinstance(ea, Tensor) else ea
         report.layers.append(LayerReport(li, name, float(eb), float(ea),
-                                         secs))
+                                         secs, wall))
+        h_err.observe(float(ea))
+        h_disp.observe(secs)
+        h_wall.observe(wall)
     return report
 
 
@@ -764,18 +828,20 @@ def _quantize_unembed(params, cfg, x: Tensor, resolve, method: str,
     cached = ctx.lookup(-1, names, specs)
     if cached is not None:
         qt, rec = cached[0]
-        row = (qt, rec["err_before"], rec["err_after"], 0.0)
+        row = (qt, rec["err_before"], rec["err_after"], 0.0, 0.0)
     else:
         ctx.fault("gram_accumulate")
         xn = _sanitize_tap(ctx.gctx, ctx.poison_tap(
             apply_norm(params["final_norm"], x, cfg)), -1, names)
         ctx.fault("leaf_solve")
-        rows = _solve_group([params["unembed"]], calibrate.gram_from_tap(xn),
-                            specs, method, gctx=ctx.gctx, layer=-1,
-                            names=names)
+        h = calibrate.gram_from_tap(xn)
+        rows = _timed_solve(
+            ctx, -1, "unembed_in", names,
+            lambda: _solve_group([params["unembed"]], h, specs, method,
+                                 gctx=ctx.gctx, layer=-1, names=names))
         row = ctx.commit(-1, names, specs, rows)[0]
-    qt, eb, ea, secs = row
-    pending.append((-1, "unembed", eb, ea, secs))
+    qt, *errs_secs = row
+    pending.append((-1, "unembed", *errs_secs))
     return qt
 
 
@@ -794,7 +860,8 @@ def quantize_model(params, cfg, plan, tokens: Tensor, spec,
                    propagation: str = "staged", *, guards: bool = True,
                    vision_embeds: Optional[Tensor] = None,
                    journal=None, resume: bool = False, injector=None,
-                   progress_cb: Optional[Callable[[int], None]] = None):
+                   progress_cb: Optional[Callable[[int], None]] = None,
+                   tracer=None, metrics=None):
     """Quantize every projection weight of a dense, MoE, hybrid, RWKV or
     VLM LM (the router, the SSM's small leaves, RWKV's mixes, LoRAs and
     decay, and a cross layer's wk / wv and gates stay float). `tokens`:
@@ -819,6 +886,16 @@ def quantize_model(params, cfg, plan, tokens: Tensor, spec,
     differ) raises ft.ResumeMismatch. `injector` (ft.FaultInjector) arms
     the pipeline's fault points; progress_cb(layer) runs after each
     durably journaled layer.
+
+    Observability, as in the JAX package: `tracer` (obs.Tracer) records a
+    `layer` span per layer (not in the VLM walk, as in JAX) and a
+    `leaf_solve` span per solved tap group, which waits for the group's
+    codes and fills LayerReport.wall_seconds; `metrics`
+    (obs.MetricsRegistry) counts quant.layers_done, quant.leaves_solved,
+    quant.resumed_leaves and quant.guard_events and observes the
+    quant.leaf_err_after / leaf_dispatch_seconds / leaf_wall_seconds
+    histograms. Neither changes a code, and without a tracer the walk adds
+    no sync.
 
     Returns (qparams, QuantReport): qparams is `params` plus a
     "__qlayers__" side table {str(layer): layer params with QTensor
@@ -879,7 +956,8 @@ def quantize_model(params, cfg, plan, tokens: Tensor, spec,
 
     gctx = GuardContext(enabled=guards)
     ctx = _RunCtx(method, gctx, tokens.device, journal=qj, solved=solved,
-                  injector=injector, progress_cb=progress_cb)
+                  injector=injector, progress_cb=progress_cb, tracer=tracer,
+                  metrics=metrics)
     t_start = time.time()
     report = QuantReport()
     pending: List[tuple] = []
@@ -895,9 +973,11 @@ def quantize_model(params, cfg, plan, tokens: Tensor, spec,
                 quantize_unembed = False
             state = None
             for l, lp in enumerate(params.get("layers", ())):
-                lp_q, x, state = layer_fn(lp, x, state, cfg, plan, tapmap,
-                                          resolve, method, pending, l, ctx)
-                table[str(l)] = lp_q
+                with ctx.tracer.span("layer", layer=l, schedule=propagation):
+                    lp_q, x, state = layer_fn(lp, x, state, cfg, plan,
+                                              tapmap, resolve, method,
+                                              pending, l, ctx)
+                    table[str(l)] = lp_q
                 ctx.layer_done(l)
             if quantize_unembed and "unembed" in params:
                 qparams["unembed"] = _quantize_unembed(
@@ -908,10 +988,12 @@ def quantize_model(params, cfg, plan, tokens: Tensor, spec,
         if own_journal:
             qj.close()
     qparams["__qlayers__"] = table
-    _finalize_report(report, pending)
+    _finalize_report(report, pending, metrics=ctx.metrics)
     report.wall_seconds = time.time() - t_start
     report.guard_events = list(gctx.events)
     report.resumed_leaves = ctx.resumed
+    ctx.metrics.counter("quant.guard_events").inc(len(report.guard_events))
+    ctx.metrics.counter("quant.resumed_leaves").inc(ctx.resumed)
     gmap = gctx.by_leaf()
     for lr in report.layers:
         lr.guard = gmap.get((lr.layer, lr.name), "")

@@ -19,6 +19,15 @@ from the journal after `QuantJournal.check_integrity`, which re-applies
 the journaled leaves bit for bit instead of solving them; a
 `ft.Heartbeat` in the journal directory beats after each layer.
 `--inject` arms the pipeline's fault points (`ft.FaultInjector.parse`).
+`--trace DIR` records the walk's `layer` and `leaf_solve` spans
+(obs.Tracer; each traced group waits for its codes, so the report's
+wall_seconds are measured) into `DIR/quantize.g<N>.trace.json`;
+`--metrics DIR` writes the run's registry to `DIR/metrics.jsonl` and
+`DIR/metrics.prom`, and a journaled run's heartbeat carries its snapshot.
+Check them with `python -m repro_torch.obs.validate` and
+`python -m repro_torch.obs.report DIR`:
+
+    ... --device cpu --trace /tmp/obs_q/trace --metrics /tmp/obs_q/metrics
 `--out-dir DIR` saves the packed tree as a `CheckpointManager` step 0
 with the policy metadata (the JAX launcher always saves one, to a
 default directory; the port only when asked). A resumed run's
@@ -41,6 +50,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
@@ -57,10 +67,11 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.ft import (FaultInjector, Heartbeat, QuantJournal,
                             run_with_restarts)
 from repro_torch.models import BuildPlan, init_params, lm_loss
+from repro_torch.obs import MetricsRegistry, Tracer, next_trace_path
 
-# JAX launcher flags not ported yet, with whether each takes a value
-NOT_PORTED = {"--shard-data": False, "--shard-solve": True,
-              "--trace": True, "--metrics": True}
+# JAX launcher flags not ported yet (ROADMAP.md Queue A item 15,
+# distribution), with whether each takes a value
+NOT_PORTED = {"--shard-data": False, "--shard-solve": True}
 
 
 def set_precision() -> None:
@@ -138,20 +149,23 @@ def resolve_policy(params, cfg, plan, tokens, base: QuantSpec,
 
 def quantize_supervised(params, cfg, plan, tokens, spec, *, journal: str,
                         resume: bool = False, restarts: int = 0,
-                        injector=None, progress_cb=None, **kw):
+                        injector=None, progress_cb=None, metrics=None,
+                        **kw):
     """`quantize_model` journaled in `journal` under `run_with_restarts`,
     as the launcher runs it: up to `restarts` restarts without progress
     (the journaled-leaf count), each attempt resuming whenever the
     journal already holds leaves (after `QuantJournal.check_integrity`),
     a `Heartbeat` in the journal directory beating after each layer
-    before `progress_cb(layer)`. A failed attempt's frames are collected
-    before the next one allocates, so a retry starts from the memory one
-    clean run holds. `kw` goes to `quantize_model`."""
+    (with `metrics.snapshot()` when a registry is given) before
+    `progress_cb(layer)`. A failed attempt's frames are collected before
+    the next one allocates, so a retry starts from the memory one clean
+    run holds. `kw` goes to `quantize_model`."""
     hb = Heartbeat(journal, host_id=0)
     box: Dict[str, Any] = {"attempts": 0}
 
     def on_layer(layer: int) -> None:
-        hb.beat(layer)
+        hb.beat(layer, metrics=(metrics.snapshot() if metrics is not None
+                                else None))
         if progress_cb is not None:
             progress_cb(layer)
 
@@ -165,7 +179,7 @@ def quantize_supervised(params, cfg, plan, tokens, spec, *, journal: str,
         box["out"] = quantize_model(params, cfg, plan, tokens, spec,
                                     journal=journal, resume=again,
                                     injector=injector, progress_cb=on_layer,
-                                    **kw)
+                                    metrics=metrics, **kw)
 
     def progress():
         return len(QuantJournal.replay(journal).leaves)
@@ -185,12 +199,14 @@ def quantize_and_eval(cfg, *, bits: int = 4,
                       save_packed: Optional[str] = None,
                       out_dir: Optional[str] = None,
                       journal: Optional[str] = None, resume: bool = False,
-                      restarts: int = 0, injector=None,
+                      restarts: int = 0, injector=None, tracer=None,
+                      metrics=None,
                       device: DeviceLike = None) -> QuantizeRun:
     """Init `cfg` from seed 0, quantize it on random calibration ids
     (seed 0) under `--bits` or the policy, and evaluate fp vs quantized
     loss on a held-out batch (seed 7) — the JAX launcher's run. With
-    `journal` the walk is `quantize_supervised`'s."""
+    `journal` the walk is `quantize_supervised`'s; `tracer` and `metrics`
+    (obs) go to `quantize_model`."""
     dev = resolve_device(device)
     set_precision()
     params = init_params(cfg, seed=0, device=dev)
@@ -204,14 +220,15 @@ def quantize_and_eval(cfg, *, bits: int = 4,
                                               bits_budget)
     t0 = time.time()
     kw = dict(method=method, propagation=propagation, guards=guards,
-              vision_embeds=ve)
+              vision_embeds=ve, tracer=tracer)
     if journal:
         qparams, report = quantize_supervised(
             params, cfg, plan, tokens, spec, journal=journal, resume=resume,
-            restarts=restarts, injector=injector, **kw)
+            restarts=restarts, injector=injector, metrics=metrics, **kw)
     else:
         qparams, report = quantize_model(params, cfg, plan, tokens, spec,
-                                         injector=injector, **kw)
+                                         injector=injector, metrics=metrics,
+                                         **kw)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.time() - t0
@@ -257,14 +274,29 @@ def quantize_and_eval(cfg, *, bits: int = 4,
                        ev, dt, alloc, sizes, ve)
 
 
+def save_obs(tracer, registry, trace_dir, metrics_dir, prefix: str) -> None:
+    """The launchers' obs sinks, as the JAX launchers write them: the trace
+    to `next_trace_path(trace_dir, prefix)`, the registry to
+    `metrics_dir/metrics.jsonl` and `metrics.prom`."""
+    if tracer is not None:
+        path = next_trace_path(trace_dir, prefix)
+        tracer.save(path)
+        print(f"# trace: {path} ({len(tracer.events)} events)")
+    if registry is not None:
+        registry.dump_jsonl(os.path.join(metrics_dir, "metrics.jsonl"))
+        registry.dump_prometheus(os.path.join(metrics_dir, "metrics.prom"))
+        print(f"# metrics: {metrics_dir}/metrics.jsonl + metrics.prom")
+
+
 class NotPorted(argparse.Action):
     """A JAX launcher flag the port does not have yet: exits 2 saying so."""
 
     def __call__(self, parser, namespace, values, option_string=None):
         jax_prog = parser.prog.replace("repro_torch.", "repro.")
         parser.exit(2, f"{parser.prog}: {option_string} is not yet ported to "
-                       "repro_torch (see ROADMAP.md Queue A); run the JAX "
-                       f"launcher `{jax_prog}` for it\n")
+                       "repro_torch (see ROADMAP.md Queue A item 15, "
+                       f"distribution); run the JAX launcher `{jax_prog}` "
+                       "for it\n")
 
 
 def add_not_ported(ap: argparse.ArgumentParser, flags: Dict[str, bool]):
@@ -330,6 +362,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "'leaf_solve:3,ckpt_write:1' (ft.FaultInjector; "
                          "points: gram_accumulate, leaf_solve, ckpt_write, "
                          "kill, nan_tap)")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="write a Chrome-trace JSON of the walk's layer / "
+                         "leaf_solve spans to DIR (obs.Tracer)")
+    ap.add_argument("--metrics", default=None, metavar="DIR",
+                    help="write DIR/metrics.jsonl + DIR/metrics.prom "
+                         "(obs.MetricsRegistry)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     add_not_ported(ap, NOT_PORTED)
@@ -346,6 +384,9 @@ def main(argv=None) -> Dict[str, Any]:
         ap.exit(2, f"{ap.prog}: {cfg.name} is an encoder, and quantize_model "
                    "has no encoder walk (the JAX package's starts from "
                    "embed_tokens, which an encoder does not have)\n")
+    tracer = Tracer(run=f"quantize:{cfg.name}") if args.trace else None
+    registry = (MetricsRegistry(run=f"quantize:{cfg.name}")
+                if args.metrics else None)
     run = quantize_and_eval(
         cfg, bits=args.bits, granularity=args.granularity, order=args.order,
         sweeps=args.sweeps, lam=args.lam, method=args.method,
@@ -355,7 +396,8 @@ def main(argv=None) -> Dict[str, Any]:
         save_packed=args.save_packed, out_dir=args.out_dir,
         journal=args.journal, resume=args.resume, restarts=args.restarts,
         injector=FaultInjector.parse(args.inject) if args.inject else None,
-        device=args.device)
+        tracer=tracer, metrics=registry, device=args.device)
+    save_obs(tracer, registry, args.trace, args.metrics, "quantize")
     print(json.dumps(run.summary))
     return run.summary
 

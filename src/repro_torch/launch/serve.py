@@ -35,9 +35,18 @@ runtime's fault points (page_alloc, decode_step, callback, kill):
 
     ... --journal DIR --inject kill:20 --restarts 2
 
+Observability (paged engine, as in the JAX launcher): `--trace DIR`
+writes the runtime's request events and `decode_step` / `serve.run` spans
+to `DIR/serve.g<N>.trace.json` (a supervised run's restarts share one
+tracer, and timelines dedup the replayed events), `--metrics DIR` its
+registry to `DIR/metrics.jsonl` and `DIR/metrics.prom`:
+
+    ... --num-blocks 8 --priorities 0,0,1,1,2,2 --trace DIR --metrics DIR
+    python -m repro_torch.obs.validate --timelines --require-preempt \
+        DIR/*.trace.json
+
 Runs on the card unless `--device cpu` is given, and prints one JSON line
-of run metrics. The JAX launcher's `--trace --metrics` are not ported yet
-and exit 2 saying so.
+of run metrics.
 """
 from __future__ import annotations
 
@@ -59,14 +68,12 @@ from repro_torch.core.apply import serving_params
 from repro_torch.device import resolve_device
 from repro_torch.ft import (FaultInjector, Heartbeat, Journal, SimulatedKill,
                             run_with_restarts)
-from repro_torch.launch.quantize import add_not_ported, set_precision
+from repro_torch.launch.quantize import save_obs, set_precision
 from repro_torch.models import BuildPlan, init_params
 from repro_torch.models.model import param_count as count_params
+from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.serve import (Engine, Runtime, ServeConfig, blocks_for,
                                paged_cache_bytes, recover_runtime)
-
-# JAX launcher flags not ported yet, with whether each takes a value
-NOT_PORTED = {"--trace": True, "--metrics": True}
 
 
 def _quantize(params, cfg, plan, bits: int, dev):
@@ -137,8 +144,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--inject", default=None, metavar="SPEC",
                     help="deterministic fault injection, e.g. "
                          "'page_alloc:3+7,kill:5' (ft.FaultInjector)")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="write a Chrome-trace JSON of the run's request "
+                         "events and spans to DIR (obs.Tracer; paged "
+                         "engine)")
+    ap.add_argument("--metrics", default=None, metavar="DIR",
+                    help="write DIR/metrics.jsonl + DIR/metrics.prom "
+                         "(obs.MetricsRegistry; paged engine)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    add_not_ported(ap, NOT_PORTED)
     return ap
 
 
@@ -264,6 +277,9 @@ def main(argv=None) -> Dict[str, Any]:
                   top_k=args.top_k, top_p=args.top_p,
                   stop_tokens=tuple(args.stop_token))
         injector = FaultInjector.parse(args.inject) if args.inject else None
+        tracer = Tracer(run=f"serve:{cfg.name}") if args.trace else None
+        registry = (MetricsRegistry(run=f"serve:{cfg.name}")
+                    if args.metrics else None)
         hb = Heartbeat(args.journal, host_id=0) if args.journal else None
         # box["rt"] is set as soon as a runtime exists, so a crash inside
         # build() still lets the supervisor close that attempt's journal
@@ -273,7 +289,8 @@ def main(argv=None) -> Dict[str, Any]:
             if resume:
                 rt, state = recover_runtime(params, cfg, plan, args.journal,
                                             serve_cfg, injector=injector,
-                                            device=dev)
+                                            device=dev, tracer=tracer,
+                                            metrics=registry)
                 box["rt"] = rt
                 print(f"resume: {len(state.completed)} retired in journal, "
                       f"replaying {len(state.inflight)} in-flight")
@@ -288,7 +305,8 @@ def main(argv=None) -> Dict[str, Any]:
                 return rt, reqs
             journal = Journal(args.journal) if args.journal else None
             rt = Runtime(params, cfg, plan, serve_cfg, journal=journal,
-                         injector=injector, device=dev)
+                         injector=injector, tracer=tracer, metrics=registry,
+                         device=dev)
             box["rt"] = rt
             n_up_front = args.stagger if args.stagger > 0 else len(prompts)
             reqs = [rt.submit(p, priority=pr, **kw)
@@ -331,6 +349,7 @@ def main(argv=None) -> Dict[str, Any]:
             metrics = rt.run()
             if hb is not None:
                 hb.beat(rt.steps, metrics=rt.metrics_snapshot())
+    save_obs(tracer, registry, args.trace, args.metrics, "serve")
 
     metrics.update({
         "arch": cfg.name, "engine": "paged", "device": str(dev),

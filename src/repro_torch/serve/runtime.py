@@ -18,7 +18,12 @@ The runtime ties together:
   the queue after a process death, replaying in-flight requests token for
   token (deterministic decode + seeded sampling);
 * `ft/inject.py` — optional deterministic fault injection (page-alloc
-  failure, decode-step exception, callback error, simulated kill).
+  failure, decode-step exception, callback error, simulated kill);
+* `obs/` — optional tracer and metrics registry: the JAX runtime's
+  request lifecycle events (submit, admit, first_token, token, preempt,
+  retire), a `decode_step` span per step (a `torch.profiler` user
+  annotation around the step's kernels), the `serve.run` span, and its
+  counters, histograms and pool gauges.
 
 The batch shape is fixed at `max_slots` rows and every kernel computes a
 row from that row's inputs alone, so a request's tokens do not depend on
@@ -37,8 +42,9 @@ uninterrupted run.
 
 Per decode step the host uploads the tokens and positions, re-uploads
 the block tables only when they changed, and pulls the sampled tokens:
-that pull is the step's one host sync. The JAX runtime's tracer, metrics
-registry and mesh are not ported yet; passing any of them raises.
+that pull is the step's one host sync. The observability hooks read host
+values only and add none. The JAX runtime's mesh is not ported yet
+(ROADMAP.md Queue A item 15); passing one raises.
 """
 from __future__ import annotations
 
@@ -54,6 +60,8 @@ from repro_torch.ft.inject import InjectedFault, SimulatedKill
 from repro_torch.ft.journal import Journal
 from repro_torch.models.model import decode_step_paged, forward
 from repro_torch.models.transformer import check_paged
+from repro_torch.obs.metrics import NULL_METRICS, Histogram
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serve.kv_cache import (BlockAllocator, blocks_for,
                                         init_paged_cache, paged_cache_bytes,
                                         write_prefill)
@@ -103,18 +111,18 @@ class Runtime:
     Runs on the card unless `device="cpu"`. `journal` (ft.Journal) records
     each request's lifecycle for `recover_runtime`; `injector`
     (ft.FaultInjector) arms the page_alloc, decode_step, callback and kill
-    fault points."""
+    fault points; `tracer` (obs.Tracer) and `metrics`
+    (obs.MetricsRegistry) record the JAX runtime's events, spans and
+    instruments."""
 
     def __init__(self, params, cfg, plan, serve_cfg: ServeConfig = None,
                  journal: Optional[Journal] = None, injector=None,
                  tracer=None, metrics=None, mesh=None,
                  device: DeviceLike = None):
-        for name, arg in (("tracer", tracer), ("metrics", metrics),
-                          ("mesh", mesh)):
-            if arg is not None:
-                raise NotImplementedError(
-                    f"Runtime({name}=...) is not yet ported to repro_torch "
-                    "(see ROADMAP.md Queue A)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "Runtime(mesh=...) is not yet ported to repro_torch (see "
+                "ROADMAP.md Queue A item 15, distribution)")
         check_paged(cfg)
         # the paged path quantizes pages, not the static engine's per-entry
         # int8 cache: an int8 cache plan means int8 pages, and the prefill
@@ -136,6 +144,21 @@ class Runtime:
         self.serve_cfg = sc
         self.journal = journal
         self.injector = injector
+        # null singletons when not given; the instrument handles are
+        # resolved once here, so a hot call site is a float add or a list
+        # append on a host value, never a registry lookup
+        self.tracer = tracer or NULL_TRACER
+        self.metrics = metrics or NULL_METRICS
+        self._m_ttft = self.metrics.histogram("serve.ttft_seconds")
+        self._m_itl = self.metrics.histogram("serve.itl_seconds")
+        self._m_tokens = self.metrics.counter("serve.tokens_emitted")
+        self._m_retired = self.metrics.counter("serve.requests_retired")
+        self._m_preempt = self.metrics.counter("serve.preemptions")
+        self._m_admits = self.metrics.counter("serve.admits")
+        self._m_resumes = self.metrics.counter("serve.resumes")
+        self._m_free = self.metrics.gauge("serve.pool_free_blocks")
+        self._m_occ = self.metrics.gauge("serve.pool_live_occupancy")
+        self._m_pool_bytes = self.metrics.gauge("serve.pool_kv_bytes")
         fail_hook = None
         if injector is not None:
             fail_hook = lambda: injector.fire("page_alloc")  # noqa: E731
@@ -148,6 +171,10 @@ class Runtime:
         self.maxb = self.scheduler.max_blocks_per_slot
         self.pool = init_paged_cache(cfg, plan, sc.num_blocks, sc.block_size,
                                      device=self.device)
+        # bytes of one live page (codes and its share of the scales): the
+        # pool-bytes gauge is a host multiply
+        self._page_bytes = paged_cache_bytes(
+            cfg, plan, sc.num_blocks, sc.block_size) // sc.num_blocks
 
         B = sc.max_slots
         # host-side decode state, one row per slot
@@ -195,6 +222,10 @@ class Runtime:
                         + req.rid) & 0x7FFFFFFF
         if self.journal is not None:
             self.journal.record_submit(req)
+        self.tracer.request_event("submit", req.rid,
+                                  prompt_len=int(req.prompt.shape[0]),
+                                  max_new_tokens=int(max_new_tokens),
+                                  priority=int(priority))
         return req
 
     # -- serving loop --------------------------------------------------------
@@ -219,6 +250,11 @@ class Runtime:
                 req.stream_cb = orig
         else:
             req.emit(token, now)
+        # the token's index in the stream: a crash replay re-delivers the
+        # same prefix, and timelines dedup by (rid, i)
+        self.tracer.token_event(req.rid, len(req.out_tokens) - 1, token,
+                                now * 1e6)
+        self._m_tokens.inc()
 
     def _clear_slot(self, req: Request) -> None:
         """Scheduler preemption callback: wipe the victim's slot state
@@ -236,6 +272,9 @@ class Runtime:
         self._any_sampling = bool((self._temp > 0.0).any())
         if self.journal is not None:
             self.journal.record_preempt(req)
+        self.tracer.request_event("preempt", req.rid,
+                                  n_preempts=int(req.n_preempts) + 1)
+        self._m_preempt.inc()
 
     def _prefill(self, tokens_in: np.ndarray, bucket: int):
         """Prefill one right-padded request; returns (logits (1, bucket,
@@ -285,11 +324,15 @@ class Runtime:
         self._seed[s] = np.uint32(req.seed or 0)
         self._bt_dirty = True
         self._any_sampling = bool((self._temp > 0.0).any())
+        self.tracer.request_event("admit", req.rid, slot=int(s),
+                                  resumed=resume, prefill_len=tlen)
+        self._m_admits.inc()
         if resume:
             self._tok[s] = req.out_tokens[-1]
             self._count[s] = len(req.out_tokens)
             if self.journal is not None:
                 self.journal.record_resume(req)
+            self._m_resumes.inc()
             return 0
         # first token comes straight from the prefill logits (TTFT token)
         last = logits[:, tlen - 1]
@@ -305,6 +348,8 @@ class Runtime:
         self._count[s] = 1
         if self.journal is not None:
             self.journal.record_first_token(req, first)
+        self.tracer.request_event("first_token", req.rid, token=first)
+        self._m_ttft.observe(req.ttft)
         if req.finished():       # max_new == 1, or the TTFT token is a stop
             self._retire(req)
         return 1
@@ -317,6 +362,12 @@ class Runtime:
         # retired request
         if self.journal is not None:
             self.journal.record_retire(req)
+        self.tracer.request_event("retire", req.rid,
+                                  reason=req.finish_reason,
+                                  new_tokens=len(req.out_tokens))
+        self._m_retired.inc()
+        for dt in req.itl:           # host floats collected by emit()
+            self._m_itl.observe(dt)
         self.scheduler.release(req)
         self._pos[s] = -1
         self._bt[s] = 0
@@ -361,16 +412,21 @@ class Runtime:
             self._bt_dirty = False
         if self.injector is not None:
             self.injector.check("decode_step")
-        logits, self.pool = decode_step_paged(
-            self.params, self.cfg, self.plan, self.pool, self._bt_dev,
-            self._upload(self._tok[:, None]), self._upload(self._pos))
-        if self._any_sampling:
-            toks = sample_batch_seeded(
-                logits, self._seed, self._count, temperature=self._temp,
-                top_k=self._topk, top_p=self._topp)
-        else:
-            toks = torch.argmax(logits, dim=-1)
-        toks = toks.cpu().numpy()    # the step's one host sync
+        # the span brackets the step's launches and the token pull it makes
+        # anyway: no extra sync, and in a profiler trace the annotation
+        # holds the step's kernels
+        with self.tracer.span("decode_step", device=True, step=self.steps,
+                              slots=len(running)):
+            logits, self.pool = decode_step_paged(
+                self.params, self.cfg, self.plan, self.pool, self._bt_dev,
+                self._upload(self._tok[:, None]), self._upload(self._pos))
+            if self._any_sampling:
+                toks = sample_batch_seeded(
+                    logits, self._seed, self._count, temperature=self._temp,
+                    top_k=self._topk, top_p=self._topp)
+            else:
+                toks = torch.argmax(logits, dim=-1)
+            toks = toks.cpu().numpy()    # the step's one host sync
         now = time.time()
         self.steps += 1
         self.decode_seconds += now - t0
@@ -386,6 +442,9 @@ class Runtime:
         live = self._live_blocks()
         self._occ_sum += live / self.allocator.num_blocks
         self._occ_steps += 1
+        self._m_free.set(self.allocator.num_free)
+        self._m_occ.set(live / self.allocator.num_blocks)
+        self._m_pool_bytes.set(live * self._page_bytes)
         return emitted
 
     def _live_blocks(self) -> int:
@@ -397,20 +456,24 @@ class Runtime:
     def run(self) -> dict:
         """Drain the queue; returns aggregate + per-request metrics for
         this call (tokens emitted and requests completed while run() was
-        draining). ITL percentiles are `np.percentile` over this run's
-        inter-token gaps."""
+        draining). ITL figures come from a Histogram over this run's
+        inter-token gaps, whose quantiles equal `np.percentile`'s."""
         t0 = time.time()
         done_before = len(self.scheduler.completed)
         steps_before = self.steps
         occ_sum0, occ_n0 = self._occ_sum, self._occ_steps
         preempt0 = self.scheduler.preemptions
         new_tokens = 0
-        while not self.scheduler.idle:
-            new_tokens += self.step()
+        with self.tracer.span("serve.run"):
+            while not self.scheduler.idle:
+                new_tokens += self.step()
         wall = time.time() - t0
         done = self.scheduler.completed[done_before:]
         occ_n = self._occ_steps - occ_n0
-        itl = np.asarray([dt for r in done for dt in r.itl], np.float64)
+        itl = Histogram("serve.itl_seconds")
+        for r in done:
+            for dt in r.itl:
+                itl.observe(dt)
         return {
             "requests": len(done),
             "finish_reasons": [r.finish_reason for r in done],
@@ -418,9 +481,9 @@ class Runtime:
             "wall_seconds": wall,
             "tok_per_s": new_tokens / max(wall, 1e-9),
             "ttft_s": [r.ttft for r in done],
-            "itl_mean_s": float(itl.mean()) if itl.size else 0.0,
-            "itl_p50_s": float(np.percentile(itl, 50)) if itl.size else 0.0,
-            "itl_p99_s": float(np.percentile(itl, 99)) if itl.size else 0.0,
+            "itl_mean_s": itl.sum / itl.count if itl.count else 0.0,
+            "itl_p50_s": itl.quantile(0.5) if itl.count else 0.0,
+            "itl_p99_s": itl.quantile(0.99) if itl.count else 0.0,
             "decode_steps": self.steps - steps_before,
             "preemptions": self.scheduler.preemptions - preempt0,
             "cache_blocks": self.allocator.num_blocks,
@@ -457,17 +520,20 @@ class Runtime:
 
 def recover_runtime(params, cfg, plan, journal_dir: str,
                     serve_cfg: ServeConfig = None, injector=None,
-                    fsync: bool = True, device: DeviceLike = None):
+                    fsync: bool = True, device: DeviceLike = None,
+                    tracer=None, metrics=None):
     """Crash recovery: rebuild a Runtime from a request journal after a
     process death. Retired requests are never re-run (their tokens live in
     the journal); every in-flight request is re-submitted once under its
     original rid, seed and settings, so draining the returned runtime
     replays each stream token for token. Returns (runtime, journal state);
-    `journal_state.completed` holds the pre-crash outputs."""
+    `journal_state.completed` holds the pre-crash outputs. `tracer` and
+    `metrics` go to the new Runtime."""
     state = Journal.replay(journal_dir)
     journal = Journal(journal_dir, fsync=fsync)
     rt = Runtime(params, cfg, plan, serve_cfg, journal=journal,
-                 injector=injector, device=device)
+                 injector=injector, tracer=tracer, metrics=metrics,
+                 device=device)
     rt.scheduler.advance_rids(state.max_rid)
     for rid in sorted(state.inflight):
         rec = state.inflight[rid]

@@ -4,6 +4,7 @@ dispatch never runs a plain version on a non-CPU tensor, and entry points
 refuse to fall back to the CPU."""
 import ast
 import importlib
+import json
 import pkgutil
 from pathlib import Path
 
@@ -109,13 +110,21 @@ def test_cuda_default_raises_without_a_card():
 @pytest.mark.parametrize("flag", ["--journal", "--shard-data", "--trace"])
 def test_launcher_rejects_unported_flags(flag, capsys, tmp_path):
     from repro_torch.launch import quantize
+    from repro_torch.obs import validate_trace_file
     argv = ["--arch", "qwen2-7b", "--smoke", "--device", "cpu", flag]
     if flag not in quantize.NOT_PORTED:
-        assert flag == "--journal"
         out = quantize.main(argv + [str(tmp_path), "--method", "rtn",
                                     "--calib-batch", "2", "--calib-seq",
                                     "48"])
         assert out["layers_quantized"] == 14 and out["resumed_leaves"] == 0
+        if flag == "--trace":
+            path = tmp_path / "quantize.g0.trace.json"
+            assert validate_trace_file(str(path)) == []
+            spans = [e["name"] for e in json.loads(path.read_text())
+                     ["traceEvents"]]
+            # 2 layers of 4 tap groups each
+            assert spans.count("layer") == 2
+            assert spans.count("leaf_solve") == 8
         return
     if quantize.NOT_PORTED[flag]:
         argv.append("x")

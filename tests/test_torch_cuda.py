@@ -921,3 +921,52 @@ def test_panel_vlm_widths(cuda, n):
     qk, dk = comq_panel.comq_panel_dq_cuda(*args)
     qp, dp = comq_panel.comq_panel_dq_plain(*args)
     assert float((qk == qp).float().mean()) >= 0.999
+
+
+def test_decode_step_annotation_holds_the_paged_kernel(cuda, tmp_path):
+    """The device bridge: a traced decode step's `decode_step` span is a
+    torch.profiler user annotation, and the paged-attention kernel it
+    launched falls inside it (by the launch call's correlation id, or by
+    the kernel's interval where the launch call was not recorded)."""
+    import json
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import BuildPlan, init_params
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import Runtime, ServeConfig
+    cfg = get_smoke_config("qwen2-7b")
+    rt = Runtime(init_params(cfg, seed=0, device=cuda), cfg, BuildPlan(),
+                 ServeConfig(max_slots=2, block_size=16, num_blocks=8,
+                             buckets=(16,), max_blocks_per_slot=4),
+                 device=cuda, tracer=Tracer())
+    rs = np.random.RandomState(0)
+    for n in (9, 12):
+        rt.submit(rs.randint(0, cfg.vocab_size, (n,)), max_new_tokens=4)
+    rt.step()                            # the prefills and a first step
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rt.step()
+        torch.cuda.synchronize()
+    path = tmp_path / "profile.json"
+    prof.export_chrome_trace(str(path))
+    evs = [e for e in json.loads(path.read_text())["traceEvents"]
+           if e.get("ph") == "X"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in evs
+             if e.get("cat") == "user_annotation"
+             and e["name"] == "decode_step"]
+    launches = {e["args"]["correlation"]: e["ts"] for e in evs
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    kernels = [e for e in evs if e.get("cat") == "kernel"
+               and "paged_" in e["name"]]
+    assert len(spans) == 1 and kernels
+    a, b = spans[0]
+    for k in kernels:
+        t = launches.get(k["args"].get("correlation"))
+        t0, t1 = (t, t) if t is not None else (k["ts"], k["ts"] + k["dur"])
+        assert a <= t0 and t1 <= b, (k["name"], t0, t1, a, b)
+    assert [e["name"] for e in rt.tracer.events].count("decode_step") == 2

@@ -466,50 +466,67 @@ def test_launcher_cpu_json_line(tmp_path, capsys):
     assert static["new_tokens"] == 6
 
 
-# the JAX serve launcher's flags that the port once refused: the ones
-# still in NOT_PORTED must exit 2, the ported ones must run
+# the JAX serve launcher's flags that the port once refused: every one is
+# ported now, and each runs and leaves its output
 @pytest.mark.parametrize("flag", ["--inject", "--journal", "--metrics",
                                   "--restarts", "--resume", "--trace"])
-def test_launcher_rejects_unported_flags(flag, capsys, tmp_path):
-    if flag in launch_serve.NOT_PORTED:
-        argv = ["--arch", "qwen2-7b", "--smoke", "--device", "cpu", flag]
-        if launch_serve.NOT_PORTED[flag]:
-            argv.append("x")
-        with pytest.raises(SystemExit) as e:
-            launch_serve.main(argv)
-        assert e.value.code == 2
-        assert "not yet ported" in capsys.readouterr().err
-        return
-    assert flag in ("--inject", "--journal", "--restarts", "--resume")
+def test_launcher_rejects_unported_flags(flag, tmp_path):
+    from repro_torch.obs import reconstruct_timelines, validate_trace_file
     extra = {"--inject": ["--inject", "decode_step:99"],
              "--journal": ["--journal", str(tmp_path)],
+             "--metrics": ["--metrics", str(tmp_path)],
              "--restarts": ["--journal", str(tmp_path), "--restarts", "1"],
-             "--resume": ["--journal", str(tmp_path), "--resume"]}[flag]
+             "--resume": ["--journal", str(tmp_path), "--resume"],
+             "--trace": ["--trace", str(tmp_path)]}[flag]
     out = launch_serve.main(["--arch", "qwen2-7b", "--smoke", "--device",
                              "cpu", "--num-requests", "2", "--prompt-len",
                              "8", "--max-new", "2"] + extra)
     # --resume over an empty journal has nothing in flight to replay
     assert out["requests"] == (0 if flag == "--resume" else 2)
+    if flag == "--trace":
+        path = tmp_path / "serve.g0.trace.json"
+        assert validate_trace_file(str(path)) == []
+        tls = reconstruct_timelines(json.loads(path.read_text())
+                                    ["traceEvents"])
+        assert sorted(tls) == [0, 1]
+        assert all(len(tl.tokens) == 2 and tl.complete
+                   for tl in tls.values())
+    if flag == "--metrics":
+        recs = {r["name"]: r for r in map(
+            json.loads, (tmp_path / "metrics.jsonl").read_text().splitlines())}
+        assert recs["serve.tokens_emitted"]["value"] == out["new_tokens"]
+        assert recs["serve.requests_retired"]["value"] == 2
+        assert "serve_tokens_emitted 4.0" in (
+            tmp_path / "metrics.prom").read_text()
 
 
-# Runtime's arguments that the port once refused: tracer, metrics and mesh
-# still raise; a journal and an injector are taken
+# Runtime's arguments that the port once refused: mesh still raises,
+# naming its item; a journal, an injector, a tracer and a registry are
+# taken and used
 @pytest.mark.parametrize("arg", ["journal", "injector", "tracer", "metrics",
                                  "mesh"])
 def test_runtime_rejects_unported_arguments(setup, arg, tmp_path):
     from repro_torch.ft import FaultInjector, Journal
+    from repro_torch.obs import MetricsRegistry, Tracer
     cfg, params = setup
-    if arg in ("tracer", "metrics", "mesh"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    if arg == "mesh":
+        with pytest.raises(NotImplementedError,
+                           match="not yet ported.*item 15"):
             Runtime(params, cfg, _plan(), ServeConfig(**SC), device="cpu",
-                    **{arg: object()})
+                    mesh=object())
         return
-    value = (Journal(str(tmp_path)) if arg == "journal"
-             else FaultInjector())
+    value = {"journal": lambda: Journal(str(tmp_path)),
+             "injector": FaultInjector, "tracer": Tracer,
+             "metrics": MetricsRegistry}[arg]()
     rt = Runtime(params, cfg, _plan(), ServeConfig(**SC), device="cpu",
                  **{arg: value})
     assert getattr(rt, arg) is value
     assert len(rt.generate(_prompts(1, [5]), max_new_tokens=2)[0]) == 2
+    if arg == "tracer":
+        names = [e["name"] for e in value.events]
+        assert names.count("token") == 2 and "decode_step" in names
+    if arg == "metrics":
+        assert value.snapshot()["serve.tokens_emitted"] == 2.0
 
 
 def test_cuda_default_raises_without_a_card(setup):
