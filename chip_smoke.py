@@ -199,13 +199,44 @@ no result line):
    the quantize trace and, with --timelines --require-preempt, the serve
    trace; metrics.jsonl and metrics.prom are non-empty; the report runs.
 
+18. distribution — runs last, with the parent's allocator emptied; three
+   SPMD worlds on the card, each `python -m torch.distributed.run
+   --standalone` over this script's `--dist-worker` mode, every rank's
+   peak memory printed: (a) nccl, a world of one, qwen2-7b at full width
+   and 2 layers (phase 4's cut and calibration) on a (1, 1) mesh, as
+   `--shard-data --shard-solve 1` builds it: the .qpk bytes equal the
+   meshless run's and dist.bytes_all_reduced equals Σ m²·4 over the
+   walk's Grams; (f) compressed_all_reduce: out + new_e == g. Then gloo,
+   2 ranks sharing the card: one all-reduce of an 18944² Gram timed
+   (through host memory); (b) model 2 and (c) data 2 (one all-reduce a
+   tap Gram, counted): JAX's Σ err_after (2%) and loss gap (0.15) gates
+   against the meshless walk, and layer 0's attn_in leaves bit for bit
+   what one rank computes from the same Gram sums and column slices (the
+   per-leaf code agreement with the meshless walk and the leaves
+   bit-identical to it are printed, not gated: every Gram of a 1024-token
+   calibration is rank-deficient at these widths, so the Gram's
+   summation order, or a column count for which cuBLAS picks another
+   f32 GEMM, moves codes); (e) Runtime(mesh=) over model 2 on phase 4's
+   packed model from its .qpk, the phase-8 traffic: f32 kv_bits 0 and 8
+   tokens equal the meshless runtime's 16/16, bf16 kv_bits 4 printed, no
+   collective inside decode_step, each rank's paged launches; (f) over
+   gloo: the mean within a grid step of the exact mean, residuals
+   v - q·scale exact. Last gloo, 4 ranks on a (2, 2) mesh: (d) qwen2-7b with (c)'s
+   gates, then granite-moe-3b-a800m at 2 of 32 layers: (c)'s gates, every
+   MoE layer's kept (token, slot) set the replicated rule's on the walk's
+   own routing (equal to the meshless walk's where the routing is), and
+   layer 0's experts at a capacity factor of 0.75 on the same inputs:
+   the kept set is the replicated rule's (and one rank's routing of the
+   whole batch, where the routed ids agree).
+
 Launch counts: the quantize-and-decode path (phases 4-5), the serve path
 (phase 8), the policy path (phase 9a), the durability runs (phase 16:
 its quantize walks, then its serve runs), the observability runs (phase
 17 a, b and d), the MoE path (phase 10), the
 hybrid path (phase 11 b-d), the audio path (phase 12), the rwkv path
-(phase 13), the vlm path (phase 14) and the encoder path (phase 15) are
-each counted from 0; every kernel must launch on the main path as a
+(phase 13), the vlm path (phase 14), the encoder path (phase 15) and
+every rank's runs of phase 18 (its sharded walks and runtime) are each
+counted from 0; every kernel must launch on the main path as a
 whole, each of the five on the MoE and audio paths, the three of the
 static engine on the hybrid path, comq_panel on the rwkv path, comq_panel
 and flash on the vlm path (its single-query launches, the cross layers'
@@ -887,14 +918,14 @@ class DecodeTape:
                 return out
             return layer
 
-        def routed(x, router, n_real, top_k, capacity):
+        def routed(x, router, n_real, top_k, capacity, offset=None):
             if mode == "record":
-                out = real_route(x, router, n_real, top_k, capacity)
+                out = real_route(x, router, n_real, top_k, capacity, offset)
                 self.ids.append(out[2])
                 return out
             rec = self.ids[next(route_i)]
             if mode == "free":
-                out = real_route(x, router, n_real, top_k, capacity)
+                out = real_route(x, router, n_real, top_k, capacity, offset)
                 self.flips += int((torch.sort(out[2], -1)[0]
                                    != torch.sort(rec, -1)[0]).sum())
                 self.pairs += rec.numel()
@@ -902,7 +933,7 @@ class DecodeTape:
             logits = x.float() @ router.float()
             weights = torch.softmax(logits.gather(1, rec), dim=-1)
             return (logits, weights, rec,
-                    *moe.slots_for(rec, router.shape[-1], capacity))
+                    *moe.slots_for(rec, router.shape[-1], capacity, offset))
 
         if mode == "lockstep":
             self.held, self.worst, self.worst_at = 0, 0.0, None
@@ -2869,6 +2900,654 @@ def phase_observability(torch, dev, ops, kernels, sp, cfg, prompts, smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 18: distribution (SPMD worlds under torch.distributed.run)
+# ---------------------------------------------------------------------------
+
+DIST_LAYERS = 2           # qwen2-7b (phase 4's cut) and granite-moe-3b-a800m
+DIST_ERR_REL = 0.02       # JAX's Σ err_after gate (tests/test_dist.py)
+DIST_TIMEOUT = 900        # seconds a world may take
+# a qwen rank: 6.2 GB of f32 weights, 1.9 GB of eval copy, codes, the
+# 18944^2 Gram and its permuted copy (1.44 GB each), eval logits
+DIST_PEAK_PREDICTED_GIB = 14.0
+
+
+def dist_tap_bytes(cfg) -> int:
+    """Σ m²·4 over one dense walk's tap Grams: attn_in, wo_in, mlp_in,
+    down_in a layer."""
+    hd = cfg.resolved_head_dim
+    return 4 * cfg.n_layers * (2 * cfg.d_model ** 2
+                               + (cfg.n_heads * hd) ** 2 + cfg.d_ff ** 2)
+
+
+def dist_leaves(torch, qa, qb):
+    """{leaf: (code agreement, codes, z_lo and scales all bit-equal)}
+    between two quantize_model outputs."""
+    out = {}
+    for l, lp in qb["__qlayers__"].items():
+        for mod, leaves in lp.items():
+            if not isinstance(leaves, dict):
+                continue
+            for leaf, b in leaves.items():
+                if not isinstance(b, dict) or not b.get("__qtensor__"):
+                    continue
+                a = qa["__qlayers__"][l][mod][leaf]
+                agree = float((a["codes"].cpu() == b["codes"].cpu())
+                              .float().mean())
+                same = all(torch.equal(a[k].cpu(), b[k].cpu())
+                           for k in ("codes", "z_lo", "scale"))
+                out[f"{l}.{mod}.{leaf}"] = (agree, same)
+    return out
+
+
+class DistCounter:
+    """Counts torch.distributed collectives while `on`, and while a
+    decode step runs (`in_step`)."""
+    NAMES = ("all_reduce", "all_gather", "all_gather_into_tensor",
+             "all_gather_object", "broadcast", "reduce_scatter",
+             "reduce_scatter_tensor", "all_to_all", "barrier", "send", "recv")
+
+    def __init__(self, dist):
+        self.calls = {n: 0 for n in self.NAMES}
+        self.in_step = 0
+        self.step_flag = False
+        for n in self.NAMES:
+            if hasattr(dist, n):
+                setattr(dist, n, self._wrap(n, getattr(dist, n)))
+
+    def _wrap(self, name, fn):
+        def wrapper(*a, **k):
+            self.calls[name] += 1
+            self.in_step += self.step_flag
+            return fn(*a, **k)
+        return wrapper
+
+    def reset(self):
+        self.calls = dict.fromkeys(self.calls, 0)
+        self.in_step = 0
+
+
+def dist_quantize(torch, dev, cfg, mesh, ops, res, key, **kw):
+    """quantize_and_eval on this rank (comq_blocked, calibration
+    8 x PROMPT, phase 4's spec) with a metrics registry; with a mesh its
+    launches add to res["counts"]. Returns the run."""
+    from repro_torch.launch.quantize import quantize_and_eval
+    from repro_torch.obs import MetricsRegistry
+    reg = MetricsRegistry()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.time()
+    run = quantize_and_eval(cfg, method="comq_blocked", calib_batch=8,
+                            calib_seq=PROMPT, device=dev, mesh=mesh,
+                            metrics=reg, **kw)
+    wall = time.time() - t0
+    if mesh is not None:
+        for n, v in ops.launch_counts().items():
+            res["counts"][n] = res["counts"].get(n, 0) + v
+    res[key] = {"walk_s": run.seconds, "wall_s": wall,
+                "s_per_layer": run.seconds / cfg.n_layers,
+                "summary": run.summary,
+                "err_after": sum(r.err_after for r in run.report.layers),
+                "bytes": reg.counter("dist.bytes_all_reduced").value,
+                "launches": ops.launch_counts()}
+    return run
+
+
+def dist_control(torch, cfg, run, ref, ndata: int, tp: int):
+    """Layer 0's attn_in leaves computed on this rank alone as a (ndata,
+    tp) mesh computes them, with no collective: the Gram the sum of the
+    ndata batch slices' Grams in rank order, each leaf solved column slice
+    by column slice as the tp model ranks solve it (JAX's pad, the visit
+    order of the whole W). Returns {leaf: (bit-equal to the sharded walk's
+    leaf, code agreement with the meshless walk's)}: how far the summation
+    order and the column count alone move the codes."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.calibrate import gram_from_tap
+    from repro_torch.core.comq_hessian import shared_order
+    from repro_torch.core.pipeline import _w2d, make_qtensor
+    from repro_torch.dist.calibrate import _local_solve
+    from repro_torch.dist.sharding import column_slice
+    from repro_torch.models import BuildPlan, embed_tokens
+    from repro_torch.models.transformer import layer_full
+    lp = ref.params["layers"][0]
+    out = {}
+    with torch.no_grad():
+        x = embed_tokens(ref.params, cfg, BuildPlan(), ref.calib_tokens)
+        h = None
+        for part in x.chunk(ndata):
+            taps = {}
+            layer_full(lp, part, cfg, BuildPlan(), False, taps=taps)
+            g = gram_from_tap(taps["attn_in"])
+            h = g if h is None else h + g
+        for leaf in ("wq", "wk", "wv"):
+            w = lp["attn"][leaf]
+            w2d = _w2d(w, h.shape[0]).float()
+            n = w2d.shape[1]
+            perm = shared_order(h, w2d, run.spec)
+            parts = []
+            for r in range(tp):
+                lo, hi, n_pad = column_slice(n, r, tp)
+                wp = F.pad(w2d, (0, n_pad - n))
+                parts.append(_local_solve(h, wp[:, lo:hi].contiguous(), perm,
+                                          run.spec, "comq_blocked", 256))
+            q, delta, z_lo = (torch.cat([p[i] for p in parts], -1)[..., :n]
+                              for i in range(3))
+            qt = make_qtensor(q, delta, z_lo, w.shape, bits=run.spec.bits)
+            sh = run.qparams["__qlayers__"]["0"]["attn"][leaf]
+            me = ref.qparams["__qlayers__"]["0"]["attn"][leaf]
+            out[f"0.attn.{leaf}"] = (
+                all(torch.equal(qt[k].cpu(), sh[k].cpu())
+                    for k in ("codes", "z_lo", "scale")),
+                float((qt["codes"].cpu() == me["codes"].cpu())
+                      .float().mean()))
+    return out
+
+
+def dist_gates(torch, cfg, run, ref, res, key, ndata: int, tp: int):
+    """The gates of a sharded walk against the meshless one: JAX's Σ
+    err_after (2%) and loss gap, and layer 0's attn_in leaves bit for bit
+    those of `dist_control`. Per-leaf code agreement with the meshless walk
+    (JAX's > 0.99 at smoke size) is recorded beside the control's: with
+    1024 calibration tokens against 3584 or 18944 columns every Gram is
+    rank-deficient, and the Gram's summation order or a column count that
+    changes cuBLAS's GEMM alone moves codes."""
+    leaves = dist_leaves(torch, run.qparams, ref.qparams)
+    e, e0 = res[key]["err_after"], res[key + "_single"]["err_after"]
+    s = run.summary
+    control = dist_control(torch, cfg, run, ref, ndata, tp)
+    res[key]["leaves"] = leaves
+    res[key]["control"] = control
+    res[key]["worst_agreement"] = min(a for a, _ in leaves.values())
+    res[key]["err_rel"] = abs(e - e0) / e0
+    res[key]["loss_gap"] = abs(s["quant_loss"] - s["fp_loss"])
+    res[key]["gates"] = (res[key]["err_rel"] < DIST_ERR_REL
+                         and res[key]["loss_gap"] <= LOSS_GAP
+                         and all(same for same, _ in control.values()))
+
+
+def dist_walk(torch, dev, dist, cfg, mesh, ops, res, key, ndata: int,
+              tp: int, keep_params: bool = False, between=None):
+    """A sharded walk on every rank, then `between()`, then on rank 0 the
+    meshless walk and `dist_gates`. The sharded run is cut to its codes
+    (and, with keep_params, its params) before the meshless run, so that
+    rank 0 holds one model at a time. Returns the cut run."""
+    import gc
+    from types import SimpleNamespace
+    run = dist_quantize(torch, dev, cfg, mesh, ops, res, key)
+    if between is not None:
+        between()
+    table = torch.utils._pytree.tree_map(
+        lambda a: a.cpu() if isinstance(a, torch.Tensor) else a,
+        run.qparams["__qlayers__"])
+    cut = SimpleNamespace(qparams={"__qlayers__": table},
+                          summary=run.summary, spec=run.spec,
+                          calib_tokens=run.calib_tokens,
+                          params=run.params if keep_params else None)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    if dist.get_rank() == 0:
+        ref = dist_quantize(torch, dev, cfg, None, ops, res, key + "_single")
+        dist_gates(torch, cfg, cut, ref, res, key, ndata, tp)
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return cut
+
+
+def dist_compressed(torch, dev, dist, res, key):
+    """compressed_all_reduce over the world on seeded leaves: the mean, the
+    carried residual, and the exact mean and grid step for the gates."""
+    from repro_torch.dist import compressed_all_reduce, init_error_state
+    r, n = dist.get_rank(), dist.get_world_size()
+    gen = torch.Generator(device=dev).manual_seed(100 + r)
+    g = {"w": torch.randn(4096, 512, generator=gen, device=dev),
+         "b": torch.randn(4096, generator=gen, device=dev) * 1e-3}
+    out, new_e = compressed_all_reduce(g, init_error_state(g))
+    row = {}
+    for k in g:
+        parts = [torch.empty_like(g[k]) for _ in range(n)]
+        dist.all_gather(parts, g[k])
+        exact = torch.stack(parts).mean(dim=0)
+        # the shared grid, as the all-reduce derives it (f32 on the card)
+        amax = torch.stack([p.abs().max() for p in parts]).max()
+        scale = torch.clamp(amax / 127.0, min=1e-30)
+        q = torch.clamp(torch.round(g[k] / scale), -127.0, 127.0)
+        row[k] = {"identity": float((out[k] + new_e[k] - g[k]).abs().max()),
+                  "g_max": float(g[k].abs().max()),
+                  "mean_err": float((out[k] - exact).abs().max()),
+                  "step": float(scale),
+                  "residual_exact": bool(torch.equal(new_e[k],
+                                                     g[k] - q * scale))}
+    res[key] = row
+
+
+def dist_gram_allreduce(torch, dev, dist, res):
+    """Seconds of one gloo all-reduce of an 18944² f32 Gram on the card
+    (gloo copies it through host memory)."""
+    h = torch.ones(18944, 18944, device=dev)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        t0 = time.time()
+        dist.all_reduce(h)
+        torch.cuda.synchronize(dev)
+        times.append(time.time() - t0)
+    res["gram_allreduce_s"] = times
+    del h
+
+
+def dist_serve(torch, dev, dist, ops, counter, res, qpk):
+    """(e) Runtime(mesh=) over the model axis on phase 4's packed model
+    from its .qpk: the phase-8 traffic at f32 kv 0 and 8 (tokens against
+    the meshless runtime's, on rank 0), then bf16 kv 4; paged launches and
+    the collectives inside decode_step counted."""
+    import numpy as np
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.ckpt.quantized import load_packed_ckpt, unpack_tree
+    from repro_torch.configs import get_config
+    from repro_torch.core.apply import serving_params
+    from repro_torch.models import BuildPlan, init_params
+    from repro_torch.serve import Runtime
+    from repro_torch.serve import runtime as rt_mod
+    cfg = get_config("qwen2-7b").replace(n_layers=DIST_LAYERS)
+    params = init_params(cfg, seed=0, device=dev)
+    table = unpack_tree(torch.utils._pytree.tree_map(
+        lambda a: torch.as_tensor(a, device=dev)
+        if isinstance(a, np.ndarray) else a, load_packed_ckpt(qpk)["tree"]))
+    sp = serving_params({**params, "__qlayers__": table}, cfg)
+    del params, table
+    mesh = init_device_mesh("cpu", (dist.get_world_size(),),
+                            mesh_dim_names=("model",))
+    prompts = serve_prompts(cfg.vocab_size)
+    orig = rt_mod.decode_step_paged
+
+    def step(*a, **k):
+        counter.step_flag = True
+        try:
+            return orig(*a, **k)
+        finally:
+            counter.step_flag = False
+
+    rt_mod.decode_step_paged = step
+    out = {}
+    try:
+        for label, c, plan in (
+                ("f32 kv_bits=0", cfg.replace(compute_dtype="float32"),
+                 BuildPlan(cache_dtype=torch.float32)),
+                ("f32 kv_bits=8", cfg.replace(compute_dtype="float32"),
+                 BuildPlan(cache_dtype=torch.float32, kv_bits=8)),
+                ("bf16 kv_bits=4", cfg, BuildPlan(kv_bits=4))):
+            toks = {}
+            for tag, m in (("mesh", mesh), ("single", None)):
+                if tag == "single" and dist.get_rank() != 0:
+                    continue
+                rt = Runtime(sp, c, plan, serve_config(), device=dev,
+                             mesh=m)
+                counter.reset()
+                ops.reset_launch_counts()
+                t0 = time.time()
+                reqs = [rt.submit(p, max_new_tokens=SERVE_NEW)
+                        for p in prompts[:SERVE_SLOTS]]
+                for p in prompts[SERVE_SLOTS:]:
+                    rt.step()
+                    reqs.append(rt.submit(p, max_new_tokens=SERVE_NEW))
+                rt.run()
+                wall = time.time() - t0
+                toks[tag] = [list(r.out_tokens) for r in reqs]
+                if tag == "mesh":
+                    counts = ops.launch_counts()
+                    for n, v in counts.items():
+                        res["counts"][n] = res["counts"].get(n, 0) + v
+                    out[label] = {"wall_s": wall, "steps": rt.steps,
+                                  "in_step": counter.in_step,
+                                  "gathers": counter.calls["all_gather"],
+                                  "launches": counts,
+                                  "pool_blocks": int(rt.pool["k"].shape[1])}
+            out[label]["tokens"] = toks["mesh"]
+            if "single" in toks:
+                out[label]["equal"] = sum(
+                    a == b for a, b in zip(toks["mesh"], toks["single"]))
+    finally:
+        rt_mod.decode_step_paged = orig
+    res["serve"] = out
+
+
+def dist_worker(task: str, out_dir: str, backend: str, qpk: str) -> int:
+    """One rank of a phase-18 world (`chip_smoke.py --dist-worker TASK
+    OUT_DIR BACKEND QPK` under torch.distributed.run): runs TASK and writes
+    this rank's numbers to OUT_DIR/rank{R}.json."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import dist as rd
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.quantize import set_precision
+    set_precision()
+    dev, started = rd.init_world(backend, timeout_s=DIST_TIMEOUT)
+    counter = DistCounter(dist)
+    r = dist.get_rank()
+    res = {"rank": r, "world": dist.get_world_size(), "backend": backend,
+           "counts": {}}
+    qwen = get_config("qwen2-7b").replace(n_layers=DIST_LAYERS)
+    if task == "world1":
+        # (a) --shard-data --shard-solve 1 on a world of one, then meshless
+        mesh = rd.calib_mesh(model=1)
+        a = dist_quantize(torch, dev, qwen, mesh, ops, res, "a",
+                          save_packed=str(Path(out_dir) / "mesh.qpk"))
+        del a
+        dist_quantize(torch, dev, qwen, None, ops, res, "a_single",
+                      save_packed=str(Path(out_dir) / "single.qpk"))
+        res["a"]["qpk_equal"] = ((Path(out_dir) / "mesh.qpk").read_bytes()
+                                 == (Path(out_dir) / "single.qpk")
+                                 .read_bytes())
+        res["a"]["expected_bytes"] = dist_tap_bytes(qwen)
+        dist_compressed(torch, dev, dist, res, "f")
+    elif task == "world2":
+        dist_gram_allreduce(torch, dev, dist, res)
+        # (b) model 2: the column-sharded walk against the meshless one
+        mesh = rd.calib_mesh(model=2, data=1)
+        dist_walk(torch, dev, dist, qwen, mesh, ops, res, "b", 1, 2)
+        # (c) data 2: one all-reduce a tap Gram
+        mesh = rd.calib_mesh(model=1, data=2)
+        counter.reset()
+        dist_walk(torch, dev, dist, qwen, mesh, ops, res, "c", 2, 1)
+        res["c"]["all_reduces"] = counter.calls["all_reduce"]
+        res["c"]["taps"] = 4 * qwen.n_layers
+        dist_serve(torch, dev, dist, ops, counter, res, qpk)
+        dist_compressed(torch, dev, dist, res, "f")
+    elif task == "world4":
+        from repro_torch.models import moe as moe_mod
+        mesh = rd.calib_mesh(model=2)           # (2, 2)
+        dist_walk(torch, dev, dist, qwen, mesh, ops, res, "d", 2, 2)
+        kept = []
+        orig = moe_mod.slots_for
+
+        def recording(ids, e_pad, capacity, offset=None):
+            pos, slot = orig(ids, e_pad, capacity, offset)
+            kept.append({"kept": (pos < capacity).cpu().numpy().tolist(),
+                         "ids": ids.cpu().numpy().tolist(),
+                         "e_pad": e_pad, "capacity": capacity})
+            return pos, slot
+
+        moe_mod.slots_for = recording
+        moe = get_config(MOE_ARCH).replace(n_layers=DIST_LAYERS)
+        # the walk routes once a layer; the eval forwards after it route
+        # the whole eval batch on every rank, and then rank 0's meshless
+        # walk routes once a layer again
+        def walk_routes():
+            res["d_moe"]["kept"] = kept[:moe.n_layers]
+            del kept[:]
+
+        run = dist_walk(torch, dev, dist, moe, mesh, ops, res, "d_moe", 2, 2,
+                        keep_params=True, between=walk_routes)
+        if r == 0:
+            res["d_moe_single"] = {**res["d_moe_single"],
+                                   "kept": kept[:moe.n_layers]}
+        # global routing where capacity binds: layer 0's experts on the same
+        # inputs (the calibration batch's embeddings, this rank's slice)
+        # at a capacity factor of 0.75, against one rank routing them all
+        import dataclasses
+
+        from repro_torch.dist import axis_group, axis_size, shard_batch
+        from repro_torch.models import BuildPlan, embed_tokens
+        tight = moe.replace(moe=dataclasses.replace(moe.moe,
+                                                    capacity_factor=0.75))
+        with torch.no_grad():
+            x = embed_tokens(run.params, tight, BuildPlan(),
+                             run.calib_tokens)
+            p0 = run.params["layers"][0]["moe"]
+            ndata = axis_size(mesh, "data")
+            moe_mod.apply_moe(p0, shard_batch(mesh, x), tight,
+                              moe.moe.n_experts, taps={},
+                              capacity_multiple=ndata,
+                              group=axis_group(mesh, "data"))
+            res["d_route"] = kept[-1:]
+            if r == 0:
+                moe_mod.apply_moe(p0, x, tight, moe.moe.n_experts, taps={},
+                                  capacity_multiple=ndata)
+                res["d_route_single"] = kept[-1:]
+        moe_mod.slots_for = orig
+        del run
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    with open(Path(out_dir) / f"rank{r}.json", "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    rd.close_world(started)
+    return 0
+
+
+def dist_agreement(row, what: str) -> None:
+    """Print a data-sharded walk's per-leaf code agreement with the
+    meshless walk, and layer 0's attn_in control (the summation order
+    alone, no distribution)."""
+    say(f"  {what}: per-leaf code agreement with the meshless walk "
+        + ", ".join(f"{k} {a:.4f}" for k, (a, _) in
+                    sorted(row["leaves"].items())))
+    say(f"  {what}: layer 0 attn_in computed on one rank as the mesh "
+        f"computes it: "
+        + ", ".join(f"{k} bit-equal to the sharded walk's {same}, agreement "
+                    f"with the meshless walk {a:.4f}"
+                    for k, (same, a) in sorted(row["control"].items())))
+
+
+def dist_world(task: str, n: int, backend: str, qpk: Path, work: Path):
+    """Run one phase-18 world of n ranks; returns their results, rank order."""
+    import os
+    out = work / task
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    # the ranks share the card: segments that grow in place keep what each
+    # holds close to what it uses
+    env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.time()
+    logs = work / f"{task}_logs"
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc-per-node={n}", "--log-dir", str(logs), "--redirects", "3",
+         str(ROOT / "chip_smoke.py"), "--dist-worker", task, str(out),
+         backend, str(qpk)],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=DIST_TIMEOUT)
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        say(proc.stderr[-3000:])
+        for err in sorted(logs.rglob("stderr.log")):
+            lines = [ln for ln in err.read_text().splitlines()
+                     if "socket.cpp" not in ln]
+            say(f"--- {err.relative_to(logs)} ---")
+            say("\n".join(lines[-40:]))
+    check(proc.returncode == 0, f"distribution world {task} ({n} ranks, "
+          f"{backend}) exited {proc.returncode}")
+    say(f"distribution world {task}: {n} ranks over {backend}, {wall:.1f} s "
+        "wall incl. process start")
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(n)]
+
+
+def phase_distribution(torch, ops, qpk: Path, card: str):
+    """Phase 18: three SPMD worlds on the card (torch.distributed.run): a
+    world of one over nccl (a, f), two ranks over gloo sharing the card
+    (b, c, e, f), four over gloo (d). Returns the ranks' launch counts."""
+    import gc
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.kernels import quant_matmul
+    # this process runs no kernel from here on: drop quant_matmul's
+    # split-K workspaces and the earlier phases' reference cycles, and
+    # hand the cached blocks back to the card for the ranks
+    quant_matmul._WORKSPACE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tensors = [t for t in gc.get_objects()
+               if isinstance(t, torch.Tensor) and t.is_cuda]
+    live = sorted((t.numel() * t.element_size(), tuple(t.shape))
+                  for t in tensors)
+    for t in sorted(tensors, key=lambda t: -t.numel())[:2]:
+        held = [sorted(map(str, r))[:6] if isinstance(r, dict)
+                else type(r).__name__ for r in gc.get_referrers(t)
+                if r is not tensors]
+        say(f"distribution: {tuple(t.shape)} held by {held}")
+    del tensors
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    say(f"distribution: predicted peak per qwen rank <= "
+        f"{DIST_PEAK_PREDICTED_GIB} GiB; this process holds "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB, reserves "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB, its largest "
+        f"live tensors {[(round(b / 2 ** 30, 2), sh) for b, sh in live[-4:]]}"
+        f" ({card})")
+    counts = {}
+
+    def add(ranks):
+        for r in ranks:
+            for n, v in r["counts"].items():
+                counts[n] = counts.get(n, 0) + v
+            say(f"distribution {r['backend']} rank {r['rank']}/{r['world']}:"
+                f" peak {r['peak_gib']:.2f} GiB ({card})")
+
+    # (a) and (f) on nccl, a world of one
+    w1 = dist_world("world1", 1, "nccl", qpk, work)
+    add(w1)
+    a, a1 = w1[0]["a"], w1[0]["a_single"]
+    say(f"distribution (a) nccl world 1, mesh (1, 1): .qpk equal to the "
+        f"meshless run's: {a['qpk_equal']}; dist.bytes_all_reduced "
+        f"{a['bytes']:.0f} (expected {a['expected_bytes']}); walk "
+        f"{a['walk_s']:.3f} s vs meshless {a1['walk_s']:.3f} s ({card})")
+    check(a["qpk_equal"], "(a) the world-of-one .qpk differs from the "
+          "meshless run's")
+    check(a["bytes"] == a["expected_bytes"],
+          f"(a) dist.bytes_all_reduced {a['bytes']} != "
+          f"{a['expected_bytes']}")
+    for k, row in w1[0]["f"].items():
+        say(f"distribution (f) nccl world 1, leaf {k}: max|out + new_e - g| "
+            f"{row['identity']:.3e} (max|g| {row['g_max']:.3e})")
+        check(row["identity"] <= 1e-6 * max(row["g_max"], 1e-30),
+              f"(f) out + new_e != g on one rank: {row}")
+
+    # (b), (c), (e), (f) on gloo, two ranks sharing the card
+    w2 = dist_world("world2", 2, "gloo", qpk, work)
+    add(w2)
+    times = ", ".join(f"{t:.3f}" for t in w2[0]["gram_allreduce_s"])
+    say(f"distribution gloo all-reduce of one 18944^2 f32 Gram (1.44 GB, "
+        f"through host memory): {times} s ({card})")
+    b, b1 = w2[0]["b"], w2[0]["b_single"]
+    leaves = b["leaves"]
+    same = sum(s for _, s in leaves.values())
+    say(f"distribution (b) gloo world 2, model 2: {same}/{len(leaves)} "
+        f"leaves bit-identical (codes, z_lo, scales) to the meshless walk "
+        f"(printed, not gated: cuBLAS rounds a column by the matrix's "
+        f"shape), worst code agreement {b['worst_agreement']:.6f}"
+        f", err_after rel {b['err_rel']:.3e}, |quant_loss - fp_loss| "
+        f"{b['loss_gap']:.4f}; walk {b['s_per_layer']:.3f} s a layer vs "
+        f"meshless {b1['s_per_layer']:.3f} ({card})")
+    dist_agreement(b, "(b) qwen2-7b")
+    check(b["gates"], f"(b) the column-sharded walk fails its gates: err "
+          f"rel {b['err_rel']}, loss gap {b['loss_gap']}, control "
+          f"{b['control']}")
+    c, c1 = w2[0]["c"], w2[0]["c_single"]
+    say(f"distribution (c) gloo world 2, data 2: worst code agreement "
+        f"{c['worst_agreement']:.6f} (printed, not gated), err_after rel "
+        f"{c['err_rel']:.3e}, "
+        f"|quant_loss - fp_loss| {c['loss_gap']:.4f}, all-reduces "
+        f"{c['all_reduces']} for {c['taps']} tap Grams, bytes "
+        f"{c['bytes']:.0f}; walk {c['s_per_layer']:.3f} s a layer vs "
+        f"meshless {c1['s_per_layer']:.3f} ({card})")
+    dist_agreement(c, "(c) qwen2-7b")
+    check(c["gates"], f"(c) the data-sharded walk fails its gates: err rel "
+          f"{c['err_rel']}, loss gap {c['loss_gap']}, control "
+          f"{c['control']}")
+    check(all(r["c"]["all_reduces"] == r["c"]["taps"] for r in w2),
+          "(c) not one all-reduce per tap Gram")
+    serve = w2[0]["serve"]
+    for label, row in serve.items():
+        say(f"distribution (e) Runtime(mesh=) model 2, {label}: "
+            f"{row.get('equal', '-')}/{len(row['tokens'])} requests equal "
+            f"the meshless runtime's; {row['steps']} steps in "
+            f"{row['wall_s']:.3f} s; collectives inside decode_step "
+            f"{row['in_step']}, token gathers {row['gathers']}; rank 0 "
+            f"launches {row['launches']}; pages a rank {row['pool_blocks']}"
+            f" ({card})")
+        if label == "bf16 kv_bits=4":
+            say(f"  (e) bf16 kv_bits=4 tokens, first 2 requests: "
+                f"{row['tokens'][:2]}")
+    for r in w2:
+        for label, row in r["serve"].items():
+            check(row["in_step"] == 0, f"(e) rank {r['rank']} {label}: "
+                  f"{row['in_step']} collectives inside decode_step")
+            check(row["launches"]["paged_attention"]
+                  + row["launches"]["paged_attention_quant"] > 0,
+                  f"(e) rank {r['rank']} {label}: no paged launch")
+            check(row["tokens"] == serve[label]["tokens"],
+                  f"(e) {label}: ranks disagree on the tokens")
+    for label in ("f32 kv_bits=0", "f32 kv_bits=8"):
+        check(serve[label]["equal"] == SERVE_REQS,
+              f"(e) {label}: {serve[label]['equal']}/{SERVE_REQS} requests "
+              "equal the meshless runtime's")
+    for r in w2:
+        for k, row in r["f"].items():
+            check(row["mean_err"] <= row["step"] and row["residual_exact"],
+                  f"(f) gloo world 2 rank {r['rank']} leaf {k}: {row}")
+    steps = max(r["f"][k]["mean_err"] / r["f"][k]["step"]
+                for r in w2 for k in r["f"])
+    say(f"distribution (f) gloo world 2: mean within {steps:.3f} grid steps "
+        "of the exact mean; residuals v - q*scale exact")
+
+    # (d) gloo, four ranks on a (2, 2) mesh
+    w4 = dist_world("world4", 4, "gloo", qpk, work)
+    add(w4)
+    for key, what in (("d", "qwen2-7b"), ("d_moe", MOE_ARCH)):
+        d, d1 = w4[0][key], w4[0][key + "_single"]
+        dist_agreement(d, f"(d) {what}")
+        say(f"distribution (d) gloo world 4, mesh (2, 2), {what}: worst code "
+            f"agreement {d['worst_agreement']:.6f} (printed, not gated), "
+            f"err_after rel "
+            f"{d['err_rel']:.3e}, |quant_loss - fp_loss| "
+            f"{d['loss_gap']:.4f}; walk {d['s_per_layer']:.3f} s a layer vs "
+            f"meshless {d1['s_per_layer']:.3f} ({card})")
+        check(d["gates"], f"(d) {what} fails its gates: err rel "
+              f"{d['err_rel']}, loss gap {d['loss_gap']}, control "
+              f"{d['control']}")
+    # data rank 0 is world ranks 0-1, data rank 1 ranks 2-3; each routing
+    # call's masks and ids side by side in token order
+    from repro_torch.models.moe import slots_for
+    single = w4[0]["d_moe_single"]["kept"] + w4[0]["d_route_single"]
+    sharded = w4[0]["d_moe"]["kept"] + w4[0]["d_route"]
+    others = w4[2]["d_moe"]["kept"] + w4[2]["d_route"]
+    check(len(sharded) == len(single) > 1, "(d) no MoE routing recorded")
+    for layer, (a, b, want) in enumerate(zip(sharded, others, single)):
+        if layer == len(single) - 1:
+            layer = "0 at capacity factor 0.75, the same inputs"
+        got = np.concatenate([np.asarray(a["kept"]), np.asarray(b["kept"])])
+        ids = torch.tensor(np.concatenate([np.asarray(a["ids"]),
+                                           np.asarray(b["ids"])]))
+        pos, _ = slots_for(ids, a["e_pad"], a["capacity"])
+        rule = (pos < a["capacity"]).numpy()
+        ref = np.asarray(want["kept"])
+        same_ids = np.array_equal(ids.numpy(), np.asarray(want["ids"]))
+        say(f"distribution (d) {MOE_ARCH} layer {layer}: kept set == the "
+            f"replicated rule on the sharded walk's routing: "
+            f"{np.array_equal(got, rule)}; == the meshless walk's: "
+            f"{np.array_equal(got, ref)} (agreement "
+            f"{float((got == ref).mean()):.6f}, routed ids equal: "
+            f"{same_ids}, {int((~ref).sum())} pairs dropped, capacity "
+            f"{a['capacity']})")
+        check(np.array_equal(got, rule), f"(d) layer {layer}: the sharded "
+              "kept set is not the replicated rule's")
+        check(not same_ids or np.array_equal(got, ref), f"(d) layer "
+              f"{layer}: same routing, another kept set")
+        if isinstance(layer, str):
+            check(int((~ref).sum()) > 0, "(d) capacity did not bind")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2937,6 +3616,10 @@ def main() -> int:
                             calib_seq=PROMPT, device=dev)
     s = run.summary
     say(f"quantize: {json.dumps(s)}")
+    # phase 4's packed model, for phase 18's sharded runtime
+    import tempfile
+    qpk = Path(tempfile.mkdtemp(prefix="chip_smoke_qpk_")) / "phase4.qpk"
+    write_qpk(qpk, run.qparams["__qlayers__"])
     say(f"quantize: {time.time() - t0:.1f} s wall incl. init and eval; "
         f"launches so far {ops.launch_counts()}")
     imp = s["comq_vs_rtn_error_improvement"]
@@ -3096,7 +3779,9 @@ def main() -> int:
     # 17. observability (its traced runs counted), on the phase-4 model
     obs_counts = phase_observability(torch, dev, ops, kernels, sp, cfg,
                                      prompts, card)
-    del sp
+    # the phase-4 model's last holders (~6.6 GiB: phase 8's runtimes serve
+    # sp, phase 6 kept layer 0), so that phase 18's ranks find the card
+    del sp, rt, solo_rt, reqs, lp, w, outs, free, pool, free_pool
 
     # 10. the MoE family: its kernels, then the MoE path, counted
     moe_cfg = get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS)
@@ -3167,12 +3852,21 @@ def main() -> int:
     check_encoder_kernels(torch, dev, kernels, results, enc_cfg)
     enc_counts = phase_encoder(torch, dev, ops, kernels, enc_cfg)
 
+    # 18. distribution: SPMD worlds sharing the card, each rank's launches
+    # counted
+    t0 = time.time()
+    dist_counts = phase_distribution(torch, ops, qpk, card)
+    say(f"distribution: phase 18 in {time.time() - t0:.1f} s; the ranks' "
+        f"launches {dist_counts}")
+    check(all(dist_counts.get(n, 0) > 0 for n in totals),
+          f"a kernel never launched on the distributed path: {dist_counts}")
+
     # kernels line: launches on the main path as a whole
     src = "src/repro_torch/csrc/{}.cu"
     launches = {n: totals[n] + policy_counts[n] + dur_counts[n]
                 + obs_counts[n] + moe_counts[n] + hyb_counts[n] + audio_counts[n]
                 + rwkv_counts[n] + vlm_counts[n] + enc_counts[n]
-                for n in totals}
+                + dist_counts.get(n, 0) for n in totals}
     launches["comq_panel_batched"] = moe_batched
     for arch, path, counts in ((HYBRID_ARCH, HYBRID_PATH, hyb_counts),
                                (AUDIO_ARCH, AUDIO_PATH, audio_counts),
@@ -3268,7 +3962,10 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        code = main()
+        if sys.argv[1:2] == ["--dist-worker"]:
+            code = dist_worker(*sys.argv[2:6])
+        else:
+            code = main()
     except Exception:
         traceback.print_exc()
         code = 1

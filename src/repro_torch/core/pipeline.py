@@ -53,9 +53,21 @@ adds no sync and wall_seconds is 0.0. An obs.MetricsRegistry counts
 layers, solved, resumed leaves and guard events, and observes each leaf's
 error and seconds from the report's host values.
 
+Distribution (`mesh`, a DeviceMesh over the SPMD ranks; repro_torch.dist),
+as in the JAX package: the calibration batch is sharded over "data", each
+rank walks its own rows and every tap's Gram is summed with one
+all-reduce; an MoE layer routes globally over the data group, so the kept
+(token, slot) set is the replicated walk's. With a nontrivial "model"
+axis the per-channel comq_blocked / rtn solves are column-sharded
+(`dist.sharded_solve`: each column the replicated solve's arithmetic,
+one gather after each), and a sharded group whose result is non-finite is
+redone replicated under the guards. Expert leaves solve replicated. A
+metrics registry counts the all-reduced Gram bytes
+(`dist.bytes_all_reduced`). Every rank reads a journal; rank 0 alone
+writes it.
+
 The encoder has no walk, as in the JAX package (its `quantize_model`
-starts from `embed_tokens`). Not ported yet (ROADMAP.md): data/column
-sharding and its `dist.bytes_all_reduced` counter (item 15).
+starts from `embed_tokens`).
 """
 from __future__ import annotations
 
@@ -240,6 +252,18 @@ def solve(h: Tensor, w2d: Tensor, spec: QuantSpec, method: str = "comq",
     raise ValueError(f"unknown method {method!r}")
 
 
+def _col_shardable(spec: QuantSpec, method: str) -> bool:
+    """True when the solve can run with W's output columns sharded over the
+    "model" mesh axis as the replicated solve does: per-channel
+    grids and a solver whose columns are independent given the shared
+    visit order (blocked, with the order from the full W passed in) or
+    elementwise (RTN). The row-at-a-time solvers stay replicated, as in
+    the JAX package."""
+    if spec.granularity != "per_channel":
+        return False
+    return method in ("comq_blocked", "rtn")
+
+
 def _fusable(spec: QuantSpec, method: str) -> bool:
     """True when leaves sharing a tap can be solved as one column-
     concatenated matrix with results identical to per-leaf solves:
@@ -295,9 +319,9 @@ def _results_finite(results) -> bool:
     return bool(torch.stack(flags).all())
 
 
-def _solve_group(ws, h: Tensor, specs, method: str, block: int = 256, *,
-                 gctx: Optional[GuardContext] = None, layer: int = -1,
-                 names=None):
+def _solve_group(ws, h: Tensor, specs, method: str, block: int = 256,
+                 solve_sh=None, *, gctx: Optional[GuardContext] = None,
+                 layer: int = -1, names=None):
     """Solve the weight leaves `ws`, all calibrated by the Gram h, each
     under its own resolved spec (`specs`, same length).
 
@@ -307,7 +331,14 @@ def _solve_group(ws, h: Tensor, specs, method: str, block: int = 256, *,
     init depends on the width. With an enabled `gctx` one health check
     sanitizes non-finite values in H and the weights and counts dead Gram
     columns, and the solves go through `guarded_solve`; a healthy group
-    runs the unguarded computation. Returns
+    runs the unguarded computation.
+
+    `solve_sh` (from quantize_model when the mesh has a "model" axis
+    above 1) runs the solve column-sharded (`dist.sharded_solve`) with the
+    replicated path's fusion decision, so both give the same codes at
+    every width; with the guards on, a sharded group whose result is not
+    finite is redone replicated under the guarded solve (a
+    `sharded_solve_nonfinite` event per leaf). Returns
     [(qtensor, err_before, err_after, seconds), ...]."""
     m = h.shape[0]
     w2ds = [_w2d(w, m) for w in ws]
@@ -329,6 +360,40 @@ def _solve_group(ws, h: Tensor, specs, method: str, block: int = 256, *,
             for nm in names:
                 gctx.record(layer, nm, "dead_columns", warn=False,
                             count=n_dead)
+
+    if solve_sh is not None and _col_shardable(spec0, method):
+        fuse = len(ws) > 1 and _uniform(specs) and _fusable(spec0, method)
+        if fuse:
+            t0 = time.time()
+            wcat = torch.cat([w.float() for w in w2ds], dim=1)
+            q, delta, z_lo, e2b, e2a = solve_sh(h, wcat, spec=spec0,
+                                                block=block)
+            secs = (time.time() - t0) / len(ws)
+            out, lo = [], 0
+            for w, w2d in zip(ws, w2ds):
+                hi = lo + w2d.shape[1]
+                qt = make_qtensor(q[:, lo:hi], delta[lo:hi], z_lo[lo:hi],
+                                  w.shape, bits=spec0.bits)
+                out.append((qt, _norm_of(e2b[lo:hi]), _norm_of(e2a[lo:hi]),
+                            secs))
+                lo = hi
+        else:
+            out = []
+            for w, w2d, spec in zip(ws, w2ds, specs):
+                t0 = time.time()
+                q, delta, z_lo, e2b, e2a = solve_sh(h, w2d, spec=spec,
+                                                    block=block)
+                qt = make_qtensor(q, delta, z_lo, w.shape, bits=spec.bits)
+                out.append((qt, _norm_of(e2b), _norm_of(e2a),
+                            time.time() - t0))
+        if guarding and not _results_finite(out):
+            # the sharded solve has no guard hooks: redo the group
+            # replicated under the guarded chain
+            for nm in names:
+                gctx.record(layer, nm, "sharded_solve_nonfinite")
+            return _solve_group(ws, h, specs, method, block, None,
+                                gctx=gctx, layer=layer, names=names)
+        return out
 
     if len(ws) > 1 and _uniform(specs) and _fusable(spec0, method):
         t0 = time.time()
@@ -523,12 +588,13 @@ def _spec_digest(spec: QuantSpec, method: str) -> int:
 
 
 def _run_digest(cfg, policy, method: str, propagation: str, tokens,
-                quantize_unembed: bool) -> int:
+                quantize_unembed: bool, mesh=None) -> int:
     """crc32 over everything that must match for journaled leaves to equal
-    a fresh solve: architecture, solver, policy, schedule and the
-    calibration token bytes, hashed as int32 (the JAX launcher's token
-    type), so both packages give one digest for one run. The port runs on
-    one device: its mesh term is None."""
+    a fresh solve: architecture, solver, policy, schedule, the whole
+    calibration batch's token bytes, hashed as int32 (the JAX launcher's
+    token type), and the mesh shape (another mesh sums the Grams in
+    another order), so both packages give one digest for one run. `mesh`
+    is a DeviceMesh, or anything with JAX's `shape` mapping."""
     tok = tokens.cpu().numpy().astype(np.int32)
     payload = {
         "arch": cfg.name, "family": cfg.family, "n_layers": cfg.n_layers,
@@ -537,9 +603,28 @@ def _run_digest(cfg, policy, method: str, propagation: str, tokens,
         "unembed": bool(quantize_unembed),
         "tokens": [zlib.crc32(tok.tobytes()), list(tok.shape),
                    str(tok.dtype)],
-        "mesh": None,
+        "mesh": _mesh_term(mesh),
     }
     return zlib.crc32(json.dumps(payload, sort_keys=True).encode())
+
+
+def _mesh_term(mesh):
+    """The digest's mesh term: sorted [axis, size] pairs, or None."""
+    if mesh is None:
+        return None
+    from repro_torch.dist.sharding import mesh_shape
+    return sorted([k, v] for k, v in mesh_shape(mesh).items())
+
+
+def _gram_fns(mesh):
+    """(gram_fn, batched_fn) for (B, T, d) and (E, C, d) taps. With a mesh
+    each takes this rank's rows and sums the Grams with one all-reduce
+    over "data" (dist.reduce_gram / reduce_batched_gram)."""
+    if mesh is None:
+        return calibrate.gram_from_tap, calibrate.batched_gram
+    from repro_torch import dist as _dist
+    return (lambda tap: _dist.reduce_gram(mesh, tap),
+            lambda tap: _dist.reduce_batched_gram(mesh, tap))
 
 
 class _RunCtx:
@@ -552,11 +637,17 @@ class _RunCtx:
     def __init__(self, method: str, gctx: GuardContext, device,
                  journal: Optional[QuantJournal] = None, solved=None,
                  injector=None, progress_cb=None, tracer=None,
-                 metrics=None):
+                 metrics=None, journal_dir: Optional[str] = None,
+                 mesh=None, solve_sh=None):
         self.method = method
         self.gctx = gctx
         self.device = device
+        # the writer (rank 0's; None on the other ranks of a mesh, which
+        # read journal_dir only)
         self.journal = journal
+        self.journal_dir = journal.dir if journal is not None else journal_dir
+        self.gram_fn, self.batched_fn = _gram_fns(mesh)
+        self.solve_sh = solve_sh
         self.solved = dict(solved or {})   # (layer, name) -> leaf record
         self.injector = injector
         self.progress_cb = progress_cb
@@ -582,7 +673,7 @@ class _RunCtx:
         journaled under its current spec digest, else the whole group
         re-solves (a partial hit would change the fused solve). Returns
         [(qtensor, leaf record), ...] or None."""
-        if self.journal is None or not self.solved:
+        if self.journal_dir is None or not self.solved:
             return None
         recs = []
         for nm, spec in zip(names, specs):
@@ -592,7 +683,7 @@ class _RunCtx:
             recs.append(rec)
         loaded = []
         for rec in recs:
-            qt_host = QuantJournal.load_leaf(self.journal.dir, rec)
+            qt_host = QuantJournal.load_leaf(self.journal_dir, rec)
             # intern the keys: a spill unpickles fresh string objects, and
             # pickle memoizes strings by object, so a later .qpk of the
             # resumed tree would differ in bytes from a fresh run's
@@ -684,17 +775,18 @@ def _quantize_tap_group(lp, tapname: str, entries, tap: Tensor, resolve,
             ctx.fault("leaf_solve")
         ws = [lp[mod][leaf] for mod, leaf in entries]
         if tapname.startswith("expert"):
-            hs = calibrate.batched_gram(tap)
+            hs = ctx.batched_fn(tap)
             rows = _timed_solve(
                 ctx, layer_idx, tapname, names,
                 lambda: _solve_group_experts(ws, hs, specs, method,
                                              gctx=ctx.gctx, layer=layer_idx,
                                              names=names))
         else:
-            h = calibrate.gram_from_tap(tap)
+            h = ctx.gram_fn(tap)
             rows = _timed_solve(
                 ctx, layer_idx, tapname, names,
-                lambda: _solve_group(ws, h, specs, method, gctx=ctx.gctx,
+                lambda: _solve_group(ws, h, specs, method,
+                                     solve_sh=ctx.solve_sh, gctx=ctx.gctx,
                                      layer=layer_idx, names=names))
         rows = ctx.commit(layer_idx, names, specs, rows)
     out = []
@@ -834,11 +926,12 @@ def _quantize_unembed(params, cfg, x: Tensor, resolve, method: str,
         xn = _sanitize_tap(ctx.gctx, ctx.poison_tap(
             apply_norm(params["final_norm"], x, cfg)), -1, names)
         ctx.fault("leaf_solve")
-        h = calibrate.gram_from_tap(xn)
+        h = ctx.gram_fn(xn)
         rows = _timed_solve(
             ctx, -1, "unembed_in", names,
             lambda: _solve_group([params["unembed"]], h, specs, method,
-                                 gctx=ctx.gctx, layer=-1, names=names))
+                                 solve_sh=ctx.solve_sh, gctx=ctx.gctx,
+                                 layer=-1, names=names))
         row = ctx.commit(-1, names, specs, rows)[0]
     qt, *errs_secs = row
     pending.append((-1, "unembed", *errs_secs))
@@ -861,7 +954,7 @@ def quantize_model(params, cfg, plan, tokens: Tensor, spec,
                    vision_embeds: Optional[Tensor] = None,
                    journal=None, resume: bool = False, injector=None,
                    progress_cb: Optional[Callable[[int], None]] = None,
-                   tracer=None, metrics=None):
+                   tracer=None, metrics=None, mesh=None):
     """Quantize every projection weight of a dense, MoE, hybrid, RWKV or
     VLM LM (the router, the SSM's small leaves, RWKV's mixes, LoRAs and
     decay, and a cross layer's wk / wv and gates stay float). `tokens`:
@@ -897,6 +990,16 @@ def quantize_model(params, cfg, plan, tokens: Tensor, spec,
     histograms. Neither changes a code, and without a tracer the walk adds
     no sync.
 
+    Distribution, as in the JAX package: `mesh` (a DeviceMesh with axes
+    ("data",) or ("data", "model"), every rank calling with the same
+    arguments) shards the batch over "data" (one Gram all-reduce a tap;
+    an MoE layer routes globally, its capacity aligned to the data axis)
+    and, above one "model" rank, column-shards the per-channel
+    comq_blocked / rtn solves. Every rank returns the whole result. The
+    journal's digest holds the mesh shape; every rank reads the journal,
+    rank 0 alone writes it, and with a registry the all-reduced Gram bytes
+    are counted under `dist.bytes_all_reduced`.
+
     Returns (qparams, QuantReport): qparams is `params` plus a
     "__qlayers__" side table {str(layer): layer params with QTensor
     leaves} (a VLM's keys are "self_{g}_{s}" and "cross_{g}"; and a
@@ -929,35 +1032,74 @@ def quantize_model(params, cfg, plan, tokens: Tensor, spec,
     layer_fn = (_quantize_layer_staged if propagation == "staged"
                 else _quantize_layer_legacy)
 
+    writer = True
+    if mesh is not None:
+        from repro_torch import dist as _dist
+        writer = _dist.is_rank0()
     qj: Optional[QuantJournal] = None
     own_journal = False
+    jdir: Optional[str] = None
     solved: Dict[Tuple[int, str], Dict] = {}
     if journal is not None:
         own_journal = not isinstance(journal, QuantJournal)
-        qj = QuantJournal(journal) if own_journal else journal
+        jdir = journal if own_journal else journal.dir
         digest = _run_digest(cfg, policy, method, propagation, tokens,
-                             quantize_unembed)
-        st = QuantJournal.replay(qj.dir)
+                             quantize_unembed, mesh)
+        if mesh is not None:
+            _dist.world.barrier()      # an earlier attempt's writes are done
+        st = QuantJournal.replay(jdir)
+        if mesh is not None:
+            _dist.world.barrier()      # every rank read before rank 0 writes
+        if writer:
+            qj = QuantJournal(journal) if own_journal else journal
+        else:
+            own_journal = False
         if resume and st.run is not None:
             if int(st.run["run"]) != digest:
                 if own_journal:
                     qj.close()
                 raise ResumeMismatch(
-                    f"journal {qj.dir} was written by run digest "
+                    f"journal {jdir} was written by run digest "
                     f"{st.run['run']}, current run digest is {digest} "
-                    "(arch/policy/method/calibration changed) — refusing "
-                    "to mix journaled leaves into a different run")
+                    "(arch/policy/method/calibration/mesh changed) — "
+                    "refusing to mix journaled leaves into a different run")
             solved = dict(st.leaves)
-            qj.record_resume(len(solved))
-        else:
+            if qj is not None:
+                qj.record_resume(len(solved))
+        elif qj is not None:
             qj.record_run_start(digest, arch=cfg.name, method=method,
                                 propagation=propagation,
                                 n_layers=cfg.n_layers)
 
+    solve_sh = None
+    obs_prev, obs_set = None, False
+    if mesh is not None:
+        tokens = _dist.shard_batch(mesh, tokens)
+        if vision_embeds is not None:
+            vision_embeds = _dist.shard_batch(mesh, vision_embeds)
+        ndata = _dist.axis_size(mesh, "data")
+        if ndata > 1 and cfg.moe is not None:
+            # global routing, with the capacity aligned so the (E, C, d)
+            # expert taps divide the data axis
+            plan = plan.replace(moe_capacity_multiple=ndata,
+                                moe_group=_dist.axis_group(mesh, "data"))
+        if (_dist.model_size(mesh) > 1
+                and _col_shardable(policy.base, method)):
+            def solve_sh(h, w2d, spec, block=256):
+                return _dist.sharded_solve(mesh, h, w2d, spec, method,
+                                           block=block)
+
     gctx = GuardContext(enabled=guards)
     ctx = _RunCtx(method, gctx, tokens.device, journal=qj, solved=solved,
                   injector=injector, progress_cb=progress_cb, tracer=tracer,
-                  metrics=metrics)
+                  metrics=metrics, journal_dir=jdir, mesh=mesh,
+                  solve_sh=solve_sh)
+    if mesh is not None and ctx.metrics.enabled:
+        # the Gram all-reduce bytes, from static shapes (no sync), for the
+        # run's duration
+        obs_prev = _dist.set_allreduce_observer(
+            ctx.metrics.counter("dist.bytes_all_reduced").inc)
+        obs_set = True
     t_start = time.time()
     report = QuantReport()
     pending: List[tuple] = []
@@ -987,6 +1129,8 @@ def quantize_model(params, cfg, plan, tokens: Tensor, spec,
     finally:
         if own_journal:
             qj.close()
+        if obs_set:
+            _dist.set_allreduce_observer(obs_prev)
     qparams["__qlayers__"] = table
     _finalize_report(report, pending, metrics=ctx.metrics)
     report.wall_seconds = time.time() - t_start

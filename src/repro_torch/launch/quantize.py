@@ -28,6 +28,24 @@ Check them with `python -m repro_torch.obs.validate` and
 `python -m repro_torch.obs.report DIR`:
 
     ... --device cpu --trace /tmp/obs_q/trace --metrics /tmp/obs_q/metrics
+
+    # distributed, as the JAX launcher: batch over "data", solve columns
+    # over a "model" axis of 2 (4 ranks: a (2, 2) mesh)
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.quantize --arch qwen2-7b --smoke \
+        --method comq_blocked --shard-data --shard-solve 2
+
+`--shard-data` shards the calibration batch over the mesh's "data" axis
+(one Gram all-reduce a tap); `--shard-solve TP` column-shards the
+per-channel comq_blocked / rtn solves over a "model" axis of TP (other
+methods print JAX's note and solve replicated), the data axis taking the
+ranks it leaves with `--shard-data`, else 1. The launcher runs one
+process per rank under `python -m torch.distributed.run` (or as a world
+of one without it) and exits 2 when the world is not the mesh's size.
+`--dist-backend` is nccl on the card (a card per rank) and gloo on the
+CPU; ranks that share one card need gloo. Rank 0 alone prints the
+summary and writes --out-dir, --save-packed, --trace, --metrics and the
+journal; every rank reads the journal on resume.
 `--out-dir DIR` saves the packed tree as a `CheckpointManager` step 0
 with the policy metadata (the JAX launcher always saves one, to a
 default directory; the port only when asked). A resumed run's
@@ -39,11 +57,8 @@ seeded generator, as the JAX launcher does. An encoder (vit-base-16) exits
 2: the JAX package has no encoder walk to port.
 
 Runs on the card unless `--device cpu` is given. Prints the JAX
-launcher's JSON summary keys (data_shards/model_shards are 1: the port
-runs on one device). Flags of the JAX launcher that this port does not
-have yet exit with a message saying so; none is silently ignored.
-`quantize_and_eval` is the same run as a function of a ModelConfig, and
-`quantize_supervised` its crash-safe walk.
+launcher's JSON summary keys. `quantize_and_eval` is the same run as a
+function of a ModelConfig, and `quantize_supervised` its crash-safe walk.
 """
 from __future__ import annotations
 
@@ -63,16 +78,12 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import (QuantPolicy, QuantSpec, materialize,
                               parse_policy, policy_from_budget,
                               quantize_model)
+from repro_torch.core.pipeline import _col_shardable
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.ft import (FaultInjector, Heartbeat, QuantJournal,
                             run_with_restarts)
 from repro_torch.models import BuildPlan, init_params, lm_loss
 from repro_torch.obs import MetricsRegistry, Tracer, next_trace_path
-
-# JAX launcher flags not ported yet (ROADMAP.md Queue A item 15,
-# distribution), with whether each takes a value
-NOT_PORTED = {"--shard-data": False, "--shard-solve": True}
-
 
 def set_precision() -> None:
     """Full-f32 matmuls and convolutions on the card (no TF32): Grams and
@@ -150,7 +161,7 @@ def resolve_policy(params, cfg, plan, tokens, base: QuantSpec,
 def quantize_supervised(params, cfg, plan, tokens, spec, *, journal: str,
                         resume: bool = False, restarts: int = 0,
                         injector=None, progress_cb=None, metrics=None,
-                        **kw):
+                        mesh=None, **kw):
     """`quantize_model` journaled in `journal` under `run_with_restarts`,
     as the launcher runs it: up to `restarts` restarts without progress
     (the journaled-leaf count), each attempt resuming whenever the
@@ -159,13 +170,17 @@ def quantize_supervised(params, cfg, plan, tokens, spec, *, journal: str,
     (with `metrics.snapshot()` when a registry is given) before
     `progress_cb(layer)`. A failed attempt's frames are collected before
     the next one allocates, so a retry starts from the memory one clean
-    run holds. `kw` goes to `quantize_model`."""
-    hb = Heartbeat(journal, host_id=0)
+    run holds. Under a `mesh` every rank runs this and rank 0 alone beats.
+    `kw` goes to `quantize_model`."""
+    from repro_torch.dist import is_rank0
+    from repro_torch.dist.world import barrier
+    hb = Heartbeat(journal, host_id=0) if is_rank0() else None
     box: Dict[str, Any] = {"attempts": 0}
 
     def on_layer(layer: int) -> None:
-        hb.beat(layer, metrics=(metrics.snapshot() if metrics is not None
-                                else None))
+        if hb is not None:
+            hb.beat(layer, metrics=(metrics.snapshot()
+                                    if metrics is not None else None))
         if progress_cb is not None:
             progress_cb(layer)
 
@@ -179,9 +194,11 @@ def quantize_supervised(params, cfg, plan, tokens, spec, *, journal: str,
         box["out"] = quantize_model(params, cfg, plan, tokens, spec,
                                     journal=journal, resume=again,
                                     injector=injector, progress_cb=on_layer,
-                                    metrics=metrics, **kw)
+                                    metrics=metrics, mesh=mesh, **kw)
 
     def progress():
+        if mesh is not None:
+            barrier()      # rank 0's journal writes are done: one count
         return len(QuantJournal.replay(journal).leaves)
 
     run_with_restarts(attempt, progress, max_restarts=restarts,
@@ -200,14 +217,18 @@ def quantize_and_eval(cfg, *, bits: int = 4,
                       out_dir: Optional[str] = None,
                       journal: Optional[str] = None, resume: bool = False,
                       restarts: int = 0, injector=None, tracer=None,
-                      metrics=None,
+                      metrics=None, mesh=None,
                       device: DeviceLike = None) -> QuantizeRun:
     """Init `cfg` from seed 0, quantize it on random calibration ids
     (seed 0) under `--bits` or the policy, and evaluate fp vs quantized
     loss on a held-out batch (seed 7) — the JAX launcher's run. With
     `journal` the walk is `quantize_supervised`'s; `tracer` and `metrics`
-    (obs) go to `quantize_model`."""
+    (obs) go to `quantize_model`. Under a `mesh` (repro_torch.dist) every
+    rank calls this alike: the walk is sharded, every rank evaluates, and
+    rank 0 alone writes `out_dir` and `save_packed`."""
+    from repro_torch.dist import is_rank0, mesh_shape
     dev = resolve_device(device)
+    writer = mesh is None or is_rank0()
     set_precision()
     params = init_params(cfg, seed=0, device=dev)
     tokens = _randint(0, (calib_batch, calib_seq), cfg.vocab_size, dev)
@@ -220,7 +241,7 @@ def quantize_and_eval(cfg, *, bits: int = 4,
                                               bits_budget)
     t0 = time.time()
     kw = dict(method=method, propagation=propagation, guards=guards,
-              vision_embeds=ve, tracer=tracer)
+              vision_embeds=ve, tracer=tracer, mesh=mesh)
     if journal:
         qparams, report = quantize_supervised(
             params, cfg, plan, tokens, spec, journal=journal, resume=resume,
@@ -234,11 +255,11 @@ def quantize_and_eval(cfg, *, bits: int = 4,
     dt = time.time() - t0
 
     packed = pack_tree(qparams["__qlayers__"])
-    if out_dir:
+    if out_dir and writer:
         CheckpointManager(out_dir, keep=2).save(
             0, packed, extra=policy_extra(policy=spec, arch=cfg.name,
                                           bits=bits))
-    if save_packed:
+    if save_packed and writer:
         save_packed_ckpt(save_packed, packed,
                          **policy_extra(policy=spec, arch=cfg.name,
                                         bits=bits))
@@ -257,7 +278,9 @@ def quantize_and_eval(cfg, *, bits: int = 4,
         "mixed_policy": (isinstance(spec, QuantPolicy)
                          and not spec.is_uniform()),
         "bits_budget": bits_budget or None,
-        "propagation": propagation, "data_shards": 1, "model_shards": 1,
+        "propagation": propagation,
+        "data_shards": mesh_shape(mesh).get("data", 1),
+        "model_shards": mesh_shape(mesh).get("model", 1),
         "order": order, "granularity": granularity,
         "layers_quantized": len(report.layers),
         "comq_vs_rtn_error_improvement": round(report.total_improvement(), 4),
@@ -286,25 +309,6 @@ def save_obs(tracer, registry, trace_dir, metrics_dir, prefix: str) -> None:
         registry.dump_jsonl(os.path.join(metrics_dir, "metrics.jsonl"))
         registry.dump_prometheus(os.path.join(metrics_dir, "metrics.prom"))
         print(f"# metrics: {metrics_dir}/metrics.jsonl + metrics.prom")
-
-
-class NotPorted(argparse.Action):
-    """A JAX launcher flag the port does not have yet: exits 2 saying so."""
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        jax_prog = parser.prog.replace("repro_torch.", "repro.")
-        parser.exit(2, f"{parser.prog}: {option_string} is not yet ported to "
-                       "repro_torch (see ROADMAP.md Queue A item 15, "
-                       f"distribution); run the JAX launcher `{jax_prog}` "
-                       "for it\n")
-
-
-def add_not_ported(ap: argparse.ArgumentParser, flags: Dict[str, bool]):
-    """Register `flags` ({flag: takes a value}) as NotPorted."""
-    for flag, takes_value in flags.items():
-        ap.add_argument(flag, action=NotPorted,
-                        nargs=None if takes_value else 0,
-                        help=argparse.SUPPRESS)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -368,10 +372,45 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--metrics", default=None, metavar="DIR",
                     help="write DIR/metrics.jsonl + DIR/metrics.prom "
                          "(obs.MetricsRegistry)")
+    ap.add_argument("--shard-data", action="store_true",
+                    help="shard the calibration batch over the mesh data "
+                         "axis (repro_torch.dist: one Gram all-reduce per "
+                         "tap)")
+    ap.add_argument("--shard-solve", type=int, default=0, metavar="TP",
+                    help="shard solve columns over a model axis of this "
+                         "size (0 = off; with --shard-data the remaining "
+                         "ranks form the data axis). Zero-communication "
+                         "for per-channel comq_blocked/rtn; other methods "
+                         "keep replicated solves.")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="process-group backend with --shard-data / "
+                         "--shard-solve: nccl (default on the card; a card "
+                         "per rank) or gloo (default on the CPU; ranks "
+                         "sharing one card)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
-    add_not_ported(ap, NOT_PORTED)
     return ap
+
+
+def launcher_mesh(ap, args):
+    """The JAX launcher's mesh over this world: --shard-solve TP gives
+    (data, TP) with the data axis every rank TP leaves under --shard-data,
+    else 1; --shard-data alone a ("data",) mesh of every rank. A world
+    that is not the mesh's size exits 2. Returns (mesh, device, started)."""
+    from repro_torch import dist as rd
+    dev, started = rd.init_world(args.dist_backend, args.device)
+    try:
+        if args.shard_solve:
+            mesh = rd.calib_mesh(model=args.shard_solve,
+                                 data=None if args.shard_data else 1)
+        else:
+            mesh = rd.data_mesh()
+    except ValueError as e:
+        world = torch.distributed.get_world_size()
+        rd.close_world(started)
+        ap.exit(2, f"{ap.prog}: {e} (world of {world} ranks"
+                   f"{'' if args.shard_data else ', --shard-data off'})\n")
+    return mesh, dev, started
 
 
 def main(argv=None) -> Dict[str, Any]:
@@ -384,21 +423,40 @@ def main(argv=None) -> Dict[str, Any]:
         ap.exit(2, f"{ap.prog}: {cfg.name} is an encoder, and quantize_model "
                    "has no encoder walk (the JAX package's starts from "
                    "embed_tokens, which an encoder does not have)\n")
-    tracer = Tracer(run=f"quantize:{cfg.name}") if args.trace else None
+    mesh, started, writer, device = None, False, True, args.device
+    if args.shard_data or args.shard_solve:
+        from repro_torch.dist import is_rank0
+        mesh, device, started = launcher_mesh(ap, args)
+        writer = is_rank0()
+        if writer and args.shard_solve and not _col_shardable(
+                QuantSpec(bits=args.bits, granularity=args.granularity),
+                args.method):
+            print(f"# note: method={args.method} granularity="
+                  f"{args.granularity} is not column-shardable; solves "
+                  "stay replicated")
+    tracer = (Tracer(run=f"quantize:{cfg.name}") if args.trace and writer
+              else None)
     registry = (MetricsRegistry(run=f"quantize:{cfg.name}")
-                if args.metrics else None)
-    run = quantize_and_eval(
-        cfg, bits=args.bits, granularity=args.granularity, order=args.order,
-        sweeps=args.sweeps, lam=args.lam, method=args.method,
-        calib_batch=args.calib_batch, calib_seq=args.calib_seq,
-        policy=args.policy, bits_budget=args.bits_budget,
-        guards=not args.no_guards, propagation=args.propagation,
-        save_packed=args.save_packed, out_dir=args.out_dir,
-        journal=args.journal, resume=args.resume, restarts=args.restarts,
-        injector=FaultInjector.parse(args.inject) if args.inject else None,
-        tracer=tracer, metrics=registry, device=args.device)
-    save_obs(tracer, registry, args.trace, args.metrics, "quantize")
-    print(json.dumps(run.summary))
+                if args.metrics and writer else None)
+    try:
+        run = quantize_and_eval(
+            cfg, bits=args.bits, granularity=args.granularity,
+            order=args.order, sweeps=args.sweeps, lam=args.lam,
+            method=args.method, calib_batch=args.calib_batch,
+            calib_seq=args.calib_seq, policy=args.policy,
+            bits_budget=args.bits_budget, guards=not args.no_guards,
+            propagation=args.propagation, save_packed=args.save_packed,
+            out_dir=args.out_dir, journal=args.journal, resume=args.resume,
+            restarts=args.restarts,
+            injector=(FaultInjector.parse(args.inject) if args.inject
+                      else None),
+            tracer=tracer, metrics=registry, mesh=mesh, device=device)
+    finally:
+        from repro_torch.dist import close_world
+        close_world(started)
+    if writer:
+        save_obs(tracer, registry, args.trace, args.metrics, "quantize")
+        print(json.dumps(run.summary))
     return run.summary
 
 

@@ -15,10 +15,21 @@ order. The expert GEMMs are batched products over the expert axis.
 Padded experts (the JAX package pads E to its TP degree) get -1e30
 logits so no token routes there; the port runs tp = 1 and pads none,
 but callers may pass a larger `n_experts_padded`.
+
+Global routing under a data axis (`group`, the "data" process group of
+a sharded calibration walk): JAX routes the whole batch at once, with
+the capacity of the global token count and bucket positions counted
+over the global token-major order. Each rank holds a contiguous slice of
+that order, so it all-gathers every rank's per-expert pair counts,
+offsets its own positions by the lower ranks' counts and keeps a pair
+when its global position is below the global capacity: JAX's kept set.
+A rank's buckets hold its own kept rows at their global positions (the
+others' rows are zero), so the all-reduced expert Gram is the replicated
+one up to summation order, and every token's output is JAX's.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,15 +60,20 @@ def _route(logits: Tensor, n_real: int, top_k: int):
     return torch.softmax(w.float(), dim=-1), ids
 
 
-def slots_for(ids: Tensor, e_pad: int, capacity: int):
+def slots_for(ids: Tensor, e_pad: int, capacity: int,
+              offset: Optional[Tensor] = None):
     """Capacity placement of routed pairs ids (N, k): (pos (N, k) the slot
     in the expert's bucket, by a cumulative count in token-major, then
     slot order, the first 0; slot (N, k) the row of the flat (E·C + 1)
-    buffer: ids·C + pos, or E·C, the overflow row, for a dropped pair)."""
+    buffer: ids·C + pos, or E·C, the overflow row, for a dropped pair).
+    `offset` (E,) counts the pairs routed to each expert before these
+    tokens (on lower ranks, under global routing)."""
     N, k = ids.shape
     flat = ids.reshape(N * k)
     onehot = F.one_hot(flat, e_pad)                   # (N·k, E)
     pos = torch.cumsum(onehot, dim=0).gather(1, flat[:, None])[:, 0] - 1
+    if offset is not None:
+        pos = pos + offset[flat]
     pos = pos.reshape(N, k)
     slot = torch.where(pos < capacity, ids * capacity + pos,
                        torch.full_like(pos, e_pad * capacity))
@@ -65,14 +81,38 @@ def slots_for(ids: Tensor, e_pad: int, capacity: int):
 
 
 def route_slots(x: Tensor, router: Tensor, n_real: int, top_k: int,
-                capacity: int):
+                capacity: int, offset: Optional[Tensor] = None):
     """Router logits, routing and capacity placement of a token chunk
     x (N, d): (logits (N, E) f32, weights (N, k) f32, ids (N, k), pos,
     slot) with pos / slot as `slots_for` gives them."""
     logits = x.float() @ router.float()
     weights, ids = _route(logits, n_real, top_k)
     return (logits, weights, ids,
-            *slots_for(ids, router.shape[-1], capacity))
+            *slots_for(ids, router.shape[-1], capacity, offset))
+
+
+def lower_rank_counts(x: Tensor, router: Tensor, n_real: int, top_k: int,
+                      chunk: int, n_chunks: int, group) -> Tensor:
+    """Global routing's offsets: (n_chunks, E) pairs routed to each expert,
+    per chunk of the global token order, by the ranks of `group` below
+    this one. This rank's tokens x (N, d) are the global tokens
+    [rank·N, (rank+1)·N); one all-gather of every rank's counts."""
+    import torch.distributed as dist
+    N = x.shape[0]
+    e_pad = router.shape[-1]
+    _, ids = _route(x.float() @ router.float(), n_real, top_k)
+    me = dist.get_rank(group)
+    chunk_of = (me * N + torch.arange(N, device=x.device)) // chunk
+    counts = torch.zeros(n_chunks * e_pad, dtype=torch.int64,
+                         device=x.device)
+    counts.index_add_(0, (chunk_of[:, None] * e_pad + ids).reshape(-1),
+                      torch.ones(ids.numel(), dtype=torch.int64,
+                                 device=x.device))
+    parts = [torch.empty_like(counts)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, counts, group=group)
+    return torch.stack(parts[:me]).sum(dim=0).reshape(n_chunks, e_pad) \
+        if me else counts.new_zeros(n_chunks, e_pad)
 
 
 def _expert_ffn(w, xb: Tensor, cd) -> Tensor:
@@ -81,14 +121,16 @@ def _expert_ffn(w, xb: Tensor, cd) -> Tensor:
 
 
 def _dispatch_chunk(x: Tensor, p: dict, cfg, n_real: int, capacity: int,
-                    taps=None, quantize_cb=None) -> Tuple[Tensor, Tensor]:
-    """x (N, d), one token chunk -> (y (N, d), aux loss scalar)."""
+                    taps=None, quantize_cb=None,
+                    offset: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """x (N, d), one token chunk -> (y (N, d), aux loss scalar); `offset`
+    as in `slots_for`."""
     cd = x.dtype
     N, d = x.shape
     e_pad = p["router"].shape[-1]
     k = cfg.moe.top_k
     logits, weights, ids, _, slot = route_slots(x, p["router"], n_real, k,
-                                                capacity)
+                                                capacity, offset)
     slot = slot.reshape(N * k)
 
     # dispatch: each kept (token, slot) pair's row into its bucket; the
@@ -144,7 +186,7 @@ def chunking(n_tokens: int, token_chunk: int) -> int:
 
 def apply_moe(p: dict, x: Tensor, cfg, n_experts_padded: int,
               token_chunk: int = 4096, taps=None, quantize_cb=None,
-              capacity_multiple: int = 1) -> Tuple[Tensor, Tensor]:
+              capacity_multiple: int = 1, group=None) -> Tuple[Tensor, Tensor]:
     """x (B, T, d) -> (y, aux loss).
 
     With `taps` (calibration) one pass routes the whole batch under one
@@ -152,23 +194,49 @@ def apply_moe(p: dict, x: Tensor, cfg, n_experts_padded: int,
     makes the staged `quantize_cb` swaps. Otherwise the token axis runs in
     chunks of `token_chunk` (halved until it divides B·T), each with its
     own capacity, and the aux loss is their mean. `capacity_multiple`
-    rounds the capacity up (only adds slots)."""
+    rounds the capacity up (only adds slots). With `group` x is this
+    rank's contiguous slice of a batch sharded over the group's ranks, and
+    routing is global (module docstring): capacities and chunks are the
+    whole batch's, and the aux loss is this rank's chunks' mean."""
     B, T, d = x.shape
     n_real = cfg.moe.n_experts
     flat = x.reshape(B * T, d)
     N = flat.shape[0]
+    ranks = 1
+    if group is not None:
+        import torch.distributed as dist
+        ranks = dist.get_world_size(group)
     if taps is not None:
         taps["router_in"] = x
+        offset = None
+        if ranks > 1:
+            offset = lower_rank_counts(flat, p["router"], n_real,
+                                       cfg.moe.top_k, N * ranks, 1,
+                                       group)[0]
         y, a = _dispatch_chunk(flat, p, cfg, n_real,
-                               _capacity(N, cfg, capacity_multiple),
-                               taps=taps, quantize_cb=quantize_cb)
+                               _capacity(N * ranks, cfg, capacity_multiple),
+                               taps=taps, quantize_cb=quantize_cb,
+                               offset=offset)
         return y.reshape(B, T, d), a
-    chunk = chunking(N, token_chunk)
+    chunk = chunking(N * ranks, token_chunk)
     capacity = _capacity(chunk, cfg, capacity_multiple)
+    if ranks == 1:
+        bounds = [(c * chunk, (c + 1) * chunk, c) for c in range(N // chunk)]
+        offsets = None
+    else:
+        # the global chunks that meet this rank's tokens, cut to them
+        me = dist.get_rank(group)
+        n_chunks = N * ranks // chunk
+        offsets = lower_rank_counts(flat, p["router"], n_real,
+                                    cfg.moe.top_k, chunk, n_chunks, group)
+        lo, hi = me * N, (me + 1) * N
+        bounds = [(max(c * chunk, lo) - lo, min((c + 1) * chunk, hi) - lo, c)
+                  for c in range(lo // chunk, (hi - 1) // chunk + 1)]
     ys, aux = [], torch.zeros((), device=x.device)
-    for c in range(N // chunk):
-        y, a = _dispatch_chunk(flat[c * chunk:(c + 1) * chunk], p, cfg,
-                               n_real, capacity)
+    for a0, a1, c in bounds:
+        y, a = _dispatch_chunk(flat[a0:a1], p, cfg, n_real, capacity,
+                               offset=None if offsets is None
+                               else offsets[c])
         ys.append(y)
         aux = aux + a
-    return torch.cat(ys).reshape(B, T, d), aux / (N // chunk)
+    return torch.cat(ys).reshape(B, T, d), aux / len(bounds)

@@ -15,7 +15,8 @@ padding (the JAX plan's tp=1).
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Any
 
 import torch
 
@@ -49,6 +50,10 @@ class BuildPlan:
     # the routing capacity is rounded up to
     moe_token_chunk: int = 4096
     moe_capacity_multiple: int = 1
+    # the "data" process group of a sharded calibration walk: MoE routing
+    # then counts capacity and bucket positions over the whole batch
+    # (models/moe.py); None routes this process's tokens alone
+    moe_group: Any = field(default=None, compare=False)
 
     def experts_padded(self, cfg) -> int:
         return 0 if cfg.moe is None else cfg.moe.n_experts
@@ -182,7 +187,8 @@ def _ffn_full(p: dict, xn: Tensor, cfg, plan: BuildPlan, taps=None,
         return moe_mod.apply_moe(p["moe"], xn, cfg, plan.experts_padded(cfg),
                                  plan.moe_token_chunk, taps=taps,
                                  quantize_cb=quantize_cb,
-                                 capacity_multiple=plan.moe_capacity_multiple)
+                                 capacity_multiple=plan.moe_capacity_multiple,
+                                 group=plan.moe_group)
     return mlp_mod.apply_mlp(p["mlp"], xn, cfg, taps=taps,
                              quantize_cb=quantize_cb), None
 

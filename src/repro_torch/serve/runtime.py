@@ -43,8 +43,19 @@ uninterrupted run.
 Per decode step the host uploads the tokens and positions, re-uploads
 the block tables only when they changed, and pulls the sampled tokens:
 that pull is the step's one host sync. The observability hooks read host
-values only and add none. The JAX runtime's mesh is not ported yet
-(ROADMAP.md Queue A item 15); passing one raises.
+values only and add none.
+
+Slot+page sharding (`mesh`, a DeviceMesh with a "model" axis of tp over
+the SPMD ranks), as in the JAX runtime: the partitioned allocator gives
+slot s pages of s's partition only, and each rank holds its own
+num_blocks/tp pages. Every rank runs the same scheduler on the same
+submissions and every admitted prefill (replicated work, as in JAX);
+only the owner of the slot's pages writes its rows. The decode step runs
+over the rank's max_slots/tp rows, against its own pages with block-table
+ids made local, through the same paged kernels, with no collective
+inside; one gather of the sampled tokens over "model" follows it (JAX's
+host read of its sharded logits), so every rank's host state advances
+alike. Rank 0 alone journals and traces.
 """
 from __future__ import annotations
 
@@ -113,16 +124,15 @@ class Runtime:
     (ft.FaultInjector) arms the page_alloc, decode_step, callback and kill
     fault points; `tracer` (obs.Tracer) and `metrics`
     (obs.MetricsRegistry) record the JAX runtime's events, spans and
-    instruments."""
+    instruments. `mesh` (a DeviceMesh with a "model" axis; every rank
+    constructs the runtime alike and submits the same requests) shards
+    slots and pages over the ranks (module docstring); tp must divide
+    num_blocks and max_slots."""
 
     def __init__(self, params, cfg, plan, serve_cfg: ServeConfig = None,
                  journal: Optional[Journal] = None, injector=None,
                  tracer=None, metrics=None, mesh=None,
                  device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Runtime(mesh=...) is not yet ported to repro_torch (see "
-                "ROADMAP.md Queue A item 15, distribution)")
         check_paged(cfg)
         # the paged path quantizes pages, not the static engine's per-entry
         # int8 cache: an int8 cache plan means int8 pages, and the prefill
@@ -142,6 +152,14 @@ class Runtime:
         self.plan = plan
         sc = serve_cfg or ServeConfig()
         self.serve_cfg = sc
+        self.mesh = mesh
+        tp, self._rank = 1, 0
+        if mesh is not None:
+            from repro_torch import dist as _dist
+            tp = _dist.tp_size(mesh)
+            if not _dist.is_rank0():
+                journal, tracer = None, None
+        self._tp = tp
         self.journal = journal
         self.injector = injector
         # null singletons when not given; the instrument handles are
@@ -162,14 +180,26 @@ class Runtime:
         fail_hook = None
         if injector is not None:
             fail_hook = lambda: injector.fire("page_alloc")  # noqa: E731
-        self.allocator = BlockAllocator(sc.num_blocks, fail_hook=fail_hook)
+        self.allocator = BlockAllocator(sc.num_blocks, fail_hook=fail_hook,
+                                        partitions=tp)
         self.scheduler = Scheduler(sc.max_slots, self.allocator,
                                    buckets=sc.buckets,
                                    block_size=sc.block_size,
                                    max_blocks_per_slot=sc.max_blocks_per_slot,
                                    policy=sc.policy)
         self.maxb = self.scheduler.max_blocks_per_slot
-        self.pool = init_paged_cache(cfg, plan, sc.num_blocks, sc.block_size,
+        # this rank's pages [page_lo, page_lo + nbl) and slots
+        # [slot_lo, slot_lo + spp); the whole pool and batch without a mesh
+        self._nbl, self._spp = sc.num_blocks, sc.max_slots
+        self._page_lo = self._slot_lo = 0
+        if mesh is not None:
+            self._rank = _dist.axis_rank(mesh, "model")
+            self._group = _dist.axis_group(mesh, "model")
+            lay = _dist.paged_layout(tp, sc.max_slots, sc.num_blocks,
+                                     self._rank)
+            self._nbl, self._spp = lay["blocks"], lay["slots"]
+            self._page_lo, self._slot_lo = lay["block_lo"], lay["slot_lo"]
+        self.pool = init_paged_cache(cfg, plan, self._nbl, sc.block_size,
                                      device=self.device)
         # bytes of one live page (codes and its share of the scales): the
         # pool-bytes gauge is a host multiply
@@ -310,12 +340,17 @@ class Runtime:
         logits, k_seq, v_seq, kv_pos = self._prefill(tokens_in, bucket)
         table_row = np.zeros((self.maxb,), np.int32)
         table_row[:len(req.blocks)] = req.blocks
-        # only positions < true length: the right-pad rows are dropped
-        pos_row = torch.where((kv_pos >= 0) & (kv_pos < tlen), kv_pos,
-                              torch.full_like(kv_pos, -1))
-        write_prefill(self.pool, k_seq, v_seq, pos_row,
-                      self._upload(table_row), kv_bits=self.kv_bits)
         s = req.slot
+        if self.scheduler.partition_of_slot(s) == self._rank:
+            # only positions < true length: the right-pad rows are dropped;
+            # under a mesh only the owner of the slot's pages writes them,
+            # at their local ids (every other rank drops the rows)
+            pos_row = torch.where((kv_pos >= 0) & (kv_pos < tlen), kv_pos,
+                                  torch.full_like(kv_pos, -1))
+            write_prefill(self.pool, k_seq, v_seq, pos_row,
+                          self._upload(np.maximum(table_row - self._page_lo,
+                                                  0)),
+                          kv_bits=self.kv_bits)
         self._bt[s] = table_row
         self._pos[s] = tlen          # next decode writes K/V here
         self._temp[s] = req.temperature
@@ -407,8 +442,13 @@ class Runtime:
                 self._bt[s, :len(row)] = row
                 self._bt_dirty = True
         t0 = time.time()
+        rows = slice(self._slot_lo, self._slot_lo + self._spp)
         if self._bt_dirty or self._bt_dev is None:
-            self._bt_dev = self._upload(self._bt)
+            # this rank's rows, their page ids made local (the clamp only
+            # touches entries past a slot's live pages, which the length
+            # mask hides)
+            self._bt_dev = self._upload(
+                np.maximum(self._bt[rows] - self._page_lo, 0))
             self._bt_dirty = False
         if self.injector is not None:
             self.injector.check("decode_step")
@@ -419,13 +459,17 @@ class Runtime:
                               slots=len(running)):
             logits, self.pool = decode_step_paged(
                 self.params, self.cfg, self.plan, self.pool, self._bt_dev,
-                self._upload(self._tok[:, None]), self._upload(self._pos))
+                self._upload(self._tok[rows, None]),
+                self._upload(self._pos[rows]))
             if self._any_sampling:
                 toks = sample_batch_seeded(
-                    logits, self._seed, self._count, temperature=self._temp,
-                    top_k=self._topk, top_p=self._topp)
+                    logits, self._seed[rows], self._count[rows],
+                    temperature=self._temp[rows], top_k=self._topk[rows],
+                    top_p=self._topp[rows])
             else:
                 toks = torch.argmax(logits, dim=-1)
+            if self._tp > 1:
+                toks = self._gather_tokens(toks)
             toks = toks.cpu().numpy()    # the step's one host sync
         now = time.time()
         self.steps += 1
@@ -446,6 +490,14 @@ class Runtime:
         self._m_occ.set(live / self.allocator.num_blocks)
         self._m_pool_bytes.set(live * self._page_bytes)
         return emitted
+
+    def _gather_tokens(self, toks: Tensor) -> Tensor:
+        """Every rank's sampled tokens, in slot order: one all-gather over
+        "model" after the decode step."""
+        import torch.distributed as dist
+        parts = [torch.empty_like(toks) for _ in range(self._tp)]
+        dist.all_gather(parts, toks.contiguous(), group=self._group)
+        return torch.cat(parts)
 
     def _live_blocks(self) -> int:
         """Pages holding written K/V rows."""
@@ -521,19 +573,27 @@ class Runtime:
 def recover_runtime(params, cfg, plan, journal_dir: str,
                     serve_cfg: ServeConfig = None, injector=None,
                     fsync: bool = True, device: DeviceLike = None,
-                    tracer=None, metrics=None):
+                    tracer=None, metrics=None, mesh=None):
     """Crash recovery: rebuild a Runtime from a request journal after a
     process death. Retired requests are never re-run (their tokens live in
     the journal); every in-flight request is re-submitted once under its
     original rid, seed and settings, so draining the returned runtime
     replays each stream token for token. Returns (runtime, journal state);
     `journal_state.completed` holds the pre-crash outputs. `tracer` and
-    `metrics` go to the new Runtime."""
+    `metrics` go to the new Runtime. Under a `mesh` every rank replays the
+    journal and re-submits the same requests; rank 0 alone writes it."""
+    writer = True
+    if mesh is not None:
+        from repro_torch.dist import world
+        writer = world.is_rank0()
+        world.barrier()          # the crashed attempt's writes are done
     state = Journal.replay(journal_dir)
-    journal = Journal(journal_dir, fsync=fsync)
+    if mesh is not None:
+        world.barrier()          # every rank read before rank 0 writes
+    journal = Journal(journal_dir, fsync=fsync) if writer else None
     rt = Runtime(params, cfg, plan, serve_cfg, journal=journal,
                  injector=injector, tracer=tracer, metrics=metrics,
-                 device=device)
+                 mesh=mesh, device=device)
     rt.scheduler.advance_rids(state.max_rid)
     for rid in sorted(state.inflight):
         rec = state.inflight[rid]
@@ -544,5 +604,6 @@ def recover_runtime(params, cfg, plan, journal_dir: str,
                       stop_tokens=tuple(rec["stop_tokens"]),
                       priority=rec["priority"], seed=rec["seed"])
         rt.scheduler.resubmit(req, rid)
-        journal.record_replayed(rid)
+        if journal is not None:
+            journal.record_replayed(rid)
     return rt, state

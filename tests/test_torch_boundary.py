@@ -105,33 +105,30 @@ def test_cuda_default_raises_without_a_card():
         quantize.main(["--arch", "qwen2-7b", "--smoke"])
 
 
-# the JAX quantize launcher's flags that the port once refused: the ones
-# still in NOT_PORTED must exit 2, the ported ones must run
+# the JAX quantize launcher's flags that the port once refused: each one
+# runs now (--shard-data as a world of one in this process)
 @pytest.mark.parametrize("flag", ["--journal", "--shard-data", "--trace"])
 def test_launcher_rejects_unported_flags(flag, capsys, tmp_path):
     from repro_torch.launch import quantize
     from repro_torch.obs import validate_trace_file
     argv = ["--arch", "qwen2-7b", "--smoke", "--device", "cpu", flag]
-    if flag not in quantize.NOT_PORTED:
-        out = quantize.main(argv + [str(tmp_path), "--method", "rtn",
-                                    "--calib-batch", "2", "--calib-seq",
-                                    "48"])
-        assert out["layers_quantized"] == 14 and out["resumed_leaves"] == 0
-        if flag == "--trace":
-            path = tmp_path / "quantize.g0.trace.json"
-            assert validate_trace_file(str(path)) == []
-            spans = [e["name"] for e in json.loads(path.read_text())
-                     ["traceEvents"]]
-            # 2 layers of 4 tap groups each
-            assert spans.count("layer") == 2
-            assert spans.count("leaf_solve") == 8
-        return
-    if quantize.NOT_PORTED[flag]:
-        argv.append("x")
-    with pytest.raises(SystemExit) as e:
-        quantize.main(argv)
-    assert e.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    if flag != "--shard-data":
+        argv.append(str(tmp_path))
+    out = quantize.main(argv + ["--method", "rtn", "--calib-batch", "2",
+                                "--calib-seq", "48"])
+    assert out["layers_quantized"] == 14 and out["resumed_leaves"] == 0
+    assert (out["data_shards"], out["model_shards"]) == (1, 1)
+    assert "not yet ported" not in capsys.readouterr().err
+    if flag == "--trace":
+        path = tmp_path / "quantize.g0.trace.json"
+        assert validate_trace_file(str(path)) == []
+        spans = [e["name"] for e in json.loads(path.read_text())
+                 ["traceEvents"]]
+        # 2 layers of 4 tap groups each
+        assert spans.count("layer") == 2
+        assert spans.count("leaf_solve") == 8
+    if flag == "--shard-data":
+        assert not torch.distributed.is_initialized()
 
 
 def test_unported_arch_says_so():

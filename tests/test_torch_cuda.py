@@ -970,3 +970,66 @@ def test_decode_step_annotation_holds_the_paged_kernel(cuda, tmp_path):
         t0, t1 = (t, t) if t is not None else (k["ts"], k["ts"] + k["dur"])
         assert a <= t0 and t1 <= b, (k["name"], t0, t1, a, b)
     assert [e["name"] for e in rt.tracer.events].count("decode_step") == 2
+
+
+# ---------------------------------------------------------------------------
+# distribution on the card: 2 gloo ranks sharing the card, smoke size
+# ---------------------------------------------------------------------------
+
+def test_column_sharded_walk_on_the_card_is_the_meshless_walk(cuda,
+                                                              tmp_path):
+    """model 2 (data 1): every leaf's codes, zero-points and scales of the
+    column-sharded walk equal the meshless walk's bit for bit, on both
+    ranks (the panel kernel solves each rank's column slice)."""
+    import numpy as np
+
+    from torch_dist_worker import spawn
+    tok = np.random.RandomState(3).randint(0, 256, (4, 48)).astype(np.int32)
+    out = spawn("walk", {"archs": {"qwen2-7b": {"params": None,
+                                                "tokens": tok}},
+                         "spec": dict(bits=4, granularity="per_channel",
+                                      lam=0.9, sweeps=2, order="greedy"),
+                         "method": "comq_blocked", "mesh": (1, 2)}, 2,
+                tmp_path, device="cuda", backend="gloo")
+    single = out[0][("qwen2-7b", "single")]["codes"]
+    for r in out:
+        sh = r[("qwen2-7b", "mesh")]["codes"]
+        assert sorted(sh) == sorted(single)
+        for k in single:
+            for f in ("codes", "z_lo", "scale"):
+                assert np.array_equal(sh[k][f], single[k][f]), (k, f)
+
+
+def test_sharded_runtime_on_the_card_is_the_meshless_runtime(cuda,
+                                                             tmp_path):
+    """Runtime(mesh=) over 2 gloo ranks sharing the card (model 2): greedy
+    tokens equal the meshless runtime's at int8 and f32 pages; each rank
+    launches the paged kernels and no collective inside the step."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import BuildPlan, init_params
+    from repro_torch.serve import Runtime, ServeConfig
+    from torch_dist_worker import spawn
+    sc = dict(max_slots=4, block_size=8, num_blocks=16, buckets=(8, 16),
+              max_blocks_per_slot=4)
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, 256, (n,)).astype(np.int32)
+               for n in (9, 14, 7, 12)]
+    out = spawn("serve", {"arch": "qwen2-7b",
+                          "cfg": {"compute_dtype": "float32"},
+                          "params": None, "prompts": prompts, "sc": sc,
+                          "kv_bits": (8, 0), "max_new": 8,
+                          "cache_dtype": "float32"}, 2, tmp_path,
+                device="cuda", backend="gloo")
+    cfg = get_smoke_config("qwen2-7b").replace(compute_dtype="float32")
+    params = init_params(cfg, seed=0, device=cuda)
+    for kv in (8, 0):
+        want = [t.tolist() for t in Runtime(
+            params, cfg, BuildPlan(cache_dtype=torch.float32, kv_bits=kv),
+            ServeConfig(**sc), device=cuda).generate(prompts,
+                                                     max_new_tokens=8)]
+        for r in out:
+            assert r[kv]["tokens"] == want
+            assert r[kv]["counts"]["inside"] == 0
+            assert r[kv]["paged_launches"] > 0

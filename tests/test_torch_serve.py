@@ -500,20 +500,42 @@ def test_launcher_rejects_unported_flags(flag, tmp_path):
             tmp_path / "metrics.prom").read_text()
 
 
-# Runtime's arguments that the port once refused: mesh still raises,
-# naming its item; a journal, an injector, a tracer and a registry are
-# taken and used
+# Runtime's arguments that the port once refused: a journal, an injector,
+# a tracer, a registry and a mesh are taken and used (the mesh as a gloo
+# world of one in this process; a model axis that does not divide
+# num_blocks raises the JAX runtime's error)
 @pytest.mark.parametrize("arg", ["journal", "injector", "tracer", "metrics",
                                  "mesh"])
-def test_runtime_rejects_unported_arguments(setup, arg, tmp_path):
+def test_runtime_rejects_unported_arguments(setup, jax_setup, arg, tmp_path):
     from repro_torch.ft import FaultInjector, Journal
     from repro_torch.obs import MetricsRegistry, Tracer
     cfg, params = setup
     if arg == "mesh":
-        with pytest.raises(NotImplementedError,
-                           match="not yet ported.*item 15"):
-            Runtime(params, cfg, _plan(), ServeConfig(**SC), device="cpu",
-                    mesh=object())
+        from types import SimpleNamespace
+
+        from torch.distributed.device_mesh import init_device_mesh
+
+        from repro_torch import dist as rd
+        dev, started = rd.init_world("gloo", "cpu")
+        try:
+            mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("model",))
+            rt = Runtime(params, cfg, _plan(), ServeConfig(**SC),
+                         device="cpu", mesh=mesh)
+            prompts = _prompts(1, [5, 9])
+            want = _runtime(params, cfg).generate(prompts, max_new_tokens=3)
+            got = rt.generate(prompts, max_new_tokens=3)
+            assert [g.tolist() for g in got] == [w.tolist() for w in want]
+        finally:
+            rd.close_world(started)
+        odd = {**SC, "num_blocks": 25}
+        stub = SimpleNamespace(shape={"model": 2})
+        with pytest.raises(ValueError) as ej:
+            JRuntime(jax_setup[1], jax_setup[0], JPlan(remat=False),
+                     JServeConfig(**odd), mesh=stub)
+        with pytest.raises(ValueError) as et:
+            Runtime(params, cfg, _plan(), ServeConfig(**odd), device="cpu",
+                    mesh=stub)
+        assert str(et.value) == str(ej.value)
         return
     value = {"journal": lambda: Journal(str(tmp_path)),
              "injector": FaultInjector, "tracer": Tracer,
