@@ -81,3 +81,34 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Everything the training launcher needs besides the model itself (the
+    JAX package's RunConfig, field for field; the port's trainer reads the
+    training, distributed-optimization and checkpointing fields)."""
+    arch: str
+    shape: str = "train_4k"
+    multi_pod: bool = False
+    microbatches: int = 1         # gradient accumulation steps
+    remat: bool = True
+    seed: int = 0
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    # distributed-optimization knobs
+    grad_compression: str = "none"   # none | int8_ef
+    # checkpointing / fault tolerance
+    ckpt_dir: str = "/tmp/repro_ckpt"
+    ckpt_every: int = 50
+    async_ckpt: bool = True
+    keep_ckpts: int = 3
+    # quantization (COMQ) defaults — paper §4: K=3..4, lambda<=1
+    quant_bits: int = 4
+    quant_granularity: str = "per_channel"   # per_channel | per_layer
+    quant_order: str = "greedy"              # greedy | cyclic
+    quant_sweeps: int = 3
+    quant_lambda: float = 0.9

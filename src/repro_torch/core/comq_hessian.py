@@ -32,6 +32,13 @@ from repro_torch.core.quantizer import (EPS, QuantSpec, init_per_channel,
 
 Tensor = torch.Tensor
 
+# the blocked solver's column tile (`_trailing`): it
+# divides every column shard the column-sharded solve gives the configs'
+# widths (3584, 512, 1024, 18944, 14336 over 2 or 4 model ranks)
+COL_TILE = 128
+# tiles a batched trailing update takes (`_trailing`)
+TILE_BATCH = 8
+
 
 def gram(x: Tensor) -> Tensor:
     x = x.float()
@@ -158,64 +165,120 @@ def _blocked_core(hp: Tensor, wp: Tensor, hdiag: Tensor, delta, zlo, zhi, *,
                   schedule: str):
     """Multi-sweep blocked solve over permuted/padded operands.
 
-    trailing (default): P = H·R is maintained exactly across sweeps — each
-    panel solve is followed by one rank-B update P -= H[:, blk] @ ΔW,
-    applied in place with `addmm_`. Between sweeps H·Q is recovered
-    elementwise from (HW − P)/δ, so the δ-update and the error trajectory
-    cost no matmuls.
+    trailing (default, `_trailing`): P = H·R is maintained exactly across
+    sweeps — each panel solve is followed by one rank-B update
+    P -= H[:, blk] @ ΔW. Between sweeps H·Q is recovered elementwise from
+    (HW − P)/δ, so the δ-update and the error trajectory cost no matmuls.
 
     refresh: every panel recomputes s0 = H[blk, :]·(W − δQ), and the
     δ-updates/errors each pay another (m, m)·(m, n) matmul per sweep."""
+    if schedule == "trailing":
+        return _trailing(hp, wp, hdiag, delta, zlo, zhi, spec=spec,
+                         block=block, panel_fn=panel_fn)
+    if schedule != "refresh":
+        raise ValueError(f"unknown schedule {schedule!r}")
+    per_layer = spec.granularity == "per_layer"
+    B = block
+    qf = wp / delta
+    hm, wm = hp[:m, :m], wp[:m]
+    errs = [_h_error(hm, wm, (qf * delta)[:m])]
+    for _ in range(spec.sweeps):
+        for b in range(wp.shape[0] // B):
+            sl = slice(b * B, (b + 1) * B)
+            r = wp - qf * delta
+            qf[sl], _ = panel_fn(hp[sl, sl].contiguous(), hp[sl] @ r,
+                                 qf[sl], delta, zlo, zhi, hdiag[sl])
+        delta = _delta_update_h(hm, wm, qf[:m], per_layer)
+        errs.append(_h_error(hm, wm, (qf * delta)[:m]))
+    return qf, delta, torch.stack(errs)
+
+
+def _trailing(hp: Tensor, wp: Tensor, hdiag: Tensor, delta, zlo, zhi, *,
+              spec: QuantSpec, block: int, panel_fn):
+    """The trailing schedule, with every product against H and every column
+    sum over column tiles of one fixed width (COL_TILE).
+
+    cuBLAS picks its f32 GEMM (tiling, split-K) by the whole product's
+    shape, and `torch.sum(dim=0)` its reduction by the whole tensor's, so
+    the same column of an (m, m)·(m, n) product would round otherwise at
+    another n. Here W's columns are zero-padded to a multiple of the tile
+    and held as (n_pad/tile, m_pad, tile) stacks. H·W and H·R are one
+    (m_pad, m_pad)·(m_pad, tile) GEMM a tile, each column sum one
+    reduction a tile, and each rank-B update P -= H[:, blk]·ΔW one batched
+    GEMM (`baddbmm_`, H's columns broadcast) a TILE_BATCH tiles, the last
+    batch filled with zero tiles: every call has one shape whatever n is,
+    so cuBLAS runs one kernel for it. So a column's arithmetic depends
+    only on its own tile, and a solve of
+    any tile-aligned column range (a rank's share of the column-sharded
+    solve, dist/calibrate.py) rounds each of its columns as the solve of
+    the whole W does. On the CPU these are the codes of the JAX package's
+    solve. Padded columns (w 0, δ 1, z 0) stay 0 and add nothing."""
     per_layer = spec.granularity == "per_layer"
     m_pad, n = wp.shape
-    B = block
-    n_blocks = m_pad // B
+    B, tile = block, COL_TILE
+    n_tiles = -(-n // tile)
+    pad = n_tiles * tile - n
+    if pad:
+        wp = F.pad(wp, (0, pad))
+        if not per_layer:
+            delta = F.pad(delta, (0, pad), value=1.0)
+            zlo, zhi = F.pad(zlo, (0, pad)), F.pad(zhi, (0, pad))
+
+    def tiles(x: Tensor) -> Tensor:       # (m_pad, n_pad) -> (T, m_pad, tile)
+        return x.reshape(x.shape[0], n_tiles, tile).transpose(0, 1) \
+            .contiguous()
+
+    def col(v):                           # per column (n_pad,) -> (T, 1, tile)
+        return v.reshape(n_tiles, 1, tile) if v.dim() else v
+
+    def col_sum(x: Tensor) -> Tensor:     # (T, m_pad, tile) -> (n_pad,)
+        return torch.cat([torch.sum(x[t], dim=0) for t in range(n_tiles)])
+
+    def h_times(x: Tensor, out: Tensor) -> Tensor:   # H·x, a tile at a time
+        for t in range(n_tiles):
+            torch.mm(hp, x[t], out=out[t])
+        return out
+
+    # P and ΔW with zero tiles up to a whole number of TILE_BATCH batches
+    n_batch = -(-n_tiles // TILE_BATCH) * TILE_BATCH
+    p_all = wp.new_zeros(n_batch, m_pad, tile)
+    dq_all = wp.new_zeros(n_batch, B, tile)
+    wt = tiles(wp)
     qf = wp / delta
+    hw = h_times(wt, torch.empty_like(wt))
+    p = h_times(wt - tiles(qf) * col(delta), p_all[:n_tiles])
 
-    def panel(b, s0):
-        sl = slice(b * B, (b + 1) * B)
-        h_bb = hp[sl, sl].contiguous()
-        qf_b, dq = panel_fn(h_bb, s0, qf[sl], delta, zlo, zhi, hdiag[sl])
-        qf[sl] = qf_b
-        return sl, dq
+    def h_err(p, qf, delta):
+        # padded rows of H are zero, so P's padded rows vanish
+        r = wt - tiles(qf) * col(delta)
+        return torch.sqrt(torch.clamp(torch.sum(col_sum(r * p)), min=0.0))
 
-    if schedule == "trailing":
-        hw = hp @ wp
-        p = hp @ (wp - qf * delta)
-
-        def h_err(p, qf, delta):
-            # padded rows of H are zero, so P's padded rows vanish
-            r = wp - qf * delta
-            return torch.sqrt(torch.clamp(torch.sum(r * p), min=0.0))
-
-        errs = [h_err(p, qf, delta)]
-        for _ in range(spec.sweeps):
-            for b in range(n_blocks):
-                sl, dq = panel(b, p[b * B:(b + 1) * B].contiguous())
-                p.addmm_(hp[:, sl], dq, alpha=-1.0)
-            safe = torch.where(delta.abs() > EPS, delta,
-                               torch.ones_like(delta))
-            hq = (hw - p) / safe
-            if per_layer:
-                num = torch.sum(qf * hw)
-                den = torch.sum(qf * hq)
-            else:
-                num = torch.sum(qf * hw, dim=0)
-                den = torch.sum(qf * hq, dim=0)
-            delta = torch.where(den > EPS, num / den, torch.ones_like(den))
-            p = hw - delta * hq
-            errs.append(h_err(p, qf, delta))
-    elif schedule == "refresh":
-        hm, wm = hp[:m, :m], wp[:m]
-        errs = [_h_error(hm, wm, (qf * delta)[:m])]
-        for _ in range(spec.sweeps):
-            for b in range(n_blocks):
-                r = wp - qf * delta
-                panel(b, hp[b * B:(b + 1) * B] @ r)
-            delta = _delta_update_h(hm, wm, qf[:m], per_layer)
-            errs.append(_h_error(hm, wm, (qf * delta)[:m]))
-    else:
-        raise ValueError(f"unknown schedule {schedule!r}")
+    errs = [h_err(p, qf, delta)]
+    for _ in range(spec.sweeps):
+        for b in range(m_pad // B):
+            sl = slice(b * B, (b + 1) * B)
+            s0 = p[:, sl].transpose(0, 1).reshape(B, -1)
+            qf[sl], dq = panel_fn(hp[sl, sl].contiguous(), s0, qf[sl],
+                                  delta, zlo, zhi, hdiag[sl])
+            dq_all[:n_tiles] = dq.reshape(B, n_tiles, tile).transpose(0, 1)
+            h_sl = hp[:, sl].expand(TILE_BATCH, m_pad, B)
+            for g in range(0, n_batch, TILE_BATCH):
+                p_all[g:g + TILE_BATCH].baddbmm_(
+                    h_sl, dq_all[g:g + TILE_BATCH], alpha=-1.0)
+        safe = torch.where(delta.abs() > EPS, delta, torch.ones_like(delta))
+        hq = (hw - p) / col(safe)
+        qt = tiles(qf)
+        num = col_sum(qt * hw)
+        den = col_sum(qt * hq)
+        if per_layer:
+            num, den = torch.sum(num), torch.sum(den)
+        delta = torch.where(den > EPS, num / den, torch.ones_like(den))
+        p.copy_(hw - col(delta) * hq)
+        errs.append(h_err(p, qf, delta))
+    if pad:
+        qf = qf[:, :n]
+        if not per_layer:
+            delta = delta[:n]
     return qf, delta, torch.stack(errs)
 
 
@@ -228,7 +291,8 @@ def comq_quantize_blocked(h: Tensor, w: Tensor, spec: QuantSpec,
     `panel_fn(h_bb, s0, qf_b, delta, z_lo, z_hi, hdiag_b) -> (qf_b', ΔW)`
     defaults to the `comq_panel` dispatch (kernels/ops.py): the Hopper
     kernel for CUDA tensors, its plain version for CPU tensors.
-    `perm` optionally supplies the shared (m,) visit order."""
+    `perm` optionally supplies the shared (m,) visit order. The trailing
+    schedule runs over fixed column tiles (`_trailing`)."""
     h = h.float()
     w = w.float()
     m, n = w.shape

@@ -36,6 +36,12 @@
 // f32: the CUDA-core kernel below (one block per 16 query rows, K/V
 // tiles of 32 keys staged as f32, a lane scores one key): the precision
 // path, held to 1e-4.
+//
+// LSE: with a non-null `lse` (B, H, Tq) f32 both kernels also write each
+// row's log-sum-exp of its scaled scores, m + log(l) in natural units
+// (+inf for a row that sees no key), which the backward kernel
+// (flash_attention_bwd.cu) recomputes P from. With a null `lse` the
+// inference paths pay one untaken branch a row.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -71,7 +77,8 @@ template <typename T>
 __global__ void flash_attention_kernel(const T* __restrict__ q,
                                        const T* __restrict__ k,
                                        const T* __restrict__ v,
-                                       T* __restrict__ o, Strides sq,
+                                       T* __restrict__ o,
+                                       float* __restrict__ lse, Strides sq,
                                        Strides sk, Strides sv, Strides so,
                                        int Tq, int Tk, int H, int group,
                                        int hd, int causal, int window,
@@ -180,6 +187,10 @@ __global__ void flash_attention_kernel(const T* __restrict__ q,
     const int qi = q_lo + warp * kRowsPerWarp + r;
     if (qi >= Tq) continue;
     const float lr = fmaxf(l[r], 1e-20f);
+    if (lse != nullptr && lane == 0) {
+      lse[((long long)b * H + h) * Tq + qi] =
+          l[r] > 0.f ? m[r] + logf(l[r]) : INFINITY;
+    }
 #pragma unroll
     for (int sl = 0; sl < kMaxDPL; ++sl) {
       const int d = lane + 32 * sl;
@@ -192,7 +203,7 @@ __global__ void flash_attention_kernel(const T* __restrict__ q,
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o,
-           const long long* st, int B, int Tq, int Tk, int H, int KV, int hd,
+           float* lse, const long long* st, int B, int Tq, int Tk, int H, int KV, int hd,
            int causal, int window, float scale, cudaStream_t stream) {
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
       sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
@@ -207,8 +218,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
   }
   const dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
   flash_attention_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, sk, sv, so, Tq, Tk, H,
-      H / KV, hd, causal, window, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, sq, sk, sv, so, Tq,
+      Tk, H, H / KV, hd, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -230,7 +241,8 @@ __global__ void __launch_bounds__(kTcWarps * 32, 2)
     flash_attention_tc_kernel(const bf16* __restrict__ q,
                               const bf16* __restrict__ k,
                               const bf16* __restrict__ v,
-                              bf16* __restrict__ o, Strides sq, Strides sk,
+                              bf16* __restrict__ o,
+                              float* __restrict__ lse, Strides sq, Strides sk,
                               Strides sv, Strides so, int Tq, int Tk,
                               int group, int hd, int causal, int window,
                               float scale_log2, int w) {
@@ -406,9 +418,22 @@ __global__ void __launch_bounds__(kTcWarps * 32, 2)
   cp_async_wait<0>();
 
   // epilogue: divide by l (f32), write bf16 pairs through o's strides
-  float inv[2];
+  float inv[2], lsum[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) inv[r] = 1.f / fmaxf(quad_sum(l[r]), 1e-20f);
+  for (int r = 0; r < 2; ++r) {
+    lsum[r] = quad_sum(l[r]);
+    inv[r] = 1.f / fmaxf(lsum[r], 1e-20f);
+  }
+  if (lse != nullptr && tig == 0) {  // m is in log2 units: back to natural
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < Tq)
+        lse[((long long)b * gridDim.y + h) * Tq + row] =
+            lsum[r] > 0.f ? (m[r] + log2f(lsum[r])) * 0.6931471805599453f
+                          : INFINITY;
+    }
+  }
 #pragma unroll
   for (int n = 0; n < 2 * KD; ++n) {
     const int col = 8 * n + 2 * tig;
@@ -427,7 +452,7 @@ __global__ void __launch_bounds__(kTcWarps * 32, 2)
 
 template <int KD>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
-              const long long* st, int B, int Tq, int Tk, int H, int KV,
+              float* lse, const long long* st, int B, int Tq, int Tk, int H, int KV,
               int hd, int causal, int window, float scale, int w,
               cudaStream_t stream) {
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
@@ -442,8 +467,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   }
   const dim3 grid((Tq + kTcRows - 1) / kTcRows, H, B);
   flash_attention_tc_kernel<KD><<<grid, kTcWarps * 32, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, sq, sk, sv,
-      so, Tq, Tk, H / KV, hd, causal, window, scale * 1.4426950408889634f,
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, sq, sk,
+      sv, so, Tq, Tk, H / KV, hd, causal, window, scale * 1.4426950408889634f,
       w);
   return (int)cudaGetLastError();
 }
@@ -459,14 +484,14 @@ int copy_width(const void* q, const void* k, const void* v,
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                const long long* st, int B, int Tq, int Tk, int H, int KV,
+                float* lse, const long long* st, int B, int Tq, int Tk, int H, int KV,
                 int hd, int causal, int window, float scale,
                 cudaStream_t stream) {
   const int w = copy_width(q, k, v, st, hd);
   if (w == 0 || hd % 2) return (int)cudaErrorMisalignedAddress;
   const int steps = (hd + 15) / 16;
 #define REPRO_FLASH_TC(KD)                                                  \
-  return launch_tc<KD>(q, k, v, o, st, B, Tq, Tk, H, KV, hd, causal,       \
+  return launch_tc<KD>(q, k, v, o, lse, st, B, Tq, Tk, H, KV, hd, causal,  \
                        window, scale, w, stream)
   if (steps <= 1) REPRO_FLASH_TC(1);
   if (steps <= 2) REPRO_FLASH_TC(2);
@@ -485,19 +510,19 @@ const char* repro_cuda_error_string(int code) {
 }
 
 // dtype: 0 = f32, 1 = bf16. strides: host array of 12 int64 element
-// strides, dims 0..2 of q, k, v, o in that order. Requires hd <= 256 and
-// H % KV == 0.
+// strides, dims 0..2 of q, k, v, o in that order. lse: null, or a
+// contiguous (B, H, Tq) f32 output. Requires hd <= 256 and H % KV == 0.
 int flash_attention(const void* q, const void* k, const void* v, void* o,
-                    const void* strides, int dtype, int B, int Tq, int Tk,
+                    void* lse, const void* strides, int dtype, int B, int Tq, int Tk,
                     int H, int KV, int hd, int causal, int window, float scale,
                     void* stream) {
   const long long* st = (const long long*)strides;
   if (hd > 32 * kMaxDPL || H % KV) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
-    return launch_bf16(q, k, v, o, st, B, Tq, Tk, H, KV, hd, causal, window,
+    return launch_bf16(q, k, v, o, (float*)lse, st, B, Tq, Tk, H, KV, hd, causal, window,
                        scale, (cudaStream_t)stream);
   }
-  return launch<float>(q, k, v, o, st, B, Tq, Tk, H, KV, hd, causal, window,
+  return launch<float>(q, k, v, o, (float*)lse, st, B, Tq, Tk, H, KV, hd, causal, window,
                        scale, (cudaStream_t)stream);
 }
 

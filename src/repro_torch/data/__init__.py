@@ -1,7 +1,9 @@
-from repro_torch.data.loader import (check_calib_coverage,
+from repro_torch.data.loader import (ShardedLoader, check_calib_coverage,
                                     validate_calib_features,
                                     validate_calib_tokens)
-from repro_torch.data.synthetic import CalibrationDataError
+from repro_torch.data.synthetic import (CalibrationDataError, SyntheticLM,
+                                        batches)
 
-__all__ = ["CalibrationDataError", "check_calib_coverage",
-           "validate_calib_features", "validate_calib_tokens"]
+__all__ = ["CalibrationDataError", "ShardedLoader", "SyntheticLM",
+           "batches", "check_calib_coverage", "validate_calib_features",
+           "validate_calib_tokens"]

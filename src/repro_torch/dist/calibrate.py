@@ -214,14 +214,13 @@ def sharded_solve(mesh, h: Tensor, w2d: Tensor, spec, method: str,
     shared visit order are replicated and the solve issues no collective.
     Then one gather over "model" gives every rank the whole result.
 
-    Every column's arithmetic is the replicated solve's, so the codes are
-    its codes wherever a matmul or reduction rounds a column the same
-    whatever the column count: on the CPU (MKL) the codes and zero-points
-    are the replicated solve's bit for bit and the scales differ in the
-    last bit (`torch.sum(dim=0)` tiles by the whole shape); on the card
-    cuBLAS picks its f32 GEMM by the whole shape, so at m = 18944 the
-    trailing updates round otherwise (PERF.md, "Column-sharded bit
-    identity on the card").
+    Each rank computes only its own columns: its solve, its work and its
+    W-sized temporaries are 1/tp of the meshless solve's. Every column's
+    arithmetic is the replicated solve's: the solver runs its products
+    against H and its column sums over fixed column tiles
+    (`comq_hessian.COL_TILE`, `_trailing`), so where a rank's share is a
+    whole number of tiles (every config's widths over 2 or 4 ranks) its
+    codes, scales and zero-points are the one-rank solve's bit for bit.
 
     Returns (q, delta, z_lo, e2_before, e2_after) over the n columns:
     codes (m, n) int32, scales (n,), zero-points (n,) int32 and the
@@ -231,16 +230,18 @@ def sharded_solve(mesh, h: Tensor, w2d: Tensor, spec, method: str,
     h = h.float()
     w2d = w2d.float()
     m, n = w2d.shape
-    lo, hi, n_pad = column_slice(n, axis_rank(mesh, "model"), tp)
-    wp = F.pad(w2d, (0, n_pad - n)) if n_pad != n else w2d
+    lo, hi, _ = column_slice(n, axis_rank(mesh, "model"), tp)
+    # this rank's columns alone, JAX's trailing zero pad included
+    w_own = w2d[:, min(lo, n):min(hi, n)]
+    w_own = F.pad(w_own, (0, hi - lo - w_own.shape[1])).contiguous()
     if method == "comq_blocked":
         # the one column-coupled quantity, from the full unpadded W, so
         # the order, and with it every code, is the replicated solve's
         perm = shared_order(h, w2d, spec)
     else:
         perm = torch.arange(m, device=h.device)
-    q, delta, z_lo, e2b, e2a = _local_solve(h, wp[:, lo:hi].contiguous(),
-                                            perm, spec, method, block)
+    q, delta, z_lo, e2b, e2a = _local_solve(h, w_own, perm, spec, method,
+                                            block)
     # one gather: codes and zero-points are small integers, exact in f32
     packed = torch.cat([q.float(), delta.float()[None], z_lo.float()[None],
                         e2b[None], e2a[None]])

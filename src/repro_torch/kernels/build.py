@@ -29,8 +29,8 @@ from typing import Dict, Iterable, Optional
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
-SOURCES = ("comq_panel", "flash_attention", "paged_attention",
-           "quant_matmul")
+SOURCES = ("comq_panel", "flash_attention", "flash_attention_bwd",
+           "paged_attention", "quant_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,6 +1,6 @@
 """`flash_attention`: block-causal (+ sliding-window) GQA attention over the
-model's (B, T, H, hd) layout — Hopper kernel (csrc/flash_attention.cu) and
-its plain version.
+model's (B, T, H, hd) layout — Hopper kernels (csrc/flash_attention.cu and,
+for its gradient, csrc/flash_attention_bwd.cu) and its plain version.
 
 Replaces the Pallas TPU kernel `src/repro/kernels/flash_attention.py`
 (`flash_attention_pallas`). The kernel reads q (B, Tq, H, hd) and k/v
@@ -17,6 +17,21 @@ the same inputs and differ only in summation order, exp's last bits and,
 for bf16, P carried into P·V as bf16 hi + lo (~16 bits), so a bf16 output
 may round the other way: |Δ| ≤ 8e-3·|want| + 1e-3 for bf16 (two bf16
 ulps) and ≤ 1e-4 + 1e-4·|want| for f32.
+
+Gradient. Under autograd (grad enabled and q, k or v requiring grad) a
+CUDA call runs `FlashAttention`: the forward kernel also writes each
+row's log-sum-exp (LSE, (B, H, Tq) f32), and the backward kernel
+recomputes P from it tile by tile (FlashAttention-2; the JAX package has
+no backward kernel: XLA differentiates its checkpointed pair-scan). It
+sums D = rowsum(P·dP) in f32 as the softmax's autograd does, not from the
+stored output. A backward launch failure raises; nothing falls back to
+the plain version. The plain version of the backward is the autograd
+graph of `flash_attention_plain`. Tolerance against it, per gradient g of
+dQ, dK, dV: f32 |Δ| ≤ 1e-4·max|g| + 1e-4·|g| (the same products in other
+orders); bf16 |Δ| ≤ 2e-2·max|g| + 8e-3·|g| (the kernel rounds each
+gradient to bf16 once, the plain graph at every op). The LSE agrees with
+`logsumexp` of the plain scaled scores to 1e-4 + 1e-5·|lse| at either
+type.
 """
 from __future__ import annotations
 
@@ -32,9 +47,13 @@ NAME = "flash_attention"
 NEG_INF = -1e30
 launches = 0     # kernel launches since the last reset (chip_smoke reads it)
 launches_single_query = 0     # the share with Tq = 1 (a cross decode step)
+NAME_BWD = "flash_attention_bwd"
+launches_bwd = 0    # backward kernel launches since the last reset
 
-_ARGTYPES = ([ctypes.c_void_p] * 5
+_ARGTYPES = ([ctypes.c_void_p] * 6
              + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10
+                 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def attention_mask(Tq: int, Tk: int, causal: bool, window: int, device):
@@ -70,10 +89,21 @@ def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
-                         causal: bool = True, window: int = 0) -> Tensor:
-    """Launch the kernel on (B, Tq, H, hd) / (B, Tk, KV, hd) tensors."""
-    global launches, launches_single_query
+def attention_lse_plain(q: Tensor, k: Tensor, *, causal: bool = True,
+                        window: int = 0) -> Tensor:
+    """(B, H, Tq) f32 log-sum-exp of the masked scaled scores: what the
+    forward kernel writes beside its output for the backward."""
+    B, Tq, H, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Tq, KV, H // KV, hd)
+    s = torch.einsum("btkgh,bskh->bkgts", qg, k.float()) / math.sqrt(hd)
+    mask = attention_mask(Tq, Tk, causal, window, q.device)
+    s = torch.where(mask, s, torch.full_like(s, -math.inf))
+    return torch.logsumexp(s, dim=-1).reshape(B, H, Tq)
+
+
+def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
+    """Refuse what the kernels do not take."""
     dev = q.device
     if dev.type != "cuda":
         raise RuntimeError(f"flash_attention kernel needs CUDA tensors, got "
@@ -98,15 +128,94 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
         if t.device != dev or t.stride(3) != 1:
             raise ValueError("flash_attention: q/k/v must be on one CUDA "
                              "device with a contiguous head dim")
+
+
+def _forward(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
+             with_lse: bool):
+    """One forward launch: (o, lse (B, H, Tq) f32 or None)."""
+    global launches, launches_single_query
+    B, Tq, H, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    dev = q.device
     o = torch.empty(B, Tq, H, hd, dtype=q.dtype, device=dev)
+    lse = (torch.empty(B, H, Tq, dtype=torch.float32, device=dev)
+           if with_lse else None)
     strides = (ctypes.c_longlong * 12)(*[t.stride(i) for t in (q, k, v, o)
                                          for i in range(3)])
     fn = build.load(NAME, "flash_attention", _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             ctypes.addressof(strides), _DTYPES[q.dtype], B, Tq, Tk, H, KV,
             hd, int(causal), int(window), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(NAME, rc)
     launches += 1
     launches_single_query += Tq == 1
-    return o
+    return o, lse
+
+
+def flash_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
+                             lse: Tensor, *, causal: bool = True,
+                             window: int = 0):
+    """Launch the backward kernel: (dq, dk, dv) in q's dtype from the
+    forward's inputs, its LSE and the output's gradient."""
+    global launches_bwd
+    _check(q, k, v)
+    B, Tq, H, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    dev = q.device
+    if do.dtype != q.dtype:
+        do = do.to(q.dtype)
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    if (do.shape != q.shape or lse.shape != (B, H, Tq)
+            or lse.dtype != torch.float32 or not lse.is_contiguous()):
+        raise ValueError("flash_attention backward: want dO like q and a "
+                         "contiguous (B, H, Tq) f32 lse")
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty(B, Tk, KV, hd, dtype=q.dtype, device=dev)
+    dv = torch.empty(B, Tk, KV, hd, dtype=q.dtype, device=dev)
+    dsum = torch.empty(B, H, Tq, dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 21)(
+        *[t.stride(i) for t in (q, k, v, do, dq, dk, dv) for i in range(3)])
+    fn = build.load(NAME_BWD, "flash_attention_bwd", _BWD_ARGTYPES)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), ctypes.addressof(strides), _DTYPES[q.dtype], B,
+            Tq, Tk, H, KV, hd, int(causal), int(window), 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(NAME_BWD, rc)
+    launches_bwd += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward kernel with LSE, saved with q, k and v; the backward
+    kernel for the gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        o, lse = _forward(q, k, v, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, do, lse,
+                                              causal=ctx.causal,
+                                              window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
+                         causal: bool = True, window: int = 0) -> Tensor:
+    """Launch the kernel on (B, Tq, H, hd) / (B, Tk, KV, hd) tensors;
+    under autograd through `FlashAttention` (forward with LSE, backward
+    kernel), else the forward alone with no LSE."""
+    _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, bool(causal), int(window))
+    return _forward(q, k, v, causal, window, with_lse=False)[0]

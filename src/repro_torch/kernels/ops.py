@@ -35,7 +35,10 @@ def comq_panel_dq(h_bb: Tensor, s0: Tensor, qf: Tensor, delta, z_lo, z_hi,
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     window: int = 0) -> Tensor:
-    """q (B, Tq, H, hd), k/v (B, Tk, KV, hd) -> (B, Tq, H, hd) q.dtype."""
+    """q (B, Tq, H, hd), k/v (B, Tk, KV, hd) -> (B, Tq, H, hd) q.dtype.
+    Differentiable: on the CPU through the plain version's autograd
+    graph, on the card through the forward kernel (with LSE) and the
+    backward kernel."""
     if _plain(q):
         return _flash.flash_attention_plain(q, k, v, causal=causal,
                                             window=window)
@@ -82,7 +85,8 @@ def paged_attention_quant(q: Tensor, k_pool: Tensor, v_pool: Tensor,
 # every kernel: (module, its name attribute, its launch-counter attribute)
 KERNELS = ((_panel, "NAME", "launches"), (_flash, "NAME", "launches"),
            (_qmm, "NAME", "launches"), (_paged, "NAME", "launches"),
-           (_paged, "NAME_QUANT", "launches_quant"))
+           (_paged, "NAME_QUANT", "launches_quant"),
+           (_flash, "NAME_BWD", "launches_bwd"))
 
 
 def reset_launch_counts() -> None:

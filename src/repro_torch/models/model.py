@@ -154,19 +154,36 @@ def unembed(p: Params, cfg, plan: BuildPlan, x: Tensor) -> Tensor:
 # forward (full sequence)
 # ---------------------------------------------------------------------------
 
+def _remat(plan, body):
+    """`body` recomputed in the backward pass (`torch.utils.checkpoint`,
+    non-reentrant) when the plan asks for it and autograd is recording, as
+    the JAX package wraps its layer bodies in `jax.checkpoint`; `body`
+    itself otherwise, so no_grad paths pay nothing."""
+    if not (plan.remat and torch.is_grad_enabled()):
+        return body
+    from torch.utils.checkpoint import checkpoint
+    return lambda *a: checkpoint(body, *a, use_reentrant=False)
+
+
 def _run_layers(p: Params, cfg, plan, x, make_cache: bool):
     """Returns (x, caches, aux, states): aux sums the layers' MoE
     load-balance losses (0 for a dense model); a hybrid or RWKV model runs
     every layer from the zero state (the JAX `_run_homogeneous`) and
     `states` holds each layer's final one (None for the other
-    families). QT leaves are dequantized a layer at a time."""
+    families). QT leaves are dequantized a layer at a time, inside the
+    (rematerialized) layer body."""
     from repro_torch.core.apply import dequantize_qt_tree
     cd = dtype_of(cfg.compute_dtype)
+
+    def body(lp, x):
+        return tfm.layer_full(dequantize_qt_tree(lp, cd), x, cfg, plan,
+                              make_cache)
+
+    body = _remat(plan, body)
     caches, states = [], []
     aux = torch.zeros((), device=x.device)
     for lp in p["layers"]:
-        x, cache, a, st = tfm.layer_full(dequantize_qt_tree(lp, cd), x, cfg,
-                                         plan, make_cache)
+        x, cache, a, st = body(lp, x)
         caches.append(cache)
         states.append(st)
         if a is not None:
@@ -190,17 +207,25 @@ def _run_vlm(p: Params, cfg, plan, x, make_cache: bool, vision_embeds):
     cd = dtype_of(cfg.compute_dtype)
     ve = torch.einsum("bnv,vd->bnd", vision_embeds.to(x.dtype),
                       p["vision_proj"].to(x.dtype))
+
+    def self_body(lp, x):
+        return tfm.layer_full(dequantize_qt_tree(lp, cd), x, cfg, plan,
+                              make_cache)[:2]
+
+    def cross_body(gp_cross, x, ve):
+        gp_cross = dequantize_qt_tree(gp_cross, cd)
+        k, v = tfm.vision_kv_for_layer(gp_cross, ve)
+        return tfm.cross_layer_full(gp_cross, x, cfg, plan, (k, v)), k, v
+
+    self_body, cross_body = _remat(plan, self_body), _remat(plan, cross_body)
     caches, ks, vs = [], [], []
     for gp_self, gp_cross in zip(p["groups"]["self"], p["groups"]["cross"]):
         group = []
         for lp in gp_self:
-            x, cache, _, _ = tfm.layer_full(dequantize_qt_tree(lp, cd), x,
-                                            cfg, plan, make_cache)
+            x, cache = self_body(lp, x)
             group.append(cache)
         caches.append(group)
-        gp_cross = dequantize_qt_tree(gp_cross, cd)
-        k, v = tfm.vision_kv_for_layer(gp_cross, ve)
-        x = tfm.cross_layer_full(gp_cross, x, cfg, plan, (k, v))
+        x, k, v = cross_body(gp_cross, x, ve)
         ks.append(k)
         vs.append(v)
     xkv = (torch.stack(ks), torch.stack(vs)) if make_cache else None
@@ -265,7 +290,9 @@ def lm_loss(p: Params, cfg, plan: BuildPlan, batch: Dict[str, Tensor],
                              vision_embeds=batch.get("vision_embeds"))
     labels = batch["labels"]
     logits = logits.float()
-    m = logits.amax(dim=-1, keepdim=True)
+    # the row max is a constant of the gradient (JAX's stop_gradient): the
+    # value is the same, and ties then get JAX's gradient
+    m = logits.amax(dim=-1, keepdim=True).detach()
     shifted = logits - m
     lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]

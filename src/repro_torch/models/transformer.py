@@ -7,8 +7,9 @@ Layers run one at a time from a per-layer list of param dicts (the JAX
 package scans stacked params; its VLM scans groups of `every`-1 self
 layers and one cross layer, which the port holds as per-group lists).
 `BuildPlan` keeps the facts the ported paths read: the KV-cache dtype or
-its int8 form, the prefill cache length, the paged pool's code width and
-the MoE token chunk and capacity rounding.
+its int8 form, the prefill cache length, the paged pool's code width,
+the MoE token chunk and capacity rounding, and whether training
+recomputes each layer in its backward pass (remat).
 The port runs on one device, so there is no TP head, expert or vocab
 padding (the JAX plan's tp=1).
 """
@@ -54,6 +55,11 @@ class BuildPlan:
     # then counts capacity and bucket positions over the whole batch
     # (models/moe.py); None routes this process's tokens alone
     moe_group: Any = field(default=None, compare=False)
+    # recompute each layer's activations in the backward pass (the JAX
+    # plan's jax.checkpoint of the layer body): model.forward wraps every
+    # layer in torch.utils.checkpoint while autograd records, and does
+    # nothing under torch.no_grad (quantize, serve)
+    remat: bool = True
 
     def experts_padded(self, cfg) -> int:
         return 0 if cfg.moe is None else cfg.moe.n_experts

@@ -138,3 +138,56 @@ def test_unported_arch_says_so():
     assert {"llama-3.2-vision-90b", "vit-base-16"} <= set(list_archs())
     with pytest.raises(KeyError, match="not ported"):
         get_config("llama-3.2-vision-11b")
+
+
+# the training slice's modules, each beside its JAX counterpart's name
+TRAINING_MODULES = ["data/synthetic.py", "data/loader.py",
+                    "optim/__init__.py", "optim/adamw.py",
+                    "optim/schedule.py",
+                    "train/train_step.py", "train/trainer.py",
+                    "launch/train.py"]
+
+
+@pytest.mark.parametrize("rel", TRAINING_MODULES)
+def test_training_modules_import_no_jax(rel):
+    """Each training module exists beside its JAX counterpart's name and
+    imports nothing of JAX or the JAX package."""
+    path = PKG / rel
+    assert path.is_file() and (ROOT / "src" / "repro" / rel).is_file()
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_backward_kernel_is_counted_and_refuses_a_non_cuda_tensor():
+    """flash_attention_bwd is a kernel of its own in the launch counts, and
+    its wrapper refuses anything but CUDA tensors (no plain fallback)."""
+    from repro_torch.kernels import flash_attention
+    assert "flash_attention_bwd" in build.SOURCES
+    ops.reset_launch_counts()
+    assert ops.launch_counts()["flash_attention_bwd"] == 0
+    q = _meta(1, 8, 2, 16, dtype=torch.bfloat16)
+    lse = _meta(1, 2, 8)
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        flash_attention.flash_attention_bwd_cuda(q, q, q, q, lse)
+
+
+def _jax_flags(path: Path):
+    """The `--flag` strings a module passes to add_argument (read from its
+    source: the JAX launcher is not imported here)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    return {a.value for node in ast.walk(tree)
+            if isinstance(node, ast.Call)
+            and getattr(node.func, "attr", None) == "add_argument"
+            for a in node.args if isinstance(a, ast.Constant)
+            and str(a.value).startswith("--")}
+
+
+def test_train_launcher_has_the_jax_flags_plus_device():
+    """launch.train takes JAX's launcher flags and --device, no others."""
+    from repro_torch.launch import train
+    flags = {o for a in train.build_parser()._actions
+             for o in a.option_strings if o.startswith("--")} - {"--help"}
+    jax_flags = _jax_flags(ROOT / "src" / "repro" / "launch" / "train.py")
+    assert "--moment-dtype" in jax_flags
+    assert flags == jax_flags | {"--device"}

@@ -141,3 +141,29 @@ def test_padded_panel_rows_keep_their_code():
     np.testing.assert_array_equal(q[5:].numpy(),
                                   torch.clamp(torch.round(qf[5:]), -8,
                                               7).numpy())
+
+
+@pytest.mark.parametrize("n,lo,hi", [(768, 256, 768), (640, 0, 128),
+                                     (600, 512, 600)])
+def test_tiled_share_rounds_its_columns_as_the_whole_solve(n, lo, hi):
+    """The column-tiled trailing solve (`_trailing`): a tile-aligned share
+    of W's columns, solved alone under the whole W's visit order as a rank
+    of the column-sharded solve solves it, gives those columns' codes,
+    zero-points and scales of the solve of the whole W bit for bit (a
+    ragged last share included), and the whole solve keeps the JAX
+    package's codes."""
+    h, w = _problem(seed=n, m=96, n=n)
+    kw = dict(bits=4, granularity="per_channel", lam=0.9, sweeps=2,
+              order="greedy_shared")
+    spec = TSpec(**kw)
+    perm = th.shared_order(h, w, spec)
+    full = th.comq_quantize_blocked(h, w, spec, block=32, perm=perm)
+    part = th.comq_quantize_blocked(h, w[:, lo:hi].contiguous(), spec,
+                                    block=32, perm=perm)
+    assert torch.equal(full.q[:, lo:hi], part.q)
+    assert torch.equal(full.delta[lo:hi], part.delta)
+    assert torch.equal(full.z_lo[lo:hi], part.z_lo)
+    jax_q = jh.comq_quantize_blocked(jnp.asarray(h.numpy()),
+                                     jnp.asarray(w.numpy()), JSpec(**kw),
+                                     block=32).q
+    np.testing.assert_array_equal(full.q.numpy(), np.asarray(jax_q))

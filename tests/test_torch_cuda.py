@@ -1033,3 +1033,183 @@ def test_sharded_runtime_on_the_card_is_the_meshless_runtime(cuda,
             assert r[kv]["tokens"] == want
             assert r[kv]["counts"]["inside"] == 0
             assert r[kv]["paged_launches"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the flash-attention backward kernel (csrc/flash_attention_bwd.cu)
+# ---------------------------------------------------------------------------
+
+BWD_CASES = [
+    dict(B=2, Tq=64, Tk=64, H=14, KV=2, hd=16, causal=True, window=0),
+    dict(B=1, Tq=96, Tk=96, H=14, KV=2, hd=32, causal=True, window=40),
+    dict(B=2, Tq=33, Tk=77, H=8, KV=2, hd=64, causal=False, window=0),
+    dict(B=2, Tq=197, Tk=197, H=12, KV=12, hd=64, causal=False, window=0),
+    dict(B=2, Tq=130, Tk=130, H=28, KV=4, hd=128, causal=True, window=0),
+    dict(B=1, Tq=40, Tk=40, H=4, KV=1, hd=256, causal=True, window=0),
+    dict(B=1, Tq=5, Tk=19, H=6, KV=3, hd=20, causal=False, window=0),
+    # near-hard softmax rows (score std ~130, as the random init's)
+    dict(B=2, Tq=64, Tk=64, H=28, KV=4, hd=128, causal=True, window=0,
+         qscale=12)]
+
+
+def _bwd_inputs(dev, c, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn(c["B"], c["Tq"], c["H"], c["hd"], generator=g,
+                     device=dev) * c.get("qscale", 1)).to(dtype)
+    k, v = (torch.randn(c["B"], c["Tk"], c["KV"], c["hd"], generator=g,
+                        device=dev).to(dtype) for _ in range(2))
+    do = torch.randn(c["B"], c["Tq"], c["H"], c["hd"], generator=g,
+                     device=dev).to(dtype)
+    return q, k, v, do
+
+
+def _plain_grads(q, k, v, do, causal, window):
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention.flash_attention_plain(*leaves, causal=causal,
+                                                window=window)
+    out.backward(do)
+    return [t.grad for t in leaves]
+
+
+def _grad_close(got, want, dtype, what):
+    """The backward's tolerance (kernels/flash_attention.py docstring)."""
+    got, want = got.float(), want.float()
+    top = float(want.abs().max())
+    rel_max, rel = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 8e-3)
+    bad = (got - want).abs() > rel_max * top + rel * want.abs()
+    assert not bool(bad.any()), (what, float((got - want).abs().max()), top)
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(
+    f"{k}{int(v)}" for k, v in c.items()))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_matches_plain_autograd(cuda, case, dtype):
+    """dQ, dK, dV of the backward kernel against the plain version's
+    autograd graph, and the forward's LSE against logsumexp: causal,
+    window, non-causal with Tq != Tk, T off the tiles (197), group 1 to 7,
+    hd 16 to 256 (20: not a multiple of 4)."""
+    c = case
+    q, k, v, do = _bwd_inputs(cuda, c, dtype, c["Tq"] + c["hd"])
+    _, lse = flash_attention._forward(q, k, v, c["causal"], c["window"],
+                                      with_lse=True)
+    want_lse = flash_attention.attention_lse_plain(
+        q, k, causal=c["causal"], window=c["window"])
+    assert bool(((lse - want_lse).abs()
+                 <= 1e-4 + 1e-5 * want_lse.abs()).all())
+    n0 = flash_attention.launches_bwd
+    got = flash_attention.flash_attention_bwd_cuda(
+        q, k, v, do, lse, causal=c["causal"], window=c["window"])
+    assert flash_attention.launches_bwd == n0 + 1
+    want = _plain_grads(q, k, v, do, c["causal"], c["window"])
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        _grad_close(a, b, dtype, name)
+
+
+def test_flash_backward_is_deterministic_and_reads_strided_views(cuda):
+    """Two backward launches give the same bits (no atomics), also with
+    q/k/v as views into a fused buffer and a non-contiguous dO."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    fused = torch.randn(2, 50, 8 + 2 * 2, 64, generator=g,
+                        device=cuda).bfloat16()
+    q, k, v = fused[:, :, :8], fused[:, :, 8:10], fused[:, :, 10:]
+    do = torch.randn(2, 8, 50, 64, generator=g,
+                     device=cuda).bfloat16().transpose(1, 2)
+    _, lse = flash_attention._forward(q, k, v, True, 0, with_lse=True)
+    a = flash_attention.flash_attention_bwd_cuda(q, k, v, do, lse)
+    b = flash_attention.flash_attention_bwd_cuda(q, k, v, do, lse)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for name, x, y in zip(("dq", "dk", "dv"), a,
+                          _plain_grads(q, k, v, do, True, 0)):
+        _grad_close(x, y, torch.bfloat16, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_attention_parameter_gets_a_gradient(cuda, dtype):
+    """lm_loss on the card: every parameter leaf (wq/wk/wv and the QKV
+    biases included) gets a finite gradient through the forward kernel
+    with LSE and the backward kernel, close to the same model's gradient
+    on the CPU (the plain version's autograd)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import BuildPlan, init_params, lm_loss
+    from torch.utils import _pytree as pytree
+    cfg = get_smoke_config("qwen2-7b").replace(
+        compute_dtype="float32" if dtype == torch.float32 else "bfloat16")
+    params = init_params(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 33), generator=gen)
+    grads = {}
+    for dev in ("cpu", cuda):
+        p = pytree.tree_map(
+            lambda t: t.detach().to(dev).requires_grad_(True), params)
+        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        n0, b0 = flash_attention.launches, flash_attention.launches_bwd
+        loss, _ = lm_loss(p, cfg, BuildPlan(), batch)
+        loss.backward()
+        if dev != "cpu":
+            assert flash_attention.launches > n0
+            assert flash_attention.launches_bwd - b0 == cfg.n_layers
+        grads[str(dev)] = pytree.tree_map(lambda t: t.grad, p)
+    flat_cpu, _ = pytree.tree_flatten(grads["cpu"])
+    flat_gpu, _ = pytree.tree_flatten(grads[str(cuda)])
+    attn = [lp["attn"] for lp in grads[str(cuda)]["layers"]]
+    for a in attn:
+        for name in ("wq", "wk", "wv", "bq", "bk", "bv"):
+            assert a[name] is not None and float(a[name].abs().max()) > 0
+    tol = 1e-3 if dtype == torch.float32 else 1e-1
+    for gc, gg in zip(flat_cpu, flat_gpu):
+        assert gg is not None and bool(torch.isfinite(gg).all())
+        rel = float((gg.cpu() - gc).norm()) / max(float(gc.norm()), 1e-30)
+        assert rel <= tol, rel
+
+
+def test_failed_backward_launch_raises(cuda, monkeypatch):
+    """A backward kernel that returns a CUDA error raises out of
+    loss.backward(); nothing falls back to the plain version."""
+    from repro_torch.kernels import build
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(1, 16, 2, 32, generator=g, device=cuda)
+               .requires_grad_(True) for _ in range(3))
+    flash_attention.flash_attention_cuda(q, k, v).sum().backward()  # loads
+    real = build.load
+
+    def failing(name, fn, argtypes):
+        if name == flash_attention.NAME_BWD:
+            return lambda *a: 1                  # cudaErrorInvalidValue
+        return real(name, fn, argtypes)
+
+    monkeypatch.setattr(build, "load", failing)
+    monkeypatch.setattr(flash_attention, "flash_attention_plain",
+                        lambda *a, **k: pytest.fail("plain version reached"))
+    out = flash_attention.flash_attention_cuda(q, k, v)
+    with pytest.raises(RuntimeError, match="flash_attention_bwd kernel "
+                       "launch failed"):
+        out.sum().backward()
+
+
+@pytest.mark.parametrize("m,n,tp", [(2048, 4608, 2), (3584, 3584, 4),
+                                     (512, 1024, 4)])
+def test_column_sharded_solve_is_bit_identical_to_one_rank(cuda, m, n, tp):
+    """The column-sharded solve's property on the card (JAX's
+    tests/test_dist.py:416): each rank's share, solved alone as
+    `dist.sharded_solve` solves it (`_local_solve`: the visit order of the
+    whole W, only its own columns), gives the codes, zero-points and
+    scales of those columns of the one-rank solve bit for bit."""
+    from repro_torch.core.comq_hessian import shared_order
+    from repro_torch.core.quantizer import QuantSpec
+    from repro_torch.dist.calibrate import _local_solve
+    from repro_torch.dist.sharding import column_slice
+    g = torch.Generator(device=cuda).manual_seed(23)
+    x = torch.randn(1024, m, generator=g, device=cuda)
+    h = x.T @ x
+    w = torch.randn(m, n, generator=g, device=cuda) * 0.05
+    spec = QuantSpec(bits=4, granularity="per_channel", lam=0.9, sweeps=3,
+                     order="greedy")
+    perm = shared_order(h, w, spec)
+    whole = _local_solve(h, w, perm, spec, "comq_blocked", 256)
+    for r in range(tp):
+        lo, hi, _ = column_slice(n, r, tp)
+        part = _local_solve(h, w[:, lo:hi].contiguous(), perm, spec,
+                            "comq_blocked", 256)
+        for i, name in enumerate(("q", "delta", "z_lo")):
+            assert torch.equal(whole[i][..., lo:hi], part[i]), (r, name)

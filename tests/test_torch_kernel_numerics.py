@@ -20,6 +20,10 @@ the JAX oracles on shared numpy inputs.
   division where a quotient came near a rounding boundary; that the fast
   pass gives the same code everywhere else is checked on adversarial
   inputs.
+- `csrc/flash_attention_bwd.cu` recomputes P = exp(scale·q·k − LSE) from
+  the forward's LSE, sums D = rowsum(P·dP) and forms dS = P·(dP − D) in
+  f32: held against the plain version's autograd graph under the
+  backward's tolerance.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -223,3 +227,64 @@ def test_panel_blocked_design_holds_code_agreement():
     assert min(agree) >= PANEL_MIN_CODE_AGREEMENT
     torch.testing.assert_close(got_dq, (got - args[2]) * args[3], rtol=0,
                                atol=0)
+
+
+# ---------------------------------------------------------------------------
+# csrc/flash_attention_bwd.cu: FlashAttention-2's backward from the LSE
+# ---------------------------------------------------------------------------
+
+def _flash_bwd_emulated(q, k, v, do, lse, causal, window):
+    """The backward kernel's arithmetic in f32: P = exp(scale·q·k − LSE),
+    D = rowsum(P·dP), dS = P·(dP − D); gradients rounded to the input
+    dtype once, at the end."""
+    from repro_torch.kernels.flash_attention import attention_mask
+    B, Tq, H, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    G, scale = H // KV, 1.0 / np.sqrt(hd)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    kx, vx = (t.repeat_interleave(G, dim=2) for t in (kf, vf))
+    s = torch.einsum("bthd,bshd->bhts", qf, kx) * scale
+    mask = attention_mask(Tq, Tk, causal, window, q.device)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dp = torch.einsum("bthd,bshd->bhts", dof, vx)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dq = torch.einsum("bhts,bshd->bthd", ds, kx) * scale
+    dk = torch.einsum("bhts,bthd->bshd", ds, qf) * scale
+    dv = torch.einsum("bhts,bthd->bshd", p, dof)
+    fold = lambda t: t.reshape(B, Tk, KV, G, hd).sum(3)      # GQA group sum
+    return tuple(t.to(q.dtype) for t in (dq, fold(dk), fold(dv)))
+
+
+@pytest.mark.parametrize("case", [
+    dict(B=2, Tq=48, Tk=48, H=14, KV=2, hd=32, causal=True, window=0),
+    dict(B=1, Tq=70, Tk=70, H=6, KV=3, hd=16, causal=True, window=20),
+    dict(B=2, Tq=9, Tk=41, H=8, KV=2, hd=64, causal=False, window=0),
+    dict(B=1, Tq=40, Tk=40, H=8, KV=2, hd=64, causal=True, window=0,
+         qscale=12)],
+    ids=lambda c: "-".join(f"{k}{int(v)}" for k, v in c.items()))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_design_holds_the_tolerance(case, dtype):
+    """The backward's design against the plain version's autograd graph,
+    at unit-scale and near-hard (qscale) scores, under the tolerance the
+    kernel is held to on the card
+    (kernels/flash_attention.py: f32 1e-4·max|g| + 1e-4·|g|; bf16
+    2e-2·max|g| + 8e-3·|g|)."""
+    from repro_torch.kernels import flash_attention as fa
+    c = case
+    g = torch.Generator().manual_seed(c["Tq"])
+    q = (torch.randn(c["B"], c["Tq"], c["H"], c["hd"], generator=g)
+         * c.get("qscale", 1)).to(dtype)
+    k, v = (torch.randn(c["B"], c["Tk"], c["KV"], c["hd"], generator=g)
+            .to(dtype) for _ in range(2))
+    do = torch.randn(q.shape, generator=g).to(dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention_plain(*leaves, causal=c["causal"],
+                                   window=c["window"])
+    want = torch.autograd.grad(out, leaves, do)
+    lse = fa.attention_lse_plain(q, k, causal=c["causal"], window=c["window"])
+    got = _flash_bwd_emulated(q, k, v, do, lse, c["causal"], c["window"])
+    rel_max, rel = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 8e-3)
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        assert bool(((a - b).abs() <= rel_max * b.abs().max()
+                     + rel * b.abs()).all()), float((a - b).abs().max())
