@@ -244,7 +244,8 @@ no result line):
    Tq=128 over Tk=1601, vit's non-causal 197), bf16 and f32: dQ, dK, dV
    and the forward's LSE gated; bf16 timed beside its bound, the plain
    backward and SDPA's autograd backward (a yardstick), and the forward
-   with and without its LSE write. (b) one step's loss and per-leaf
+   with and without its LSE write, beside SDPA's flash forward that also
+   returns the LSE (K/V expanded to H heads). (b) one step's loss and per-leaf
    gradients (make_train_step's own gradient function, 8 x 128 from
    SyntheticLM), kernels against plain versions from the same params, at
    bf16 and f32 compute: every leaf must have a finite nonzero gradient,
@@ -271,7 +272,21 @@ no result line):
    with a checkpoint every 5, resumed by run_with_restarts to step 10
    (under (f)'s 30-step schedule): every loss of both attempts equals
    (f)'s. Only (d)'s step-5 checkpoint is written:
-   nothing reads the others.
+   nothing reads the others. (g) the other families, each from
+   init_params(seed=0) at full width: granite-moe-3b-a800m, hymba-1.5b
+   (1 x 2048, so its window of 1024 binds), musicgen-large and rwkv6-7b
+   at 2 layers each, vit-base-16 whole (its lm_loss from patch
+   embeddings and labels): 3 make_train_step steps (the training path,
+   counted; every loss finite, the forward and backward kernels launched
+   once a layer a step), each step's wall, the peak memory and the
+   backward kernel's device time in the last step printed; then (b)'s
+   bf16 gates on the first batch — every leaf a finite nonzero gradient,
+   the loss within 1e-2, each backward launch, every leaf in lockstep
+   within REF_K (an MoE layer's pairs routed as the kernel replay routed
+   them, its aux loss's cotangent carried; a recurrent state passed to a
+   layer carried into its replays); rwkv6's kernels and plain versions
+   bit-identical (no kernel in its VJP); granite's plain versions run
+   twice, their spread printed beside the kernels-vs-plain gap.
 
 Launch counts: the quantize-and-decode path (phases 4-5), the serve path
 (phase 8), the policy path (phase 9a), the durability runs (phase 16:
@@ -280,8 +295,9 @@ its quantize walks, then its serve runs), the observability runs (phase
 hybrid path (phase 11 b-d), the audio path (phase 12), the rwkv path
 (phase 13), the vlm path (phase 14), the encoder path (phase 15) and
 every rank's runs of phase 18 (its sharded walks and runtime) and the
-training path (phase 19 b-c) are each counted from 0; the forward
-kernels and the backward kernel must launch on the training path; every
+training path (phase 19 b-c) and each family's steps (19g) are each
+counted from 0; the forward kernels and the backward kernel must launch
+on the training path, once a layer a step on each family's; every
 forward kernel must launch on the main path as a
 whole, each of the five on the MoE and audio paths, the three of the
 static engine on the hybrid path, comq_panel on the rwkv path, comq_panel
@@ -289,8 +305,9 @@ and flash on the vlm path (its single-query launches, the cross layers'
 decode, also counted apart), flash on the encoder path.
 Then one JSON line of the kernels (the expert-batched panel launch and
 hymba's, musicgen's, rwkv's, the VLM's and the encoder's new shapes as
-entries of their own, with their path's launches), and last the device
-line.
+entries of their own, with their path's launches; the backward at
+granite's, hymba's, musicgen's and vit's shapes with their steps'
+launches), and last the device line.
 """
 from __future__ import annotations
 
@@ -3711,7 +3728,18 @@ COMQ_BITS = 3            # JAX's test_comq_beats_rtn_on_trained_model
 TRAIN_OPT_LEAVES = ("layers.0.attn", "layers.0.mlp.w_down",
                     "layers.3.ln2")
 TRAIN_PATH = ("flash_attention", "flash_attention_bwd")
-TRAIN_BUDGET_S = 150     # phase 19's share of the script's time
+# (g): one family a row (arch, layers or None for the whole model, batch,
+# sequence, its BWD_CASES tag): full width, depth cut, FAMILY_STEPS train
+# steps counted and timed, then (b)'s gates at bf16 compute (the step's
+# own). hymba's step is 1 x 2048, so its window of 1024 binds (19a's
+# shape); vit runs whole on 8 images of 197 tokens
+FAMILY_TRAIN = (("granite-moe-3b-a800m", 2, 8, PROMPT, "granite"),
+                ("hymba-1.5b", 2, 1, 2 * HYBRID_WINDOW, "hymba"),
+                ("musicgen-large", 2, 8, PROMPT, "musicgen"),
+                ("rwkv6-7b", 2, 8, PROMPT, None),
+                ("vit-base-16", None, 8, ENC_T, "vit"))
+FAMILY_STEPS = 3         # the first warms up; walls are read from the rest
+TRAIN_BUDGET_S = 270     # phase 19's share of the script's time
 TRAIN_EXTRA = ()         # more launch.train flags (a CPU dry run: --device)
 
 
@@ -3802,9 +3830,25 @@ def check_flash_bwd(torch, flash, dev, results, card):
                         q, k, v, True, 0, with_lse=True), 50)
                     without = Timing(torch, lambda i: flash._forward(
                         q, k, v, True, 0, with_lse=False), 50)
+                    # the yardstick that also writes the log-sum-exp:
+                    # SDPA's flash forward over K/V expanded to H heads
+                    # (it takes no GQA), timed with its expansion outside
+                    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (
+                        q, k.repeat_interleave(H // KV, dim=2),
+                        v.repeat_interleave(H // KV, dim=2)))
+                    sdpa = torch.ops.aten._scaled_dot_product_flash_attention
+                    try:
+                        lse_lib = Timing(torch, lambda i: sdpa(
+                            qh, kh, vh, 0.0, True), 50)
+                    except (RuntimeError, TypeError) as e:
+                        lse_lib = f"none ({type(e).__name__}: {e})"
                     say(f"flash_attention forward B={B} T={Tq} bf16: with "
-                        f"LSE {with_lse}, without {without} ({card})")
+                        f"LSE {with_lse}, without {without}; library "
+                        f"(aten._scaled_dot_product_flash_attention, LSE "
+                        f"out, K/V expanded to {H} heads) {lse_lib} "
+                        f"({card})")
                     results[("flash_attention_lse", B, Tq)] = with_lse.ms
+                    del qh, kh, vh
                 del ref
             say(msg)
             check(ok, f"flash_attention_bwd ({tag}, {label}) disagrees with "
@@ -3905,15 +3949,50 @@ def bf16_attention(torch, ops):
         ops.flash_attention = real
 
 
+@contextlib.contextmanager
+def routing(torch, log, replay):
+    """MoE routing in a lockstep replay: the kernel run's replay records
+    each chunk's (ids, pos, slot) in `log`; a replay with `replay` set
+    routes every pair as recorded (the router logits and the softmax
+    over the picked ones still computed from its own input, so the
+    router's gradient), so a rounding-level change of the attention
+    cannot move a pair to another expert or across the capacity."""
+    from repro_torch.models import moe as moe_mod
+    real = moe_mod.route_slots
+    done = []
+
+    def recording(x, router, n_real, top_k, capacity, offset=None):
+        out = real(x, router, n_real, top_k, capacity, offset)
+        log.append(out[2:])
+        return out
+
+    def forced(x, router, n_real, top_k, capacity, offset=None):
+        ids, pos, slot = log[len(done)]
+        done.append(ids)
+        logits = x.float() @ router.float()
+        weights = torch.softmax(logits.gather(-1, ids), dim=-1)
+        return logits, weights, ids, pos, slot
+
+    moe_mod.route_slots = forced if replay else recording
+    try:
+        yield
+    finally:
+        moe_mod.route_slots = real
+
+
 def lockstep_grads(torch, ops, kernels, cfg, params, batch):
     """(b)'s gate: one step's gradient with the layers in lockstep. The
-    kernel run records each layer's input and the cotangent of its output;
-    then each layer's backward runs from that same input and cotangent
-    three times: through the kernels, through the plain versions, and as
-    the reference (the plain versions at f32 compute with the attention in
-    f64, from f32 copies of the same inputs, params and cotangent); the
-    embedding's gradient is scattered from each run's layer-0 input
-    cotangent. At f32 compute a fourth run is the control
+    kernel run records each layer's input, its keyword arguments (a
+    recurrent state, where a caller passes one) and the cotangents of its
+    output and of its MoE aux loss; then each layer's backward runs from
+    that same input and those cotangents three times: through the
+    kernels, through the plain versions, and as the reference (the plain
+    versions at f32 compute with the attention in f64, from f32 copies of
+    the same inputs, params and cotangents), an MoE layer's pairs routed
+    as the kernel replay routed them (`routing`). The input leaf's
+    gradient comes from each run's layer-0 input cotangent: the token
+    embedding's scattered over the tokens, an encoder's pos_embed summed
+    over the batch. At f32 compute a fourth run is the control
     (`bf16_attention`). Returns ({leaf: {"kr" / "pr" / "cr": ||kernels -
     ref|| / ||plain - ref|| / ||control - ref||, "ref": ||ref||}},
     [leaves of the kernel run without a finite nonzero gradient], [leaves
@@ -3929,14 +4008,21 @@ def lockstep_grads(torch, ops, kernels, cfg, params, batch):
             for p in flat]          # the train step's working copy
     tree = pytree.tree_unflatten(cast, spec)
     real = tfm.layer_full
-    xs, cots = [], []
+    xs, kws, cots, aux_cots = [], [], [], []
+
+    def keep(store, i):
+        return lambda g: store.__setitem__(i, g.detach())
 
     def recording(lp, x, *a, **kw):
         xs.append(x.detach())
+        kws.append(kw)
         out = real(lp, x, *a, **kw)
+        i = len(cots)
         cots.append(None)
-        out[0].register_hook(lambda g, i=len(cots) - 1:
-                             cots.__setitem__(i, g.detach()))
+        aux_cots.append(None)
+        out[0].register_hook(keep(cots, i))
+        if out[2] is not None and out[2].requires_grad:
+            out[2].register_hook(keep(aux_cots, i))
         return out
 
     tfm.layer_full = recording
@@ -3950,7 +4036,8 @@ def lockstep_grads(torch, ops, kernels, cfg, params, batch):
              for path, _ in pytree.tree_flatten_with_path(params)[0]]
     missing = [n for n, g in zip(names, grads)
                if not (bool(torch.isfinite(g).all()) and float(g.norm()) > 0)]
-    head = [n for n in names if not n.startswith(("layers.", "embed"))]
+    source = "pos_embed" if cfg.family == "encoder" else "embed"
+    head = [n for n in names if not n.startswith(("layers.", source))]
     del grads, loss
 
     modes = ("kernels", "plain", "ref") + (
@@ -3963,15 +4050,20 @@ def lockstep_grads(torch, ops, kernels, cfg, params, batch):
                if m in got}
         return {**out, "ref": float(r.norm())}
 
+    def f32(v):
+        return v.float() if isinstance(v, torch.Tensor) else v
+
     out_rels, g0 = {}, {}
     for i, lp in enumerate(tree["layers"]):
         leaves, lspec = pytree.tree_flatten(lp)
-        got = {}
+        got, routed = {}, []
         for mode in modes:
-            c, lv, x, cot = cfg, leaves, xs[i], cots[i]
+            c, lv, x, kw = cfg, leaves, xs[i], kws[i]
+            cot, aux_cot = cots[i], aux_cots[i]
             ctx = contextlib.nullcontext()
             if mode == "ref":
                 c, x, cot = ref_cfg, x.float(), cot.float()
+                kw = pytree.tree_map(f32, kw)
                 lv = [t.detach().float().requires_grad_(True) for t in lv]
                 ctx = f64_attention(ops, kernels)
             elif mode == "plain":
@@ -3979,21 +4071,31 @@ def lockstep_grads(torch, ops, kernels, cfg, params, batch):
             elif mode == "control":
                 ctx = bf16_attention(torch, ops)
             x = x.clone().requires_grad_(True)
-            with ctx:
+            with ctx, routing(torch, routed, replay=mode != "kernels"):
                 out = real(pytree.tree_unflatten(lv, lspec), x, c, plan,
-                           False)[0]
-                got[mode] = torch.autograd.grad(out, [x] + lv, cot)
+                           False, **kw)
+                outs, out_cots = [out[0]], [cot]
+                if aux_cot is not None:
+                    outs.append(out[2])
+                    out_cots.append(aux_cot)
+                got[mode] = torch.autograd.grad(outs, [x] + lv, out_cots)
             if i == 0:
                 g0[mode] = got[mode][0]
         lnames = [n for n in names if n.startswith(f"layers.{i}.")]
         for j, n in enumerate(lnames, start=1):
             out_rels[n] = row({m: got[m][j] for m in got})
         del got
-    tok = batch["tokens"].reshape(-1)
-    emb = {m: torch.zeros(params["embed"].shape, device=g.device)
-           .index_add_(0, tok, g.reshape(tok.numel(), -1).float())
-           for m, g in g0.items()}
-    out_rels["embed"] = row(emb)
+    if source == "embed":
+        tok = batch["tokens"].reshape(-1)
+        src = {m: torch.zeros(params["embed"].shape, device=g.device)
+               .index_add_(0, tok, g.reshape(tok.numel(), -1).float())
+               for m, g in g0.items()}
+    else:
+        src = {}
+        for m, g in g0.items():
+            src[m] = torch.zeros(params["pos_embed"].shape, device=g.device)
+            src[m][:g.shape[1]] = g.float().sum(dim=0)
+    out_rels[source] = row(src)
     return out_rels, missing, head
 
 
@@ -4044,12 +4146,16 @@ def fit(torch, cfg, args, what, card, failure_hook=None, **run_kw):
     return out, losses
 
 
-def step_grads(torch, flash, ops, kernels, cfg, params, batch, label, card):
+def step_grads(torch, flash, ops, kernels, cfg, params, batch, label, card,
+               what="(b)", n_attn=TRAIN_LAYERS):
     """(b) at one compute type: the step's loss and gradients through the
     kernels and through the plain versions from the same params; every
-    backward launch of the kernel run against the plain autograd and the
-    f64 reference on its own tensors; then each leaf's gradient with the
-    layers in lockstep (REF_K)."""
+    backward launch of the kernel run (`n_attn` of them) against the plain
+    autograd and the f64 reference on its own tensors; then each leaf's
+    gradient with the layers in lockstep (REF_K). A family's step (g)
+    too: with no kernel in its VJP (rwkv) the two runs must be
+    bit-identical; an MoE model's plain run is repeated, and the spread of
+    the two plain runs printed beside the kernels-vs-plain gap."""
     from repro_torch.models import BuildPlan
     from repro_torch.train.train_step import _loss_and_grads
     real_bwd = flash.flash_attention_bwd_cuda
@@ -4069,7 +4175,29 @@ def step_grads(torch, flash, ops, kernels, cfg, params, batch, label, card):
         lp, gp = _loss_and_grads(cfg, BuildPlan(), 1, params, batch)
     torch.cuda.synchronize()
     rels, missing = leaf_rel_norms(torch, gk, gp)
-    del gk, gp
+    leaves = torch.utils._pytree.tree_leaves
+    identical = bool(torch.equal(lk, lp)) and all(
+        torch.equal(a, b) for a, b in zip(leaves(gk), leaves(gp)))
+    del gk
+    if cfg.moe is not None:
+        # the plain versions twice: the spread the gather's backward (an
+        # accumulating index_put) leaves between identical runs
+        with plain_kernels(ops, kernels):
+            lp2, gp2 = _loss_and_grads(cfg, BuildPlan(), 1, params, batch)
+        torch.cuda.synchronize()
+        rerun, _ = leaf_rel_norms(torch, gp2, gp)
+        same = bool(torch.equal(lp2, lp)) and all(
+            torch.equal(a, b) for a, b in zip(leaves(gp2), leaves(gp)))
+        rworst = max(rerun, key=rerun.get)
+        kworst = max(rels, key=rels.get)
+        say(f"training {what} {label}, plain versions run twice: loss "
+            f"{float(lp):.6f} vs {float(lp2):.6f}, bit-identical {same}; "
+            f"leaf rel-norm spread max {rerun[rworst]:.3e} ({rworst}), "
+            f"median {statistics.median(rerun.values()):.3e}; kernels vs "
+            f"plain max {rels[kworst]:.3e} ({kworst}), median "
+            f"{statistics.median(rels.values()):.3e} (printed) ({card})")
+        del gp2
+    del gp
     loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
     by_grad, calls_ok = [0.0, 0.0, 0.0], True
 
@@ -4103,18 +4231,22 @@ def step_grads(torch, flash, ops, kernels, cfg, params, batch, label, card):
                  f"(ref: the attention in f64; tol {REF_K[label][0]} + "
                  f"{REF_K[label][1]}*max|ref| / max|plain - ref|)")
     worst = max(rels, key=rels.get)
-    say(f"training (b) {label} compute, one step's loss and gradients, "
+    say(f"training {what} {label} compute, one step's loss and gradients, "
         f"kernels vs plain versions from the same params: loss "
         f"{float(lk):.6f} vs {float(lp):.6f} (rel {loss_rel:.3e}, tol "
         f"{TRAIN_LOSS_REL[label]}); {len(rels)} leaves, each with a finite "
-        f"nonzero gradient: {not missing}; the step's {n_calls} backward "
+        f"nonzero gradient: {not missing}; kernels and plain bit-identical "
+        f"{identical}; the step's {n_calls} backward "
         f"launches vs the plain autograd on their own tensors: worst "
         f"{call_rule}; free-running leaf rel-norms (printed): worst "
         f"{rels[worst]:.3e} ({worst}) ({card})")
-    check(not missing, f"(b) {label}: leaves without a gradient on the "
+    check(not missing, f"{what} {label}: leaves without a gradient on the "
           f"card: {missing}")
-    check(n_calls == TRAIN_LAYERS and loss_rel <= TRAIN_LOSS_REL[label]
-          and calls_ok, f"(b) {label}: kernels vs plain loss rel "
+    check(identical or not cfg.attn_free, f"{what} {label}: no kernel lies "
+          f"on the VJP, yet the kernels' and the plain versions' gradients "
+          f"differ")
+    check(n_calls == n_attn and loss_rel <= TRAIN_LOSS_REL[label]
+          and calls_ok, f"{what} {label}: kernels vs plain loss rel "
           f"{loss_rel}, {n_calls} backward launches, on the step's tensors "
           f"{call_err}")
     # each leaf's distance from the reference at most REF_K times the
@@ -4135,39 +4267,167 @@ def step_grads(torch, flash, ops, kernels, cfg, params, batch, label, card):
     shown = {k: (float("%.3e" % (lr_[k]["kr"] / lr_[k]["ref"])),
                  float("%.3e" % (lr_[k]["pr"] / lr_[k]["ref"])),
                  float("%.3f" % (got[k] / tols[k]))) for k in top}
-    say(f"training (b) {label}, the layers in lockstep (each layer's "
+    say(f"training {what} {label}, the layers in lockstep (each layer's "
         f"backward from the kernel run's input and output cotangent): "
         f"{len(got)} leaves, tol {rule}; closest to their tolerance "
         f"(kernels' / plain's distance from the reference over its norm, "
         f"kernels' distance / tol): {shown}; head leaves {head}: no kernel "
         f"in their VJP ({card})")
     check(not lmissing and len(got) + len(head) == len(rels),
-          f"(b) {label}, lockstep: leaves without a gradient {lmissing}")
+          f"{what} {label}, lockstep: leaves without a gradient {lmissing}")
     check(all(got[k] <= tols[k] for k in got),
-          f"(b) {label}: a leaf's gradient with the layers in lockstep is "
-          f"{got[lworst]} ({lworst}), above {tols[lworst]}")
+          f"{what} {label}: a leaf's gradient with the layers in lockstep "
+          f"is {got[lworst]} ({lworst}), above {tols[lworst]}")
     # REF_K's readings: the kernels' distance from the reference over the
     # plain versions', against the control's (the attention at bf16
     # precision in the f32 step), which the gate must refuse
     ratio = {k: v["kr"] / max(v["pr"], 1e-300) for k, v in lr_.items()}
     kmax = max(ratio, key=ratio.get)
-    say(f"training (b) {label}, REF_K readings: kernels' distance from the "
-        f"reference / the plain versions', per leaf: max {ratio[kmax]:.3f} "
+    say(f"training {what} {label}, REF_K readings: kernels' distance from "
+        f"the reference / the plain versions', per leaf: max {ratio[kmax]:.3f} "
         f"({kmax}), median {statistics.median(ratio.values()):.3f} (limit "
         f"{k_ref}) ({card})")
     if "cr" in next(iter(lr_.values())):
         cratio = {k: v["cr"] / max(v["pr"], 1e-300) for k, v in lr_.items()}
         over = {k: lr_[k]["cr"] / tols[k] for k in lr_}
         cmin = min(cratio, key=cratio.get)
-        say(f"training (b) {label}, the control (attention inputs and "
+        say(f"training {what} {label}, the control (attention inputs and "
             f"gradients rounded to bf16): its distance / the plain "
             f"versions', per leaf: min {cratio[cmin]:.3f} ({cmin}), median "
             f"{statistics.median(cratio.values()):.3f}, max "
             f"{max(cratio.values()):.3f}; leaves above the tolerance "
             f"{sum(v > 1 for v in over.values())} of {len(over)} ({card})")
         check(any(v > 1 for v in over.values()),
-              f"(b) {label}: the bf16 control passes the lockstep gate "
+              f"{what} {label}: the bf16 control passes the lockstep gate "
               f"(worst {max(over.values())} of its tolerance)")
+
+
+class KernelClock:
+    """Within it, CUDA events bracket every flash forward (with LSE) and
+    backward launch; `ms()` sums their device times since `reset()`."""
+
+    def __init__(self, torch, flash):
+        self.torch, self.flash = torch, flash
+        self.spans = {"forward": [], "backward": []}
+
+    def _timed(self, fn, key):
+        def timed(*a, **k):
+            start = self.torch.cuda.Event(enable_timing=True)
+            end = self.torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            self.spans[key].append((start, end))
+            return out
+        return timed
+
+    def __enter__(self):
+        self.real = self.flash._forward, self.flash.flash_attention_bwd_cuda
+        self.flash._forward = self._timed(self.real[0], "forward")
+        self.flash.flash_attention_bwd_cuda = self._timed(self.real[1],
+                                                          "backward")
+        return self
+
+    def __exit__(self, *exc):
+        self.flash._forward, self.flash.flash_attention_bwd_cuda = self.real
+
+    def reset(self):
+        for spans in self.spans.values():
+            spans.clear()
+
+    def ms(self):
+        self.torch.cuda.synchronize()
+        return {k: sum(a.elapsed_time(b) for a, b in v)
+                for k, v in self.spans.items()}
+
+
+def family_batch(torch, cfg, B, T, dev, step):
+    """A family step's batch: SyntheticLM's stream at `step`, or for the
+    encoder patch embeddings and class labels from a seed."""
+    if cfg.family == "encoder":
+        gen = torch.Generator(device=dev).manual_seed(19 + step)
+        return {"embeds": torch.randn(B, T, cfg.d_model, generator=gen,
+                                      device=dev),
+                "labels": torch.randint(0, cfg.vocab_size, (B,),
+                                        generator=gen, device=dev)}
+    from repro_torch.data import SyntheticLM
+    return {k: torch.from_numpy(v).to(dev) for k, v in
+            SyntheticLM(cfg.vocab_size, seed=0).sample(B, T, step).items()}
+
+
+def family_step(torch, flash, ops, kernels, arch, layers, B, T, dev, card):
+    """(g) one family from `init_params(cfg, seed=0)` at full width:
+    FAMILY_STEPS steps of make_train_step (bf16 working copy, f32 moments,
+    no remat, as launch.train runs it; the training path, counted), each
+    wall, the peak memory and the flash kernels' device time in the last
+    step; then (b)'s gates on the first batch at bf16 (`step_grads`).
+    Returns the steps' launch counts."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import BuildPlan, init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, make_train_step
+    full = get_config(arch)
+    cfg = full if layers is None else full.replace(n_layers=layers)
+    cut = ("whole" if layers is None
+           else f"n_layers {full.n_layers} -> {layers}")
+    params = init_params(cfg, seed=0, device=dev)
+    n_params = sum(t.numel() for t in torch.utils._pytree.tree_leaves(
+        params))
+    heads = ("attention-free" if cfg.attn_free else
+             f"heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim "
+             f"{cfg.resolved_head_dim}")
+    n_attn = 0 if cfg.attn_free else cfg.n_layers
+    say(f"training (g) {arch} at full width ({cfg.family}: d_model "
+        f"{cfg.d_model}, {heads}, d_ff {cfg.d_ff}, vocab/classes "
+        f"{cfg.vocab_size}), {cut}: {n_params} parameters; batch {B}x{T}")
+    step = make_train_step(cfg, BuildPlan(remat=False),
+                           RunConfig(arch=arch, learning_rate=FIT_LR,
+                                     warmup_steps=1, total_steps=FIT_STEPS),
+                           AdamWConfig())
+    state = init_train_state(params, AdamWConfig())
+    batches = [family_batch(torch, cfg, B, T, dev, i)
+               for i in range(FAMILY_STEPS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev) / 2 ** 30
+    walls, losses = [], []
+    ops.reset_launch_counts()
+    with KernelClock(torch, flash) as clock:
+        for batch in batches:
+            clock.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        kms = clock.ms()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del state, step
+    wall = statistics.median(walls[1:])
+    last = walls[-1] * 1e3
+    say(f"training (g) {arch}: {FAMILY_STEPS} steps, losses "
+        f"{[round(x, 4) for x in losses]}; step walls "
+        f"{[round(w, 4) for w in walls]} s (p50 after the first "
+        f"{wall:.4f}); the last step's flash forward {kms['forward']:.4f} "
+        f"ms and backward {kms['backward']:.4f} ms of {last:.1f} ms "
+        f"({kms['backward'] / last:.2%} backward); peak "
+        f"device memory {peak:.2f} GiB, {peak - held:.2f} above the "
+        f"{held:.2f} held before the steps; launches {counts} ({card})")
+    check(all(math.isfinite(x) for x in losses),
+          f"(g) {arch}: a non-finite loss {losses}")
+    want = {n: n_attn * FAMILY_STEPS for n in TRAIN_PATH}
+    check(all(counts[n] == want[n] for n in TRAIN_PATH),
+          f"(g) {arch}: the steps launched {counts}, not {want}")
+    step_grads(torch, flash, ops, kernels, cfg, params, batches[0],
+               "bfloat16", card, what=f"(g) {arch}", n_attn=n_attn)
+    del params, batches
+    return counts
 
 
 def opt_parity(torch, state, grads, acfg, card):
@@ -4219,7 +4479,8 @@ def opt_parity(torch, state, grads, acfg, card):
 
 def phase_training(torch, dev, ops, kernels, results, card):
     """Phase 19. Returns the training path's launch counts ((c)'s Trainer
-    run through launch.train's code path)."""
+    run through launch.train's code path) and each family's steps' (g),
+    by arch."""
     import gc
     import shutil
     import tempfile
@@ -4463,11 +4724,18 @@ def phase_training(torch, dev, ops, kernels, results, card):
           f"(d) the resumed run's losses differ from the uninterrupted "
           f"run's (max |d| {diff})")
     shutil.rmtree(work, ignore_errors=True)
-    took("(d)", t_part)
+    t_part = took("(d)", t_part)
+
+    # (g) the other families, one at a time
+    families = {}
+    for arch, layers, B, T, _ in FAMILY_TRAIN:
+        families[arch] = family_step(torch, flash, ops, kernels, arch,
+                                     layers, B, T, dev, card)
+        t_part = took(f"(g) {arch}", t_part)
     spent = time.time() - t_phase
     say(f"training: phase 19 took {spent:.1f} s wall (budget "
         f"{TRAIN_BUDGET_S} s)")
-    return counts
+    return counts, families
 
 
 def main() -> int:
@@ -4814,7 +5082,8 @@ def main() -> int:
     say(f"chip_smoke: phase 18 done at {time.time() - t_all:.1f} s")
 
     # 19. training: the backward kernel, then the training path, counted
-    train_counts = phase_training(torch, dev, ops, kernels, results, card)
+    train_counts, families = phase_training(torch, dev, ops, kernels,
+                                            results, card)
 
     say(f"chip_smoke: phase 19 done at {time.time() - t_all:.1f} s")
 
@@ -4826,6 +5095,11 @@ def main() -> int:
                 + dist_counts.get(n, 0) for n in totals}
     launches["flash_attention"] += train_counts["flash_attention"]
     launches["flash_attention_bwd"] = train_counts["flash_attention_bwd"]
+    for arch, counts in families.items():
+        launches["flash_attention"] += counts["flash_attention"]
+        launches["flash_attention_bwd"] += counts["flash_attention_bwd"]
+        launches[f"flash_attention_bwd@{arch}"] = counts[
+            "flash_attention_bwd"]
     launches["comq_panel_batched"] = moe_batched
     for arch, path, counts in ((HYBRID_ARCH, HYBRID_PATH, hyb_counts),
                                (AUDIO_ARCH, AUDIO_PATH, audio_counts),
@@ -4913,6 +5187,11 @@ def main() -> int:
                   "qwen")],
          "src/repro/kernels/flash_attention.py:95"),
     ]
+    # the families' backward shapes (19a), with their steps' launches (g)
+    entries += [(f"flash_attention_bwd@{arch}", "flash_attention_bwd",
+                 results[("flash_attention_bwd", B, T, T, tag)],
+                 "src/repro/kernels/flash_attention.py:95")
+                for arch, _, B, T, tag in FAMILY_TRAIN if tag]
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src.format(source),
          "replaces": where, "launches": launches[name],

@@ -10,6 +10,10 @@ pass (`BuildPlan.remat`; off unless given, as in the JAX launcher).
 `--smoke` runs the reduced config. `train()` runs the launcher's path for a
 config it is given: chip_smoke phase 19 trains the full-width qwen2-7b with
 its depth cut through it.
+Every family the Trainer's token batches feed trains: dense, audio, MoE,
+hybrid and RWKV. The VLM (image features) and the encoder (patch
+embeddings and class labels) need inputs that no token stream gives, so
+the launcher exits 1 and names them (the JAX launcher crashes there).
 Checkpoints go to `--ckpt-dir` (default: `repro_train` under the system
 temporary directory) in the JAX package's layout, so either package's
 Trainer resumes the other's.
@@ -58,6 +62,25 @@ def run_config(args) -> RunConfig:
                      ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
 
 
+def check_trainable(cfg) -> None:
+    """Exit 1, naming the missing inputs, for a family whose `lm_loss`
+    reads more than the Trainer's token batches."""
+    if cfg.family == "vlm":
+        raise SystemExit(
+            f"{cfg.name}: the Trainer feeds token batches, and the VLM's "
+            "lm_loss also needs batch['vision_embeds'] (B, "
+            f"{cfg.cross_attn.n_vision_tokens}, {cfg.cross_attn.vision_dim}) "
+            "image features, which no data source here makes (the JAX "
+            "launcher fails in _run_vlm); call models.lm_loss with them "
+            "from Python instead")
+    if cfg.family == "encoder":
+        raise SystemExit(
+            f"{cfg.name} is an encoder: its lm_loss needs batch['embeds'] "
+            f"(B, T, {cfg.d_model}) patch embeddings and batch['labels'] "
+            "(B,) class ids, not token batches (the JAX launcher fails "
+            "there); call models.lm_loss with them from Python instead")
+
+
 def train(cfg, run_cfg: RunConfig, args, failure_hook=None
           ) -> Tuple[Trainer, Dict[str, Any], Dict[str, Any]]:
     """Train `cfg` under `run_cfg` with the flags' steps, batch, sequence,
@@ -82,6 +105,7 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     args = build_parser().parse_args(argv)
     set_precision()
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    check_trainable(cfg)
     _, _, line = train(cfg, run_config(args), args)
     print(json.dumps(line))
     return line

@@ -13,6 +13,15 @@ dtype.
 
 The terms are (B, C, d_inner, N) f32 — 210 MB each at hymba's full width
 for an 8×128 batch — so a chunk keeps at most three of them alive.
+
+Under `torch.no_grad` (calibration, eval, serve) the scan works in place
+of its terms. When autograd records, the chunk runs through `ChunkScan`:
+the same doubling scan on its own copies in the forward (the same bits),
+and in the backward the reverse-time scan of the adjoint,
+λ_t = g_t + a_{t+1}·λ_{t+1}, from which dL/db_t = λ_t, dL/da_t =
+λ_t·h_{t-1} (h_{-1} = h0) and dL/dh0 = a_0·λ_0. It saves a_t (which the
+exp saves anyway), h0 and the states h; its forward holds a fourth term,
+its copy of a.
 """
 from __future__ import annotations
 
@@ -96,7 +105,9 @@ def _selective_terms(p: dict, xi: Tensor, cfg):
         torch.einsum("btr,rd->btd", dt_raw, p["w_dt"].to(xi.dtype)).float()
         + p["b_dt"].float())                                     # (B,T,di)
     a = -torch.exp(p["a_log"].float())                           # (di, N)
-    a_t = (dt[..., None] * a).exp_()                             # (B,T,di,N)
+    a_t = dt[..., None] * a                                      # (B,T,di,N)
+    # in place only where autograd does not save the exp's output
+    a_t = a_t.exp() if torch.is_grad_enabled() else a_t.exp_()
     bx = (dt * xi.float())[..., None] * b_in.float()[:, :, None, :]
     return a_t, bx, c_in.float()
 
@@ -116,6 +127,53 @@ def _scan_chunk(a: Tensor, b: Tensor, h0: Tensor) -> Tensor:
     return b.addcmul_(a, h0[:, None])
 
 
+def _scan_chunk_reverse(c: Tensor, g: Tensor) -> Tensor:
+    """Solve λ_t = g_t + c_t·λ_{t+1} (λ_C = 0) over axis 1, in place of c
+    and g (the doubling scan run backwards in time). Returns λ, which is
+    g."""
+    C = c.shape[1]
+    s = 1
+    while s < C:
+        g[:, :-s] += c[:, :-s] * g[:, s:]
+        c[:, :-s] = c[:, :-s] * c[:, s:]
+        s *= 2
+    return g
+
+
+class ChunkScan(torch.autograd.Function):
+    """h_t = a_t·h_{t-1} + b_t over one chunk from h0, differentiable
+    (module docstring): (B, C, di, N) a and b, (B, di, N) h0, all f32."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = _scan_chunk(a.clone(), b.clone(), h0)
+        ctx.save_for_backward(a, h0, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h0, h = ctx.saved_tensors
+        c = torch.empty_like(a)               # c_t = a_{t+1}, c_{C-1} = 0
+        c[:, :-1] = a[:, 1:]
+        c[:, -1] = 0.0
+        lam = g.clone(memory_format=torch.contiguous_format)
+        lam = _scan_chunk_reverse(c, lam)
+        da = c                                # λ_t·h_{t-1}, into c's buffer
+        torch.mul(lam[:, 1:], h[:, :-1], out=da[:, 1:])
+        torch.mul(lam[:, 0], h0, out=da[:, 0])
+        dh0 = a[:, 0] * lam[:, 0]
+        return da, lam, dh0
+
+
+def _scan(a: Tensor, b: Tensor, h0: Tensor) -> Tensor:
+    """The chunk's states: `ChunkScan` when autograd records through any
+    operand, else the in-place `_scan_chunk`."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad
+                                    or h0.requires_grad):
+        return ChunkScan.apply(a, b, h0)
+    return _scan_chunk(a, b, h0)
+
+
 def _ssm_recurrence(sel: dict, xi: Tensor, h0: Tensor, *, cfg,
                     chunk: int) -> Tuple[Tensor, Tensor]:
     """Chunked selective recurrence. xi: (B, T, di) after conv and silu;
@@ -125,7 +183,7 @@ def _ssm_recurrence(sel: dict, xi: Tensor, h0: Tensor, *, cfg,
     h = h0
     for c0 in range(0, T, chunk):
         a_t, b_t, c_in = _selective_terms(sel, xi[:, c0:c0 + chunk], cfg)
-        hs = _scan_chunk(a_t, b_t, h)
+        hs = _scan(a_t, b_t, h)
         del a_t
         ys.append(torch.einsum("btdn,btn->btd", hs, c_in))
         h = hs[:, -1].clone()

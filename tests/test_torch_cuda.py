@@ -1187,6 +1187,85 @@ def test_failed_backward_launch_raises(cuda, monkeypatch):
         out.sum().backward()
 
 
+# the training families' attention shapes (chip_smoke phase 19's steps):
+# granite's group 3, hymba's 25/5 heads with its 1024 window binding,
+# musicgen's group 1, vit's non-causal 197 tokens; hd 64 throughout
+FAMILY_ATTN_CASES = [
+    dict(B=2, T=128, H=24, KV=8, causal=True, window=0),
+    dict(B=1, T=1100, H=25, KV=5, causal=True, window=1024),
+    dict(B=2, T=128, H=32, KV=32, causal=True, window=0),
+    dict(B=2, T=197, H=12, KV=12, causal=False, window=0)]
+
+
+@pytest.mark.parametrize("case", FAMILY_ATTN_CASES,
+                         ids=["granite", "hymba", "musicgen", "vit"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_at_the_family_shapes(cuda, case, dtype):
+    """ops.flash_attention under autograd on the card (FlashAttention: the
+    forward kernel with LSE, then the backward kernel, one launch each)
+    against the plain version's forward and autograd: the output under
+    test_flash_matches_plain's tolerance, dQ / dK / dV under the
+    backward's."""
+    from repro_torch.kernels import ops
+    c = dict(case, Tq=case["T"], Tk=case["T"], hd=64)
+    q, k, v, do = _bwd_inputs(cuda, c, dtype, c["T"] + c["H"])
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    n0, b0 = flash_attention.launches, flash_attention.launches_bwd
+    out = ops.flash_attention(*leaves, causal=c["causal"],
+                              window=c["window"])
+    got = torch.autograd.grad(out, leaves, do)
+    assert flash_attention.launches == n0 + 1
+    assert flash_attention.launches_bwd == b0 + 1
+    want_out = flash_attention.flash_attention_plain(
+        q, k, v, causal=c["causal"], window=c["window"])
+    got_out, want_out = out.detach().float(), want_out.float()
+    if dtype == torch.float32:        # test_flash_matches_plain's bounds
+        torch.testing.assert_close(got_out, want_out, rtol=1e-4, atol=1e-4)
+    else:
+        assert bool(((got_out - want_out).abs()
+                     <= 8e-3 * want_out.abs() + 1e-3).all())
+    want = _plain_grads(q, k, v, do, c["causal"], c["window"])
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        _grad_close(a, b, dtype, name)
+
+
+@pytest.mark.parametrize("T,chunk", [(64, 1024), (96, 32)])
+def test_ssm_autograd_on_the_card_matches_the_cpu(cuda, T, chunk):
+    """hymba's selective SSM under autograd (models/ssm.ChunkScan) on the
+    card against the same computation on the CPU at f32: the outputs, the
+    final state and the gradient of every SSM leaf, the input and the
+    initial state, each to 1e-4 of its max; one chunk and three."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import ssm
+    cfg = get_smoke_config("hymba-1.5b").replace(compute_dtype="float32")
+    g = torch.Generator().manual_seed(T)
+    p = ssm.init_ssm(g, cfg, "cpu")
+    st = ssm.init_ssm_state(2, cfg)
+    x = torch.randn(2, T, cfg.d_model, generator=g)
+    h0 = torch.randn(st.h.shape, generator=g)
+    conv0 = torch.randn(st.conv.shape, generator=g)
+    w = [torch.randn(s, generator=g) for s in
+         (x.shape, st.h.shape, st.conv.shape)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_(True)
+                  for t in list(p.values()) + [x, h0, conv0]]
+        tp = dict(zip(p, leaves))
+        y, s = ssm.apply_ssm(tp, leaves[-3], cfg,
+                             ssm.SSMState(leaves[-2], leaves[-1]),
+                             chunk=chunk)
+        outs = (y, s.h, s.conv)
+        loss = sum((o * wi.to(dev)).sum() for o, wi in zip(outs, w))
+        grads = torch.autograd.grad(loss, leaves)
+        runs[str(dev)] = [t.detach().cpu() for t in outs + grads]
+    names = ["y", "h", "conv"] + list(p) + ["x", "h0", "conv0"]
+    for name, a, b in zip(names, runs[str(cuda)], runs["cpu"]):
+        top = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-4 * top, (
+            name, float((a - b).abs().max()), top)
+
+
 @pytest.mark.parametrize("m,n,tp", [(2048, 4608, 2), (3584, 3584, 4),
                                      (512, 1024, 4)])
 def test_column_sharded_solve_is_bit_identical_to_one_rank(cuda, m, n, tp):

@@ -135,13 +135,17 @@ def test_lm_loss_row_max_is_a_constant_of_the_gradient():
     np.testing.assert_allclose(x.grad.numpy(), want, rtol=1e-6)
 
 
-def test_remat_is_checkpointing_under_grad_and_free_without(monkeypatch):
+@pytest.mark.parametrize("arch", ["qwen2-7b", "hymba-1.5b",
+                                  "granite-moe-3b-a800m", "rwkv6-7b"])
+def test_remat_is_checkpointing_under_grad_and_free_without(monkeypatch,
+                                                             arch):
     """BuildPlan.remat: every layer body runs under torch.utils.checkpoint
-    when autograd records (the gradients equal remat=False's bit for bit),
-    and never under torch.no_grad."""
+    when autograd records (the gradients equal remat=False's bit for bit:
+    the recomputed layer is the layer, hymba's selective scan, the MoE
+    routing and the wkv included), and never under torch.no_grad."""
     import torch.utils.checkpoint as ckpt_mod
-    _, tc = _cfgs("qwen2-7b")
-    tp = params_from_numpy(_jparams("qwen2-7b"), "cpu")
+    _, tc = _cfgs(arch)
+    tp = params_from_numpy(_jparams(arch), "cpu")
     batch = _as_torch(_batch(tc.vocab_size, 2, 24, 0))
     calls = []
     real = ckpt_mod.checkpoint
