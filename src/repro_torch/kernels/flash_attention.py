@@ -20,14 +20,28 @@ ulps) and ≤ 1e-4 + 1e-4·|want| for f32.
 
 Gradient. Under autograd (grad enabled and q, k or v requiring grad) a
 CUDA call runs `FlashAttention`: the forward kernel also writes each
-row's log-sum-exp (LSE, (B, H, Tq) f32), and the backward kernel
-recomputes P from it tile by tile (FlashAttention-2; the JAX package has
-no backward kernel: XLA differentiates its checkpointed pair-scan). It
-sums D = rowsum(P·dP) in f32 as the softmax's autograd does, not from the
-stored output. A backward launch failure raises; nothing falls back to
-the plain version. The plain version of the backward is the autograd
-graph of `flash_attention_plain`. Tolerance against it, per gradient g of
-dQ, dK, dV: f32 |Δ| ≤ 1e-4·max|g| + 1e-4·|g| (the same products in other
+row's log-sum-exp (LSE, (B, H, Tq) f32), and the backward recomputes P
+from it tile by tile (FlashAttention-2; the JAX package has no backward
+kernel: XLA differentiates its checkpointed pair-scan). It sums D =
+rowsum(P·dP) in f32 as the softmax's autograd does, not from the stored
+output. Dispatch by dtype, as the forward's:
+- bf16: tensor cores (mma.sync bf16, f32 accumulation). Kernel A, a
+  block per 64 query rows of a head, streams K/V twice: D, then dS and
+  dQ. Kernel B, a block per (64 keys of a KV head, split), walks its
+  share of the group's (query head, 64-row tile) pairs for dK and dV.
+  `plan_bwd` picks the split count so that kernel B launches about twice
+  as many blocks as the card has SMs; with more than one split the
+  partials go to an f32 workspace that kernel C sums in split order. P
+  and dS enter the three gradient products as bf16 hi + lo (~16 bits).
+  The design runs 12 products of the forward's size against the 5 the
+  bound counts (S and dP three times; dQ, dK, dV at two each): its
+  ceiling is 2.4x the operations bound at the tensor cores' peak.
+- f32: CUDA cores (a dq kernel with a D pass, a dkdv kernel), the
+  precision path.
+A backward launch failure raises; nothing falls back to the plain
+version. The plain version of the backward is the autograd graph of
+`flash_attention_plain`. Tolerance against it, per gradient g of dQ, dK,
+dV: f32 |Δ| ≤ 1e-4·max|g| + 1e-4·|g| (the same products in other
 orders); bf16 |Δ| ≤ 2e-2·max|g| + 8e-3·|g| (the kernel rounds each
 gradient to bf16 once, the plain graph at every op). The LSE agrees with
 `logsumexp` of the plain scaled scores to 1e-4 + 1e-5·|lse| at either
@@ -36,7 +50,9 @@ type.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -52,8 +68,9 @@ launches_bwd = 0    # backward kernel launches since the last reset
 
 _ARGTYPES = ([ctypes.c_void_p] * 6
              + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 10
-                 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11
+                 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+BWD_TILE = 64        # the bf16 backward's rows a block owns and tile rows
 
 
 def attention_mask(Tq: int, Tk: int, causal: bool, window: int, device):
@@ -154,10 +171,38 @@ def _forward(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
     return o, lse
 
 
+class BwdPlan(NamedTuple):
+    nsplit: int          # query splits of each dK/dV block
+    blocks: int          # dK/dV blocks launched
+
+
+@functools.lru_cache(maxsize=None)
+def plan_bwd(B: int, Tq: int, Tk: int, H: int, KV: int, hd: int,
+             sms: int) -> BwdPlan:
+    """The bf16 backward's split: enough splits that the dK/dV kernel
+    launches at least about 2 x `sms` blocks, never more than the (query
+    head, 64-row query tile) pairs of a KV head's group (the dims of hd >
+    128 go to two blocks already). The kernel walks the pairs that see
+    its keys, split s of n taking [s·n_pairs/n, (s+1)·n_pairs/n); a
+    split left with none writes zero partials."""
+    parts = 2 if hd > 128 else 1
+    base = -(-Tk // BWD_TILE) * KV * B * parts
+    most = (H // KV) * -(-Tq // BWD_TILE)
+    nsplit = max(1, min(most, -(-2 * sms // base)))
+    return BwdPlan(nsplit, base * nsplit)
+
+
+def _row_strides(t: Tensor):
+    """Element strides of dims 0-2, 0 for a dim of one: it addresses
+    nothing, and autograd may hand over any stride there (an odd one
+    would fail the bf16 kernels' 4-byte row copies)."""
+    return [t.stride(i) if t.shape[i] > 1 else 0 for i in range(3)]
+
+
 def flash_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
                              lse: Tensor, *, causal: bool = True,
                              window: int = 0):
-    """Launch the backward kernel: (dq, dk, dv) in q's dtype from the
+    """Launch the backward kernels: (dq, dk, dv) in q's dtype from the
     forward's inputs, its LSE and the output's gradient."""
     global launches_bwd
     _check(q, k, v)
@@ -166,8 +211,9 @@ def flash_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
     dev = q.device
     if do.dtype != q.dtype:
         do = do.to(q.dtype)
-    if do.stride(3) != 1:
-        do = do.contiguous()
+    if (do.stride(3) != 1 or do.data_ptr() % 4
+            or any(st % 2 for st in _row_strides(do))):
+        do = do.clone(memory_format=torch.contiguous_format)
     if (do.shape != q.shape or lse.shape != (B, H, Tq)
             or lse.dtype != torch.float32 or not lse.is_contiguous()):
         raise ValueError("flash_attention backward: want dO like q and a "
@@ -176,13 +222,21 @@ def flash_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
     dk = torch.empty(B, Tk, KV, hd, dtype=q.dtype, device=dev)
     dv = torch.empty(B, Tk, KV, hd, dtype=q.dtype, device=dev)
     dsum = torch.empty(B, H, Tq, dtype=torch.float32, device=dev)
+    nsplit, work = 1, None
+    if q.dtype == torch.bfloat16:
+        nsplit = plan_bwd(B, Tq, Tk, H, KV, hd,
+                          build.sm_count(dev.index)).nsplit
+        if nsplit > 1:
+            work = torch.empty(2, nsplit, B, Tk, KV, hd,
+                               dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 21)(
-        *[t.stride(i) for t in (q, k, v, do, dq, dk, dv) for i in range(3)])
+        *[st for t in (q, k, v, do, dq, dk, dv) for st in _row_strides(t)])
     fn = build.load(NAME_BWD, "flash_attention_bwd", _BWD_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), ctypes.addressof(strides), _DTYPES[q.dtype], B,
-            Tq, Tk, H, KV, hd, int(causal), int(window), 1.0 / math.sqrt(hd),
+            dv.data_ptr(), None if work is None else work.data_ptr(),
+            ctypes.addressof(strides), _DTYPES[q.dtype], B, Tq, Tk, H, KV,
+            hd, int(causal), int(window), nsplit, 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(NAME_BWD, rc)
     launches_bwd += 1

@@ -122,7 +122,7 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, head_map: Tensor, *,
         raise NotImplementedError(
             "flash_attention needs Hp % KV == 0 (an uneven head map, as "
             "hymba's under tensor-parallel head padding, is not ported: "
-            "ROADMAP.md item 15)")
+            "ROADMAP.md item 17c)")
     from repro_torch.kernels import ops
     return ops.flash_attention(q, k, v, causal=causal,
                                window=window if causal else 0)
@@ -342,7 +342,7 @@ def _grouped_heads(q: Tensor, k_pool: Tensor) -> None:
         raise NotImplementedError(
             "paged decode attention needs Hp % KV == 0 (an uneven head map, "
             "as hymba's under tensor-parallel head padding, is not ported: "
-            "ROADMAP.md item 15)")
+            "ROADMAP.md item 17c)")
 
 
 def paged_decode_attend(q: Tensor, k_pool: Tensor, v_pool: Tensor,

@@ -1106,15 +1106,28 @@ def test_flash_backward_matches_plain_autograd(cuda, case, dtype):
         _grad_close(a, b, dtype, name)
 
 
-def test_flash_backward_is_deterministic_and_reads_strided_views(cuda):
+def _bwd_plan(c):
+    from repro_torch.kernels import build
+    return flash_attention.plan_bwd(
+        c["B"], c["Tq"], c["Tk"], c["H"], c["KV"], c["hd"],
+        build.sm_count(torch.cuda.current_device()))
+
+
+@pytest.mark.parametrize("T", [50, 520])
+def test_flash_backward_is_deterministic_and_reads_strided_views(cuda, T):
     """Two backward launches give the same bits (no atomics), also with
-    q/k/v as views into a fused buffer and a non-contiguous dO."""
+    q/k/v as views into a fused buffer and a non-contiguous dO, where the
+    bf16 dK/dV kernel runs in query splits summed by a third kernel (4 at
+    T=50, 15 at T=520 on 132 SMs)."""
     g = torch.Generator(device=cuda).manual_seed(11)
-    fused = torch.randn(2, 50, 8 + 2 * 2, 64, generator=g,
+    fused = torch.randn(1 if T > 64 else 2, T, 8 + 2 * 2, 64, generator=g,
                         device=cuda).bfloat16()
     q, k, v = fused[:, :, :8], fused[:, :, 8:10], fused[:, :, 10:]
-    do = torch.randn(2, 8, 50, 64, generator=g,
+    do = torch.randn(fused.shape[0], 8, T, 64, generator=g,
                      device=cuda).bfloat16().transpose(1, 2)
+    plan = _bwd_plan(dict(B=q.shape[0], Tq=T, Tk=T, H=8, KV=2, hd=64,
+                          causal=True, window=0))
+    assert plan.nsplit > 1, plan
     _, lse = flash_attention._forward(q, k, v, True, 0, with_lse=True)
     a = flash_attention.flash_attention_bwd_cuda(q, k, v, do, lse)
     b = flash_attention.flash_attention_bwd_cuda(q, k, v, do, lse)
@@ -1122,6 +1135,75 @@ def test_flash_backward_is_deterministic_and_reads_strided_views(cuda):
     for name, x, y in zip(("dq", "dk", "dv"), a,
                           _plain_grads(q, k, v, do, True, 0)):
         _grad_close(x, y, torch.bfloat16, name)
+
+
+@pytest.mark.parametrize("layout", ["odd-stride-of-a-dim-of-one",
+                                    "one-element-offset"])
+def test_flash_backward_takes_any_do_layout(cuda, layout):
+    """dO as autograd may hand it over at B=1 (hymba's 1 x 2048 step: an
+    odd stride on the batch dim of one), or as a view one bf16 element
+    off a 4-byte boundary: the bf16 kernels copy rows in 4-byte units,
+    and the wrapper lays such a dO out anew; the gradients match the
+    plain version's autograd."""
+    c = dict(B=1, Tq=130, Tk=130, H=25, KV=5, hd=64, causal=True, window=64)
+    q, k, v, do = _bwd_inputs(cuda, c, torch.bfloat16, 7)
+    if layout == "one-element-offset":
+        buf = torch.empty(do.numel() + 1, dtype=do.dtype, device=cuda)
+        view = buf[1:].view(do.shape)
+    else:
+        view = torch.empty_like(do).as_strided(do.shape,
+                                               (1,) + do.stride()[1:])
+    view.copy_(do)
+    assert view.data_ptr() % 4 or view.stride(0) % 2
+    _, lse = flash_attention._forward(q, k, v, True, 64, with_lse=True)
+    got = flash_attention.flash_attention_bwd_cuda(q, k, v, view, lse,
+                                                   window=64)
+    for name, a, b in zip(("dq", "dk", "dv"), got,
+                          _plain_grads(q, k, v, do, True, 64)):
+        _grad_close(a, b, torch.bfloat16, name)
+
+
+# bf16 shapes whose dK/dV kernel runs in query splits on 132 SMs (split
+# 1: B=1, T >= 512, hd 20 to 256, hd 256 in two halves of the dims) or
+# in one, writing bf16 directly (split 0: the planner's blocks suffice)
+SPLIT_CASES = [
+    dict(B=1, Tq=512, Tk=512, H=28, KV=4, hd=128, causal=True, window=0,
+         split=1),
+    dict(B=1, Tq=600, Tk=600, H=25, KV=5, hd=64, causal=True, window=200,
+         split=1),
+    dict(B=1, Tq=520, Tk=520, H=4, KV=1, hd=256, causal=True, window=0,
+         split=1),
+    dict(B=1, Tq=530, Tk=530, H=6, KV=3, hd=20, causal=True, window=0,
+         split=1),
+    dict(B=1, Tq=70, Tk=600, H=8, KV=2, hd=20, causal=False, window=0,
+         split=1),
+    dict(B=1, Tq=512, Tk=512, H=28, KV=4, hd=128, causal=True, window=0,
+         qscale=12, split=1),
+    dict(B=4, Tq=250, Tk=250, H=32, KV=32, hd=64, causal=True, window=0,
+         split=0),
+    dict(B=8, Tq=100, Tk=700, H=16, KV=4, hd=128, causal=False, window=0,
+         split=0)]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: "-".join(
+    f"{k}{int(v)}" for k, v in c.items()))
+def test_flash_backward_split_matches_plain_autograd(cuda, case):
+    """bf16 with and without the planner's query split: dQ, dK, dV
+    against the plain version's autograd, one counted launch."""
+    c = case
+    plan = _bwd_plan(c)
+    assert (plan.nsplit > 1) == bool(c["split"]), plan
+    q, k, v, do = _bwd_inputs(cuda, c, torch.bfloat16, c["Tq"] + c["hd"])
+    _, lse = flash_attention._forward(q, k, v, c["causal"], c["window"],
+                                      with_lse=True)
+    n0 = flash_attention.launches_bwd
+    got = flash_attention.flash_attention_bwd_cuda(
+        q, k, v, do, lse, causal=c["causal"], window=c["window"])
+    assert flash_attention.launches_bwd == n0 + 1
+    want = _plain_grads(q, k, v, do, c["causal"], c["window"])
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        _grad_close(a, b, torch.bfloat16, name)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -21,10 +21,17 @@ the JAX oracles on shared numpy inputs.
   pass gives the same code everywhere else is checked on adversarial
   inputs.
 - `csrc/flash_attention_bwd.cu` recomputes P = exp(scale·q·k − LSE) from
-  the forward's LSE, sums D = rowsum(P·dP) and forms dS = P·(dP − D) in
-  f32: held against the plain version's autograd graph under the
-  backward's tolerance.
+  the forward's LSE, sums D = rowsum(P·dP) and forms dS = P·(dP − D). In
+  f32 (CUDA cores) all of it in f32; in bf16 (tensor cores) S and dP are
+  f32 sums of exact bf16 products a 64-key (or 64-query) tile at a time,
+  P and dS enter dQ, dK and dV as bf16 hi + lo, and dK / dV are summed
+  over the planner's query splits in split order. Held against the plain
+  version's autograd graph under the backward's tolerance, against
+  JAX's `flash_attention_ref` VJP on the same numpy inputs, and on
+  near-hard scores within REF_K (2x for bf16) of the plain version's
+  distance from an f64 reference.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -255,20 +262,172 @@ def _flash_bwd_emulated(q, k, v, do, lse, causal, window):
     return tuple(t.to(q.dtype) for t in (dq, fold(dk), fold(dv)))
 
 
+BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 8e-3)}
+REF_K_BF16 = (2.0, 1e-4)     # chip_smoke.REF_K["bfloat16"]
+LOG2E = 1.4426950408889634
+
+
+def _hi_lo(x):
+    """x as bf16 hi + lo (the kernel's split_pack), each widened to f32."""
+    hi = _bf16(x)
+    return hi, _bf16(x - hi)
+
+
+def _split_mm(a, b):
+    """a @ b with a split into bf16 hi + lo, exact bf16 products summed in
+    f32 (b holds bf16 values)."""
+    hi, lo = _hi_lo(a)
+    return hi @ b + lo @ b
+
+
+def _walk_query_tiles(Tq, Tk, causal, window, k_lo, T=64):
+    """(first, count) of the T-row query tiles that kernel B walks for the
+    key block starting at k_lo: a mirror of the .cu kernel's own reckoning
+    (q_first / q_end / t0 / nt), which the emulation walks."""
+    k_last = min(k_lo + T, Tk) - 1
+    q_first, q_end = 0, Tq
+    if causal:
+        q_first = k_lo
+        if window > 0:
+            q_end = min(Tq, k_last + window)
+    t0 = q_first // T
+    return t0, (-(-q_end // T) - t0 if q_end > q_first else 0)
+
+
+def _split_pairs(n_pairs, nsplit, split):
+    """[lo, hi) of a key block's n_pairs (head, tile) pairs that split
+    `split` of nsplit walks (the kernel's p_lo / p_hi): pair p is head p //
+    count, tile first + p % count of `_walk_query_tiles`."""
+    return split * n_pairs // nsplit, (split + 1) * n_pairs // nsplit
+
+
+def _flash_bwd_tc_emulated(q, k, v, do, lse, causal, window, nsplit):
+    """The bf16 tensor-core design (csrc/flash_attention_bwd.cu) in plain
+    torch. Kernel A, per 64-key tile in order: S = Q·Kᵀ, dP = dO·Vᵀ, P =
+    exp2(S·scale·log2e − LSE·log2e); D = Σ_tiles rowsum(P·dP); then dQ +=
+    split(dS)·K. Kernel B, per 64-key block: the (head, 64-row query tile)
+    pairs of `_walk_query_tiles`, split by `_split_pairs`, each split's
+    dV += split(Pᵀ)·dO and dK += split(dSᵀ)·Q in pair order, splits
+    summed in order. Tiles the kernels skip contribute exact zeros
+    here."""
+    from repro_torch.kernels import flash_attention as fa
+    T = fa.BWD_TILE
+    B, Tq, H, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    G, scale = H // KV, 1.0 / np.sqrt(hd)
+    qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))
+    kx, vx = (t.repeat_interleave(G, dim=1) for t in (kf, vf))  # (B,H,T,d)
+    mask = fa.attention_mask(Tq, Tk, causal, window, q.device)
+    lse2 = lse * LOG2E                                          # (B, H, Tq)
+    sl2 = np.float32(scale * LOG2E)
+
+    def probs(s, lse_rows, m):
+        return torch.where(m, torch.exp2(s * sl2 - lse_rows), 0.0)
+
+    tiles = [slice(t0, min(t0 + T, Tk)) for t0 in range(0, Tk, T)]
+    # kernel A: D, then dQ
+    d = torch.zeros(B, H, Tq)
+    for ks in tiles:
+        p = probs(qf @ kx[:, :, ks].transpose(-1, -2), lse2[..., None],
+                  mask[:, ks])
+        d = d + (p * (dof @ vx[:, :, ks].transpose(-1, -2))).sum(-1)
+    dq = torch.zeros(B, H, Tq, hd)
+    for ks in tiles:
+        p = probs(qf @ kx[:, :, ks].transpose(-1, -2), lse2[..., None],
+                  mask[:, ks])
+        ds = p * (dof @ vx[:, :, ks].transpose(-1, -2) - d[..., None])
+        dq = dq + _split_mm(ds, kx[:, :, ks])
+    # kernel B: per key block, the group's pairs in splits
+    dk, dv = torch.zeros(B, KV, Tk, hd), torch.zeros(B, KV, Tk, hd)
+    qg, dog = (t.reshape(B, KV, G, Tq, hd) for t in (qf, dof))
+    lg, dg = (t.reshape(B, KV, G, Tq) for t in (lse2, d))
+    for ks in tiles:
+        t0, nt = _walk_query_tiles(Tq, Tk, causal, window, ks.start, T)
+        parts = []
+        for sp in range(nsplit):
+            acc_k = torch.zeros(B, KV, ks.stop - ks.start, hd)
+            acc_v = torch.zeros_like(acc_k)
+            for pr in range(*_split_pairs(G * nt, nsplit, sp)):
+                hh, qs = pr // nt, (t0 + pr % nt) * T
+                qs = slice(qs, min(qs + T, Tq))
+                qt, dot = qg[:, :, hh, qs], dog[:, :, hh, qs]
+                pt = probs(kf[:, :, ks] @ qt.transpose(-1, -2),
+                           lg[:, :, hh, None, qs], mask[qs, ks].T)
+                dst = pt * (vf[:, :, ks] @ dot.transpose(-1, -2)
+                            - dg[:, :, hh, None, qs])
+                acc_v = acc_v + _split_mm(pt, dot)
+                acc_k = acc_k + _split_mm(dst, qt)
+            parts.append((acc_k, acc_v))
+        sk, sv = parts[0]
+        for pk, pv in parts[1:]:
+            sk, sv = sk + pk, sv + pv
+        dk[:, :, ks], dv[:, :, ks] = sk, sv
+    return tuple(t.transpose(1, 2).to(q.dtype)
+                 for t in (dq * np.float32(scale), dk * np.float32(scale),
+                           dv))
+
+
+def _attention_f64(q, k, v, causal, window):
+    """The masked softmax attention in f64 (the reference gradients are
+    its autograd)."""
+    from repro_torch.kernels.flash_attention import attention_mask
+    B, Tq, H, hd = q.shape
+    G = H // k.shape[2]
+    kx, vx = (t.repeat_interleave(G, dim=2) for t in (k, v))
+    s = torch.einsum("bthd,bshd->bhts", q, kx) / np.sqrt(hd)
+    mask = attention_mask(Tq, k.shape[1], causal, window, q.device)
+    p = torch.softmax(s.masked_fill(~mask, -np.inf), dim=-1)
+    return torch.einsum("bhts,bshd->bthd", p, vx)
+
+
+def _jax_ref_grads(q, k, v, do, causal, window):
+    """jax.vjp of repro.kernels.ref.flash_attention_ref on the same values
+    (as f32 numpy), in the model's layout."""
+    B, Tq, H, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    flat = lambda t: jnp.asarray(t.float().transpose(1, 2).reshape(
+        -1, t.shape[1], hd).numpy())
+    out, vjp = jax.vjp(lambda a, b, c: jref.flash_attention_ref(
+        a, b, c, causal=causal, window=window), flat(q), flat(k), flat(v))
+    grads = vjp(flat(do))
+    return [torch.from_numpy(np.array(g)).reshape(B, n, T, hd)
+            .transpose(1, 2) for g, n, T in zip(grads, (H, KV, KV),
+                                                (Tq, Tk, Tk))]
+
+
+def _within_bwd_tol(a, b, dtype):
+    rel_max, rel = BWD_TOL[dtype]
+    a, b = a.float(), b.float()
+    return bool(((a - b).abs() <= rel_max * b.abs().max()
+                 + rel * b.abs()).all())
+
+
 @pytest.mark.parametrize("case", [
     dict(B=2, Tq=48, Tk=48, H=14, KV=2, hd=32, causal=True, window=0),
     dict(B=1, Tq=70, Tk=70, H=6, KV=3, hd=16, causal=True, window=20),
     dict(B=2, Tq=9, Tk=41, H=8, KV=2, hd=64, causal=False, window=0),
     dict(B=1, Tq=40, Tk=40, H=8, KV=2, hd=64, causal=True, window=0,
-         qscale=12)],
+         qscale=12),
+    dict(B=1, Tq=150, Tk=150, H=6, KV=2, hd=32, causal=True, window=0,
+         nsplit=2),
+    dict(B=1, Tq=130, Tk=130, H=8, KV=2, hd=16, causal=True, window=70,
+         nsplit=3),
+    dict(B=1, Tq=40, Tk=140, H=4, KV=1, hd=64, causal=False, window=0,
+         nsplit=3),
+    dict(B=1, Tq=140, Tk=140, H=6, KV=2, hd=64, causal=True, window=0,
+         qscale=12, nsplit=2)],
     ids=lambda c: "-".join(f"{k}{int(v)}" for k, v in c.items()))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_backward_design_holds_the_tolerance(case, dtype):
-    """The backward's design against the plain version's autograd graph,
-    at unit-scale and near-hard (qscale) scores, under the tolerance the
-    kernel is held to on the card
+    """The backward's design at its input type (f32: CUDA cores; bf16:
+    tensor cores with `nsplit` query splits of dK / dV) against the plain
+    version's autograd graph, at unit-scale and near-hard (qscale)
+    scores, under the tolerance the kernel is held to on the card
     (kernels/flash_attention.py: f32 1e-4·max|g| + 1e-4·|g|; bf16
-    2e-2·max|g| + 8e-3·|g|)."""
+    2e-2·max|g| + 8e-3·|g|). bf16 also: against jax.vjp of JAX's
+    flash_attention_ref under the same tolerance and, on near-hard
+    scores, within REF_K_BF16 of the plain version's distance from an
+    f64 reference (chip_smoke 19(b)'s per-launch gate)."""
     from repro_torch.kernels import flash_attention as fa
     c = case
     g = torch.Generator().manual_seed(c["Tq"])
@@ -277,14 +436,78 @@ def test_flash_backward_design_holds_the_tolerance(case, dtype):
     k, v = (torch.randn(c["B"], c["Tk"], c["KV"], c["hd"], generator=g)
             .to(dtype) for _ in range(2))
     do = torch.randn(q.shape, generator=g).to(dtype)
+    kw = dict(causal=c["causal"], window=c["window"])
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    out = fa.flash_attention_plain(*leaves, causal=c["causal"],
-                                   window=c["window"])
-    want = torch.autograd.grad(out, leaves, do)
-    lse = fa.attention_lse_plain(q, k, causal=c["causal"], window=c["window"])
-    got = _flash_bwd_emulated(q, k, v, do, lse, c["causal"], c["window"])
-    rel_max, rel = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 8e-3)
+    want = torch.autograd.grad(fa.flash_attention_plain(*leaves, **kw),
+                               leaves, do)
+    lse = fa.attention_lse_plain(q, k, **kw)
+    if dtype == torch.float32:
+        got = _flash_bwd_emulated(q, k, v, do, lse, c["causal"],
+                                  c["window"])
+    else:
+        got = _flash_bwd_tc_emulated(q, k, v, do, lse, c["causal"],
+                                     c["window"], c.get("nsplit", 1))
     for a, b in zip(got, want):
-        a, b = a.float(), b.float()
-        assert bool(((a - b).abs() <= rel_max * b.abs().max()
-                     + rel * b.abs()).all()), float((a - b).abs().max())
+        assert _within_bwd_tol(a, b, dtype), float((a.float() - b.float())
+                                                   .abs().max())
+    if dtype == torch.float32:
+        return
+    for a, b in zip(got, _jax_ref_grads(q, k, v, do, **kw)):
+        assert _within_bwd_tol(a, b, dtype), float((a.float() - b)
+                                                   .abs().max())
+    if "qscale" in c:
+        leaves = [t.double().requires_grad_(True) for t in (q, k, v)]
+        ref = torch.autograd.grad(_attention_f64(*leaves, **kw), leaves,
+                                  do.double())
+        k_ref, floor = REF_K_BF16
+        for a, b, r in zip(got, want, ref):
+            ek = float((a.double() - r).abs().max())
+            ep = float((b.double() - r).abs().max())
+            print(f"near-hard {c}: |design - f64| {ek:.3e}, |plain - f64| "
+                  f"{ep:.3e} (ratio {ek / ep:.3f})")
+            assert ek <= k_ref * ep + floor * float(r.abs().max())
+
+
+# (B, Tq, Tk, H, KV, hd, causal, window) of chip_smoke.BWD_CASES with the
+# planner's nsplit on 132 SMs (an H100 SXM), then one key block
+PLAN_CASES = [((8, 128, 128, 28, 4, 128, True, 0), 5),      # qwen
+              ((1, 512, 512, 28, 4, 128, True, 0), 9),      # qwen
+              ((8, 128, 128, 24, 8, 64, True, 0), 3),       # granite
+              ((1, 2048, 2048, 25, 5, 64, True, 1024), 2),  # hymba
+              ((8, 128, 128, 32, 32, 64, True, 0), 1),      # musicgen
+              ((8, 128, 1601, 64, 8, 128, False, 0), 1),    # the VLM
+              ((8, 197, 197, 12, 12, 64, False, 0), 1),     # vit
+              ((1, 64, 64, 4, 1, 64, True, 0), 4)]
+
+
+@pytest.mark.parametrize("shape,nsplit", PLAN_CASES,
+                         ids=lambda x: "-".join(map(str, map(int, x)))
+                         if isinstance(x, tuple) else str(x))
+def test_backward_split_plan_covers_every_pair_once(shape, nsplit):
+    """plan_bwd's split at the families' backward shapes: every (query
+    head, 64-row query tile) pair in which some query sees a key of a
+    64-key block lands in exactly one split of that block, no other pair
+    is walked, and a shape whose dK/dV kernel already launches 2 x 132
+    blocks is not split. The pair walk checked here is the emulation's
+    mirror of the kernel's; the kernel's own walk is held by the `cuda`
+    tests of tests/test_torch_cuda.py (split and unsplit plans against
+    the plain autograd)."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Tq, Tk, H, KV, hd, causal, window = shape
+    T, G = fa.BWD_TILE, H // KV
+    plan = fa.plan_bwd(B, Tq, Tk, H, KV, hd, 132)
+    assert plan.nsplit == nsplit
+    unsplit = -(-Tk // T) * KV * B * (2 if hd > 128 else 1)
+    assert plan.blocks == unsplit * nsplit
+    if unsplit >= 2 * 132:
+        assert nsplit == 1
+    mask = fa.attention_mask(Tq, Tk, causal, window, "cpu")
+    n_qt = -(-Tq // T)
+    for k0 in range(0, Tk, T):
+        sees = mask[:, k0:k0 + T].any(1)
+        want = {(hh, t) for hh in range(G) for t in range(n_qt)
+                if bool(sees[t * T:(t + 1) * T].any())}
+        t0, nt = _walk_query_tiles(Tq, Tk, causal, window, k0, T)
+        walked = [(p // nt, t0 + p % nt) for s in range(nsplit)
+                  for p in range(*_split_pairs(G * nt, nsplit, s))]
+        assert len(walked) == len(set(walked)) and set(walked) == want
