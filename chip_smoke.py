@@ -211,7 +211,8 @@ no result line):
    walk's Grams; (f) compressed_all_reduce: out + new_e == g. Then gloo,
    2 ranks sharing the card: one all-reduce of an 18944² Gram timed
    (through host memory); (b) model 2 and (c) data 2 (one all-reduce a
-   tap Gram, counted): JAX's Σ err_after (2%) and loss gap (0.15) gates
+   tap Gram, counted by `analysis.census`): JAX's Σ err_after (2%) and
+   loss gap (0.15) gates
    against the meshless walk; (b) holds every leaf of the model-sharded
    walk bit-identical to the one-rank walk (codes, z_lo, scales; JAX's
    tests/test_dist.py:416: each rank solves only its own columns, over
@@ -225,7 +226,8 @@ no result line):
    Runtime(mesh=) over model 2 on phase 4's
    packed model from its .qpk, the phase-8 traffic: f32 kv_bits 0 and 8
    tokens equal the meshless runtime's 16/16, bf16 kv_bits 4 printed, no
-   collective inside decode_step, each rank's paged launches; (f) over
+   collective inside decode_step (the census under its record_function
+   scope), each rank's paged launches; (f) over
    gloo: the mean within a grid step of the exact mean, residuals
    v - q·scale exact. Last gloo, 4 ranks on a (2, 2) mesh: (d) qwen2-7b with (c)'s
    gates, then granite-moe-3b-a800m at 1 of 32 layers: (c)'s gates, every
@@ -295,6 +297,23 @@ no result line):
    bit-identical (no kernel in its VJP); granite's plain versions run
    twice, their spread printed beside the kernels-vs-plain gap.
 
+20. analysis — runs right after phase 17, on the phase-4 model. (a)
+   `python -m repro_torch.analysis.cli --gate` on the card, in a process
+   of its own: the lint of src/repro_torch; every registry entry's
+   contract (the collective census, the in-place audit of the pool and
+   the train state with the card's peak allocation) and its kernels
+   launched (the decode steps the paged kernels and quant_matmul, prefill
+   flash_attention, the solver comq_panel, train.step the flash
+   backward), the dist.* entries and the sharded decode step in a gloo
+   world of 2 ranks sharing the card; the runtime's signature budgets
+   over a mixed, staggered run. (b) one decode step of the 2-layer qwen,
+   8 slots at 4000 tokens on 16-token pages, bf16 and int8 pages:
+   count_cost's bytes beside decode_step_bytes(mode="pallas"), the
+   bf16-over-int8 ratio of the two within ANALYSIS_RATIO_BAND. (c) that
+   step's roofline_terms beside its CUDA-event time and the card.
+   Every kernel bound of phases 3-19 is `roofline.kernels.bound_ms` of
+   the kernel's cost function.
+
 Launch counts: the quantize-and-decode path (phases 4-5), the serve path
 (phase 8), the policy path (phase 9a), the durability runs (phase 16:
 its quantize walks, then its serve runs), the observability runs (phase
@@ -329,10 +348,7 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 WINDOWS = 5                        # CUDA-event windows per kernel time
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12,    # dense, no tensor-core f32
-              "int8": 1979e12}
 
 # tolerances (each kernel's source states the same)
 PANEL_MIN_CODE_AGREEMENT = 0.999
@@ -414,13 +430,6 @@ def say(msg: str) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise CheckFailed(what)
-
-
-def bound_ms(nbytes: float, flops: float, kind: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[kind]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                        else "operations")
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 1) -> float:
@@ -558,6 +567,7 @@ def check_panel(torch, panel, dev, results, cases=QWEN_PANEL_CASES):
     at, n=3584: qf and δ scale with the range, so at 8 bits δ is 17x finer
     than at 4 and far more steps land near a rounding boundary (the
     kernel's exact redo)."""
+    from repro_torch.roofline import kernels as kc
     gen = torch.Generator(device=dev).manual_seed(1)
     B = 256
     for n, bits in cases:
@@ -581,9 +591,7 @@ def check_panel(torch, panel, dev, results, cases=QWEN_PANEL_CASES):
         t = Timing(torch, lambda i: panel.comq_panel_dq_cuda(*args), 20)
         plain_ms = cuda_ms(torch, lambda i: panel.comq_panel_dq_plain(*args),
                            3)
-        nbytes = 4 * (B * B + 2 * B * n + 3 * n + B) + 4 * 2 * B * n
-        flops = 2.0 * n * B * (B - 1) / 2
-        bms, by = bound_ms(nbytes, flops, "f32")
+        bms, by = kc.bound_ms(kc.comq_panel(B, n))
         say(f"kernel comq_panel B={B} n={n} bits={bits} codes "
             f"[{int(z_lo[0])}, {int(z_hi[0])}]: code agreement {agree:.6f} "
             f"(need >= {PANEL_MIN_CODE_AGREEMENT}), max|dq code| {err}, "
@@ -607,6 +615,8 @@ def check_flash(torch, flash, dev, results, heads=(28, 4, 128), tag=(),
     attends every query to every key (the encoder, the VLM's cross
     layers); `tag` extends the result keys."""
     import torch.nn.functional as F
+
+    from repro_torch.roofline import kernels as kc
     gen = torch.Generator(device=dev).manual_seed(2)
     H, KV, hd = heads
     kind = f"causal window {window}" if causal else "non-causal"
@@ -643,11 +653,8 @@ def check_flash(torch, flash, dev, results, heads=(28, 4, 128), tag=(),
                 is_causal=causal and mask is None, enable_gqa=True), 50)
         except TypeError:   # torch without enable_gqa: no one-call yardstick
             lib_note = "torch has no enable_gqa"
-        nbytes = 2 * (2 * q.numel() + 2 * k.numel())
-        pairs = (sum(min(t + 1, window or Tk) for t in range(Tq)) if causal
-                 else Tq * Tk)
-        flops = 4.0 * hd * B * H * pairs
-        bms, by = bound_ms(nbytes, flops, "bf16")
+        bms, by = kc.bound_ms(kc.flash_attention_of(q, k, causal=causal,
+                                                    window=window))
         say(f"kernel flash_attention B={B} Tq={Tq} Tk={Tk} H={H} KV={KV} "
             f"hd={hd} bf16 {kind}: max|d| {err:.3e} (tol "
             f"{FLASH_BF16_RTOL}*|want|+"
@@ -700,6 +707,7 @@ def check_qmm(torch, qmm, dev, results, cases):
     X dtype)). The bound is the least time once codes are exact in bf16:
     max(bytes / HBM rate, 2*M*K*N / bf16 peak)."""
     from repro_torch.core.quantizer import pack_codes, unpack_codes
+    from repro_torch.roofline import kernels as kc
     gen = torch.Generator(device=dev).manual_seed(3)
     for M, K, N, bits, xdt in cases:
         u = torch.randint(0, 2 ** bits, (K, N), generator=gen, device=dev,
@@ -726,9 +734,8 @@ def check_qmm(torch, qmm, dev, results, cases):
         xf = x.float()
         lib = Timing(torch, lambda i: torch.matmul(xf, w), 10)
         del copies, w, xf
-        nbytes = (x.element_size() * M * K + codes.numel() + 8 * N
-                  + 4 * M * N)
-        bms, by = bound_ms(nbytes, 2.0 * M * K * N, "bf16")
+        cost = kc.quant_matmul_of(x, codes, cpb=cpb)
+        bms, by = kc.bound_ms(cost)
         xname = str(xdt)[6:]
         say(f"kernel quant_matmul M={M} K={K} N={N} bits={bits} cpb={cpb} "
             f"x={xname}: max|d|/max|y| {rel:.3e} (tol {QMM_REL}), ms {t}, "
@@ -737,7 +744,7 @@ def check_qmm(torch, qmm, dev, results, cases):
             f"weight)")
         if (M, K, N, bits, xdt) == (8, 3584, 18944, 4, torch.float32):
             say(f"  for continuity: the f32-FMA bound of PRs 11-13 at this "
-                f"shape, {bound_ms(nbytes, 2.0 * M * K * N, 'f32')[0]:.4f} "
+                f"shape, {kc.bound_ms(cost, kind='f32')[0]:.4f} "
                 f"ms")
         check(rel <= QMM_REL, f"quant_matmul {M}x{K}x{N} cpb={cpb} "
               f"x={xname}: {rel}")
@@ -746,25 +753,14 @@ def check_qmm(torch, qmm, dev, results, cases):
             library_ms=lib.ms, max_abs_err=err)
 
 
-def live_extent(lengths, window: int, bs: int):
-    """(live pages, live keys) that attention over these lengths needs:
-    keys in [max(0, len - window), len), pages that hold them."""
-    pages = keys = 0
-    for n in lengths:
-        if n <= 0:
-            continue
-        lo = max(0, n - window) if window > 0 else 0
-        keys += n - lo
-        pages += -(-n // bs) - lo // bs
-    return pages, keys
-
-
 def check_paged(torch, paged, dev, results, heads=(28, 4, 128), tag=()):
     """Both paged-attention kernels against their plain versions at the
     serve shapes: bf16 (main path) and f32 q, window 0 and 1024, bf16 /
     f32 pages and int8 / 4-bit codes; times at bf16, window 0. `heads` is
     (H, KV, hd); `tag` extends the result keys."""
     import torch.nn.functional as F
+
+    from repro_torch.roofline import kernels as kc
     from repro_torch.serve.kv_cache import kv_encode, kv_scale_of
     gen = torch.Generator(device=dev).manual_seed(4)
     (H, KV, hd), B, BS, MAXB = heads, 8, 16, 256
@@ -859,15 +855,12 @@ def check_paged(torch, paged, dev, results, heads=(28, 4, 128), tag=()):
                 plain_ms = cuda_ms(torch, lambda i: plain(
                     q, *copies[i % n_copy], 0), 5)
                 del copies
-                pages, keys = live_extent(lens_l, 0, BS)
-                page_bytes = BS * KV * kpp.shape[3] * kpp.element_size()
-                nbytes = (2 * pages * page_bytes + 2 * q.numel() * 2
-                          + bt.numel() * 4 + B * 4)
-                if kv_bits:
-                    nbytes += 2 * pages * KV * 4
-                flops = 4.0 * H * hd * keys
-                bms, by = bound_ms(nbytes, flops,
-                                   "int8" if kv_bits else "bf16")
+                pages, keys = kc.live_extent(lens_l, 0, BS)
+                cost = kc.paged_attention(
+                    B, H, KV, hd, BS, kpp.shape[3] * kpp.element_size(),
+                    MAXB, pages, keys, q_bytes=q.element_size(),
+                    kv_bits=kv_bits)
+                bms, by = kc.bound_ms(cost)
                 lib, lib_note = None, ("no one-call PyTorch equivalent "
                                        "over int codes")
                 if not kv_bits:
@@ -894,7 +887,7 @@ def check_paged(torch, paged, dev, results, heads=(28, 4, 128), tag=()):
                     del gath
                 say(f"{label}: ms {t}, plain_ms {plain_ms:.4f}, "
                     f"bound_ms {bms:.4f} ({by}; {pages} live pages, "
-                    f"{nbytes / 1e6:.2f} MB), library_ms {lib} "
+                    f"{cost.bytes / 1e6:.2f} MB), library_ms {lib} "
                     f"({lib_note})")
                 results[(name, kv_bits) + tag] = dict(
                     ms=t.ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
@@ -926,6 +919,7 @@ def check_panel_batched(torch, panel, dev, results, E: int):
     expert's sweep) and against E single-expert launches of the kernel,
     which must give the same result bit for bit; timed beside the E
     single launches."""
+    from repro_torch.roofline import kernels as kc
     gen = torch.Generator(device=dev).manual_seed(11)
     B = 256
     for n in MOE_PANEL_N:
@@ -947,15 +941,14 @@ def check_panel_batched(torch, panel, dev, results, E: int):
                                         for pa in parts], 5)
         plain_ms = cuda_ms(torch, lambda i: panel.comq_panel_dq_plain(
             *args), 1)
-        nbytes = 4 * E * (B * B + 2 * B * n + 3 * n + B) + 4 * 2 * E * B * n
-        flops = E * 2.0 * n * B * (B - 1) / 2
-        bms, by = bound_ms(nbytes, flops, "f32")
+        cost = kc.comq_panel(B, n, E)
+        bms, by = kc.bound_ms(cost)
         say(f"kernel comq_panel batched E={E} B={B} n={n} 4-bit: code "
             f"agreement with plain {agree:.6f} (need >= "
             f"{PANEL_MIN_CODE_AGREEMENT}), max|dq code| {err}; equal to {E} "
             f"single launches bit for bit: {same}; ms {t}; {E} single "
             f"launches ms {loop}; plain_ms {plain_ms:.3f}; bound_ms "
-            f"{bms:.4f} ({by}, {nbytes / 1e6:.1f} MB); library_ms null")
+            f"{bms:.4f} ({by}, {cost.bytes / 1e6:.1f} MB); library_ms null")
         check(agree >= PANEL_MIN_CODE_AGREEMENT,
               f"batched comq_panel E={E} n={n}: code agreement {agree}")
         check(same, f"batched comq_panel E={E} n={n} differs from {E} "
@@ -1645,6 +1638,7 @@ def time_plain_scan(torch, dev, cfg):
     x (bf16) in, y (f32) and h out once, the x / dt / B / C projections
     and ~7 f32 operations a (token, channel, state) element."""
     from repro_torch.models import ssm as ssm_mod
+    from repro_torch.roofline import kernels as kc
     gen = torch.Generator(device=dev).manual_seed(9)
     p = ssm_mod.init_ssm(gen, cfg, dev)
     sel = {k: p[k] for k in ("w_xproj", "w_dt", "b_dt", "a_log")}
@@ -1658,11 +1652,8 @@ def time_plain_scan(torch, dev, cfg):
         ms = cuda_ms(torch, lambda i: ssm_mod._ssm_recurrence(
             sel, xi, h0, cfg=cfg, chunk=T), 5)
         peak = torch.cuda.max_memory_allocated(dev) - base
-        nbytes = (2 * xi.numel() + 4 * B * T * di + 2 * 4 * h0.numel()
-                  + 4 * sum(v.numel() for v in sel.values()))
-        flops = (2.0 * B * T * di * (dt_rank + 2 * n)
-                 + 2.0 * B * T * dt_rank * di + 7.0 * B * T * di * n)
-        bms, by = bound_ms(nbytes, flops, "f32")
+        bms, by = kc.bound_ms(kc.ssm_scan(
+            B, T, di, n, dt_rank, sum(v.numel() for v in sel.values())))
         say(f"plain selective scan B={B} T={T} d_inner={di} N={n} (one "
             f"chunk): ms {ms:.4f} (eager mean), bound_ms {bms:.4f} ({by}), "
             f"peak memory above its inputs {peak / 2 ** 20:.0f} MiB; no "
@@ -1914,6 +1905,7 @@ def time_plain_wkv(torch, dev, cfg):
     output out once (f32), the state in and out, and ~5 f32 operations a
     (token, head, k, v) element."""
     from repro_torch.models import rwkv as rwkv_mod
+    from repro_torch.roofline import kernels as kc
     gen = torch.Generator(device=dev).manual_seed(12)
     d, H, hd = rwkv_mod._dims(cfg)
     for B, T, C, iters in ((8, PROMPT, 16, 10), (8, 1, 1, 50),
@@ -1925,8 +1917,7 @@ def time_plain_wkv(torch, dev, cfg):
         s0 = torch.randn(B, H, hd, hd, generator=gen, device=dev)
         ms = cuda_ms(torch, lambda i: rwkv_mod._wkv_scan(
             r, k, v, logw, u, s0, chunk=C), iters)
-        nbytes = 4 * (5 * B * T * d + 2 * s0.numel() + u.numel())
-        bms, by = bound_ms(nbytes, 5.0 * B * T * H * hd * hd, "f32")
+        bms, by = kc.bound_ms(kc.wkv(B, T, H, hd, d))
         say(f"plain wkv B={B} T={T} chunk {C} H={H} hd={hd} (one layer): "
             f"ms {ms:.4f} (eager mean of {iters}), bound_ms {bms:.4f} "
             f"({by}); no kernel in either package (ROADMAP Queue B)")
@@ -3095,33 +3086,6 @@ def dist_leaves(torch, qa, qb):
     return out
 
 
-class DistCounter:
-    """Counts torch.distributed collectives while `on`, and while a
-    decode step runs (`in_step`)."""
-    NAMES = ("all_reduce", "all_gather", "all_gather_into_tensor",
-             "all_gather_object", "broadcast", "reduce_scatter",
-             "reduce_scatter_tensor", "all_to_all", "barrier", "send", "recv")
-
-    def __init__(self, dist):
-        self.calls = {n: 0 for n in self.NAMES}
-        self.in_step = 0
-        self.step_flag = False
-        for n in self.NAMES:
-            if hasattr(dist, n):
-                setattr(dist, n, self._wrap(n, getattr(dist, n)))
-
-    def _wrap(self, name, fn):
-        def wrapper(*a, **k):
-            self.calls[name] += 1
-            self.in_step += self.step_flag
-            return fn(*a, **k)
-        return wrapper
-
-    def reset(self):
-        self.calls = dict.fromkeys(self.calls, 0)
-        self.in_step = 0
-
-
 def dist_quantize(torch, dev, cfg, mesh, ops, res, key, **kw):
     """quantize_and_eval on this rank (comq_blocked, calibration
     8 x PROMPT, phase 4's spec) with a metrics registry; with a mesh its
@@ -3304,14 +3268,16 @@ def dist_gram_allreduce(torch, dev, dist, res):
     del h
 
 
-def dist_serve(torch, dev, dist, ops, counter, res, qpk):
+def dist_serve(torch, dev, dist, ops, res, qpk):
     """(e) Runtime(mesh=) over the model axis on phase 4's packed model
     from its .qpk: the phase-8 traffic at f32 kv 0 and 8 (tokens against
-    the meshless runtime's, on rank 0), then bf16 kv 4; paged launches and
-    the collectives inside decode_step counted."""
+    the meshless runtime's, on rank 0), then bf16 kv 4; paged launches
+    counted, and the collectives by `analysis.census`: those inside
+    decode_step (under its record_function scope) and the token gathers."""
     import numpy as np
     from torch.distributed.device_mesh import init_device_mesh
 
+    from repro_torch.analysis.census import Census
     from repro_torch.ckpt.quantized import load_packed_ckpt, unpack_tree
     from repro_torch.configs import get_config
     from repro_torch.core.apply import serving_params
@@ -3331,11 +3297,8 @@ def dist_serve(torch, dev, dist, ops, counter, res, qpk):
     orig = rt_mod.decode_step_paged
 
     def step(*a, **k):
-        counter.step_flag = True
-        try:
+        with torch.profiler.record_function("decode_step_paged"):
             return orig(*a, **k)
-        finally:
-            counter.step_flag = False
 
     rt_mod.decode_step_paged = step
     out = {}
@@ -3352,15 +3315,15 @@ def dist_serve(torch, dev, dist, ops, counter, res, qpk):
                     continue
                 rt = Runtime(sp, c, plan, serve_config(), device=dev,
                              mesh=m)
-                counter.reset()
                 ops.reset_launch_counts()
                 t0 = time.time()
-                reqs = [rt.submit(p, max_new_tokens=SERVE_NEW)
-                        for p in prompts[:SERVE_SLOTS]]
-                for p in prompts[SERVE_SLOTS:]:
-                    rt.step()
-                    reqs.append(rt.submit(p, max_new_tokens=SERVE_NEW))
-                rt.run()
+                with Census() as census:
+                    reqs = [rt.submit(p, max_new_tokens=SERVE_NEW)
+                            for p in prompts[:SERVE_SLOTS]]
+                    for p in prompts[SERVE_SLOTS:]:
+                        rt.step()
+                        reqs.append(rt.submit(p, max_new_tokens=SERVE_NEW))
+                    rt.run()
                 wall = time.time() - t0
                 toks[tag] = [list(r.out_tokens) for r in reqs]
                 if tag == "mesh":
@@ -3368,8 +3331,10 @@ def dist_serve(torch, dev, dist, ops, counter, res, qpk):
                     for n, v in counts.items():
                         res["counts"][n] = res["counts"].get(n, 0) + v
                     out[label] = {"wall_s": wall, "steps": rt.steps,
-                                  "in_step": counter.in_step,
-                                  "gathers": counter.calls["all_gather"],
+                                  "in_step": sum(census.within(
+                                      "decode_step_paged").values()),
+                                  "gathers": census.counts.get("all_gather",
+                                                               0),
                                   "launches": counts,
                                   "pool_blocks": int(rt.pool["k"].shape[1])}
             out[label]["tokens"] = toks["mesh"]
@@ -3394,7 +3359,6 @@ def dist_worker(task: str, out_dir: str, backend: str, qpk: str) -> int:
     from repro_torch.launch.quantize import set_precision
     set_precision()
     dev, started = rd.init_world(backend, timeout_s=DIST_TIMEOUT)
-    counter = DistCounter(dist)
     r = dist.get_rank()
     res = {"rank": r, "world": dist.get_world_size(), "backend": backend,
            "counts": {}}
@@ -3417,13 +3381,15 @@ def dist_worker(task: str, out_dir: str, backend: str, qpk: str) -> int:
         # (b) model 2: the column-sharded walk against the meshless one
         mesh = rd.calib_mesh(model=2, data=1)
         dist_walk(torch, dev, dist, qwen, mesh, ops, res, "b", 1, 2)
-        # (c) data 2: one all-reduce a tap Gram
+        # (c) data 2: one all-reduce a tap Gram, by the collective census
+        from repro_torch.analysis.census import Census
         mesh = rd.calib_mesh(model=1, data=2)
-        counter.reset()
-        dist_walk(torch, dev, dist, qwen, mesh, ops, res, "c", 2, 1)
-        res["c"]["all_reduces"] = counter.calls["all_reduce"]
+        with Census() as census:
+            dist_walk(torch, dev, dist, qwen, mesh, ops, res, "c", 2, 1)
+        res["c"]["all_reduces"] = census.counts.get("all_reduce", 0)
+        res["c"]["census"] = census.counts
         res["c"]["taps"] = 4 * qwen.n_layers
-        dist_serve(torch, dev, dist, ops, counter, res, qpk)
+        dist_serve(torch, dev, dist, ops, res, qpk)
         dist_compressed(torch, dev, dist, res, "f")
     elif task == "world4":
         from repro_torch.models import moe as moe_mod
@@ -3624,7 +3590,8 @@ def phase_distribution(torch, ops, qpk: Path, card: str):
         f"{c['worst_agreement']:.6f} (printed, not gated), err_after rel "
         f"{c['err_rel']:.3e}, "
         f"|quant_loss - fp_loss| {c['loss_gap']:.4f}, all-reduces "
-        f"{c['all_reduces']} for {c['taps']} tap Grams, bytes "
+        f"{c['all_reduces']} for {c['taps']} tap Grams (census "
+        f"{c['census']}), bytes "
         f"{c['bytes']:.0f}; walk {c['s_per_layer']:.3f} s a layer vs "
         f"meshless {c1['s_per_layer']:.3f} ({card})")
     dist_agreement(c, "(c) qwen2-7b")
@@ -3810,7 +3777,9 @@ def check_flash_bwd(torch, flash, dev, results, card):
     (flash.plan_bwd); at qwen's training shape the forward is timed with
     and without its LSE write."""
     import torch.nn.functional as F
+
     from repro_torch.kernels import build
+    from repro_torch.roofline import kernels as kc
     gen = torch.Generator(device=dev).manual_seed(19)
     for B, Tq, Tk, H, KV, hd, causal, window, tag in BWD_CASES:
         kind = (f"causal window {window}" if causal and window else
@@ -3878,13 +3847,9 @@ def check_flash_bwd(torch, flash, dev, results, card):
                     lib_note += f", {how}"
                 except (TypeError, RuntimeError) as e:
                     lib_note = f"none ({type(e).__name__}: {e})"
-                pairs = (sum(min(t + 1, window or Tk) for t in range(Tq))
-                         if causal else Tq * Tk)
                 # reads q, dO, k, v and the LSE, writes dQ, dK, dV (bf16)
-                nbytes = (2 * 3 * q.numel() + 2 * 4 * k.numel()
-                          + 4 * B * H * Tq)
-                bms, by = bound_ms(nbytes, 10.0 * hd * B * H * pairs,
-                                   "bf16")
+                bms, by = kc.bound_ms(kc.flash_attention_bwd_of(
+                    q, k, causal=causal, window=window))
                 plan = flash.plan_bwd(B, Tq, Tk, H, KV, hd,
                                       build.sm_count(dev.index or 0))
                 fmt = lambda x: "null" if x is None else f"{x:.4f}"
@@ -4874,6 +4839,124 @@ def phase_training(torch, dev, ops, kernels, results, card):
     return counts, families
 
 
+# ---------------------------------------------------------------------------
+# phase 20: analysis (the contract gate on the card; a decode step's bytes
+# and roofline)
+# ---------------------------------------------------------------------------
+
+ANALYSIS_GATE_TIMEOUT = 900      # seconds the gate's process may take
+# (b), (c): phase 4's 2-layer qwen at full width, 8 slots each holding
+# ANALYSIS_LIVE tokens on 16-token pages of its own
+ANALYSIS_SLOTS, ANALYSIS_BS, ANALYSIS_MAXB = 8, 16, 256
+ANALYSIS_LIVE = 4000
+# predicted-over-counted bf16 / int8 decode-step bytes (PERF.md §6):
+# both sides share the weights and the KV pages; they differ by the
+# embedding table (predicted, not read), the lm_head's bf16 copy and the
+# eager int8 append's f32 page passes (counted, not predicted)
+ANALYSIS_RATIO_BAND = (0.9, 1.1)
+ANALYSIS_STEP_ITERS = 20
+
+
+def analysis_gate(card, work: Path):
+    """(a) `python -m repro_torch.analysis.cli --gate` on the card, in its
+    own process: the lint, every registry entry's contract (its census and
+    in-place audit) with its kernels launched, and the runtime's
+    signature budgets. Returns its --json results."""
+    import os
+    out = work / "gate.json"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.cli", "--gate",
+         "--json", str(out)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=ANALYSIS_GATE_TIMEOUT)
+    res = json.loads(out.read_text()) if out.exists() else {}
+    for line in proc.stdout.splitlines():
+        say(f"  gate: {line}")
+    if proc.returncode != 0:
+        say(proc.stderr[-3000:])
+    say(f"analysis (a) gate on the card: exit {proc.returncode}, "
+        f"{time.time() - t0:.1f} s wall incl. process start ({card})")
+    check(proc.returncode == 0 and res.get("failures") == 0,
+          f"(a) the analysis gate failed: exit {proc.returncode}")
+    contracts = res["contracts"]
+    check(len(contracts) == 9 and not any(
+        r["skipped"] or r["violations"] for r in contracts.values()),
+          f"(a) a registry entry was skipped or violated: {contracts}")
+    return res
+
+
+def phase_analysis(torch, dev, ops, sp, cfg, card):
+    """Phase 20. (a) the contract gate on the card; (b) one decode step of
+    phase 4's 2-layer qwen at full width (ANALYSIS_SLOTS slots at
+    ANALYSIS_LIVE tokens, bf16 and int8 pages): count_cost's bytes beside
+    decode_step_bytes(mode="pallas"), and the bf16-over-int8 ratio of the
+    two gated within ANALYSIS_RATIO_BAND; (c) that step's roofline_terms
+    beside its device time (CUDA events). Returns the gate's results."""
+    import tempfile
+
+    from repro_torch.models import BuildPlan
+    from repro_torch.models.model import decode_step_paged
+    from repro_torch.roofline.analysis import H100, count_cost, \
+        roofline_terms
+    from repro_torch.roofline.kv_bytes import (decode_step_bytes,
+                                               decode_step_inputs)
+    from repro_torch.serve import Runtime, ServeConfig
+    gate = analysis_gate(card, Path(tempfile.mkdtemp(
+        prefix="chip_smoke_analysis_")))
+    sc = ServeConfig(max_slots=ANALYSIS_SLOTS, block_size=ANALYSIS_BS,
+                     num_blocks=ANALYSIS_SLOTS * ANALYSIS_MAXB,
+                     buckets=(PROMPT,), max_blocks_per_slot=ANALYSIS_MAXB)
+    rows = {}
+    for kv_bits in (0, 8):
+        plan = BuildPlan(kv_bits=kv_bits)
+        rt = Runtime(sp, cfg, plan, sc, device=dev)
+        args = (rt.params, cfg, rt.plan, rt.pool,
+                *decode_step_inputs(rt, ANALYSIS_LIVE))
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            cost = count_cost(decode_step_paged, *args)
+            torch.cuda.synchronize()
+            counted = ops.launch_counts()
+            ms = cuda_ms(torch, lambda i: decode_step_paged(*args),
+                         ANALYSIS_STEP_ITERS)
+        pred = decode_step_bytes(
+            sp, cfg, plan, max_slots=ANALYSIS_SLOTS, block_size=ANALYSIS_BS,
+            max_blocks_per_slot=ANALYSIS_MAXB, num_blocks=sc.num_blocks,
+            mode="pallas", live_tokens=ANALYSIS_LIVE)
+        terms = roofline_terms(cost, H100, kind="bf16")
+        label = f"kv_bits={kv_bits} ({'int8' if kv_bits else 'bf16'} pages)"
+        attn = "paged_attention_quant" if kv_bits else "paged_attention"
+        check(counted[attn] == cfg.n_layers and counted["quant_matmul"] > 0,
+              f"(b) {label}: the counted step launched {counted}")
+        say(f"analysis (b) decode step {label}, {ANALYSIS_SLOTS} slots x "
+            f"{ANALYSIS_LIVE} tokens: count_cost bytes {cost.bytes_accessed:.0f}"
+            f", flops {cost.flops:.0f}; decode_step_bytes(pallas) total "
+            f"{pred['total']:.0f} (weights {pred['weights']:.0f}, kv "
+            f"{pred['kv_total']:.0f}, logits {pred['logits']:.0f}), per "
+            f"token {pred['per_token']:.0f}; launches {counted}")
+        say(f"analysis (c) decode step {label}: roofline_terms compute_s "
+            f"{terms['compute_s']:.6e}, memory_s {terms['memory_s']:.6e}, "
+            f"collective_s {terms['collective_s']:.6e}, dominant "
+            f"{terms['dominant']}, bound {terms['bound_s'] * 1e3:.4f} ms; "
+            f"measured {ms:.4f} ms a step (CUDA events, mean of "
+            f"{ANALYSIS_STEP_ITERS}), {terms['bound_s'] * 1e3 / ms:.3f} of "
+            f"the bound ({card})")
+        rows[kv_bits] = (cost.bytes_accessed, pred["total"])
+        del rt, args
+        torch.cuda.empty_cache()
+    measured = rows[0][0] / rows[8][0]
+    predicted = rows[0][1] / rows[8][1]
+    rr = predicted / measured
+    lo, hi = ANALYSIS_RATIO_BAND
+    say(f"analysis (b) bf16 / int8 decode-step bytes: predicted "
+        f"{predicted:.4f}, counted {measured:.4f}, ratio_of_ratios {rr:.4f} "
+        f"(gate [{lo}, {hi}])")
+    check(lo <= rr <= hi, f"(b) ratio_of_ratios {rr} outside [{lo}, {hi}]")
+    return gate
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5119,11 +5202,19 @@ def main() -> int:
     # 17. observability (its traced runs counted), on the phase-4 model
     obs_counts = phase_observability(torch, dev, ops, kernels, sp, cfg,
                                      prompts, card)
+
+    say(f"chip_smoke: phase 17 done at {time.time() - t_all:.1f} s")
+
+    # 20. analysis: the contract gate on the card, then the phase-4 model's
+    # decode-step bytes and roofline (not counted in the kernels line)
+    t0 = time.time()
+    phase_analysis(torch, dev, ops, sp, cfg, card)
+    say(f"analysis: phase 20 in {time.time() - t0:.1f} s")
     # the phase-4 model's last holders (~6.6 GiB: phase 8's runtimes serve
     # sp, phase 6 kept layer 0), so that phase 18's ranks find the card
     del sp, rt, solo_rt, reqs, lp, w, outs, free, pool, free_pool
 
-    say(f"chip_smoke: phase 17 done at {time.time() - t_all:.1f} s")
+    say(f"chip_smoke: phase 20 done at {time.time() - t_all:.1f} s")
 
     # 10. the MoE family: its kernels, then the MoE path, counted
     moe_cfg = get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS)

@@ -11,7 +11,8 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (ALL_SHAPES, SHAPES, ModelConfig,
+                                      ShapeConfig)
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE: Dict[str, Callable[[], ModelConfig]] = {}
@@ -49,10 +50,28 @@ def list_archs():
     return sorted(_REGISTRY)
 
 
+def shapes_for(cfg: ModelConfig):
+    """Which assigned shapes are runnable for this arch (JAX's rule: an
+    encoder has no decode, and the 500k decode needs bounded state)."""
+    out = []
+    for s in ALL_SHAPES:
+        if cfg.family == "encoder" and s.kind == "decode":
+            continue  # encoder-only: no autoregressive decode
+        if s.name == "long_500k" and not _subquadratic(cfg):
+            continue  # 500k decode needs bounded state
+        out.append(s)
+    return out
+
+
+def _subquadratic(cfg: ModelConfig) -> bool:
+    return bool(cfg.attn_free or cfg.ssm is not None or cfg.sliding_window)
+
+
 # import for registration side effects
 from repro_torch.configs import (  # noqa: E402,F401
     deepseek_67b, granite_moe_3b_a800m, h2o_danube_1_8b, hymba_1_5b,
     llama4_maverick_400b_a17b, llama_3_2_vision_90b, mistral_large_123b,
     musicgen_large, qwen2_7b, rwkv6_7b, vit_base_paper)
 
-__all__ = ["ModelConfig", "get_config", "get_smoke_config", "list_archs"]
+__all__ = ["ALL_SHAPES", "ModelConfig", "SHAPES", "ShapeConfig", "get_config",
+           "get_smoke_config", "list_archs", "shapes_for"]

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -81,6 +81,28 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str                 # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+# The four assigned LM shapes (identical across all ten archs).
+TRAIN_4K = ShapeConfig("train_4k", "train", 4096, 256)
+PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32_768, 32)
+DECODE_32K = ShapeConfig("decode_32k", "decode", 32_768, 128)
+LONG_500K = ShapeConfig("long_500k", "decode", 524_288, 1)
+
+ALL_SHAPES: Tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                       LONG_500K)
+SHAPES = {s.name: s for s in ALL_SHAPES}
 
 
 @dataclass(frozen=True)

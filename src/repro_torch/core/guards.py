@@ -83,6 +83,7 @@ class GuardContext:
 
 def nonfinite_count(x: Tensor) -> int:
     """Number of NaN/Inf entries (one scalar read)."""
+    # comq: allow(host-sync) sentinel: one small intentional read
     return int(torch.sum(~torch.isfinite(x)))
 
 
@@ -108,7 +109,7 @@ def gram_health(h: Tensor, w2ds: Sequence[Tensor] = ()
     diag = torch.diagonal(h, dim1=-2, dim2=-1)
     vals = [torch.sum(~torch.isfinite(h)), torch.sum(diag <= EPS)]
     vals += [torch.sum(~torch.isfinite(w)) for w in w2ds]
-    out = torch.stack(vals).tolist()
+    out = torch.stack(vals).tolist()  # comq: allow(host-sync) one read a Gram
     return int(out[0]), int(out[1]), [int(v) for v in out[2:]]
 
 
@@ -202,6 +203,7 @@ def guarded_solve(h: Tensor, w2d: Tensor, spec: QuantSpec, method: str, *,
         if n_badw:
             for nm in names:
                 gctx.record(layer, nm, "nonfinite_weight", count=n_badw)
+        # comq: allow(host-sync) sentinel: one scalar per guarded solve
         n_dead = int(torch.sum(torch.diagonal(h) <= EPS))
         if n_dead:
             for nm in names:

@@ -701,12 +701,14 @@ class _RunCtx:
         without a journal the walk stays sync-free."""
         if self.journal is None:
             return results
+        # comq: allow(host-sync) a journaled walk pulls each group once
         errs = torch.stack([torch.stack([torch.as_tensor(eb).float(),
                                          torch.as_tensor(ea).float()])
                             for _, eb, ea, *_ in results]).cpu().tolist()
         rows = []
         for nm, spec, (qt, _, _, secs, wall), (ebf, eaf) in zip(
                 names, specs, results, errs):
+            # comq: allow(host-sync) the spilled leaf, with its group's pull
             qt_host = {k: v.detach().cpu().numpy()
                        if isinstance(v, Tensor) else v for k, v in qt.items()}
             fname, crc = self.journal.spill_leaf(
@@ -748,6 +750,7 @@ def _timed_solve(ctx: _RunCtx, layer: int, tapname: str, names,
                          tap=tapname, leaves=",".join(names)) as sp:
         results = solve_thunk()
         if ctx.device.type == "cuda":
+            # comq: allow(host-sync) the traced span waits for its solve
             torch.cuda.current_stream(ctx.device).synchronize()
         wall = sp.elapsed_s / max(len(results), 1)
     ctx.m_leaves.inc(len(results))
@@ -896,6 +899,7 @@ def _finalize_report(report: QuantReport, pending: List[tuple],
     from the host values, never mid-walk."""
     on_dev = [v for row in pending for v in row[2:4]
               if isinstance(v, Tensor)]
+    # comq: allow(host-sync) one transfer for the whole walk's errors
     host = iter(torch.stack([v.float() for v in on_dev]).cpu().tolist()
                 if on_dev else ())
     h_err = metrics.histogram("quant.leaf_err_after")

@@ -57,6 +57,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.roofline.analysis import charged
+from repro_torch.roofline.kernels import flash_attention_bwd_of
 
 Tensor = torch.Tensor
 NAME = "flash_attention"
@@ -257,9 +259,11 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, do, lse,
-                                              causal=ctx.causal,
-                                              window=ctx.window)
+        with charged(flash_attention_bwd_of, q, k, causal=ctx.causal,
+                     window=ctx.window):
+            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, do, lse,
+                                                  causal=ctx.causal,
+                                                  window=ctx.window)
         return dq, dk, dv, None, None
 
 

@@ -5,6 +5,14 @@ the Hopper kernel, which launches or raises. There is no fallback from the
 kernel to the plain version and no switch that selects the plain version
 for a CUDA tensor. Kernels are built and imported at first launch, never
 when this module is imported.
+
+Under a running `roofline.analysis.count_cost` each call charges its
+kernel's cost function (`roofline/kernels.py`) and keeps the ops it runs,
+the plain version's included, out of the count: a call costs the same on
+the CPU as on the card, and on meta tensors (the plain version then
+gives the output's shape). On the CPU under autograd the plain attention
+then runs as `_CountedPlainAttention`, whose backward charges the
+backward kernel's cost; outside a count nothing changes.
 """
 from __future__ import annotations
 
@@ -14,12 +22,17 @@ from repro_torch.kernels import comq_panel as _panel
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import quant_matmul as _qmm
+from repro_torch.roofline import kernels as _cost
+from repro_torch.roofline.analysis import charged, counting
 
 Tensor = torch.Tensor
 
 
 def _plain(t: Tensor) -> bool:
-    return t.device.type == "cpu"
+    """CPU tensors take the plain version; so do meta tensors under a
+    running count, which then only needs the output's shape."""
+    return t.device.type == "cpu" or (t.device.type == "meta"
+                                      and counting())
 
 
 def comq_panel_dq(h_bb: Tensor, s0: Tensor, qf: Tensor, delta, z_lo, z_hi,
@@ -27,10 +40,12 @@ def comq_panel_dq(h_bb: Tensor, s0: Tensor, qf: Tensor, delta, z_lo, z_hi,
     """Fused intra-panel sweep returning (qf', ΔW) — the blocked solvers'
     default `panel_fn`; operands with a leading expert axis sweep every
     expert's panel in one call."""
-    if _plain(qf):
-        return _panel.comq_panel_dq_plain(h_bb, s0, qf, delta, z_lo, z_hi,
-                                          hdiag)
-    return _panel.comq_panel_dq_cuda(h_bb, s0, qf, delta, z_lo, z_hi, hdiag)
+    with charged(_cost.comq_panel_of, h_bb, s0, qf):
+        if _plain(qf):
+            return _panel.comq_panel_dq_plain(h_bb, s0, qf, delta, z_lo,
+                                              z_hi, hdiag)
+        return _panel.comq_panel_dq_cuda(h_bb, s0, qf, delta, z_lo, z_hi,
+                                         hdiag)
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
@@ -39,18 +54,24 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     Differentiable: on the CPU through the plain version's autograd
     graph, on the card through the forward kernel (with LSE) and the
     backward kernel."""
-    if _plain(q):
+    with charged(_cost.flash_attention_of, q, k, causal=causal,
+                 window=window):
+        if not _plain(q):
+            return _flash.flash_attention_cuda(q, k, v, causal=causal,
+                                               window=window)
+        if counting() and _needs_grad(q, k, v):
+            return _CountedPlainAttention.apply(q, k, v, causal, window)
         return _flash.flash_attention_plain(q, k, v, causal=causal,
                                             window=window)
-    return _flash.flash_attention_cuda(q, k, v, causal=causal, window=window)
 
 
 def quant_matmul(x: Tensor, codes: Tensor, scale: Tensor, z_lo: Tensor, *,
                  cpb: int) -> Tensor:
     """Y = X · (scale ⊙ (codes + z)) in f32; codes packed `cpb` per byte."""
-    if _plain(x):
-        return _qmm.quant_matmul_plain(x, codes, scale, z_lo, cpb=cpb)
-    return _qmm.quant_matmul_cuda(x, codes, scale, z_lo, cpb=cpb)
+    with charged(_cost.quant_matmul_of, x, codes, cpb=cpb):
+        if _plain(x):
+            return _qmm.quant_matmul_plain(x, codes, scale, z_lo, cpb=cpb)
+        return _qmm.quant_matmul_cuda(x, codes, scale, z_lo, cpb=cpb)
 
 
 def paged_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
@@ -59,11 +80,14 @@ def paged_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     """Decode attention over a paged KV pool (serve/kv_cache.py layout):
     q (B, H, hd), one query token per slot; block_tables (B, MAXB)
     physical page ids; lengths (B,) valid tokens (0 = inactive slot)."""
-    if _plain(q):
-        return _paged.paged_attention_plain(q, k_pool, v_pool, block_tables,
-                                            lengths, window=window)
-    return _paged.paged_attention_cuda(q, k_pool, v_pool, block_tables,
-                                       lengths, window=window)
+    with charged(_cost.paged_attention_of, q, k_pool, block_tables, lengths,
+                 window=window):
+        if _plain(q):
+            return _paged.paged_attention_plain(q, k_pool, v_pool,
+                                                block_tables, lengths,
+                                                window=window)
+        return _paged.paged_attention_cuda(q, k_pool, v_pool, block_tables,
+                                           lengths, window=window)
 
 
 def paged_attention_quant(q: Tensor, k_pool: Tensor, v_pool: Tensor,
@@ -73,13 +97,44 @@ def paged_attention_quant(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     """Decode attention over a quantized paged pool: integer codes (int8 /
     packed 4-bit) with (NB, KV) per-page scales, dequantized inside the
     kernel."""
-    if _plain(q):
-        return _paged.paged_attention_quant_plain(
+    with charged(_cost.paged_attention_of, q, k_pool, block_tables, lengths,
+                 window=window, kv_bits=kv_bits):
+        if _plain(q):
+            return _paged.paged_attention_quant_plain(
+                q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths,
+                window=window, kv_bits=kv_bits)
+        return _paged.paged_attention_quant_cuda(
             q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths,
             window=window, kv_bits=kv_bits)
-    return _paged.paged_attention_quant_cuda(
-        q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths,
-        window=window, kv_bits=kv_bits)
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class _CountedPlainAttention(torch.autograd.Function):
+    """The plain attention on CPU tensors under a running count: the
+    forward as `flash_attention_plain`, the backward its autograd graph
+    recomputed, charged as the backward kernel (the ops inside uncounted).
+    The same ops as the direct graph, so the same gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _flash.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        with charged(_cost.flash_attention_bwd_of, q, k, causal=ctx.causal,
+                     window=ctx.window), torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = _flash.flash_attention_plain(*leaves, causal=ctx.causal,
+                                               window=ctx.window)
+            grads = torch.autograd.grad(out, leaves, do)
+        return (*grads, None, None)
 
 
 # every kernel: (module, its name attribute, its launch-counter attribute)

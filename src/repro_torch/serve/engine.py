@@ -52,4 +52,4 @@ class Engine:
                 logits, cache = decode_step(self.params, self.cfg, self.plan,
                                             cache, nxt[:, None].long(),
                                             T + i)
-        return out.cpu().numpy()
+        return out.cpu().numpy()  # comq: allow(host-sync) the result

@@ -43,7 +43,11 @@ uninterrupted run.
 Per decode step the host uploads the tokens and positions, re-uploads
 the block tables only when they changed, and pulls the sampled tokens:
 that pull is the step's one host sync. The observability hooks read host
-values only and add none.
+values only and add none. The decode step and each prefill bucket run
+under signature budgets (`analysis.retrace.guard_fn`, JAX's
+`serve.decode_step` and `serve.prefill[bucket]` guards): one (shape,
+dtype) signature each for the runtime's life, which is what a CUDA-graph
+capture of the step would need.
 
 Slot+page sharding (`mesh`, a DeviceMesh with a "model" axis of tp over
 the SPMD ranks), as in the JAX runtime: the partitioned allocator gives
@@ -66,6 +70,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.retrace import guard_fn
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.ft.inject import InjectedFault, SimulatedKill
 from repro_torch.ft.journal import Journal
@@ -220,6 +225,10 @@ class Runtime:
         self._bt_dev = None
         self._bt_dirty = True
         self._any_sampling = False   # any live slot with temperature > 0
+        # signature budgets: one for the decode step, one a prefill bucket
+        self._decode = guard_fn(_decode_step, name="serve.decode_step",
+                                max_signatures=1)
+        self._prefills = {}
         # run() metrics
         self.steps = 0
         self.decode_seconds = 0.0
@@ -315,8 +324,13 @@ class Runtime:
         # cache capacity >= bucket: the right-pad rows must not ring-evict
         # real rows before the scatter drops them
         plan = self.plan.replace(prefill_cache_len=bucket)
-        logits, _, cache = forward(self.params, self.cfg, plan,
-                                   self._upload(tokens), make_cache=True)
+        fn = self._prefills.get(bucket)
+        if fn is None:
+            fn = self._prefills[bucket] = guard_fn(
+                _prefill_forward, name=f"serve.prefill[{bucket}]",
+                max_signatures=1)
+        logits, _, cache = fn(self.params, self.cfg, plan,
+                              self._upload(tokens))
         kv = cache["kv"]
         k_seq = torch.stack([c.k[0] for c in kv])
         v_seq = torch.stack([c.v[0] for c in kv])
@@ -457,7 +471,7 @@ class Runtime:
         # holds the step's kernels
         with self.tracer.span("decode_step", device=True, step=self.steps,
                               slots=len(running)):
-            logits, self.pool = decode_step_paged(
+            logits, self.pool = self._decode(
                 self.params, self.cfg, self.plan, self.pool, self._bt_dev,
                 self._upload(self._tok[rows, None]),
                 self._upload(self._pos[rows]))
@@ -470,7 +484,8 @@ class Runtime:
                 toks = torch.argmax(logits, dim=-1)
             if self._tp > 1:
                 toks = self._gather_tokens(toks)
-            toks = toks.cpu().numpy()    # the step's one host sync
+            # comq: allow(host-sync) the step's one host sync: its tokens
+            toks = toks.cpu().numpy()
         now = time.time()
         self.steps += 1
         self.decode_seconds += now - t0
@@ -568,6 +583,16 @@ class Runtime:
                 for p in prompts]
         self.run()
         return [np.asarray(r.out_tokens, np.int32) for r in reqs]
+
+
+def _decode_step(*args):
+    """`decode_step_paged`, looked up when called (so a patched one runs)."""
+    return decode_step_paged(*args)
+
+
+def _prefill_forward(params, cfg, plan, tokens):
+    """The prefill forward of one right-padded request, with its cache."""
+    return forward(params, cfg, plan, tokens, make_cache=True)
 
 
 def recover_runtime(params, cfg, plan, journal_dir: str,

@@ -1374,3 +1374,117 @@ def test_column_sharded_solve_is_bit_identical_to_one_rank(cuda, m, n, tp):
                             "comq_blocked", 256)
         for i, name in enumerate(("q", "delta", "z_lo")):
             assert torch.equal(whole[i][..., lo:hi], part[i]), (r, name)
+
+
+# ---------------------------------------------------------------------------
+# the roofline's cost charge and the contract gate, on the card
+# ---------------------------------------------------------------------------
+
+def _charged_calls(dev):
+    """(name, call) of every kernel's ops.* entry on `dev`, the same seeded
+    inputs on any device."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.kv_cache import kv_encode, kv_scale_of
+    g = torch.Generator().manual_seed(1)
+    B, n = 16, 24
+    x = torch.randn(4 * B, B, generator=g)
+    h = x.T @ x / (4 * B) + 0.1 * torch.eye(B)
+    panel = [h, torch.randn(B, n, generator=g),
+             torch.randn(B, n, generator=g) * 3, torch.full((n,), 0.1),
+             torch.full((n,), -8.0), torch.full((n,), 7.0),
+             torch.diagonal(h).contiguous()]
+    codes, cpb = pack_codes(torch.randint(0, 16, (32, 24), generator=g,
+                                          dtype=torch.uint8), 4)
+    qmm = [torch.randn(5, 32, generator=g), codes,
+           torch.rand(24, generator=g), torch.full((24,), -8.0)]
+    att = [torch.randn(2, 9, h_, 16, generator=g) for h_ in (6, 2, 2)]
+    q = torch.randn(3, 4, 16, generator=g)
+    kp, vp = (torch.randn(15, 8, 2, 16, generator=g) for _ in range(2))
+    bt = torch.randperm(15, generator=g).reshape(3, 5).int()
+    lens = torch.tensor([7, 0, 37], dtype=torch.int32)
+    quant = {}
+    for bits in (8, 4):
+        ks, vs = (kv_scale_of(p.abs().amax(dim=(1, 3)), bits)
+                  for p in (kp, vp))
+        quant[bits] = [q, kv_encode(kp, ks[:, None], bits),
+                       kv_encode(vp, vs[:, None], bits), ks, vs, bt, lens]
+    # on the device before the count: a copy would count as an op
+    panel, qmm, att, paged, q8, q4 = ([t.to(dev) for t in ts] for ts in (
+        panel, qmm, att, [q, kp, vp, bt, lens], quant[8], quant[4]))
+    return [
+        ("comq_panel", lambda: ops.comq_panel_dq(*panel)),
+        ("quant_matmul", lambda: ops.quant_matmul(*qmm, cpb=cpb)),
+        ("flash_attention", lambda: ops.flash_attention(*att, window=4)),
+        ("paged_attention", lambda: ops.paged_attention(*paged)),
+        ("paged_attention_quant int8", lambda: ops.paged_attention_quant(
+            *q8, kv_bits=8)),
+        ("paged_attention_quant 4-bit", lambda: ops.paged_attention_quant(
+            *q4, kv_bits=4)),
+    ]
+
+
+@pytest.mark.parametrize("i", range(6))
+def test_count_cost_of_a_kernel_call_equals_the_cpu_count(cuda, i):
+    """count_cost charges the kernel on CUDA tensors exactly what it charges
+    the plain version on the CPU's: the kernel's cost function."""
+    from repro_torch.kernels import ops
+    from repro_torch.roofline.analysis import count_cost
+    name, call = _charged_calls(torch.device("cpu"))[i]
+    want = count_cost(call)
+    ops.reset_launch_counts()
+    got = count_cost(_charged_calls(cuda)[i][1])
+    torch.cuda.synchronize()
+    assert (got.flops, got.bytes_accessed) == (want.flops,
+                                               want.bytes_accessed), name
+    assert sum(ops.launch_counts().values()) == 1, name
+
+
+def test_count_cost_of_the_backward_equals_the_cpu_count(cuda):
+    """Forward and backward kernel under autograd on the card, the plain
+    version's graph on the CPU: the same count, fwd + bwd cost."""
+    from repro_torch.kernels import ops
+    from repro_torch.roofline import kernels as kc
+    from repro_torch.roofline.analysis import count_cost
+    g = torch.Generator().manual_seed(3)
+    host = [torch.randn(2, 12, h_, 16, generator=g) for h_ in (6, 2, 2)]
+    do = torch.randn(2, 12, 6, 16, generator=g)
+    counts = []
+    for dev in (torch.device("cpu"), cuda):
+        q, k, v = (t.to(dev).requires_grad_(True) for t in host)
+        do_dev = do.to(dev)
+
+        def step():
+            out = ops.flash_attention(q, k, v, causal=True, window=5)
+            torch.autograd.grad(out, (q, k, v), do_dev)
+
+        c = count_cost(step)
+        counts.append((c.flops, c.bytes_accessed))
+    fwd = kc.flash_attention_of(host[0], host[1], causal=True, window=5)
+    bwd = kc.flash_attention_bwd_of(host[0], host[1], causal=True, window=5)
+    assert counts[0] == counts[1] == (fwd.flops + bwd.flops,
+                                      fwd.bytes + bwd.bytes)
+
+
+LOCAL_ENTRIES = ["serve.decode_step", "serve.decode_step_q8",
+                 "serve.prefill", "serve.prefill_write",
+                 "solver.comq_blocked", "train.step"]
+WORLD_ENTRIES = ["dist.gram", "dist.solve", "serve.decode_step_q8_tp"]
+
+
+@pytest.mark.parametrize("name", LOCAL_ENTRIES)
+def test_registry_entry_passes_on_the_card(cuda, name):
+    """The contract holds on CUDA tensors and the entry launched its
+    kernels (run_gate checks both)."""
+    from repro_torch.analysis.registry import ENTRIES, run_gate
+    assert sorted(LOCAL_ENTRIES + WORLD_ENTRIES) == sorted(ENTRIES)
+    (res,) = run_gate([name], device=cuda)
+    assert res.ok and not res.skipped, res.violations
+    assert all(res.launches.get(k) for k in ENTRIES[name].kernels)
+
+
+def test_registry_world_entries_pass_on_the_card(cuda):
+    """The dist.* entries and the sharded decode step in a gloo world of 2
+    ranks sharing the card."""
+    from repro_torch.analysis.registry import run_gate
+    for res in run_gate(WORLD_ENTRIES, device=cuda):
+        assert res.ok and not res.skipped, (res.name, res.violations)
