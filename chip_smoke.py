@@ -314,6 +314,30 @@ no result line):
    Every kernel bound of phases 3-19 is `roofline.kernels.bound_ms` of
    the kernel's cost function.
 
+21. tensor-parallel padding — runs last, after phase 19. (a) the kernels
+   at the padded head maps, against their plain versions with phase 3's
+   and 19(a)'s gates and timings: flash forward (bf16 timed, f32
+   checked) and backward at hymba-1.5b's map at tp = 16 (25 heads padded
+   to 32 over 5 KV heads: KV head 0 serves 12, the others 5), B=8 T=128
+   and B=1 T=2048 with the window of 1024; both paged kernels at
+   qwen2-7b's map at tp = 3 (28 -> 30 over 4: groups 9/7/7/7) with phase
+   3's page layout; SDPA over K/V expanded by the map beforehand (not
+   timed) the library yardstick. (b) hymba at BuildPlan(tp=16), n_layers
+   32 -> 4, from init_params(seed=0): a prefill of 8x128 and 16 decode
+   steps and one training step of 1x2048 (the padded path, counted),
+   then decode against the plain versions (bf16 and f32, the layers in
+   lockstep under the precision gates) and the step's gradient as
+   19(g)'s. (c) qwen2-7b at BuildPlan(tp=3), n_layers 28 -> 2, 4-bit RTN
+   codes: the phase-8 traffic through the paged Runtime at kv_bits 0, 8
+   and 4 (counted; all 16 requests run to their length), then phase 7's
+   paged decode against the plain versions in lockstep. (d) phase
+   19(d)'s step-5 state restored with `restore(shardings=)` through
+   `Trainer(shard_state_fn=)` on an nccl world of one: the resumed
+   losses equal the unsharded resume's bit for bit. (e) the dry run of
+   qwen2-7b at its four shapes on both production meshes, on the meta
+   device in processes that see no card (started with the phase):
+   per_device_total_gb and the roofline report's rows (collectives n/a).
+
 Launch counts: the quantize-and-decode path (phases 4-5), the serve path
 (phase 8), the policy path (phase 9a), the durability runs (phase 16:
 its quantize walks, then its serve runs), the observability runs (phase
@@ -321,8 +345,8 @@ its quantize walks, then its serve runs), the observability runs (phase
 hybrid path (phase 11 b-d), the audio path (phase 12), the rwkv path
 (phase 13), the vlm path (phase 14), the encoder path (phase 15) and
 every rank's runs of phase 18 (its sharded walks and runtime) and the
-training path (phase 19 b-c) and each family's steps (19g) are each
-counted from 0; the forward kernels and the backward kernel must launch
+training path (phase 19 b-c), each family's steps (19g) and the padded
+paths (21 b, c) are each counted from 0; the forward kernels and the backward kernel must launch
 on the training path, once a layer a step on each family's; every
 forward kernel must launch on the main path as a
 whole, each of the five on the MoE and audio paths, the three of the
@@ -333,6 +357,7 @@ Then one JSON line of the kernels (the expert-batched panel launch and
 hymba's, musicgen's, rwkv's, the VLM's and the encoder's new shapes as
 entries of their own, with their path's launches; the backward at
 granite's, hymba's, musicgen's and vit's shapes with their steps'
+launches; the head-map variants of phase 21 with the padded paths'
 launches), and last the device line.
 """
 from __future__ import annotations
@@ -604,44 +629,63 @@ def check_panel(torch, panel, dev, results, cases=QWEN_PANEL_CASES):
                             bound_by=by, library_ms=None, max_abs_err=err)
 
 
+def expand_heads(torch, k, head_map):
+    """K or V (B, T, KV, hd) expanded to one row a query head by the
+    head map (a host tuple): the library yardstick's input, made outside
+    its timed window."""
+    idx = torch.tensor(head_map, device=k.device)
+    return k[:, :, idx].contiguous()
+
+
 def check_flash(torch, flash, dev, results, heads=(28, 4, 128), tag=(),
                 shapes=((8, PROMPT), (1, SERVE_BUCKETS[-1])), window=0,
-                causal=True):
+                causal=True, head_map=None):
     """bf16 (the main path, tensor cores) at `shapes` ((B, T), or (B, Tq,
     Tk) for Tq != Tk: by default the quantize/decode shape B=8, T=128 and
     the serve-prefill shape B=1, T=512), each timed; then the f32
     (CUDA-core) kernel at the first shape, checked only. `heads` is (H,
     KV, hd); `window` the sliding window (0: full causal); `causal=False`
     attends every query to every key (the encoder, the VLM's cross
-    layers); `tag` extends the result keys."""
+    layers); `head_map` a tensor-parallel plan's uneven map (a host
+    tuple; SDPA then runs over K/V expanded by it beforehand, the
+    expansion not timed); `tag` extends the result keys."""
     import torch.nn.functional as F
 
     from repro_torch.roofline import kernels as kc
     gen = torch.Generator(device=dev).manual_seed(2)
     H, KV, hd = heads
     kind = f"causal window {window}" if causal else "non-causal"
+    if head_map is not None:
+        kind += f", head map {head_map}"
+    hm = dict(head_map=head_map)
     for shape in shapes:
         B, Tq, Tk = shape if len(shape) == 3 else (*shape, shape[1])
         q = torch.randn(B, Tq, H, hd, generator=gen, device=dev).bfloat16()
         k = torch.randn(B, Tk, KV, hd, generator=gen, device=dev).bfloat16()
         v = torch.randn(B, Tk, KV, hd, generator=gen, device=dev).bfloat16()
         got = flash.flash_attention_cuda(q, k, v, causal=causal,
-                                         window=window).float()
+                                         window=window, **hm).float()
         want = flash.flash_attention_plain(q, k, v, causal=causal,
-                                           window=window).float()
+                                           window=window, **hm).float()
         torch.cuda.synchronize()
         diff = (got - want).abs()
         err = float(diff.max())
         ok = bool((diff <= FLASH_BF16_RTOL * want.abs()
                    + FLASH_BF16_ATOL).all())
         t = Timing(torch, lambda i: flash.flash_attention_cuda(
-            q, k, v, causal=causal, window=window), 50)
+            q, k, v, causal=causal, window=window, **hm), 50)
         plain_ms = cuda_ms(torch, lambda i: flash.flash_attention_plain(
-            q, k, v, causal=causal, window=window), 10)
+            q, k, v, causal=causal, window=window, **hm), 10)
         lib = None
         lib_note = (f"scaled_dot_product_attention, GQA, "
                     f"{'causal' if causal else 'non-causal'}")
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        kl, vl = k, v
+        if head_map is not None:
+            kl, vl = (expand_heads(torch, x, head_map) for x in (k, v))
+            lib_note = (f"scaled_dot_product_attention over K/V expanded "
+                        f"by the map beforehand (not timed), "
+                        f"{'causal' if causal else 'non-causal'}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, kl, vl))
         # the window as a boolean mask (SDPA has no window argument)
         mask = (flash.attention_mask(Tq, Tk, True, window, dev) if window
                 else None)
@@ -650,7 +694,8 @@ def check_flash(torch, flash, dev, results, heads=(28, 4, 128), tag=(),
         try:
             lib = Timing(torch, lambda i: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask,
-                is_causal=causal and mask is None, enable_gqa=True), 50)
+                is_causal=causal and mask is None,
+                enable_gqa=head_map is None), 50)
         except TypeError:   # torch without enable_gqa: no one-call yardstick
             lib_note = "torch has no enable_gqa"
         bms, by = kc.bound_ms(kc.flash_attention_of(q, k, causal=causal,
@@ -671,8 +716,10 @@ def check_flash(torch, flash, dev, results, heads=(28, 4, 128), tag=(),
     q = torch.randn(B, Tq, H, hd, generator=gen, device=dev)
     k, v = (torch.randn(B, Tk, KV, hd, generator=gen, device=dev)
             for _ in range(2))
-    got = flash.flash_attention_cuda(q, k, v, causal=causal, window=window)
-    want = flash.flash_attention_plain(q, k, v, causal=causal, window=window)
+    got = flash.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                     **hm)
+    want = flash.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                       **hm)
     torch.cuda.synchronize()
     diff = (got - want).abs()
     err = float(diff.max())
@@ -753,11 +800,13 @@ def check_qmm(torch, qmm, dev, results, cases):
             library_ms=lib.ms, max_abs_err=err)
 
 
-def check_paged(torch, paged, dev, results, heads=(28, 4, 128), tag=()):
+def check_paged(torch, paged, dev, results, heads=(28, 4, 128), tag=(),
+                head_map=None):
     """Both paged-attention kernels against their plain versions at the
     serve shapes: bf16 (main path) and f32 q, window 0 and 1024, bf16 /
     f32 pages and int8 / 4-bit codes; times at bf16, window 0. `heads` is
-    (H, KV, hd); `tag` extends the result keys."""
+    (H, KV, hd); `head_map` a tensor-parallel plan's uneven map (a host
+    tuple); `tag` extends the result keys."""
     import torch.nn.functional as F
 
     from repro_torch.roofline import kernels as kc
@@ -791,22 +840,23 @@ def check_paged(torch, paged, dev, results, heads=(28, 4, 128), tag=()):
             f"{paged.quant_kernel(torch.bfloat16, kv_bits, hd, BS)}, f32 q "
             f"-> {paged.quant_kernel(torch.float32, kv_bits, hd, BS)}")
 
+    hm = dict(head_map=head_map)
     for name, kv_bits, kp, vp, ks, vs in variants:
         def kernel(q, kp, vp, window):
             if kv_bits:
                 return paged.paged_attention_quant_cuda(
                     q, kp, vp, ks, vs, bt, lens, window=window,
-                    kv_bits=kv_bits)
+                    kv_bits=kv_bits, **hm)
             return paged.paged_attention_cuda(q, kp, vp, bt, lens,
-                                              window=window)
+                                              window=window, **hm)
 
         def plain(q, kp, vp, window):
             if kv_bits:
                 return paged.paged_attention_quant_plain(
                     q, kp, vp, ks, vs, bt, lens, window=window,
-                    kv_bits=kv_bits)
+                    kv_bits=kv_bits, **hm)
             return paged.paged_attention_plain(q, kp, vp, bt, lens,
-                                               window=window)
+                                               window=window, **hm)
 
         for dtype in (torch.bfloat16, torch.float32):
             q = q32.to(dtype)
@@ -871,9 +921,16 @@ def check_paged(torch, paged, dev, results, heads=(28, 4, 128), tag=()):
                     S = MAXB * BS
                     idx = (bt.long()[:, :, None] * BS + torch.arange(
                         BS, device=dev)).reshape(B, S)
-                    gath = [tuple(p.reshape(NB * BS, KV, hd)[idx]
+                    pools = (kpp, vpp)
+                    if head_map is not None:   # one K/V row a query head
+                        pools = tuple(expand_heads(torch, p, head_map)
+                                      for p in pools)
+                        lib_note = lib_note.replace(
+                            "(B, KV, S, hd)", "(B, H, S, hd) by the head "
+                            "map")
+                    gath = [tuple(p.reshape(NB * BS, -1, hd)[idx]
                                   .permute(0, 2, 1, 3).contiguous()
-                                  for p in (kpp, vpp)) for _ in range(2)]
+                                  for p in pools) for _ in range(2)]
                     mask = (torch.arange(S, device=dev)[None]
                             < lens[:, None])[:, None, None, :]
                     q4 = q[:, :, None, :]
@@ -881,7 +938,7 @@ def check_paged(torch, paged, dev, results, heads=(28, 4, 128), tag=()):
                         lib = Timing(
                             torch, lambda i: F.scaled_dot_product_attention(
                                 q4, *gath[i % 2], attn_mask=mask,
-                                enable_gqa=True), 20)
+                                enable_gqa=head_map is None), 20)
                     except TypeError:   # torch without enable_gqa
                         lib_note = "torch has no enable_gqa"
                     del gath
@@ -3350,6 +3407,8 @@ def dist_worker(task: str, out_dir: str, backend: str, qpk: str) -> int:
     """One rank of a phase-18 world (`chip_smoke.py --dist-worker TASK
     OUT_DIR BACKEND QPK` under torch.distributed.run): runs TASK and writes
     this rank's numbers to OUT_DIR/rank{R}.json."""
+    import faulthandler
+
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
@@ -3357,6 +3416,9 @@ def dist_worker(task: str, out_dir: str, backend: str, qpk: str) -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.quantize import set_precision
+    # a rank still running near the world's limit prints every thread's
+    # stack to its log and exits, so a stuck world ends with the reason
+    faulthandler.dump_traceback_later(DIST_TIMEOUT - 60, exit=True)
     set_precision()
     dev, started = rd.init_world(backend, timeout_s=DIST_TIMEOUT)
     r = dist.get_rank()
@@ -3478,23 +3540,32 @@ def dist_world(task: str, n: int, backend: str, qpk: Path, work: Path):
     env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     t0 = time.time()
     logs = work / f"{task}_logs"
-    proc = subprocess.run(
+    # a session of its own, so that a world past its time limit is ended
+    # whole (the agent and its ranks), not only the agent
+    proc = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          f"--nproc-per-node={n}", "--log-dir", str(logs), "--redirects", "3",
          str(ROOT / "chip_smoke.py"), "--dist-worker", task, str(out),
          backend, str(qpk)],
-        cwd=ROOT, env=env, capture_output=True, text=True,
-        timeout=DIST_TIMEOUT)
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    try:
+        _, stderr = proc.communicate(timeout=DIST_TIMEOUT)
+        code = proc.returncode
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        _, stderr = proc.communicate()
+        code = f"nothing: ended past its {DIST_TIMEOUT} s limit"
     wall = time.time() - t0
-    if proc.returncode != 0:
-        say(proc.stderr[-3000:])
-        for err in sorted(logs.rglob("stderr.log")):
+    if code != 0:
+        say(stderr[-3000:])
+        for err in sorted(logs.rglob("*.log")):
             lines = [ln for ln in err.read_text().splitlines()
                      if "socket.cpp" not in ln]
             say(f"--- {err.relative_to(logs)} ---")
             say("\n".join(lines[-40:]))
-    check(proc.returncode == 0, f"distribution world {task} ({n} ranks, "
-          f"{backend}) exited {proc.returncode}")
+    check(code == 0, f"distribution world {task} ({n} ranks, {backend}) "
+          f"exited {code}")
     say(f"distribution world {task}: {n} ranks over {backend}, {wall:.1f} s "
         "wall incl. process start")
     return [json.loads((out / f"rank{r}.json").read_text())
@@ -3767,7 +3838,8 @@ TRAIN_BUDGET_S = 270     # phase 19's share of the script's time
 TRAIN_EXTRA = ()         # more launch.train flags (a CPU dry run: --device)
 
 
-def check_flash_bwd(torch, flash, dev, results, card):
+def check_flash_bwd(torch, flash, dev, results, card, cases=BWD_CASES,
+                    head_map=None):
     """(a) The backward kernel against the plain version's autograd at the
     families' shapes, bf16 and f32: dQ, dK, dV and the forward's LSE under
     BWD_TOL. bf16 is timed (CUDA events, graph replay) beside its bound,
@@ -3775,32 +3847,40 @@ def check_flash_bwd(torch, flash, dev, results, card):
     F.scaled_dot_product_attention (a yardstick the port never calls;
     graph replay, and eager), with the split plan of its dK/dV kernel
     (flash.plan_bwd); at qwen's training shape the forward is timed with
-    and without its LSE write."""
+    and without its LSE write. `head_map` (a host tuple) maps the query
+    heads of every case unevenly (SDPA then runs over K/V expanded by
+    it, the expansion outside the timed window)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import build
+    from repro_torch.kernels import headmap
     from repro_torch.roofline import kernels as kc
     gen = torch.Generator(device=dev).manual_seed(19)
-    for B, Tq, Tk, H, KV, hd, causal, window, tag in BWD_CASES:
+    hm = dict(head_map=head_map)
+    for B, Tq, Tk, H, KV, hd, causal, window, tag in cases:
         kind = (f"causal window {window}" if causal and window else
                 "causal" if causal else "non-causal")
+        if head_map is not None:
+            kind += (f", head map of groups "
+                     f"{headmap.group_sizes(head_map, H, KV)}")
         for dt in (torch.bfloat16, torch.float32):
             label = str(dt).split(".")[1]
             q = torch.randn(B, Tq, H, hd, generator=gen, device=dev).to(dt)
             k, v = (torch.randn(B, Tk, KV, hd, generator=gen, device=dev)
                     .to(dt) for _ in range(2))
             do = torch.randn(B, Tq, H, hd, generator=gen, device=dev).to(dt)
-            _, lse = flash._forward(q, k, v, causal, window, with_lse=True)
+            _, lse = flash._forward(q, k, v, causal, window, with_lse=True,
+                                    **hm)
             got = flash.flash_attention_bwd_cuda(q, k, v, do, lse,
                                                  causal=causal,
-                                                 window=window)
+                                                 window=window, **hm)
             leaves = [t.detach().clone().requires_grad_(True)
                       for t in (q, k, v)]
             out = flash.flash_attention_plain(*leaves, causal=causal,
-                                              window=window)
+                                              window=window, **hm)
             want = torch.autograd.grad(out, leaves, do, retain_graph=True)
             want_lse = flash.attention_lse_plain(q, k, causal=causal,
-                                                 window=window)
+                                                 window=window, **hm)
             torch.cuda.synchronize()
             rel_max, rel = BWD_TOL[label]
             errs, ok = [], True
@@ -3819,15 +3899,22 @@ def check_flash_bwd(torch, flash, dev, results, card):
                    f"{lse_err:.3e} (tol {rel_max}*max|want|+{rel}*|want|)")
             if dt == torch.bfloat16:
                 t = Timing(torch, lambda i: flash.flash_attention_bwd_cuda(
-                    q, k, v, do, lse, causal=causal, window=window), 20)
+                    q, k, v, do, lse, causal=causal, window=window, **hm),
+                    20)
                 plain_ms = cuda_ms(torch, lambda i: torch.autograd.grad(
                     out, leaves, do, retain_graph=True), 5)
                 # SDPA's backward replayed from a graph, as the kernel is
                 # (its eager CUDA-event time is mostly the host's)
                 lib, lib_eager = None, None
                 lib_note = "SDPA backward (autograd), GQA"
+                kl, vl = k, v
+                if head_map is not None:
+                    kl, vl = (expand_heads(torch, x, head_map)
+                              for x in (k, v))
+                    lib_note = ("SDPA backward (autograd) over K/V "
+                                "expanded by the map beforehand")
                 qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True)
-                              for x in (q, k, v))
+                              for x in (q, kl, vl))
                 mask = (flash.attention_mask(Tq, Tk, True, window, dev)
                         if window else None)
                 dot = do.transpose(1, 2)
@@ -3835,7 +3922,8 @@ def check_flash_bwd(torch, flash, dev, results, card):
                 def sdpa():
                     return F.scaled_dot_product_attention(
                         qt, kt, vt, attn_mask=mask,
-                        is_causal=causal and mask is None, enable_gqa=True)
+                        is_causal=causal and mask is None,
+                        enable_gqa=head_map is None)
 
                 try:
                     ref = sdpa()
@@ -3850,8 +3938,10 @@ def check_flash_bwd(torch, flash, dev, results, card):
                 # reads q, dO, k, v and the LSE, writes dQ, dK, dV (bf16)
                 bms, by = kc.bound_ms(kc.flash_attention_bwd_of(
                     q, k, causal=causal, window=window))
+                group = (0 if head_map is None
+                         else headmap.max_group(head_map, H, KV))
                 plan = flash.plan_bwd(B, Tq, Tk, H, KV, hd,
-                                      build.sm_count(dev.index or 0))
+                                      build.sm_count(dev.index or 0), group)
                 fmt = lambda x: "null" if x is None else f"{x:.4f}"
                 msg += (f", nsplit {plan.nsplit}, dkdv blocks {plan.blocks}"
                         f", ms {t}, plain_ms {plain_ms:.4f} "
@@ -3942,12 +4032,15 @@ class SaveFilter:
         trainer.train_state_to_numpy, CheckpointManager.save = self.real
 
 
-def attention_f64(q, k, v, *, causal=True, window=0):
+def attention_f64(q, k, v, *, causal=True, window=0, head_map=None):
     """The plain version's masked softmax attention computed in f64, the
-    output in q's dtype: (b)'s reference."""
+    output in q's dtype: (b)'s reference. An uneven `head_map` (a host
+    tuple) expands K/V to one row a query head."""
     import torch
 
     from repro_torch.kernels.flash_attention import attention_mask
+    if head_map is not None:
+        k, v = (expand_heads(torch, x, head_map) for x in (k, v))
     B, Tq, H, hd = q.shape
     Tk, KV = k.shape[1], k.shape[2]
     qg = q.double().reshape(B, Tq, KV, H // KV, hd)
@@ -4015,7 +4108,7 @@ def routing(torch, log, replay):
         moe_mod.route_slots = real
 
 
-def lockstep_grads(torch, ops, kernels, cfg, params, batch):
+def lockstep_grads(torch, ops, kernels, cfg, params, batch, plan=None):
     """(b)'s gate: one step's gradient with the layers in lockstep. The
     kernel run records each layer's input, its keyword arguments (a
     recurrent state, where a caller passes one) and the cotangents of its
@@ -4036,7 +4129,8 @@ def lockstep_grads(torch, ops, kernels, cfg, params, batch):
 
     from repro_torch.models import BuildPlan, lm_loss
     from repro_torch.models import transformer as tfm
-    plan = BuildPlan(remat=False)   # each layer runs once
+    # each layer runs once (a tensor-parallel plan keeps its padding)
+    plan = (plan or BuildPlan()).replace(remat=False)
     ref_cfg = cfg.replace(compute_dtype="float32")
     flat, spec = pytree.tree_flatten(params)
     cast = [p.detach().to(torch.bfloat16).requires_grad_(True)
@@ -4241,7 +4335,7 @@ def comq_vs_rtn(torch, params, cfg, ev, calib):
 
 
 def step_grads(torch, flash, ops, kernels, cfg, params, batch, label, card,
-               what="(b)", n_attn=TRAIN_LAYERS):
+               what="(b)", n_attn=TRAIN_LAYERS, plan=None):
     """(b) at one compute type: the step's loss and gradients through the
     kernels and through the plain versions from the same params; every
     backward launch of the kernel run (`n_attn` of them) against the plain
@@ -4252,6 +4346,7 @@ def step_grads(torch, flash, ops, kernels, cfg, params, batch, label, card,
     the two plain runs printed beside the kernels-vs-plain gap."""
     from repro_torch.models import BuildPlan
     from repro_torch.train.train_step import _loss_and_grads
+    plan = plan or BuildPlan()
     real_bwd = flash.flash_attention_bwd_cuda
     calls = []
 
@@ -4262,11 +4357,11 @@ def step_grads(torch, flash, ops, kernels, cfg, params, batch, label, card,
 
     flash.flash_attention_bwd_cuda = recording
     try:
-        lk, gk = _loss_and_grads(cfg, BuildPlan(), 1, params, batch)
+        lk, gk = _loss_and_grads(cfg, plan, 1, params, batch)
     finally:
         flash.flash_attention_bwd_cuda = real_bwd
     with plain_kernels(ops, kernels):
-        lp, gp = _loss_and_grads(cfg, BuildPlan(), 1, params, batch)
+        lp, gp = _loss_and_grads(cfg, plan, 1, params, batch)
     torch.cuda.synchronize()
     rels, missing = leaf_rel_norms(torch, gk, gp)
     leaves = torch.utils._pytree.tree_leaves
@@ -4277,7 +4372,7 @@ def step_grads(torch, flash, ops, kernels, cfg, params, batch, label, card,
         # the plain versions twice: the spread the gather's backward (an
         # accumulating index_put) leaves between identical runs
         with plain_kernels(ops, kernels):
-            lp2, gp2 = _loss_and_grads(cfg, BuildPlan(), 1, params, batch)
+            lp2, gp2 = _loss_and_grads(cfg, plan, 1, params, batch)
         torch.cuda.synchronize()
         rerun, _ = leaf_rel_norms(torch, gp2, gp)
         same = bool(torch.equal(lp2, lp)) and all(
@@ -4349,7 +4444,7 @@ def step_grads(torch, flash, ops, kernels, cfg, params, batch, label, card,
     # scores, which the softmax ignores — the norm of its layer's wk
     # gradient, the same key cotangents weighted)
     lr_, lmissing, head = lockstep_grads(torch, ops, kernels, cfg, params,
-                                         batch)
+                                         batch, plan)
     k_ref, floor = REF_K[label]
     got = {k: v["kr"] for k, v in lr_.items()}
     tols = {k: k_ref * v["pr"] + floor * lr_[
@@ -4573,8 +4668,9 @@ def opt_parity(torch, state, grads, acfg, card):
 
 def phase_training(torch, dev, ops, kernels, results, card):
     """Phase 19. Returns the training path's launch counts ((c)'s Trainer
-    run through launch.train's code path) and each family's steps' (g),
-    by arch."""
+    run through launch.train's code path), each family's steps' (g), by
+    arch, and (d)'s checkpoint directory with the resumed attempt's
+    losses (phase 21 restores it through shardings= against them)."""
     import gc
     import shutil
     import tempfile
@@ -4824,6 +4920,11 @@ def phase_training(torch, dev, ops, kernels, results, card):
           and resumed == l8[TRAIN_CKPT_EVERY:TRAIN_RESUMED_TO],
           f"(d) the resumed run's losses differ from the uninterrupted "
           f"run's (max |d| {diff})")
+    # (d)'s step-5 checkpoint, moved (not copied: the machine's disk
+    # counts every byte written) for phase 21 (d)'s elastic restore
+    ckpt19 = (Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt19_")) / "d",
+              resumed)
+    shutil.move(str(work / "d"), str(ckpt19[0]))
     shutil.rmtree(work, ignore_errors=True)
     t_part = took("(d)", t_part)
 
@@ -4836,7 +4937,7 @@ def phase_training(torch, dev, ops, kernels, results, card):
     spent = time.time() - t_phase
     say(f"training: phase 19 took {spent:.1f} s wall (budget "
         f"{TRAIN_BUDGET_S} s)")
-    return counts, families
+    return counts, families, ckpt19
 
 
 # ---------------------------------------------------------------------------
@@ -4955,6 +5056,325 @@ def phase_analysis(torch, dev, ops, sp, cfg, card):
         f"(gate [{lo}, {hi}])")
     check(lo <= rr <= hi, f"(b) ratio_of_ratios {rr} outside [{lo}, {hi}]")
     return gate
+
+
+# ---------------------------------------------------------------------------
+# phase 21: tensor-parallel padding (the head-map kernels, padded models,
+# the elastic restore, the dry run)
+# ---------------------------------------------------------------------------
+
+# (arch, tp, layers): hymba's 25 heads over 5 pad to 32 at tp = 16, an
+# uneven map (KV head 0 serves 12 heads, the others 5); qwen2-7b's 28 over
+# 4 pad to 30 at tp = 3 (groups of 9, 7, 7, 7)
+PAD_HYMBA = ("hymba-1.5b", 16, 4)
+PAD_QWEN = ("qwen2-7b", 3, 2)
+PAD_FLASH_SHAPES = ((8, PROMPT), (1, 2 * HYBRID_WINDOW))
+PAD_BWD_CASES = ((8, PROMPT, PROMPT, 32, 5, 64, True, HYBRID_WINDOW,
+                  "hymba-tp16"),
+                 (1, 2 * HYBRID_WINDOW, 2 * HYBRID_WINDOW, 32, 5, 64, True,
+                  HYBRID_WINDOW, "hymba-tp16"))
+PAD_BUDGET_S = 90        # phase 21's share of the script's time
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+DRYRUN_TIMEOUT = 600     # seconds the dry run's processes may take
+# the kernels line's head-map rows: (name, source, results key, replaces)
+PAD_ENTRIES = (
+    ("flash_attention@hymba-1.5b/tp16", "flash_attention",
+     ("flash_attention", 8, PROMPT, "hymba-tp16"),
+     "src/repro/kernels/flash_attention.py:95"),
+    ("flash_attention@hymba-1.5b/tp16/long", "flash_attention",
+     ("flash_attention", 1, 2 * HYBRID_WINDOW, "hymba-tp16"),
+     "src/repro/kernels/flash_attention.py:95"),
+    ("flash_attention_bwd@hymba-1.5b/tp16", "flash_attention_bwd",
+     ("flash_attention_bwd", 8, PROMPT, PROMPT, "hymba-tp16"),
+     "src/repro/kernels/flash_attention.py:95"),
+    ("flash_attention_bwd@hymba-1.5b/tp16/long", "flash_attention_bwd",
+     ("flash_attention_bwd", 1, 2 * HYBRID_WINDOW, 2 * HYBRID_WINDOW,
+      "hymba-tp16"), "src/repro/kernels/flash_attention.py:95"),
+    ("paged_attention@qwen2-7b/tp3", "paged_attention",
+     ("paged_attention", 0, "qwen-tp3"),
+     "src/repro/kernels/paged_attention.py:219"),
+    ("paged_attention_quant@qwen2-7b/tp3", "paged_attention",
+     ("paged_attention_quant", 8, "qwen-tp3"),
+     "src/repro/kernels/paged_attention.py:175"),
+    ("paged_attention_quant@qwen2-7b/tp3/4bit", "paged_attention",
+     ("paged_attention_quant", 4, "qwen-tp3"),
+     "src/repro/kernels/paged_attention.py:175"),
+)
+
+
+def start_dryrun(work: Path):
+    """(e)'s processes, one per qwen2-7b shape on both meshes, on the meta
+    device with no card visible; they run while (a)-(d) use the card."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return [(shape, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen2-7b", "--shape", shape, "--both-meshes", "--out-dir",
+         str(work)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)) for shape in DRYRUN_SHAPES]
+
+
+def finish_dryrun(procs, work: Path, card):
+    """(e): every cell ran, and the roofline report reads every file (the
+    collective column n/a: nothing was counted there)."""
+    import contextlib as cl
+    import io
+
+    from repro_torch.roofline import report
+    for shape, proc in procs:
+        out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+        for line in out.strip().splitlines():
+            say(f"phase 21 (e) dry run {shape}: {line}")
+        check(proc.returncode == 0, f"(e) the dry run of qwen2-7b {shape} "
+              f"exited {proc.returncode}")
+    cells = report.load(str(work))
+    for d in cells:
+        mem = d.get("memory", {})
+        say(f"phase 21 (e) {d['arch']} {d['shape']} {d['mesh']} on meta: "
+            f"per_device_total_gb {mem.get('per_device_total_gb')} "
+            f"(arguments {mem.get('argument_bytes')} + outputs "
+            f"{mem.get('output_bytes')} - aliases {mem.get('alias_bytes')} "
+            f"bytes; temporaries not counted), counted flops/device "
+            f"{d.get('counted', {}).get('flops_per_device')}, count "
+            f"{d.get('count_s')} s")
+        check("error" not in d and mem.get("per_device_total_gb", 0) > 0,
+              f"(e) {d.get('_file')}: {d.get('error')}")
+    buf = io.StringIO()
+    with cl.redirect_stdout(buf):
+        report.main(["--dir", str(work)])
+    rows = [l for l in buf.getvalue().splitlines() if l.startswith("|")]
+    for line in rows:
+        say(f"phase 21 (e) report: {line}")
+    body = rows[2:]
+    check(len(cells) == 2 * len(DRYRUN_SHAPES) and len(body) == len(cells)
+          and all(l.split("|")[7].strip() == "n/a" for l in body),
+          f"(e) the report read {len(body)} of {len(cells)} cells")
+
+
+def phase_padding(torch, dev, ops, kernels, results, card, ckpt19):
+    """Phase 21. (a) the head-map kernels against their plain versions,
+    (b) hymba at tp = 16 and (c) qwen2-7b at tp = 3 on the card (each
+    path counted from 0), (d) the elastic restore of phase 19's state
+    (`ckpt19`: its (d)'s checkpoint directory and unsharded resumed
+    losses), (e) the dry run on meta. Returns {"total": the padded
+    paths' launches by kernel, "entries": the launches of each
+    PAD_ENTRIES row}."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.apply import fake_quantize_params
+    from repro_torch.kernels import headmap
+    from repro_torch.models import BuildPlan, init_params
+    from repro_torch.models.attention import kernel_head_map
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, make_train_step
+    _, flash, _, paged = kernels
+    t_phase = time.time()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_pad_"))
+    procs = start_dryrun(work / "dryrun")
+
+    def took(what, t):
+        say(f"phase 21: {what} took {time.time() - t:.1f} s wall")
+        gc.collect()
+        torch.cuda.empty_cache()
+        return time.time()
+
+    try:
+        # (a) the kernels at the padded maps
+        arch, tp, layers = PAD_HYMBA
+        full = get_config(arch)
+        hplan = BuildPlan(tp=tp)
+        hp, kv, hd = (hplan.heads_padded(full), full.n_kv_heads,
+                      full.resolved_head_dim)
+        hmap = kernel_head_map(full.n_heads, hp, kv)
+        say(f"phase 21 (a) {arch} at tp={tp}: {full.n_heads} -> {hp} query "
+            f"heads over {kv} KV heads, map {hmap} (groups "
+            f"{headmap.group_sizes(hmap, hp, kv)}) ({card})")
+        check_flash(torch, flash, dev, results, heads=(hp, kv, hd),
+                    tag=("hymba-tp16",), shapes=PAD_FLASH_SHAPES,
+                    window=HYBRID_WINDOW, head_map=hmap)
+        check_flash_bwd(torch, flash, dev, results, card,
+                        cases=PAD_BWD_CASES, head_map=hmap)
+        qarch, qtp, qlayers = PAD_QWEN
+        qfull = get_config(qarch)
+        qplan = BuildPlan(tp=qtp)
+        qhp = qplan.heads_padded(qfull)
+        qmap = kernel_head_map(qfull.n_heads, qhp, qfull.n_kv_heads)
+        say(f"phase 21 (a) {qarch} at tp={qtp}: {qfull.n_heads} -> {qhp} "
+            f"query heads over {qfull.n_kv_heads}, groups "
+            f"{headmap.group_sizes(qmap, qhp, qfull.n_kv_heads)}")
+        check_paged(torch, paged, dev, results,
+                    heads=(qhp, qfull.n_kv_heads, qfull.resolved_head_dim),
+                    tag=("qwen-tp3",), head_map=qmap)
+        t_part = took("(a)", t_phase)
+
+        # (b) hymba at tp = 16, depth cut: a prefill of 8 x PROMPT and
+        # STEPS decode steps and one training step, counted; then each
+        # against the plain versions
+        cfg = full.replace(n_layers=layers)
+        params = init_params(cfg, hplan, seed=0, device=dev)
+        say(f"phase 21 (b) {arch} at BuildPlan(tp={tp}), n_layers "
+            f"{full.n_layers} -> {layers}: heads {hp}/{kv}, vocab "
+            f"{full.vocab_size} -> {hplan.vocab_padded(cfg)}, "
+            f"{sum(t.numel() for t in torch.utils._pytree.tree_leaves(params))}"
+            f" parameters")
+        gen = torch.Generator(device=dev).manual_seed(21)
+        tokens = torch.randint(0, cfg.vocab_size, (SERVE_SLOTS, PROMPT),
+                               generator=gen, device=dev)
+        dplan = hplan.replace(prefill_cache_len=PROMPT + STEPS)
+        batch = family_batch(torch, cfg, 1, 2 * HYBRID_WINDOW, dev, 0)
+        step = make_train_step(cfg, hplan.replace(remat=False),
+                               RunConfig(arch=arch, learning_rate=FIT_LR,
+                                         warmup_steps=1,
+                                         total_steps=FIT_STEPS),
+                               AdamWConfig())
+        state = init_train_state(params, AdamWConfig())
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            outs, _ = run_decode(torch, params, cfg, dplan, tokens)
+        _, m = step(state, batch)
+        loss = float(m["loss"])
+        counts_b = ops.launch_counts()
+        del state, step, outs
+        say(f"phase 21 (b) path: prefill {SERVE_SLOTS}x{PROMPT} + {STEPS} "
+            f"decode steps, one train step of 1x{2 * HYBRID_WINDOW} (loss "
+            f"{loss:.4f}); launches {counts_b}")
+        check(math.isfinite(loss) and counts_b["flash_attention"] > 0
+              and counts_b["flash_attention_bwd"] == layers,
+              f"(b) the padded hymba path launched {counts_b}")
+        decode_vs_plain(torch, ops, kernels, params, cfg, dplan, tokens,
+                        f"phase 21 (b) {arch} tp={tp} decode")
+        step_grads(torch, flash, ops, kernels, cfg, params, batch,
+                   "bfloat16", card, what=f"phase 21 (b) {arch} tp={tp}",
+                   n_attn=layers, plan=hplan)
+        del params, batch
+        t_part = took("(b)", t_part)
+
+        # (c) qwen2-7b at tp = 3, depth cut, 4-bit fake-quantized: phase 8's
+        # traffic through the paged Runtime at kv_bits 0, 8 and 4 (counted;
+        # every request runs to its length), then phase 7's paged decode
+        # against the plain versions in lockstep
+        qcfg = qfull.replace(n_layers=qlayers)
+        dense = init_params(qcfg, qplan, seed=0, device=dev)
+        sp = fake_quantize_params(dense, qcfg, qplan, bits=4,
+                                  quantize_embed=False)
+        del dense
+        say(f"phase 21 (c) {qarch} at BuildPlan(tp={qtp}), n_layers "
+            f"{qfull.n_layers} -> {qlayers}, 4-bit RTN codes "
+            f"(fake_quantize_params): heads {qhp}/{qfull.n_kv_heads}, vocab "
+            f"{qfull.vocab_size} -> {qplan.vocab_padded(qcfg)}")
+        prompts = serve_prompts(qcfg.vocab_size)
+        tokens = torch.randint(0, qcfg.vocab_size, (SERVE_SLOTS, PROMPT),
+                               generator=gen, device=dev)
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            for kv_bits in (0, 8, 4):
+                serve_traffic(torch, dev, sp, qcfg,
+                              qplan.replace(kv_bits=kv_bits), prompts,
+                              serve_config(),
+                              f"phase 21 (c) tp={qtp} bf16 kv_bits={kv_bits}")
+        counts_c = ops.launch_counts()
+        say(f"phase 21 (c) serve path launches: {counts_c}")
+        check(all(counts_c[n] > 0 for n in SERVE_PATH),
+              f"(c) a kernel of the padded serve path never launched: "
+              f"{counts_c}")
+        lens = [int(n) for n in np.random.RandomState(5).randint(
+            64, PROMPT + 1, SERVE_SLOTS)]
+        q32 = qcfg.replace(compute_dtype="float32")
+        for kv_bits in (0, 8, 4):
+            for label, c, pl in (
+                    ("bfloat16", qcfg, qplan.replace(kv_bits=kv_bits)),
+                    ("float32", q32, qplan.replace(
+                        cache_dtype=torch.float32, kv_bits=kv_bits))):
+                snaps = []
+                with torch.no_grad():
+                    outs, fed, _ = run_paged_decode(
+                        torch, sp, c, pl, tokens, lens, snapshots=snaps)
+                compare_decode(torch, ops, kernels, lambda: run_paged_decode(
+                    torch, sp, c, pl, tokens, lens, feed=fed,
+                    lockstep=snaps)[0], outs, label,
+                    what=f"phase 21 (c) tp={qtp} paged decode "
+                         f"kv_bits={kv_bits}, lockstep")
+                del snaps, outs
+        del sp
+        t_part = took("(c)", t_part)
+
+        # (d) phase 19 (d)'s step-5 state restored through
+        # restore(shardings=) on an nccl world of one: the resumed losses
+        # equal 19 (d)'s unsharded resume's. It reads 19 (d)'s directory
+        # and writes no checkpoint (a 4-layer state is ~12 GB)
+        ckpt_dir, plain = ckpt19
+        from repro_torch import dist as rd
+        from repro_torch.dist.sharding import P, NamedSharding
+        from repro_torch.launch import train
+        from repro_torch.train.trainer import Trainer
+        tcfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS)
+
+        def resumed(name, **kw):
+            args = fit_args(ckpt_dir, "--moment-dtype", "int8", "--steps",
+                            str(TRAIN_RESUMED_TO))
+            rc = dataclasses.replace(
+                train.run_config(args), warmup_steps=FIT_WARMUP,
+                async_ckpt=False, total_steps=FIT_STEPS,
+                ckpt_every=TRAIN_CKPT_EVERY)
+            with SaveFilter(lambda step: False) as saves:
+                t = Trainer(tcfg, BuildPlan(remat=args.remat), rc,
+                            adamw_cfg=AdamWConfig(moment_dtype="int8"),
+                            failure_hook=saves.hook, device=dev, **kw)
+                out = t.run_loop(total_steps=TRAIN_RESUMED_TO,
+                                 seq_len=FIT_SEQ, global_batch=FIT_BATCH)
+            check(out["final_step"] == TRAIN_RESUMED_TO,
+                  f"(d) {name} ended at step {out['final_step']}")
+            return [m["loss"] for m in t.metrics_log]
+
+        _, started = rd.init_world("nccl", dev)
+        try:
+            mesh = rd.calib_mesh(model=1, data=1)
+
+            def shard(state):
+                return torch.utils._pytree.tree_map(
+                    lambda t: NamedSharding(mesh, P("data") if t.dim()
+                                            else P()), state)
+            sharded = resumed("sharded", shard_state_fn=shard)
+        finally:
+            rd.close_world(started)
+        say(f"phase 21 (d) phase 19's step-{TRAIN_CKPT_EVERY} state restored "
+            f"with shardings= (every leaf Shard(0) over the data axis of an "
+            f"nccl world of one): resumed losses {sharded}; 19 (d)'s "
+            f"unsharded resume {plain}; bit-identical {sharded == plain} "
+            f"({card})")
+        check(len(plain) == TRAIN_RESUMED_TO - TRAIN_CKPT_EVERY
+              and sharded == plain, "(d) the elastic resume's losses differ "
+              "from the unsharded resume's")
+        t_part = took("(d)", t_part)
+
+        # (e) the dry run, started with the phase
+        finish_dryrun(procs, work / "dryrun", card)
+        took("(e) (waiting for the dry run)", t_part)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(ckpt19[0].parent, ignore_errors=True)
+    spent = time.time() - t_phase
+    say(f"phase 21 took {spent:.1f} s wall (budget {PAD_BUDGET_S} s) "
+        f"({card})")
+    total = {n: counts_b.get(n, 0) + counts_c.get(n, 0)
+             for n in set(counts_b) | set(counts_c)}
+    entries = {}
+    for name, source, key, _ in PAD_ENTRIES:
+        counts = counts_b if "hymba" in name else counts_c
+        kernel = name.split("@")[0]
+        entries[name] = counts[kernel]
+    return {"total": total, "entries": entries}
 
 
 def main() -> int:
@@ -5309,10 +5729,17 @@ def main() -> int:
     say(f"chip_smoke: phase 18 done at {time.time() - t_all:.1f} s")
 
     # 19. training: the backward kernel, then the training path, counted
-    train_counts, families = phase_training(torch, dev, ops, kernels,
-                                            results, card)
+    train_counts, families, ckpt19 = phase_training(torch, dev, ops, kernels,
+                                                    results, card)
 
     say(f"chip_smoke: phase 19 done at {time.time() - t_all:.1f} s")
+
+    # 21. tensor-parallel padding: the head-map kernels, padded models on
+    # the card (their paths counted), the elastic restore, the dry run
+    pad_counts = phase_padding(torch, dev, ops, kernels, results, card,
+                               ckpt19)
+
+    say(f"chip_smoke: phase 21 done at {time.time() - t_all:.1f} s")
 
     # kernels line: launches on the main path as a whole
     src = "src/repro_torch/csrc/{}.cu"
@@ -5322,6 +5749,10 @@ def main() -> int:
                 + dist_counts.get(n, 0) for n in totals}
     launches["flash_attention"] += train_counts["flash_attention"]
     launches["flash_attention_bwd"] = train_counts["flash_attention_bwd"]
+    for n, v in pad_counts["total"].items():
+        launches[n] = launches.get(n, 0) + v
+    for n, v in pad_counts["entries"].items():
+        launches[n] = v
     for arch, counts in families.items():
         launches["flash_attention"] += counts["flash_attention"]
         launches["flash_attention_bwd"] += counts["flash_attention_bwd"]
@@ -5419,6 +5850,10 @@ def main() -> int:
                  results[("flash_attention_bwd", B, T, T, tag)],
                  "src/repro/kernels/flash_attention.py:95")
                 for arch, _, B, T, tag in FAMILY_TRAIN if tag]
+    # the head-map variants (phase 21 a), with the padded paths' launches
+    # (b: hymba at tp = 16; c: qwen2-7b at tp = 3)
+    entries += [(name, source, results[key], where)
+                for name, source, key, where in PAD_ENTRIES]
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src.format(source),
          "replaces": where, "launches": launches[name],

@@ -17,8 +17,11 @@ The npz keys are the JAX package's (`jax.tree_util.tree_flatten_with_path`
 joined by "/"): dict keys in sorted order, "[i]" for list and tuple items,
 None an empty subtree, and every other leaf (tensor, array, bool, int,
 float) one array, a Python scalar as a 0-d array. So either package
-restores the other's `step_N` directories. JAX's `restore(shardings=)`
-re-shard has no counterpart yet: `restore(device=)` places the tensors.
+restores the other's `step_N` directories. `restore(device=)` places the
+tensors; `restore(shardings=)` is the elastic path, JAX's re-shard onto
+another topology: each leaf goes to its `dist.sharding.NamedSharding`'s
+`DeviceMesh` through `torch.distributed.tensor.distribute_tensor`, a
+DTensor whose local shard is this rank's slice.
 """
 from __future__ import annotations
 
@@ -119,6 +122,21 @@ def _like_leaf(arr: np.ndarray, like, device: DeviceLike):
     return arr
 
 
+def _distribute(leaf, sharding, key: str):
+    """A restored leaf on its sharding's DeviceMesh (a DTensor), or as it
+    is for no sharding."""
+    if sharding is None:
+        return leaf
+    from torch.distributed.tensor import distribute_tensor
+    mesh = sharding.mesh
+    t = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(leaf)
+    if len(sharding.spec) > t.dim():
+        raise ValueError(f"{key}: spec {sharding.spec!r} has more entries "
+                         f"than the leaf's {t.dim()} dims")
+    t = t.to(mesh.device_type)
+    return distribute_tensor(t, mesh, sharding.placements())
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -203,10 +221,13 @@ class CheckpointManager:
     # -- restore ------------------------------------------------------------
 
     def restore(self, step: Optional[int], like: Tree,
-                device: DeviceLike = None):
+                shardings: Optional[Tree] = None, device: DeviceLike = None):
         """Restore into the structure of `like` (see `_like_leaf` for each
-        leaf's form); `device` places the tensor leaves. Returns (tree,
-        meta)."""
+        leaf's form); `device` places the tensor leaves. `shardings` (the
+        structure of `like`, `NamedSharding` leaves on a DeviceMesh, None
+        for a leaf to leave as it is) places each tensor leaf as a DTensor
+        with the sharding's placements: every rank reads the whole array
+        and keeps its slice. Returns (tree, meta)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
@@ -233,4 +254,8 @@ class CheckpointManager:
                           "from the initialized template", stacklevel=2)
         leaves = [_like_leaf(data[k], flat_like[k], device)
                   if k in data.files else flat_like[k] for k in keys]
+        if shardings is not None:
+            flat_sh = flatten_with_paths(shardings)
+            leaves = [_distribute(leaf, flat_sh.get(k), k)
+                      for k, leaf in zip(keys, leaves)]
         return _unflatten(like, iter(leaves)), meta

@@ -19,6 +19,16 @@ same weights.
   port's Trainer checkpoints, so that a `CheckpointManager` step directory
   is the same file whichever package wrote it.
 
+Every conversion is shape-agnostic, so a tensor-parallel plan's padded
+trees (JAX's `init_params(key, cfg, BuildPlan(tp=k))`: heads, experts and
+vocabulary padded) and their train states carry across as they are, and
+the port's `BuildPlan(tp=k)` computes on them (tests/test_torch_padded.py).
+A JAX `QT` leaf (a fake-quantized tree, e.g. the dry run's serving
+layout; duck-typed by its codes / scale / z_lo / shape / bits / cpb)
+becomes the port's `QT`, split per layer as the dense leaves are (the
+codes, scales and zero-points along their leading layer dim, the
+logical shape without it).
+
 Neither imports JAX: the caller hands over numpy arrays.
 """
 from __future__ import annotations
@@ -33,6 +43,11 @@ def _tensor(a, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
 
+def _is_jax_qt(node) -> bool:
+    return all(hasattr(node, a) for a in ("codes", "scale", "z_lo", "shape",
+                                          "bits", "cpb"))
+
+
 def _tree(node, dev):
     if isinstance(node, dict):
         return {k: _tree(v, dev) for k, v in node.items()}
@@ -40,12 +55,29 @@ def _tree(node, dev):
         return [_tree(v, dev) for v in node]
     if isinstance(node, (np.ndarray, np.generic)):
         return _tensor(node, dev)
+    if _is_jax_qt(node):
+        from repro_torch.core.apply import QT
+        return QT(_tensor(node.codes, dev), _tensor(node.scale, dev),
+                  _tensor(node.z_lo, dev), tuple(node.shape), node.bits,
+                  cpb=node.cpb)
     return node
+
+
+class _QTLayer:
+    """Layer i of a stacked JAX QT leaf (its arrays sliced, the logical
+    shape without the layer dim): what `_tree` converts."""
+
+    def __init__(self, qt, i: int):
+        self.codes, self.scale, self.z_lo = (qt.codes[i], qt.scale[i],
+                                             qt.z_lo[i])
+        self.shape, self.bits, self.cpb = tuple(qt.shape)[1:], qt.bits, qt.cpb
 
 
 def _layer_slice(node, i: int):
     if isinstance(node, dict):
         return {k: _layer_slice(v, i) for k, v in node.items()}
+    if _is_jax_qt(node):
+        return _QTLayer(node, i)
     return node[i]
 
 
@@ -53,6 +85,8 @@ def _n_stacked(stacked) -> int:
     leaf = stacked
     while isinstance(leaf, dict):
         leaf = next(iter(leaf.values()))
+    if _is_jax_qt(leaf):
+        leaf = leaf.codes
     return int(leaf.shape[0])
 
 

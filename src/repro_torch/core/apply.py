@@ -167,6 +167,44 @@ def fake_quantize_params(params, cfg, plan, bits: int = 4,
     return walk(params)
 
 
+def _fit_spec(spec, rank: int, drop_last: bool = False):
+    """A dense leaf's spec fitted to a QT part of `rank` dims (JAX's
+    `_fit_spec`): trailing entries of flattened dims collapse to the
+    last one, missing ones are None; `drop_last` replicates the last."""
+    from repro_torch.dist.sharding import PartitionSpec
+    entries = list(spec)
+    if len(entries) > rank:
+        entries = entries[:rank - 1] + [entries[-1]]
+    while len(entries) < rank:
+        entries.append(None)
+    if drop_last and entries:
+        entries[-1] = None
+    return PartitionSpec(*entries)
+
+
+def qt_spec(qt: QT, spec) -> QT:
+    """The QT of specs for one QT leaf whose dense spec is `spec`: the
+    codes inherit it (same rank; the packed last dim splits the same
+    way), scale and zero-point drop the last-dim axis (they are tiny)."""
+    return QT(_fit_spec(spec, qt.codes.dim()),
+              _fit_spec(spec, qt.scale.dim(), drop_last=True),
+              _fit_spec(spec, qt.z_lo.dim(), drop_last=True), qt.shape,
+              qt.bits, cpb=qt.cpb)
+
+
+def qt_param_specs(qparams, dense_specs):
+    """Shardings for a QT-bearing tree from the dense params' specs
+    (JAX's `qt_param_specs`): each QT leaf by `qt_spec`, every other leaf
+    its dense spec."""
+    def walk(q, s):
+        if isinstance(q, dict):
+            return {k: walk(q[k], s[k]) for k in q}
+        if isinstance(q, (list, tuple)) and not is_qt(q):
+            return type(q)(walk(a, b) for a, b in zip(q, s))
+        return qt_spec(q, s) if is_qt(q) else s
+    return walk(qparams, dense_specs)
+
+
 def qt_from_qtensor(t: dict) -> QT:
     """One pipeline QTensor (offset-binary uint8 codes, f32 per-column
     scales, int32 zero-points) -> a QT packed to its recorded width."""

@@ -8,7 +8,11 @@
 //
 // Layout: the model's own q (B, Tq, H, hd) and k/v (B, Tk, KV, hd), read
 // through element strides (hd contiguous); query head h reads KV head
-// h / (H / KV). Output (B, Tq, H, hd) in the input type (bf16 or f32).
+// h / (H / KV), or hmap[h] when the caller passes a head map (an int32
+// device table whose first H entries map each query head to its KV head,
+// kernels/headmap.py: the uneven map of a tensor-parallel plan). A block
+// owns one query head, so the map costs one load a block. Output (B, Tq,
+// H, hd) in the input type (bf16 or f32).
 //
 // What bounds it on the H100: at the main-path shapes (B=8, T=128 and
 // B=1, T=512; H=28, KV=4, hd=128, bf16) it moves ~8.4 / ~4.2 MB (~2.5 /
@@ -78,18 +82,20 @@ __global__ void flash_attention_kernel(const T* __restrict__ q,
                                        const T* __restrict__ k,
                                        const T* __restrict__ v,
                                        T* __restrict__ o,
-                                       float* __restrict__ lse, Strides sq,
-                                       Strides sk, Strides sv, Strides so,
-                                       int Tq, int Tk, int H, int group,
-                                       int hd, int causal, int window,
-                                       float scale) {
+                                       float* __restrict__ lse,
+                                       const int* __restrict__ hmap,
+                                       Strides sq, Strides sk, Strides sv,
+                                       Strides so, int Tq, int Tk, int H,
+                                       int group, int hd, int causal,
+                                       int window, float scale) {
   extern __shared__ float4 smem4[];
   const int hdp = (hd + 3) / 4 * 4 + 4;  // padded K row (floats), 16B rows
   float* ks = reinterpret_cast<float*>(smem4);  // [kBK][hdp]
   float* vs = ks + kBK * hdp;                   // [kBK][hd]
   float* qs = vs + kBK * hd;                    // [kBQ][hdp]
 
-  const int b = blockIdx.z, h = blockIdx.y, g = h / group;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int g = hmap != nullptr ? hmap[h] : h / group;
   const int q_lo = blockIdx.x * kBQ;
   const int q_hi = min(q_lo + kBQ, Tq) - 1;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -203,7 +209,7 @@ __global__ void flash_attention_kernel(const T* __restrict__ q,
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o,
-           float* lse, const long long* st, int B, int Tq, int Tk, int H, int KV, int hd,
+           float* lse, const int* hmap, const long long* st, int B, int Tq, int Tk, int H, int KV, int hd,
            int causal, int window, float scale, cudaStream_t stream) {
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
       sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
@@ -218,8 +224,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
   }
   const dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
   flash_attention_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, sq, sk, sv, so, Tq,
-      Tk, H, H / KV, hd, causal, window, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, hmap, sq, sk, sv,
+      so, Tq, Tk, H, H / KV, hd, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -242,10 +248,11 @@ __global__ void __launch_bounds__(kTcWarps * 32, 2)
                               const bf16* __restrict__ k,
                               const bf16* __restrict__ v,
                               bf16* __restrict__ o,
-                              float* __restrict__ lse, Strides sq, Strides sk,
-                              Strides sv, Strides so, int Tq, int Tk,
-                              int group, int hd, int causal, int window,
-                              float scale_log2, int w) {
+                              float* __restrict__ lse,
+                              const int* __restrict__ hmap, Strides sq,
+                              Strides sk, Strides sv, Strides so, int Tq,
+                              int Tk, int group, int hd, int causal,
+                              int window, float scale_log2, int w) {
   using namespace mma_bf16;
   constexpr int HD = 16 * KD;
   constexpr int LD = HD + kRowPad;  // row stride (elements): 16 B odd
@@ -258,7 +265,8 @@ __global__ void __launch_bounds__(kTcWarps * 32, 2)
   constexpr int kAllRows =
       2 * kTcStages * kTcKeys + (kQInRegs ? 0 : kTcRows);
 
-  const int b = blockIdx.z, h = blockIdx.y, g = h / group;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int g = hmap != nullptr ? hmap[h] : h / group;
   const int q_lo = blockIdx.x * kTcRows;
   const int q_last = min(q_lo + kTcRows, Tq) - 1;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -452,7 +460,7 @@ __global__ void __launch_bounds__(kTcWarps * 32, 2)
 
 template <int KD>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
-              float* lse, const long long* st, int B, int Tq, int Tk, int H, int KV,
+              float* lse, const int* hmap, const long long* st, int B, int Tq, int Tk, int H, int KV,
               int hd, int causal, int window, float scale, int w,
               cudaStream_t stream) {
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
@@ -467,9 +475,9 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   }
   const dim3 grid((Tq + kTcRows - 1) / kTcRows, H, B);
   flash_attention_tc_kernel<KD><<<grid, kTcWarps * 32, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, sq, sk,
-      sv, so, Tq, Tk, H / KV, hd, causal, window, scale * 1.4426950408889634f,
-      w);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, hmap,
+      sq, sk, sv, so, Tq, Tk, H / KV, hd, causal, window,
+      scale * 1.4426950408889634f, w);
   return (int)cudaGetLastError();
 }
 
@@ -484,15 +492,15 @@ int copy_width(const void* q, const void* k, const void* v,
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                float* lse, const long long* st, int B, int Tq, int Tk, int H, int KV,
+                float* lse, const int* hmap, const long long* st, int B, int Tq, int Tk, int H, int KV,
                 int hd, int causal, int window, float scale,
                 cudaStream_t stream) {
   const int w = copy_width(q, k, v, st, hd);
   if (w == 0 || hd % 2) return (int)cudaErrorMisalignedAddress;
   const int steps = (hd + 15) / 16;
 #define REPRO_FLASH_TC(KD)                                                  \
-  return launch_tc<KD>(q, k, v, o, lse, st, B, Tq, Tk, H, KV, hd, causal,  \
-                       window, scale, w, stream)
+  return launch_tc<KD>(q, k, v, o, lse, hmap, st, B, Tq, Tk, H, KV, hd,     \
+                       causal, window, scale, w, stream)
   if (steps <= 1) REPRO_FLASH_TC(1);
   if (steps <= 2) REPRO_FLASH_TC(2);
   if (steps <= 4) REPRO_FLASH_TC(4);
@@ -511,19 +519,23 @@ const char* repro_cuda_error_string(int code) {
 
 // dtype: 0 = f32, 1 = bf16. strides: host array of 12 int64 element
 // strides, dims 0..2 of q, k, v, o in that order. lse: null, or a
-// contiguous (B, H, Tq) f32 output. Requires hd <= 256 and H % KV == 0.
+// contiguous (B, H, Tq) f32 output. hmap: null (head h on KV head h / (H
+// / KV), which needs H % KV == 0), or an int32 device table whose first
+// H entries are each query head's KV head. Requires hd <= 256.
 int flash_attention(const void* q, const void* k, const void* v, void* o,
-                    void* lse, const void* strides, int dtype, int B, int Tq, int Tk,
-                    int H, int KV, int hd, int causal, int window, float scale,
-                    void* stream) {
+                    void* lse, const void* hmap, const void* strides,
+                    int dtype, int B, int Tq, int Tk, int H, int KV, int hd,
+                    int causal, int window, float scale, void* stream) {
   const long long* st = (const long long*)strides;
-  if (hd > 32 * kMaxDPL || H % KV) return (int)cudaErrorInvalidValue;
+  if (hd > 32 * kMaxDPL || (hmap == nullptr && H % KV))
+    return (int)cudaErrorInvalidValue;
+  const int* map = (const int*)hmap;
   if (dtype == 1) {
-    return launch_bf16(q, k, v, o, (float*)lse, st, B, Tq, Tk, H, KV, hd, causal, window,
-                       scale, (cudaStream_t)stream);
+    return launch_bf16(q, k, v, o, (float*)lse, map, st, B, Tq, Tk, H, KV,
+                       hd, causal, window, scale, (cudaStream_t)stream);
   }
-  return launch<float>(q, k, v, o, (float*)lse, st, B, Tq, Tk, H, KV, hd, causal, window,
-                       scale, (cudaStream_t)stream);
+  return launch<float>(q, k, v, o, (float*)lse, map, st, B, Tq, Tk, H, KV,
+                       hd, causal, window, scale, (cudaStream_t)stream);
 }
 
 }  // extern "C"

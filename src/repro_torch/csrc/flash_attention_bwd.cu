@@ -69,6 +69,15 @@
 // kernel, one block per (batch, kv head, 32 keys) walking the group's
 // 16-row query tiles, its dK / dV in registers.
 //
+// Head maps: with a null hmap query head h reads KV head h / (H / KV) and
+// KV head g's group is the heads [g G, (g + 1) G). Otherwise hmap is the
+// int32 device table of kernels/headmap.py, [map (H) | rank (H) | offsets
+// (KV + 1) | heads (H)]: kernel A (and the f32 dq kernel) read map[h],
+// kernel B (and the f32 dkdv kernel) walk heads[offsets[g], offsets[g +
+// 1]), a group of any size (hymba at tp = 16: 12 heads on KV head 0, 5 on
+// the others). The split plan is sized by the largest group, so the
+// smaller groups' blocks finish early and the largest sets the time.
+//
 // Masks as the forward's: key s is visible from query t when s < Tk and,
 // if causal, s <= t and (window <= 0 or t - s < window). Tq and Tk are
 // free (the VLM's cross layer; non-causal), T need not divide the tiles,
@@ -117,6 +126,21 @@ __device__ __forceinline__ bool visible(int qi, int key, int Tk, int causal,
   return key <= qi && (window <= 0 || qi - key < window);
 }
 
+// KV head of query head h, and the size and i-th head of KV head g's group
+// (see "Head maps" above)
+__device__ __forceinline__ int kv_of(const int* hmap, int h, int group) {
+  return hmap != nullptr ? hmap[h] : h / group;
+}
+__device__ __forceinline__ int group_size(const int* hmap, int H, int g,
+                                          int group) {
+  return hmap != nullptr ? hmap[2 * H + g + 1] - hmap[2 * H + g] : group;
+}
+__device__ __forceinline__ int group_head(const int* hmap, int H, int KV,
+                                          int g, int i, int group) {
+  return hmap != nullptr ? hmap[2 * H + KV + 1 + hmap[2 * H + g] + i]
+                         : g * group + i;
+}
+
 // hd padded to a multiple of 4, plus 4 floats: 16-byte rows for float4
 // dot products, rows offset by 4 banks
 __host__ __device__ __forceinline__ int padded(int hd) {
@@ -160,9 +184,10 @@ __global__ void __launch_bounds__(kThreads)
                  const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse,
                  float* __restrict__ dsum, T* __restrict__ dq,
-                 Strides sq, Strides sk, Strides sv, Strides sdo,
-                 Strides sdq, int Tq, int Tk, int H, int group, int hd,
-                 int causal, int window, float scale) {
+                 const int* __restrict__ hmap, Strides sq, Strides sk,
+                 Strides sv, Strides sdo, Strides sdq, int Tq, int Tk,
+                 int H, int group, int hd, int causal, int window,
+                 float scale) {
   extern __shared__ float4 smem4[];
   const int hdp = padded(hd);
   float* qs = reinterpret_cast<float*>(smem4);  // [kBQ][hdp]
@@ -170,7 +195,7 @@ __global__ void __launch_bounds__(kThreads)
   float* ks = dos + kBQ * hdp;                  // [kBK][hdp]
   float* vs = ks + kBK * hdp;                   // [kBK][hdp]
 
-  const int b = blockIdx.z, h = blockIdx.y, g = h / group;
+  const int b = blockIdx.z, h = blockIdx.y, g = kv_of(hmap, h, group);
   const int q_lo = blockIdx.x * kBQ;
   const int q_hi = min(q_lo + kBQ, Tq) - 1;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -273,10 +298,10 @@ __global__ void __launch_bounds__(kThreads)
                    const T* __restrict__ v, const T* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ dsum, T* __restrict__ dk,
-                   T* __restrict__ dv, Strides sq, Strides sk, Strides sv,
-                   Strides sdo, Strides sdk, Strides sdv, int Tq, int Tk,
-                   int H, int group, int hd, int causal, int window,
-                   float scale) {
+                   T* __restrict__ dv, const int* __restrict__ hmap,
+                   Strides sq, Strides sk, Strides sv, Strides sdo,
+                   Strides sdk, Strides sdv, int Tq, int Tk, int H,
+                   int group, int hd, int causal, int window, float scale) {
   extern __shared__ float4 smem4[];
   const int hdp = padded(hd);
   float* ks = reinterpret_cast<float*>(smem4);  // [kBK][hdp]
@@ -306,8 +331,9 @@ __global__ void __launch_bounds__(kThreads)
     q_first = k_lo;
     if (window > 0) q_end = min(Tq, k_last + window);
   }
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = g * group + hh;
+  const int n_heads = group_size(hmap, H, g, group);
+  for (int hh = 0; hh < n_heads; ++hh) {
+    const int h = group_head(hmap, H, gridDim.y, g, hh, group);
     for (int qt = q_first / kBQ * kBQ; qt < q_end; qt += kBQ) {
       __syncthreads();  // the previous tile's rows and P / dS are consumed
       stage_rows(qs, q, sq, b, h, qt, kBQ, Tq - qt, hd, hdp);
@@ -410,9 +436,10 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, float* __restrict__ dsum,
-                    bf16* __restrict__ dq, Strides sq, Strides sk, Strides sv,
-                    Strides sdo, Strides sdq, int Tq, int Tk, int group,
-                    int hd, int causal, int window, float scale, int w) {
+                    bf16* __restrict__ dq, const int* __restrict__ hmap,
+                    Strides sq, Strides sk, Strides sv, Strides sdo,
+                    Strides sdq, int Tq, int Tk, int group, int hd,
+                    int causal, int window, float scale, int w) {
   using namespace mma_bf16;
   constexpr int HD = 16 * KD;
   constexpr int LD = HD + kRowPad;  // row stride (elements): 16 B odd
@@ -428,7 +455,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   bf16* vs = ks + kStages * kTile * LD;          // [kStages][kTile][LD]
 
   const int H = gridDim.y;
-  const int b = blockIdx.z, h = blockIdx.y, g = h / group;
+  const int b = blockIdx.z, h = blockIdx.y, g = kv_of(hmap, h, group);
   const int q_lo = blockIdx.x * kTile;
   const int q_last = min(q_lo + kTile, Tq) - 1;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -592,7 +619,8 @@ __global__ void __launch_bounds__(kTcThreads, KD <= 4 ? 3 : 2)
                       const float* __restrict__ lse,
                       const float* __restrict__ dsum, bf16* __restrict__ dk,
                       bf16* __restrict__ dv, float* __restrict__ work,
-                      Strides sq, Strides sk, Strides sv, Strides sdo,
+                      const int* __restrict__ hmap, Strides sq, Strides sk,
+                      Strides sv, Strides sdo,
                       Strides sdk, Strides sdv, int B, int Tq, int Tk, int H,
                       int group, int hd, int causal, int window, float scale,
                       int nsplit, int w) {
@@ -628,7 +656,8 @@ __global__ void __launch_bounds__(kTcThreads, KD <= 4 ? 3 : 2)
             cpr, w);
 
   // the query tiles t0 .. t0 + nt - 1 hold every query that can see a key
-  // of the block; the block's pairs are (head hh, tile) = (p / nt, p % nt)
+  // of the block; the block's pairs are (the group's head hh, tile) = (p /
+  // nt, p % nt)
   int q_first = 0, q_end = Tq;
   if (causal) {
     q_first = k_lo;
@@ -636,12 +665,13 @@ __global__ void __launch_bounds__(kTcThreads, KD <= 4 ? 3 : 2)
   }
   const int t0 = q_first / kTile;
   const int nt = q_end > q_first ? (q_end + kTile - 1) / kTile - t0 : 0;
-  const int n_pairs = group * nt;
+  const int n_pairs = group_size(hmap, H, g, group) * nt;
   const int p_lo = (int)((long long)split * n_pairs / nsplit);
   const int p_hi = (int)((long long)(split + 1) * n_pairs / nsplit);
 
   auto load_pair = [&](int stage, int p) {
-    const int h = g * group + p / nt, qt = (t0 + p % nt) * kTile;
+    const int h = group_head(hmap, H, KV, g, p / nt, group);
+    const int qt = (t0 + p % nt) * kTile;
     load_rows(qs + stage * kTile * LD, LD,
               q + b * sq.b + h * sq.h + qt * sq.t, sq.t, Tq - qt, cpr, w);
     load_rows(dos + stage * kTile * LD, LD,
@@ -815,7 +845,7 @@ int allow_smem(K kernel, size_t smem) {
 template <typename T, int DPL>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, float* dsum, void* dq, void* dk, void* dv,
-           const long long* st, int B, int Tq, int Tk, int H, int KV, int hd,
+           const int* hmap, const long long* st, int B, int Tq, int Tk, int H, int KV, int hd,
            int causal, int window, float scale, cudaStream_t stream) {
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
       sv{st[6], st[7], st[8]}, sdo{st[9], st[10], st[11]},
@@ -828,8 +858,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   flash_bwd_dq<T, DPL><<<dim3((Tq + kBQ - 1) / kBQ, H, B), kThreads, smem_dq,
                          stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum,
-      (T*)dq, sq, sk, sv, sdo, sdq, Tq, Tk, H, group, hd, causal, window,
-      scale);
+      (T*)dq, hmap, sq, sk, sv, sdo, sdq, Tq, Tk, H, group, hd, causal,
+      window, scale);
   if ((e = (int)cudaGetLastError())) return e;
 
   const size_t smem_kv =
@@ -838,20 +868,21 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   flash_bwd_dkdv<T, DPL><<<dim3((Tk + kBK - 1) / kBK, KV, B), kThreads,
                            smem_kv, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum,
-      (T*)dk, (T*)dv, sq, sk, sv, sdo, sdk, sdv, Tq, Tk, H, group, hd, causal,
-      window, scale);
+      (T*)dk, (T*)dv, hmap, sq, sk, sv, sdo, sdk, sdv, Tq, Tk, H, group, hd,
+      causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dtype(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, float* dsum, void* dq,
-                 void* dk, void* dv, const long long* st, int B, int Tq,
+                 void* dk, void* dv, const int* hmap, const long long* st,
+                 int B, int Tq,
                  int Tk, int H, int KV, int hd, int causal, int window,
                  float scale, cudaStream_t stream) {
 #define REPRO_FLASH_BWD(DPL)                                               \
-  return launch<T, DPL>(q, k, v, dout, lse, dsum, dq, dk, dv, st, B, Tq,   \
-                        Tk, H, KV, hd, causal, window, scale, stream)
+  return launch<T, DPL>(q, k, v, dout, lse, dsum, dq, dk, dv, hmap, st, B, \
+                        Tq, Tk, H, KV, hd, causal, window, scale, stream)
   const int dpl = (hd + 31) / 32;
   if (dpl <= 1) REPRO_FLASH_BWD(1);
   if (dpl <= 2) REPRO_FLASH_BWD(2);
@@ -863,7 +894,8 @@ int launch_dtype(const void* q, const void* k, const void* v,
 template <int KD>
 int launch_tc(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, float* dsum, void* dq, void* dk, void* dv,
-              float* work, const long long* st, int B, int Tq, int Tk, int H,
+              float* work, const int* hmap, const long long* st, int B,
+              int Tq, int Tk, int H,
               int KV, int hd, int causal, int window, float scale,
               int nsplit, int w, cudaStream_t stream) {
   constexpr int OD = KD < 8 ? KD : 8;  // hd > 128: two halves of the dims
@@ -882,7 +914,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
   flash_bwd_dq_tc<KD><<<dim3((Tq + kTile - 1) / kTile, H, B), kTcThreads,
                         smem_a, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
-      dsum, (bf16*)dq, sq, sk, sv, sdo, sdq, Tq, Tk, group, hd, causal,
+      dsum, (bf16*)dq, hmap, sq, sk, sv, sdo, sdq, Tq, Tk, group, hd, causal,
       window, scale, w);
   if ((e = (int)cudaGetLastError())) return e;
 
@@ -892,8 +924,8 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
       <<<dim3((Tk + kTile - 1) / kTile, KV, B * nsplit * kParts), kTcThreads,
          smem_b, stream>>>(
           (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-          lse, dsum, (bf16*)dk, (bf16*)dv, work, sq, sk, sv, sdo, sdk, sdv, B,
-          Tq, Tk, H, group, hd, causal, window, scale, nsplit, w);
+          lse, dsum, (bf16*)dk, (bf16*)dv, work, hmap, sq, sk, sv, sdo, sdk,
+          sdv, B, Tq, Tk, H, group, hd, causal, window, scale, nsplit, w);
   if ((e = (int)cudaGetLastError()) || nsplit == 1) return e;
 
   const long long pairs = (long long)B * Tk * KV * hd / 2;
@@ -915,18 +947,18 @@ int copy_width(const void* q, const void* k, const void* v, const void* dout,
 
 int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, float* dsum, void* dq, void* dk, void* dv,
-                float* work, const long long* st, int B, int Tq, int Tk,
-                int H, int KV, int hd, int causal, int window, float scale,
-                int nsplit, cudaStream_t stream) {
+                float* work, const int* hmap, const long long* st, int B,
+                int Tq, int Tk, int H, int KV, int hd, int causal, int window,
+                float scale, int nsplit, cudaStream_t stream) {
   const int w = copy_width(q, k, v, dout, st, hd);
   if (w == 0 || hd % 2) return (int)cudaErrorMisalignedAddress;
   if (nsplit < 1 || (nsplit > 1 && work == nullptr))
     return (int)cudaErrorInvalidValue;
   const int steps = (hd + 15) / 16;
 #define REPRO_FLASH_BWD_TC(KD)                                             \
-  return launch_tc<KD>(q, k, v, dout, lse, dsum, dq, dk, dv, work, st, B,  \
-                       Tq, Tk, H, KV, hd, causal, window, scale, nsplit, w, \
-                       stream)
+  return launch_tc<KD>(q, k, v, dout, lse, dsum, dq, dk, dv, work, hmap, st, \
+                       B, Tq, Tk, H, KV, hd, causal, window, scale, nsplit, \
+                       w, stream)
   if (steps <= 1) REPRO_FLASH_BWD_TC(1);
   if (steps <= 2) REPRO_FLASH_BWD_TC(2);
   if (steps <= 4) REPRO_FLASH_BWD_TC(4);
@@ -950,25 +982,30 @@ const char* repro_cuda_error_string(int code) {
 // H, Tq) f32 log-sum-exp; dsum: a (B, H, Tq) f32 workspace (D = rowsum(P
 // * dP)). nsplit: bf16 only, the query splits of the dK / dV kernel
 // (kernels/flash_attention.plan_bwd); with nsplit > 1, work is a (2,
-// nsplit, B, Tk, KV, hd) f32 workspace (null otherwise). Requires hd <=
-// 256 (bf16: even), H % KV == 0, B, Tq, Tk > 0.
+// nsplit, B, Tk, KV, hd) f32 workspace (null otherwise). hmap: null (the
+// even map, which needs H % KV == 0) or the head-map table of
+// kernels/headmap.py on the device. Requires hd <= 256 (bf16: even), B,
+// Tq, Tk > 0.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, void* dsum,
                         void* dq, void* dk, void* dv, void* work,
-                        const void* strides, int dtype, int B, int Tq, int Tk,
-                        int H, int KV, int hd, int causal, int window,
-                        int nsplit, float scale, void* stream) {
+                        const void* hmap, const void* strides, int dtype,
+                        int B, int Tq, int Tk, int H, int KV, int hd,
+                        int causal, int window, int nsplit, float scale,
+                        void* stream) {
   const long long* st = (const long long*)strides;
-  if (hd > 256 || hd < 1 || H % KV || B < 1 || Tq < 1 || Tk < 1)
+  if (hd > 256 || hd < 1 || (hmap == nullptr && H % KV) || B < 1 ||
+      Tq < 1 || Tk < 1)
     return (int)cudaErrorInvalidValue;
+  const int* map = (const int*)hmap;
   if (dtype == 1) {
     return launch_bf16(q, k, v, dout, (const float*)lse, (float*)dsum, dq, dk,
-                       dv, (float*)work, st, B, Tq, Tk, H, KV, hd, causal,
-                       window, scale, nsplit, (cudaStream_t)stream);
+                       dv, (float*)work, map, st, B, Tq, Tk, H, KV, hd,
+                       causal, window, scale, nsplit, (cudaStream_t)stream);
   }
   return launch_dtype<float>(q, k, v, dout, (const float*)lse, (float*)dsum,
-                             dq, dk, dv, st, B, Tq, Tk, H, KV, hd, causal,
-                             window, scale, (cudaStream_t)stream);
+                             dq, dk, dv, map, st, B, Tq, Tk, H, KV, hd,
+                             causal, window, scale, (cudaStream_t)stream);
 }
 
 }  // extern "C"

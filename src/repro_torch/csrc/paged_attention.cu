@@ -13,7 +13,14 @@
 // offset-binary nibble pairs (low nibble first, value = code - 8); one f32
 // scale per (page, kv_head) in (NB, KV) for the quantized pools; block
 // tables (B, MAXB) int32; lengths (B,) int32. Query head h reads KV head
-// h / G, G = H / KV (qwen2: 7, not a power of two). The query sits at
+// h / G, G = H / KV (qwen2: 7, not a power of two), or, with a head map
+// (the int32 device table of kernels/headmap.py, [map (H) | rank (H) |
+// offsets (KV + 1) | heads (H)]: the uneven map of a tensor-parallel
+// plan), KV head map[h]: KV head kv's block then takes the heads[offsets
+// [kv], offsets[kv + 1]) of its group, G being the largest group (at
+// most 16), and the combine writes head h from row rank[h] of its group's
+// partials. qwen2 at tp = 3 has 30 heads over 4, groups of 9, 7, 7, 7:
+// every group still fits one 16-row mma fragment. The query sits at
 // position length-1: keys at positions >= length are masked, and with
 // window > 0 so are keys with (length-1) - pos >= window. A slot of
 // length 0 writes exact zeros. Output (B, H, hd) in q's type.
@@ -148,7 +155,30 @@ struct Args {
   float* part_ml;   // (B, KV, NS, G, 2)
   int q_bf16, B, H, KV, G, hd, NB, BS, MAXB, pps, NS, window, row_bytes;
   float scale;
+  const int* hmap;  // the head-map table, or null for the even map
 };
+
+// the size of KV head kv's group, and the query head of its row r, from
+// the head-map table (kMapped) or the even map. The tensor-core kernels
+// take kMapped as a template argument, so their even-map instantiations
+// hold no table code; the CUDA-core kernel tests a.hmap at run time.
+template <bool kMapped>
+__device__ __forceinline__ int group_rows(const Args& a, int kv) {
+  if constexpr (kMapped)
+    return a.hmap[2 * a.H + kv + 1] - a.hmap[2 * a.H + kv];
+  return a.G;
+}
+template <bool kMapped>
+__device__ __forceinline__ int group_head(const Args& a, int kv, int r) {
+  if constexpr (kMapped)
+    return a.hmap[2 * a.H + a.KV + 1 + a.hmap[2 * a.H + kv] + r];
+  return kv * a.G + r;
+}
+// the heads of KV head kv's group, in row order (kMapped): read once a
+// block, so that a loop over rows makes one load a row, not two dependent
+__device__ __forceinline__ const int* group_heads(const Args& a, int kv) {
+  return a.hmap + 2 * a.H + a.KV + 1 + a.hmap[2 * a.H + kv];
+}
 
 size_t split_smem_bytes(int G, int hd) {
   return sizeof(float) * ((size_t)G * hd + (size_t)kTK * (hd + 1) +
@@ -160,25 +190,28 @@ template <int KIND, int W>
 __global__ void __launch_bounds__(kThreads)
     paged_split_kernel(const Args a) {
   extern __shared__ float smem[];
-  const int G = a.G, hd = a.hd;
-  float* qs = smem;                  // [G][hd]
-  float* ksm = qs + G * hd;          // [kTK][hd+1] (odd stride: no conflicts)
+  const int hd = a.hd, GM = a.G;     // GM: the largest group (the layout's)
+  float* qs = smem;                  // [GM][hd]
+  float* ksm = qs + GM * hd;         // [kTK][hd+1] (odd stride: no conflicts)
   float* vsm = ksm + kTK * (hd + 1); // [kTK][hd]
-  float* sc = vsm + kTK * hd;        // [G][kTK] scores, then p·v_scale
-  float* kscl = sc + G * kTK;        // [kTK] softmax scale · K page scale
+  float* sc = vsm + kTK * hd;        // [GM][kTK] scores, then p·v_scale
+  float* kscl = sc + GM * kTK;       // [kTK] softmax scale · K page scale
   float* vscl = kscl + kTK;          // [kTK] V page scale
-  float* m_s = vscl + kTK;           // [G]
-  float* l_s = m_s + G;              // [G]
-  float* corr_s = l_s + G;           // [G]
+  float* m_s = vscl + kTK;           // [GM]
+  float* l_s = m_s + GM;             // [GM]
+  float* corr_s = l_s + GM;          // [GM]
 
   const int split = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool mapped = a.hmap != nullptr;
+  // this KV head's query heads
+  const int G = mapped ? group_rows<true>(a, kv) : group_rows<false>(a, kv);
   const int len = min(a.lens[b], a.MAXB * a.BS);  // the table's extent
   const int k_lo = a.window > 0 ? max(0, len - a.window) : 0;
   const int span = a.pps * a.BS;
   const int s_lo = max(k_lo, split * span);
   const int s_hi = min(len, (split + 1) * span);
-  const size_t part = ((size_t)(b * a.KV + kv) * a.NS + split) * G;
+  const size_t part = ((size_t)(b * a.KV + kv) * a.NS + split) * a.G;
   if (s_lo >= s_hi) {  // no live key in this split
     if (tid < G) {
       a.part_ml[2 * (part + tid)] = -INFINITY;
@@ -188,7 +221,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   for (int i = tid; i < G * hd; i += kThreads) {
-    const size_t qi = ((size_t)b * a.H + (size_t)kv * G) * hd + i;
+    const size_t qi =
+        ((size_t)b * a.H + (mapped ? group_head<true>(a, kv, i / hd)
+                                   : group_head<false>(a, kv, i / hd))) *
+            hd +
+        i % hd;
     qs[i] = a.q_bf16
                 ? __bfloat162float(((const __nv_bfloat16*)a.q)[qi])
                 : ((const float*)a.q)[qi];
@@ -327,14 +364,18 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One block per (query head, slot): merge the splits' (m, l, acc). The
-// splits' (m, l) are staged in shared memory by parallel loads, so only
-// the acc loads stay in the loop (unrolled, issued ahead of their use).
+// One block per (query head, slot): merge the splits' (m, l, acc); with a
+// head map (kMapped) head h's partials are row rank[h] of KV head map[h]'s
+// group. The splits' (m, l) are staged in shared memory by parallel loads,
+// so only the acc loads stay in the loop (unrolled, issued ahead of their
+// use).
+template <bool kMapped>
 __global__ void __launch_bounds__(kThreads)
     paged_combine_kernel(const Args a) {
   extern __shared__ float ml_sh[];  // [NS][2]
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int kv = h / a.G, g = h % a.G;
+  const int kv = kMapped ? a.hmap[h] : h / a.G;
+  const int g = kMapped ? a.hmap[a.H + h] : h % a.G;
   const size_t base = (size_t)(b * a.KV + kv) * a.NS * a.G + g;
   for (int s = tid; s < a.NS; s += kThreads) {
     const size_t p = base + (size_t)s * a.G;
@@ -380,16 +421,23 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-int launch_combine(const Args& a, cudaStream_t stream) {
+template <bool kMapped>
+int launch_combine_map(const Args& a, cudaStream_t stream) {
   const size_t smem = sizeof(float) * 2 * a.NS;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_combine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        paged_combine_kernel<kMapped>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  paged_combine_kernel<<<dim3(a.H, a.B), kThreads, smem, stream>>>(a);
+  paged_combine_kernel<kMapped>
+      <<<dim3(a.H, a.B), kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+int launch_combine(const Args& a, cudaStream_t stream) {
+  return a.hmap != nullptr ? launch_combine_map<true>(a, stream)
+                           : launch_combine_map<false>(a, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -416,12 +464,12 @@ __device__ __forceinline__ void merge_warps(const Args& a,
                                             const float (&acc)[2 * KD][4],
                                             const float (&m)[2],
                                             const float (&l)[2], float* o_s,
-                                            float* ml_s, size_t part, int tid,
-                                            PosOf pos_of) {
+                                            float* ml_s, size_t part, int G,
+                                            int tid, PosOf pos_of) {
   using namespace mma_bf16;
   constexpr int OLD = 16 * KD + 8;
   const int lane = tid & 31, warp = tid >> 5, gid = lane >> 2, tig = lane & 3;
-  const int G = a.G, hd = a.hd;
+  const int hd = a.hd;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float lr = quad_sum(l[r]);
@@ -471,7 +519,7 @@ __device__ __forceinline__ void merge_warps(const Args& a,
 
 // KD: 16-wide steps of the zero-padded head dim (HD = 16 * KD >= hd);
 // w: the cp.async width in bytes (16, 8 or 4).
-template <int KD>
+template <int KD, bool kMapped>
 __global__ void __launch_bounds__(kThreads)
     paged_split_tc_kernel(const Args a, int w) {
   using namespace mma_bf16;
@@ -487,9 +535,10 @@ __global__ void __launch_bounds__(kThreads)
   int* rows_s = reinterpret_cast<int*>(ml_s + kWarps * 16 * 2);  // [span]
   float* o_s = reinterpret_cast<float*>(smem_raw);  // after the loop
 
-  const int G = a.G, hd = a.hd;
+  const int hd = a.hd;
   const int split = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = group_rows<kMapped>(a, kv);  // this KV head's query heads
   const int span = a.pps * a.BS;
   // the block-table entries of this thread's keys split * span + j, j =
   // tid, tid + 128, ... (at most kMaxSpan / kThreads), loaded alongside
@@ -507,7 +556,7 @@ __global__ void __launch_bounds__(kThreads)
   const int k_lo = a.window > 0 ? max(0, len - a.window) : 0;
   const int s_lo = max(k_lo, split * span);
   const int s_hi = min(len, (split + 1) * span);
-  const size_t part = ((size_t)(b * a.KV + kv) * a.NS + split) * G;
+  const size_t part = ((size_t)(b * a.KV + kv) * a.NS + split) * a.G;
   if (s_lo >= s_hi) {  // no live key in this split
     if (tid < G) {
       a.part_ml[2 * (part + tid)] = -INFINITY;
@@ -527,13 +576,25 @@ __global__ void __launch_bounds__(kThreads)
   const int cpr = a.row_bytes / w;  // cp.async chunks per row
 
   // the group's G query rows, zero-filled to the 16 rows of an A fragment,
-  // in the first group with tile 0 (issued first: it needs no table)
-  const uint8_t* qg = reinterpret_cast<const uint8_t*>(a.q) +
-                      ((size_t)b * a.H + kv * G) * a.row_bytes;
-  for_each_chunk(16, cpr, tid, kThreads, [&](int r, int c) {
-    cp_async_w(smem_u32(reinterpret_cast<char*>(qs + r * LD) + c * w),
-               qg + (r < G ? (size_t)r * a.row_bytes + c * w : 0), r < G, w);
-  });
+  // in the first group with tile 0 (issued first: it needs no block table)
+  if constexpr (kMapped) {
+    const uint8_t* qb = reinterpret_cast<const uint8_t*>(a.q) +
+                        (size_t)b * a.H * a.row_bytes;
+    const int* heads = group_heads(a, kv);
+    for_each_chunk(16, cpr, tid, kThreads, [&](int r, int c) {
+      cp_async_w(smem_u32(reinterpret_cast<char*>(qs + r * LD) + c * w),
+                 qb + (r < G ? (size_t)heads[r] * a.row_bytes + c * w : 0),
+                 r < G, w);
+    });
+  } else {
+    const uint8_t* qg = reinterpret_cast<const uint8_t*>(a.q) +
+                        ((size_t)b * a.H + kv * G) * a.row_bytes;
+    for_each_chunk(16, cpr, tid, kThreads, [&](int r, int c) {
+      cp_async_w(smem_u32(reinterpret_cast<char*>(qs + r * LD) + c * w),
+                 qg + (r < G ? (size_t)r * a.row_bytes + c * w : 0), r < G,
+                 w);
+    });
+  }
 
   // the pool row (page * BS + offset) * KV + kv of each key of the split
   // (indexed from split * span); -1 for a page id out of range (a zero
@@ -644,27 +705,33 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with the stages: o_s reuses them
 
-  merge_warps<KD>(a, acc, m, l, o_s, ml_s, part, tid,
+  merge_warps<KD>(a, acc, m, l, o_s, ml_s, part, G, tid,
                   [](int d) { return d; });
 }
 
-template <int KD>
-int launch_tc(const Args& a, int w, cudaStream_t stream) {
+template <int KD, bool kMapped>
+int launch_tc_map(const Args& a, int w, cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * (16 * KD + kRowPad) *
                           (kTcStages * 2 * kTK + 16) +
                       sizeof(float) * kWarps * 16 * 2 +
                       sizeof(int) * a.pps * a.BS;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_split_tc_kernel<KD>,
+        paged_split_tc_kernel<KD, kMapped>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  paged_split_tc_kernel<KD>
+  paged_split_tc_kernel<KD, kMapped>
       <<<dim3(a.NS, a.KV, a.B), kThreads, smem, stream>>>(a, w);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return launch_combine(a, stream);
+}
+
+template <int KD>
+int launch_tc(const Args& a, int w, cudaStream_t stream) {
+  return a.hmap != nullptr ? launch_tc_map<KD, true>(a, w, stream)
+                           : launch_tc_map<KD, false>(a, w, stream);
 }
 
 // bf16 q over bf16 pages: the widest cp.async (16, 8 or 4 bytes) that
@@ -756,7 +823,7 @@ constexpr size_t tcq_smem_bytes(int span) {
 // KD: 16-wide steps of the zero-padded head dim (HD = 16 * KD >= hd; a
 // multiple of 32 for int8 and of 64 for 4-bit, the words' reach); KIND:
 // kInt8 or kInt4; w: the cp.async width in bytes (16, 8 or 4).
-template <int KD, int KIND>
+template <int KD, int KIND, bool kMapped>
 __global__ void __launch_bounds__(kThreads)
     paged_split_tcq_kernel(const Args a, int w) {
   using namespace mma_bf16;
@@ -779,9 +846,10 @@ __global__ void __launch_bounds__(kThreads)
   int* rows_s = reinterpret_cast<int*>(vscl + a.pps * a.BS);  // [span]
   float* o_s = reinterpret_cast<float*>(smem_raw);  // after the loop
 
-  const int G = a.G, hd = a.hd;
+  const int hd = a.hd;
   const int split = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = group_rows<kMapped>(a, kv);  // this KV head's query heads
   const int span = a.pps * a.BS;
   constexpr int kKeysPerThread = kMaxSpan / kThreads;
   const int* bt = a.bt + (size_t)b * a.MAXB;
@@ -796,7 +864,7 @@ __global__ void __launch_bounds__(kThreads)
   const int k_lo = a.window > 0 ? max(0, len - a.window) : 0;
   const int s_lo = max(k_lo, split * span);
   const int s_hi = min(len, (split + 1) * span);
-  const size_t part = ((size_t)(b * a.KV + kv) * a.NS + split) * G;
+  const size_t part = ((size_t)(b * a.KV + kv) * a.NS + split) * a.G;
   if (s_lo >= s_hi) {  // no live key in this split
     if (tid < G) {
       a.part_ml[2 * (part + tid)] = -INFINITY;
@@ -808,12 +876,23 @@ __global__ void __launch_bounds__(kThreads)
   // the group's G query rows in q_dim order, zero-filled to the 16 rows
   // of an A fragment and past hd (plain loads: issued before the table is
   // resolved)
-  const bf16* qg =
-      reinterpret_cast<const bf16*>(a.q) + ((size_t)b * a.H + kv * G) * hd;
-  for (int i = tid; i < 16 * HD; i += kThreads) {
-    const int r = i / HD, pos = i % HD, d = q_dim<KIND>(pos);
-    qs[r * LD + pos] =
-        r < G && d < hd ? qg[r * hd + d] : __float2bfloat16_rn(0.f);
+  if constexpr (kMapped) {
+    const bf16* qb =
+        reinterpret_cast<const bf16*>(a.q) + (size_t)b * a.H * hd;
+    const int* heads = group_heads(a, kv);
+    for (int i = tid; i < 16 * HD; i += kThreads) {
+      const int r = i / HD, pos = i % HD, d = q_dim<KIND>(pos);
+      qs[r * LD + pos] = r < G && d < hd ? qb[(size_t)heads[r] * hd + d]
+                                         : __float2bfloat16_rn(0.f);
+    }
+  } else {
+    const bf16* qg =
+        reinterpret_cast<const bf16*>(a.q) + ((size_t)b * a.H + kv * G) * hd;
+    for (int i = tid; i < 16 * HD; i += kThreads) {
+      const int r = i / HD, pos = i % HD, d = q_dim<KIND>(pos);
+      qs[r * LD + pos] =
+          r < G && d < hd ? qg[r * hd + d] : __float2bfloat16_rn(0.f);
+    }
   }
   // the pool row of each key of the split (from split * span); -1 for a
   // page id out of range (a zero row with scale 0)
@@ -1021,24 +1100,30 @@ __global__ void __launch_bounds__(kThreads)
   }
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with the stages: o_s reuses them
-  merge_warps<KD>(a, acc, m, l, o_s, ml_s, part, tid,
+  merge_warps<KD>(a, acc, m, l, o_s, ml_s, part, G, tid,
                   [](int d) { return acc_pos<KIND>(d); });
 }
 
-template <int KD, int KIND>
-int launch_tcq(const Args& a, int w, cudaStream_t stream) {
+template <int KD, int KIND, bool kMapped>
+int launch_tcq_map(const Args& a, int w, cudaStream_t stream) {
   const size_t smem = tcq_smem_bytes<KD, KIND>(a.pps * a.BS);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_split_tcq_kernel<KD, KIND>,
+        paged_split_tcq_kernel<KD, KIND, kMapped>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  paged_split_tcq_kernel<KD, KIND>
+  paged_split_tcq_kernel<KD, KIND, kMapped>
       <<<dim3(a.NS, a.KV, a.B), kThreads, smem, stream>>>(a, w);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return launch_combine(a, stream);
+}
+
+template <int KD, int KIND>
+int launch_tcq(const Args& a, int w, cudaStream_t stream) {
+  return a.hmap != nullptr ? launch_tcq_map<KD, KIND, true>(a, w, stream)
+                           : launch_tcq_map<KD, KIND, false>(a, w, stream);
 }
 
 // bf16 q over int8 (hd % 4 == 0) or 4-bit (hd % 8 == 0) codes: rows copied
@@ -1098,7 +1183,7 @@ int launch_kind(const Args& a, cudaStream_t stream) {
 // (kernels/paged_attention.quant_kernel); the bf16 pages' is fixed by type
 int run(Args a, int kind, int tensor_cores, void* stream) {
   if (a.G < 1 || a.G > kMaxG || a.hd < 1 || a.hd > kThreads * kMaxDPT ||
-      a.H != a.G * a.KV || a.NS < 1)
+      (a.hmap == nullptr && a.H != a.G * a.KV) || a.NS < 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (kind == kBF16 && a.q_bf16) return launch_bf16(a, s);
@@ -1121,17 +1206,20 @@ const char* repro_cuda_error_string(int code) {
 }
 
 // kind: 0 = f32 pages, 1 = bf16 pages. dims: B, H, KV, hd, NB, BS, MAXB,
-// pps (pages per split), NS (splits), window.
+// pps (pages per split), NS (splits), window, G (H / KV, or with a head
+// map its largest group; part_acc / part_ml are (B, KV, NS, G, hd / 2)).
+// hmap: null, or the head-map table on the device.
 int paged_attention(const void* q, const void* k, const void* v,
                     const void* bt, const void* lens, void* o,
-                    void* part_acc, void* part_ml, int q_bf16, int kind,
-                    const void* dims, float scale, void* stream) {
+                    void* part_acc, void* part_ml, const void* hmap,
+                    int q_bf16, int kind, const void* dims, float scale,
+                    void* stream) {
   const int* dm = (const int*)dims;
   Args a{q, (const uint8_t*)k, (const uint8_t*)v, nullptr, nullptr,
          (const int*)bt, (const int*)lens, o, (float*)part_acc,
-         (float*)part_ml, q_bf16, dm[0], dm[1], dm[2], dm[1] / dm[2], dm[3],
+         (float*)part_ml, q_bf16, dm[0], dm[1], dm[2], dm[10], dm[3],
          dm[4], dm[5], dm[6], dm[7], dm[8], dm[9],
-         dm[3] * (kind == 0 ? 4 : 2), scale};
+         dm[3] * (kind == 0 ? 4 : 2), scale, (const int*)hmap};
   if (kind != 0 && kind != 1) return (int)cudaErrorInvalidValue;
   return run(a, kind, 0, stream);
 }
@@ -1143,15 +1231,15 @@ int paged_attention(const void* q, const void* k, const void* v,
 int paged_attention_quant(const void* q, const void* k, const void* v,
                           const void* ks, const void* vs, const void* bt,
                           const void* lens, void* o, void* part_acc,
-                          void* part_ml, int q_bf16, int kind,
-                          int tensor_cores, const void* dims, float scale,
-                          void* stream) {
+                          void* part_ml, const void* hmap, int q_bf16,
+                          int kind, int tensor_cores, const void* dims,
+                          float scale, void* stream) {
   const int* dm = (const int*)dims;
   Args a{q, (const uint8_t*)k, (const uint8_t*)v, (const float*)ks,
          (const float*)vs, (const int*)bt, (const int*)lens, o,
          (float*)part_acc, (float*)part_ml, q_bf16, dm[0], dm[1], dm[2],
-         dm[1] / dm[2], dm[3], dm[4], dm[5], dm[6], dm[7], dm[8], dm[9],
-         kind == 2 ? dm[3] : dm[3] / 2, scale};
+         dm[10], dm[3], dm[4], dm[5], dm[6], dm[7], dm[8], dm[9],
+         kind == 2 ? dm[3] : dm[3] / 2, scale, (const int*)hmap};
   if (kind != 2 && kind != 3) return (int)cudaErrorInvalidValue;
   return run(a, kind, tensor_cores, stream);
 }

@@ -10,10 +10,11 @@ DeviceLike = Union[str, torch.device, None]
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """`None` means the card. Asking for CUDA where there is none raises:
-    the port never carries on quietly on the CPU."""
+    the port never carries on quietly on the CPU. "meta" (shapes only,
+    nothing allocated) is the dry run's device."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev} (cuda or cpu)")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev} (cuda, cpu or meta)")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA was asked for (the default device) but "

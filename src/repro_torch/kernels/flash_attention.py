@@ -6,7 +6,11 @@ Replaces the Pallas TPU kernel `src/repro/kernels/flash_attention.py`
 (`flash_attention_pallas`). The kernel reads q (B, Tq, H, hd) and k/v
 (B, Tk, KV, hd) through their strides (no transpose to (BH, T, hd) in
 device memory) and maps query head h to KV head h // (H // KV); the group
-need not be a power of two (qwen2: 7).
+need not be a power of two (qwen2: 7). A `head_map` (a host tuple, see
+`kernels/headmap.py`) maps the heads any other way: the uneven floor map
+of a tensor-parallel plan (hymba's 32 padded heads over 5). The kernels
+then read the map's device table; the plain versions expand K/V by index,
+as the JAX package's `_dense_attention` does.
 
 Dispatch by dtype: bf16 q/k/v run the tensor-core kernel (mma.sync bf16
 with f32 accumulation, K/V through a 2-stage cp.async ring; needs an even
@@ -57,6 +61,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import headmap as _hm
 from repro_torch.roofline.analysis import charged
 from repro_torch.roofline.kernels import flash_attention_bwd_of
 
@@ -68,9 +73,9 @@ launches_single_query = 0     # the share with Tq = 1 (a cross decode step)
 NAME_BWD = "flash_attention_bwd"
 launches_bwd = 0    # backward kernel launches since the last reset
 
-_ARGTYPES = ([ctypes.c_void_p] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 7
              + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 11
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 12
                  + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
 BWD_TILE = 64        # the bf16 backward's rows a block owns and tile rows
 
@@ -87,42 +92,57 @@ def attention_mask(Tq: int, Tk: int, causal: bool, window: int, device):
     return mask
 
 
+def _scores(q: Tensor, k: Tensor, head_map):
+    """f32 unscaled scores: (B, KV, G, Tq, Tk) grouped when head_map is
+    None, (B, H, Tq, Tk) with K expanded by the map otherwise."""
+    B, Tq, H, hd = q.shape
+    KV = k.shape[2]
+    if head_map is None:
+        qg = q.float().reshape(B, Tq, KV, H // KV, hd)
+        return torch.einsum("btkgh,bskh->bkgts", qg, k.float())
+    ke = k[:, :, _hm.index(head_map, k.device)]
+    return torch.einsum("bthk,bshk->bhts", q.float(), ke.float())
+
+
 def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
-                          causal: bool = True, window: int = 0) -> Tensor:
+                          causal: bool = True, window: int = 0,
+                          head_map=None) -> Tensor:
     """Masked softmax attention in f32 (the port of
     `ref.flash_attention_ref`) in the model's layout: q (B, Tq, H, hd),
-    k/v (B, Tk, KV, hd), H % KV == 0. Returns q.dtype."""
+    k/v (B, Tk, KV, hd), query head h on KV head h // (H // KV), or on
+    head_map[h] (K/V expanded by index). Returns q.dtype."""
     B, Tq, H, hd = q.shape
-    Tk, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    qg = q.float().reshape(B, Tq, KV, G, hd)
-    s = torch.einsum("btkgh,bskh->bkgts", qg, k.float())
-    s = s * (1.0 / math.sqrt(hd))
+    Tk = k.shape[1]
+    head_map = _hm.normalize(head_map, H, k.shape[2])
+    s = _scores(q, k, head_map) * (1.0 / math.sqrt(hd))
     mask = attention_mask(Tq, Tk, causal, window, q.device)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgts,bskh->btkgh", p, v.float())
-    return out.reshape(B, Tq, H, hd).to(q.dtype)
+    if head_map is None:
+        out = torch.einsum("bkgts,bskh->btkgh", p, v.float())
+        return out.reshape(B, Tq, H, hd).to(q.dtype)
+    ve = v[:, :, _hm.index(head_map, v.device)]
+    return torch.einsum("bhts,bshk->bthk", p, ve.float()).to(q.dtype)
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def attention_lse_plain(q: Tensor, k: Tensor, *, causal: bool = True,
-                        window: int = 0) -> Tensor:
+                        window: int = 0, head_map=None) -> Tensor:
     """(B, H, Tq) f32 log-sum-exp of the masked scaled scores: what the
     forward kernel writes beside its output for the backward."""
     B, Tq, H, hd = q.shape
-    Tk, KV = k.shape[1], k.shape[2]
-    qg = q.float().reshape(B, Tq, KV, H // KV, hd)
-    s = torch.einsum("btkgh,bskh->bkgts", qg, k.float()) / math.sqrt(hd)
-    mask = attention_mask(Tq, Tk, causal, window, q.device)
+    head_map = _hm.normalize(head_map, H, k.shape[2])
+    s = _scores(q, k, head_map) / math.sqrt(hd)
+    mask = attention_mask(Tq, k.shape[1], causal, window, q.device)
     s = torch.where(mask, s, torch.full_like(s, -math.inf))
     return torch.logsumexp(s, dim=-1).reshape(B, H, Tq)
 
 
-def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
-    """Refuse what the kernels do not take."""
+def _check(q: Tensor, k: Tensor, v: Tensor, head_map=None) -> None:
+    """Refuse what the kernels do not take (`head_map` normalized: None
+    for the even map)."""
     dev = q.device
     if dev.type != "cuda":
         raise RuntimeError(f"flash_attention kernel needs CUDA tensors, got "
@@ -133,10 +153,11 @@ def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, Tq, H, hd = q.shape
     Tk, KV = k.shape[1], k.shape[2]
-    if k.shape[0] != B or k.shape[3] != hd or H % KV or hd > 256:
+    if (k.shape[0] != B or k.shape[3] != hd or hd > 256
+            or (head_map is None and H % KV)):
         raise ValueError(f"flash_attention: unsupported shapes q "
                          f"{tuple(q.shape)} k {tuple(k.shape)} (needs "
-                         "H % KV == 0 and hd <= 256)")
+                         "hd <= 256, and H % KV == 0 or a head map)")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q/k/v must share f32 or bf16, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
@@ -149,8 +170,13 @@ def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
                              "device with a contiguous head dim")
 
 
+def _map_table(head_map, KV: int, dev):
+    """The head map's device table (None for the even map)."""
+    return None if head_map is None else _hm.table(head_map, KV, dev)
+
+
 def _forward(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
-             with_lse: bool):
+             with_lse: bool, head_map=None):
     """One forward launch: (o, lse (B, H, Tq) f32 or None)."""
     global launches, launches_single_query
     B, Tq, H, hd = q.shape
@@ -161,9 +187,11 @@ def _forward(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
            if with_lse else None)
     strides = (ctypes.c_longlong * 12)(*[t.stride(i) for t in (q, k, v, o)
                                          for i in range(3)])
+    table = _map_table(head_map, KV, dev)
     fn = build.load(NAME, "flash_attention", _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(),
+            None if table is None else table.data_ptr(),
             ctypes.addressof(strides), _DTYPES[q.dtype], B, Tq, Tk, H, KV,
             hd, int(causal), int(window), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -180,16 +208,19 @@ class BwdPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def plan_bwd(B: int, Tq: int, Tk: int, H: int, KV: int, hd: int,
-             sms: int) -> BwdPlan:
+             sms: int, group: int = 0) -> BwdPlan:
     """The bf16 backward's split: enough splits that the dK/dV kernel
     launches at least about 2 x `sms` blocks, never more than the (query
-    head, 64-row query tile) pairs of a KV head's group (the dims of hd >
-    128 go to two blocks already). The kernel walks the pairs that see
-    its keys, split s of n taking [s·n_pairs/n, (s+1)·n_pairs/n); a
-    split left with none writes zero partials."""
+    head, 64-row query tile) pairs of the largest KV head's group
+    (`group` query heads; 0 means H // KV, the even map's) (the dims of
+    hd > 128 go to two blocks already). The kernel walks the pairs that
+    see its keys, split s of n taking [s·n_pairs/n, (s+1)·n_pairs/n); a
+    split left with none writes zero partials. Under an uneven map the
+    smaller groups' blocks have fewer pairs to share: their splits end
+    early, and the largest group's blocks set the kernel's time."""
     parts = 2 if hd > 128 else 1
     base = -(-Tk // BWD_TILE) * KV * B * parts
-    most = (H // KV) * -(-Tq // BWD_TILE)
+    most = (group or H // KV) * -(-Tq // BWD_TILE)
     nsplit = max(1, min(most, -(-2 * sms // base)))
     return BwdPlan(nsplit, base * nsplit)
 
@@ -203,11 +234,12 @@ def _row_strides(t: Tensor):
 
 def flash_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
                              lse: Tensor, *, causal: bool = True,
-                             window: int = 0):
+                             window: int = 0, head_map=None):
     """Launch the backward kernels: (dq, dk, dv) in q's dtype from the
     forward's inputs, its LSE and the output's gradient."""
     global launches_bwd
-    _check(q, k, v)
+    head_map = _hm.normalize(head_map, q.shape[2], k.shape[2])
+    _check(q, k, v, head_map)
     B, Tq, H, hd = q.shape
     Tk, KV = k.shape[1], k.shape[2]
     dev = q.device
@@ -226,17 +258,21 @@ def flash_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
     dsum = torch.empty(B, H, Tq, dtype=torch.float32, device=dev)
     nsplit, work = 1, None
     if q.dtype == torch.bfloat16:
-        nsplit = plan_bwd(B, Tq, Tk, H, KV, hd,
-                          build.sm_count(dev.index)).nsplit
+        group = (0 if head_map is None
+                 else _hm.max_group(head_map, H, KV))
+        nsplit = plan_bwd(B, Tq, Tk, H, KV, hd, build.sm_count(dev.index),
+                          group).nsplit
         if nsplit > 1:
             work = torch.empty(2, nsplit, B, Tk, KV, hd,
                                dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 21)(
         *[st for t in (q, k, v, do, dq, dk, dv) for st in _row_strides(t)])
+    table = _map_table(head_map, KV, dev)
     fn = build.load(NAME_BWD, "flash_attention_bwd", _BWD_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), None if work is None else work.data_ptr(),
+            None if table is None else table.data_ptr(),
             ctypes.addressof(strides), _DTYPES[q.dtype], B, Tq, Tk, H, KV,
             hd, int(causal), int(window), nsplit, 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -250,10 +286,11 @@ class FlashAttention(torch.autograd.Function):
     kernel for the gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
-        o, lse = _forward(q, k, v, causal, window, with_lse=True)
+    def forward(ctx, q, k, v, causal: bool, window: int, head_map=None):
+        o, lse = _forward(q, k, v, causal, window, with_lse=True,
+                          head_map=head_map)
         ctx.save_for_backward(q, k, v, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.head_map = causal, window, head_map
         return o
 
     @staticmethod
@@ -263,17 +300,23 @@ class FlashAttention(torch.autograd.Function):
                      window=ctx.window):
             dq, dk, dv = flash_attention_bwd_cuda(q, k, v, do, lse,
                                                   causal=ctx.causal,
-                                                  window=ctx.window)
-        return dq, dk, dv, None, None
+                                                  window=ctx.window,
+                                                  head_map=ctx.head_map)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
-                         causal: bool = True, window: int = 0) -> Tensor:
+                         causal: bool = True, window: int = 0,
+                         head_map=None) -> Tensor:
     """Launch the kernel on (B, Tq, H, hd) / (B, Tk, KV, hd) tensors;
     under autograd through `FlashAttention` (forward with LSE, backward
-    kernel), else the forward alone with no LSE."""
-    _check(q, k, v)
+    kernel), else the forward alone with no LSE. `head_map`: a host
+    tuple (kernels/headmap.py), None for the even map."""
+    head_map = _hm.normalize(head_map, q.shape[2], k.shape[2])
+    _check(q, k, v, head_map)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, bool(causal), int(window))
-    return _forward(q, k, v, causal, window, with_lse=False)[0]
+        return FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                    head_map)
+    return _forward(q, k, v, causal, window, with_lse=False,
+                    head_map=head_map)[0]

@@ -1,7 +1,12 @@
 """Kernel dispatch by tensor device only (port of `repro.kernels.ops`).
 
 A CPU tensor goes to the kernel's plain version; any other tensor goes to
-the Hopper kernel, which launches or raises. There is no fallback from the
+the Hopper kernel, which launches or raises. The attention entry points
+take a `head_map` (a host tuple of each query head's KV head; None, or
+the even map h // (H // KV), needs no table): the kernels read its
+device table, built once per (map, device) by `kernels/headmap.py`, so
+a decode step copies nothing from the host; the plain versions expand
+K/V by it. There is no fallback from the
 kernel to the plain version and no switch that selects the plain version
 for a CUDA tensor. Kernels are built and imported at first launch, never
 when this module is imported.
@@ -49,7 +54,7 @@ def comq_panel_dq(h_bb: Tensor, s0: Tensor, qf: Tensor, delta, z_lo, z_hi,
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
-                    window: int = 0) -> Tensor:
+                    window: int = 0, head_map=None) -> Tensor:
     """q (B, Tq, H, hd), k/v (B, Tk, KV, hd) -> (B, Tq, H, hd) q.dtype.
     Differentiable: on the CPU through the plain version's autograd
     graph, on the card through the forward kernel (with LSE) and the
@@ -58,11 +63,13 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                  window=window):
         if not _plain(q):
             return _flash.flash_attention_cuda(q, k, v, causal=causal,
-                                               window=window)
+                                               window=window,
+                                               head_map=head_map)
         if counting() and _needs_grad(q, k, v):
-            return _CountedPlainAttention.apply(q, k, v, causal, window)
+            return _CountedPlainAttention.apply(q, k, v, causal, window,
+                                                head_map)
         return _flash.flash_attention_plain(q, k, v, causal=causal,
-                                            window=window)
+                                            window=window, head_map=head_map)
 
 
 def quant_matmul(x: Tensor, codes: Tensor, scale: Tensor, z_lo: Tensor, *,
@@ -76,7 +83,7 @@ def quant_matmul(x: Tensor, codes: Tensor, scale: Tensor, z_lo: Tensor, *,
 
 def paged_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                     block_tables: Tensor, lengths: Tensor, *,
-                    window: int = 0) -> Tensor:
+                    window: int = 0, head_map=None) -> Tensor:
     """Decode attention over a paged KV pool (serve/kv_cache.py layout):
     q (B, H, hd), one query token per slot; block_tables (B, MAXB)
     physical page ids; lengths (B,) valid tokens (0 = inactive slot)."""
@@ -85,15 +92,18 @@ def paged_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
         if _plain(q):
             return _paged.paged_attention_plain(q, k_pool, v_pool,
                                                 block_tables, lengths,
-                                                window=window)
+                                                window=window,
+                                                head_map=head_map)
         return _paged.paged_attention_cuda(q, k_pool, v_pool, block_tables,
-                                           lengths, window=window)
+                                           lengths, window=window,
+                                           head_map=head_map)
 
 
 def paged_attention_quant(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                           k_scale: Tensor, v_scale: Tensor,
                           block_tables: Tensor, lengths: Tensor, *,
-                          window: int = 0, kv_bits: int = 8) -> Tensor:
+                          window: int = 0, kv_bits: int = 8,
+                          head_map=None) -> Tensor:
     """Decode attention over a quantized paged pool: integer codes (int8 /
     packed 4-bit) with (NB, KV) per-page scales, dequantized inside the
     kernel."""
@@ -102,10 +112,10 @@ def paged_attention_quant(q: Tensor, k_pool: Tensor, v_pool: Tensor,
         if _plain(q):
             return _paged.paged_attention_quant_plain(
                 q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths,
-                window=window, kv_bits=kv_bits)
+                window=window, kv_bits=kv_bits, head_map=head_map)
         return _paged.paged_attention_quant_cuda(
             q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths,
-            window=window, kv_bits=kv_bits)
+            window=window, kv_bits=kv_bits, head_map=head_map)
 
 
 def _needs_grad(*ts) -> bool:
@@ -119,11 +129,11 @@ class _CountedPlainAttention(torch.autograd.Function):
     The same ops as the direct graph, so the same gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
+    def forward(ctx, q, k, v, causal: bool, window: int, head_map=None):
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.head_map = causal, window, head_map
         return _flash.flash_attention_plain(q, k, v, causal=causal,
-                                            window=window)
+                                            window=window, head_map=head_map)
 
     @staticmethod
     def backward(ctx, do):
@@ -132,9 +142,10 @@ class _CountedPlainAttention(torch.autograd.Function):
                      window=ctx.window), torch.enable_grad():
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
             out = _flash.flash_attention_plain(*leaves, causal=ctx.causal,
-                                               window=ctx.window)
+                                               window=ctx.window,
+                                               head_map=ctx.head_map)
             grads = torch.autograd.grad(out, leaves, do)
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
 # every kernel: (module, its name attribute, its launch-counter attribute)

@@ -10,7 +10,10 @@ body `_quant_kernel`). Both read the serving layout of
 page scales; block tables (B, MAXB) int32; lengths (B,) int32, 0 =
 inactive (exact zeros). The query sits at position length-1; `window` > 0
 also masks keys with (length-1) - pos >= window. Output (B, H, hd) in
-q.dtype (f32 or bf16).
+q.dtype (f32 or bf16). Query head h reads KV head h // (H // KV), or
+head_map[h] under a `head_map` (a host tuple, `kernels/headmap.py`): a
+split block then takes its KV head's group from the map's device table,
+at most 16 heads, and the workspaces are sized by the largest group.
 
 What bounds them is the bytes of the live pages; the source notes the
 design (flash-decoding: fixed 256-token splits per (slot, kv head) and a
@@ -41,6 +44,7 @@ import math
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels import headmap as _hm
 
 Tensor = torch.Tensor
 NAME = "paged_attention"
@@ -55,28 +59,30 @@ _MAX_G, _MAX_HD = 16, 256
 _MAX_SPAN = 512       # tensor-core kernels: a split of at most 512 tokens
 _PAGE_KIND = {torch.float32: 0, torch.bfloat16: 1}
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
              + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
-_ARGTYPES_QUANT = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+_ARGTYPES_QUANT = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
 
 
 def paged_attention_plain(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                           block_tables: Tensor, lengths: Tensor, *,
-                          window: int = 0) -> Tensor:
+                          window: int = 0, head_map=None) -> Tensor:
     """`ref.paged_attention_ref` in q.dtype."""
     return ref.paged_attention_ref(q, k_pool, v_pool, block_tables, lengths,
-                                   window=window).to(q.dtype)
+                                   window=window,
+                                   head_map=head_map).to(q.dtype)
 
 
 def paged_attention_quant_plain(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                                 k_scale: Tensor, v_scale: Tensor,
                                 block_tables: Tensor, lengths: Tensor, *,
-                                window: int = 0, kv_bits: int = 8) -> Tensor:
+                                window: int = 0, kv_bits: int = 8,
+                                head_map=None) -> Tensor:
     """`ref.paged_attention_quant_ref` (f32 dequantization) in q.dtype."""
     return ref.paged_attention_quant_ref(
         q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths,
-        window=window, kv_bits=kv_bits).to(q.dtype)
+        window=window, kv_bits=kv_bits, head_map=head_map).to(q.dtype)
 
 
 def _pages_per_split(block_size: int) -> int:
@@ -97,8 +103,10 @@ def quant_kernel(q_dtype: torch.dtype, kv_bits: int, hd: int,
 
 
 def _check(name: str, q: Tensor, k_pool: Tensor, v_pool: Tensor,
-           block_tables: Tensor, lengths: Tensor, row: int):
-    """Validate the common operands; returns (B, H, KV, hd, NB, BS, MAXB)."""
+           block_tables: Tensor, lengths: Tensor, row: int, head_map=None):
+    """Validate the common operands (`head_map` normalized: None for the
+    even map); returns (B, H, KV, hd, NB, BS, MAXB, G), G the largest
+    group."""
     dev = q.device
     if dev.type != "cuda":
         raise RuntimeError(f"{name} kernel needs CUDA tensors, got {dev}")
@@ -108,10 +116,14 @@ def _check(name: str, q: Tensor, k_pool: Tensor, v_pool: Tensor,
                          f"{tuple(v_pool.shape)}")
     B, H, hd = q.shape
     NB, BS, KV = k_pool.shape[:3]
-    if k_pool.shape[3] != row or H % KV or H // KV > _MAX_G or hd > _MAX_HD:
+    G = (H // KV if head_map is None
+         else _hm.max_group(head_map, H, KV))
+    if (k_pool.shape[3] != row or (head_map is None and H % KV)
+            or G > _MAX_G or hd > _MAX_HD):
         raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} pool "
                          f"{tuple(k_pool.shape)} (needs row {row}, "
-                         f"H % KV == 0, H/KV <= {_MAX_G}, hd <= {_MAX_HD})")
+                         f"H % KV == 0 or a head map, at most {_MAX_G} "
+                         f"query heads a KV head, hd <= {_MAX_HD})")
     if q.dtype not in _Q_DTYPES:
         raise TypeError(f"{name}: q must be f32 or bf16, got {q.dtype}")
     if block_tables.dim() != 2 or block_tables.shape[0] != B \
@@ -126,28 +138,29 @@ def _check(name: str, q: Tensor, k_pool: Tensor, v_pool: Tensor,
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name}: every operand must be contiguous on "
                              f"{dev}")
-    return B, H, KV, hd, NB, BS, block_tables.shape[1]
+    return B, H, KV, hd, NB, BS, block_tables.shape[1], G
 
 
 def _launch(lib_fn: str, q: Tensor, k_pool: Tensor, v_pool: Tensor,
             scales, block_tables: Tensor, lengths: Tensor, kind: int,
-            dims, window: int, argtypes, route=()) -> Tensor:
-    B, H, KV, hd, NB, BS, MAXB = dims
+            dims, window: int, argtypes, route=(), head_map=None) -> Tensor:
+    B, H, KV, hd, NB, BS, MAXB, G = dims
     pps = _pages_per_split(BS)
     ns = max(1, -(-MAXB // pps))
     dev = q.device
     o = torch.empty(B, H, hd, dtype=q.dtype, device=dev)
-    part_acc = torch.empty(B, KV, ns, H // KV, hd, dtype=torch.float32,
+    part_acc = torch.empty(B, KV, ns, G, hd, dtype=torch.float32,
                            device=dev)
-    part_ml = torch.empty(B, KV, ns, H // KV, 2, dtype=torch.float32,
-                          device=dev)
-    shape = (ctypes.c_int * 10)(B, H, KV, hd, NB, BS, MAXB, pps, ns,
-                                int(window))
+    part_ml = torch.empty(B, KV, ns, G, 2, dtype=torch.float32, device=dev)
+    shape = (ctypes.c_int * 11)(B, H, KV, hd, NB, BS, MAXB, pps, ns,
+                                int(window), G)
+    table = None if head_map is None else _hm.table(head_map, KV, dev)
     fn = build.load(NAME, lib_fn, argtypes)
     ptrs = [q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr()]
     ptrs += [s.data_ptr() for s in scales]
     ptrs += [block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-             part_acc.data_ptr(), part_ml.data_ptr()]
+             part_acc.data_ptr(), part_ml.data_ptr(),
+             None if table is None else table.data_ptr()]
     rc = fn(*ptrs, _Q_DTYPES[q.dtype], kind, *route,
             ctypes.addressof(shape), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -155,13 +168,21 @@ def _launch(lib_fn: str, q: Tensor, k_pool: Tensor, v_pool: Tensor,
     return o
 
 
+def _normal_map(head_map, q: Tensor, k_pool: Tensor):
+    if q.dim() != 3 or k_pool.dim() != 4:
+        return head_map      # _check refuses the shapes
+    return _hm.normalize(head_map, q.shape[1], k_pool.shape[2])
+
+
 def paged_attention_cuda(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                          block_tables: Tensor, lengths: Tensor, *,
-                         window: int = 0) -> Tensor:
+                         window: int = 0, head_map=None) -> Tensor:
     """Launch the kernel over an f32 or bf16 page pool."""
     global launches
+    head_map = _normal_map(head_map, q, k_pool)
     dims = _check(NAME, q, k_pool, v_pool, block_tables, lengths,
-                  row=q.shape[-1] if q.dim() == 3 else -1)
+                  row=q.shape[-1] if q.dim() == 3 else -1,
+                  head_map=head_map)
     if k_pool.dtype not in _PAGE_KIND or v_pool.dtype != k_pool.dtype:
         raise TypeError(f"{NAME}: pages must be f32 or bf16, got "
                         f"{k_pool.dtype}/{v_pool.dtype}")
@@ -172,7 +193,8 @@ def paged_attention_cuda(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                          f"tokens: needs an even hd, got hd {dims[3]}, BS "
                          f"{dims[5]}")
     o = _launch(NAME, q, k_pool, v_pool, (), block_tables, lengths,
-                _PAGE_KIND[k_pool.dtype], dims, window, _ARGTYPES)
+                _PAGE_KIND[k_pool.dtype], dims, window, _ARGTYPES,
+                head_map=head_map)
     launches += 1
     return o
 
@@ -180,17 +202,19 @@ def paged_attention_cuda(q: Tensor, k_pool: Tensor, v_pool: Tensor,
 def paged_attention_quant_cuda(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                                k_scale: Tensor, v_scale: Tensor,
                                block_tables: Tensor, lengths: Tensor, *,
-                               window: int = 0, kv_bits: int = 8) -> Tensor:
+                               window: int = 0, kv_bits: int = 8,
+                               head_map=None) -> Tensor:
     """Launch the kernel over int8 (kv_bits 8) or 4-bit nibble-pair
     (kv_bits 4) codes with (NB, KV) f32 page scales: the tensor-core or
     the CUDA-core split kernel, as `quant_kernel` says."""
     global launches_quant, launches_quant_tc
+    head_map = _normal_map(head_map, q, k_pool)
     if kv_bits not in (4, 8):
         raise ValueError(f"{NAME_QUANT}: kv_bits must be 4 or 8, got "
                          f"{kv_bits}")
     hd = q.shape[-1] if q.dim() == 3 else -1
     dims = _check(NAME_QUANT, q, k_pool, v_pool, block_tables, lengths,
-                  row=hd if kv_bits == 8 else hd // 2)
+                  row=hd if kv_bits == 8 else hd // 2, head_map=head_map)
     want = torch.int8 if kv_bits == 8 else torch.uint8
     if k_pool.dtype != want or v_pool.dtype != want or (kv_bits == 4
                                                         and hd % 2):
@@ -206,7 +230,8 @@ def paged_attention_quant_cuda(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     tc = quant_kernel(q.dtype, kv_bits, dims[3], dims[5]) == TENSOR_CORE
     o = _launch(NAME_QUANT, q, k_pool, v_pool, (k_scale, v_scale),
                 block_tables, lengths, 2 if kv_bits == 8 else 3, dims,
-                window, _ARGTYPES_QUANT, route=(int(tc),))
+                window, _ARGTYPES_QUANT, route=(int(tc),),
+                head_map=head_map)
     launches_quant += 1
     launches_quant_tc += tc
     return o

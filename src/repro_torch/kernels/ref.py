@@ -24,12 +24,16 @@ def quant_matmul_ref(x: Tensor, codes_u: Tensor, scale: Tensor, z_lo: Tensor,
 
 def paged_attention_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                         block_tables: Tensor, lengths: Tensor, *,
-                        window: int = 0) -> Tensor:
+                        window: int = 0, head_map=None) -> Tensor:
     """q: (B, H, hd); k_pool/v_pool: (NB, BS, KV, hd); block_tables:
     (B, MAXB); lengths: (B,). Gather the slot's pages into a contiguous
     (B, MAXB·BS, KV, hd) view, then masked softmax attention in f32 (the
     query sits at position length-1). Inactive slots (length 0) return
-    exact zeros. Returns f32."""
+    exact zeros. Query head h reads KV head h // (H // KV), or
+    head_map[h] (a host tuple; the gathered K/V expanded by index).
+    Returns f32."""
+    from repro_torch.kernels import headmap
+    head_map = headmap.normalize(head_map, q.shape[1], k_pool.shape[2])
     B, H, hd = q.shape
     NB, BS, KV = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
     S = block_tables.shape[1] * BS
@@ -37,6 +41,9 @@ def paged_attention_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,
            + torch.arange(BS, device=q.device)[None, None]).reshape(B, S)
     kg = k_pool.reshape(NB * BS, KV, hd)[idx].float()
     vg = v_pool.reshape(NB * BS, KV, hd)[idx].float()
+    if head_map is not None:     # one group of one head a query head
+        hidx = headmap.index(head_map, q.device)
+        kg, vg, KV = kg[:, :, hidx], vg[:, :, hidx], H
     g = H // KV
     qg = q.float().reshape(B, KV, g, hd)
     scale = 1.0 / torch.sqrt(torch.tensor(float(hd)))
@@ -56,7 +63,8 @@ def paged_attention_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,
 def paged_attention_quant_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                               k_scale: Tensor, v_scale: Tensor,
                               block_tables: Tensor, lengths: Tensor, *,
-                              window: int = 0, kv_bits: int = 8) -> Tensor:
+                              window: int = 0, kv_bits: int = 8,
+                              head_map=None) -> Tensor:
     """Quantized-pool oracle: k_pool/v_pool hold integer codes
     (NB, BS, KV, hd/cpb — int8, or packed 4-bit nibble pairs) with one f32
     scale per (page, kv_head) in k_scale/v_scale (NB, KV). Dequantizes
@@ -66,4 +74,4 @@ def paged_attention_quant_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     kd = kv_decode(k_pool, k_scale[:, None], kv_bits)   # (NB, BS, KV, hd)
     vd = kv_decode(v_pool, v_scale[:, None], kv_bits)
     return paged_attention_ref(q, kd, vd, block_tables, lengths,
-                               window=window)
+                               window=window, head_map=head_map)

@@ -1,6 +1,12 @@
 """Grouped-query attention, dense half (port of `repro.models.attention`).
 
-* One device, so no TP head padding: qwen2 keeps its 28 query heads.
+* Tensor-parallel head padding (`BuildPlan.tp`): q/o projections carry
+  Hp = heads_padded query heads (qwen2 28 -> 30 at tp = 3, 32 at tp =
+  16), initialized at random as JAX's are; `head_to_kv_map` assigns them
+  to KV heads by JAX's rule, an even h // (Hp/KV) when KV divides Hp
+  (which re-assigns real heads: qwen2 at tp = 16 puts head h on h // 8,
+  not h // 7) and otherwise the floor map with padded heads parked on KV
+  head 0. The kernels take an uneven map as a table (`kernels/headmap`).
 * Full-sequence attention — causal, windowed or non-causal (the encoder,
   and the VLM's cross-attention over the image, Tq != Tk) — goes through
   `kernels.ops.flash_attention`: the Hopper kernel for CUDA tensors, its
@@ -17,6 +23,7 @@
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -31,9 +38,9 @@ NEG_INF = -1e30
 # params
 # ---------------------------------------------------------------------------
 
-def attn_param_shapes(cfg) -> dict:
-    d, hd, kv, h = (cfg.d_model, cfg.resolved_head_dim, cfg.n_kv_heads,
-                    cfg.n_heads)
+def attn_param_shapes(cfg, n_heads_padded: Optional[int] = None) -> dict:
+    d, hd, kv = cfg.d_model, cfg.resolved_head_dim, cfg.n_kv_heads
+    h = n_heads_padded or cfg.n_heads
     shapes = {"wq": (d, h, hd), "wk": (d, kv, hd), "wv": (d, kv, hd),
               "wo": (h, hd, d)}
     if cfg.qkv_bias:
@@ -41,9 +48,10 @@ def attn_param_shapes(cfg) -> dict:
     return shapes
 
 
-def init_attn(gen: torch.Generator, cfg, device) -> dict:
+def init_attn(gen: torch.Generator, cfg, device,
+              n_heads_padded: int) -> dict:
     out = {}
-    for name, shp in sorted(attn_param_shapes(cfg).items()):
+    for name, shp in sorted(attn_param_shapes(cfg, n_heads_padded).items()):
         if name.startswith("b"):
             out[name] = zeros_init(shp, device)
         else:
@@ -63,6 +71,15 @@ def head_to_kv_map(n_heads: int, n_heads_padded: int, n_kv: int,
     return torch.where(idx < n_heads,
                        torch.clamp(idx // q_per_kv, max=n_kv - 1),
                        torch.zeros_like(idx))
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_head_map(n_heads: int, n_heads_padded: int, n_kv: int):
+    """`head_to_kv_map` as a host tuple for the attention dispatch: None
+    for the even map (the kernels need no table), the map otherwise."""
+    from repro_torch.kernels import headmap
+    m = tuple(head_to_kv_map(n_heads, n_heads_padded, n_kv).tolist())
+    return headmap.normalize(m, n_heads_padded, n_kv)
 
 
 # ---------------------------------------------------------------------------
@@ -107,7 +124,7 @@ def out_project(p: dict, o: Tensor) -> Tensor:
 # full-sequence attention (calibration / eval / prefill)
 # ---------------------------------------------------------------------------
 
-def flash_attention(q: Tensor, k: Tensor, v: Tensor, head_map: Tensor, *,
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, head_map, *,
                     causal: bool = True, window: int = 0) -> Tensor:
     """q: (B,Tq,Hp,hd); k,v: (B,Tk,KV,hd). Returns (B,Tq,Hp,hd).
 
@@ -115,17 +132,12 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, head_map: Tensor, *,
     sliding-window) self-attention, or non-causal attention with Tq and
     Tk free (the encoder; the VLM's cross-attention over the image, where
     the JAX package calls `_dense_attention`: the same function). GQA maps
-    head h to KV head h // (Hp/KV). On one device every ported config
-    divides evenly (hymba: 25 over 5); the uneven map exists only under
-    tensor-parallel head padding, which is not ported."""
-    if q.shape[2] % k.shape[2]:
-        raise NotImplementedError(
-            "flash_attention needs Hp % KV == 0 (an uneven head map, as "
-            "hymba's under tensor-parallel head padding, is not ported: "
-            "ROADMAP.md item 17c)")
+    head h to KV head head_map[h] (`kernel_head_map`'s tuple, None for
+    the even map h // (Hp/KV); a tensor is read on the host)."""
     from repro_torch.kernels import ops
     return ops.flash_attention(q, k, v, causal=causal,
-                               window=window if causal else 0)
+                               window=window if causal else 0,
+                               head_map=head_map)
 
 
 def _dense_attention(q: Tensor, k: Tensor, v: Tensor, head_map: Tensor, *,
@@ -146,6 +158,9 @@ def _dense_attention(q: Tensor, k: Tensor, v: Tensor, head_map: Tensor, *,
         qg = q.reshape(B, Tq, KV, G, hd)
         s = torch.einsum("btkgh,bskh->bkgts", qg.float(), k.float()) * scale
     else:
+        if not isinstance(head_map, Tensor):
+            from repro_torch.kernels import headmap
+            head_map = headmap.index(head_map, q.device)
         k = k[:, :, head_map, :]
         v = v[:, :, head_map, :]
         s = torch.einsum("bthk,bshk->bhts", q.float(), k.float()) * scale
@@ -337,24 +352,18 @@ def paged_gather(pool: Tensor, block_tables: Tensor) -> Tensor:
     return pool.reshape(NB * BS, *pool.shape[2:])[idx.reshape(B, MAXB * BS)]
 
 
-def _grouped_heads(q: Tensor, k_pool: Tensor) -> None:
-    if q.shape[2] % k_pool.shape[2]:
-        raise NotImplementedError(
-            "paged decode attention needs Hp % KV == 0 (an uneven head map, "
-            "as hymba's under tensor-parallel head padding, is not ported: "
-            "ROADMAP.md item 17c)")
-
-
 def paged_decode_attend(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                         block_tables: Tensor, lengths: Tensor,
                         head_map: Tensor, *, window: int = 0) -> Tensor:
     """q: (B, 1, Hp, hd); lengths: (B,) int32 valid tokens per slot (0
     inactive). Runs `ops.paged_attention`: the kernel for CUDA tensors,
-    its plain version on the CPU. Returns (B, 1, Hp, hd) in q.dtype."""
-    _grouped_heads(q, k_pool)
+    its plain version on the CPU; an uneven `head_map` (a host tuple)
+    goes to the kernel as its table, where the JAX package falls back to
+    an XLA gather. Returns (B, 1, Hp, hd) in q.dtype."""
     from repro_torch.kernels import ops
     o = ops.paged_attention(q[:, 0].contiguous(), k_pool, v_pool,
-                            block_tables, lengths, window=window)
+                            block_tables, lengths, window=window,
+                            head_map=head_map)
     return o[:, None]
 
 
@@ -418,9 +427,9 @@ def paged_decode_attend_quant(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     """Quantized-pool decode attention through
     `ops.paged_attention_quant`: the kernel streams codes and folds the
     per-page scales in; the plain version dequantizes in f32."""
-    _grouped_heads(q, k_pool)
     from repro_torch.kernels import ops
     o = ops.paged_attention_quant(q[:, 0].contiguous(), k_pool, v_pool,
                                   k_scale, v_scale, block_tables, lengths,
-                                  window=window, kv_bits=kv_bits)
+                                  window=window, kv_bits=kv_bits,
+                                  head_map=head_map)
     return o[:, None]

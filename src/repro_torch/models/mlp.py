@@ -30,8 +30,10 @@ def _ff(w, x: Tensor, cd) -> Tensor:
     return torch.einsum("btd,df->btf", x, w.to(cd))
 
 
-def apply_mlp(p: dict, x: Tensor, cfg, taps=None, quantize_cb=None
-              ) -> Tensor:
+def apply_mlp(p: dict, x: Tensor, cfg, taps=None, constrain=None,
+              quantize_cb=None) -> Tensor:
+    """`constrain`: the plan's activation-sharding hook, called on the
+    hidden activation ("ffn_hidden"), as JAX's full-sequence layer does."""
     cd = x.dtype
     act = act_fn(cfg.act)
     if taps is not None:
@@ -42,6 +44,8 @@ def apply_mlp(p: dict, x: Tensor, cfg, taps=None, quantize_cb=None
         h = act(_ff(p["w_gate"], x, cd)) * _ff(p["w_up"], x, cd)
     else:
         h = act(_ff(p["w_up"], x, cd))
+    if constrain is not None:
+        h = constrain(h, "ffn_hidden")
     if taps is not None:
         taps["down_in"] = h       # feeds w_down
         if quantize_cb is not None:

@@ -1,7 +1,7 @@
 """Top-level model API: the dense (and audio), MoE, hybrid, RWKV, VLM
 and encoder families (port of `repro.models.model`).
 
-    params = init_params(cfg, seed=0, device=None)
+    params = init_params(cfg, plan=None, seed=0, device=None)
     logits, aux, cache = forward(params, cfg, plan, tokens, make_cache=...)
     loss, metrics = lm_loss(params, cfg, plan, batch)
     logits, cache = prefill(params, cfg, plan, tokens)
@@ -59,17 +59,23 @@ def vlm_group_counts(cfg):
     return cfg.n_layers // every, every - 1
 
 
-def init_params(cfg, *, seed: int = 0, device: DeviceLike = None) -> Params:
-    """Random weights from `torch.Generator(device).manual_seed(seed)`."""
+def init_params(cfg, plan: BuildPlan = None, *, seed: int = 0,
+                device: DeviceLike = None) -> Params:
+    """Random weights from `torch.Generator(device).manual_seed(seed)`, at
+    the plan's padded widths (embed / unembed at `vocab_padded`, q/o at
+    `heads_padded`, experts at `experts_padded`; all unpadded at tp = 1).
+    On the meta device (the dry run) no generator runs and nothing is
+    allocated: the tensors carry shapes and dtypes only."""
     tfm.check_ported(cfg)
-    plan = BuildPlan()
+    plan = plan or BuildPlan()
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    d, v = cfg.d_model, cfg.vocab_size
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
+    d, v = cfg.d_model, plan.vocab_padded(cfg)
     p: Params = {}
     if cfg.family == "encoder":
         p["pos_embed"] = embed_init(gen, (POS_EMBED_ROWS, d), dev)
-        p["cls_head"] = dense_init(gen, (d, v), dev)
+        p["cls_head"] = dense_init(gen, (d, cfg.vocab_size), dev)
     else:
         p["embed"] = embed_init(gen, (v, d), dev)
         if not cfg.tie_embeddings:
@@ -81,7 +87,7 @@ def init_params(cfg, *, seed: int = 0, device: DeviceLike = None) -> Params:
         p["groups"] = {
             "self": [[tfm.init_layer(gen, cfg, plan, dev)
                       for _ in range(spg)] for _ in range(g)],
-            "cross": [tfm.init_cross_layer(gen, cfg, dev)
+            "cross": [tfm.init_cross_layer(gen, cfg, plan, dev)
                       for _ in range(g)]}
     else:
         p["layers"] = [tfm.init_layer(gen, cfg, plan, dev)
@@ -137,8 +143,10 @@ def embed_tokens(p: Params, cfg, plan: BuildPlan, tokens: Tensor) -> Tensor:
     if is_qt(emb):
         # gather code rows first, dequantize only the touched rows
         rows = unpack_codes(emb.codes[tokens], emb.cpb)
-        return ((rows.float() + emb.z_lo.float()) * emb.scale).to(cd)
-    return emb[tokens].to(cd)
+        x = ((rows.float() + emb.z_lo.float()) * emb.scale).to(cd)
+    else:
+        x = emb[tokens].to(cd)
+    return plan.constrain(x, "residual")
 
 
 def unembed(p: Params, cfg, plan: BuildPlan, x: Tensor) -> Tensor:
@@ -147,7 +155,14 @@ def unembed(p: Params, cfg, plan: BuildPlan, x: Tensor) -> Tensor:
     w = p["unembed"] if not cfg.tie_embeddings else p["embed"].T
     if is_qt(w):
         w = w.dequant(cd)
-    return torch.einsum("btd,dv->btv", x, w.to(cd))
+    logits = torch.einsum("btd,dv->btv", x, w.to(cd))
+    vp = logits.shape[-1]
+    if vp > cfg.vocab_size:   # mask the padded vocab columns (tp > 1)
+        keep = torch.arange(vp, device=logits.device) < cfg.vocab_size
+        logits = torch.where(keep, logits,
+                             torch.full((), -1e30, dtype=logits.dtype,
+                                        device=logits.device))
+    return plan.constrain(logits, "logits")
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +199,7 @@ def _run_layers(p: Params, cfg, plan, x, make_cache: bool):
     aux = torch.zeros((), device=x.device)
     for lp in p["layers"]:
         x, cache, a, st = body(lp, x)
+        x = plan.constrain(x, "residual")
         caches.append(cache)
         states.append(st)
         if a is not None:
@@ -223,9 +239,11 @@ def _run_vlm(p: Params, cfg, plan, x, make_cache: bool, vision_embeds):
         group = []
         for lp in gp_self:
             x, cache = self_body(lp, x)
+            x = plan.constrain(x, "residual")
             group.append(cache)
         caches.append(group)
         x, k, v = cross_body(gp_cross, x, ve)
+        x = plan.constrain(x, "residual")
         ks.append(k)
         vs.append(v)
     xkv = (torch.stack(ks), torch.stack(vs)) if make_cache else None
@@ -366,10 +384,12 @@ def _decode_vlm(p: Params, cfg, plan, cache, x, pos: int):
         for lp, kv in zip(gp_self, cache["kv"][g]):
             x, kv, _ = tfm.layer_decode(dequantize_qt_tree(lp, cd), x, cfg,
                                         plan, kv, pos)
+            x = plan.constrain(x, "residual")
             group.append(kv)
         new_kv.append(group)
         x = tfm.cross_layer_full(dequantize_qt_tree(gp_cross, cd), x, cfg,
                                  plan, (xk[g], xv[g]))
+        x = plan.constrain(x, "residual")
     return x, {"kv": new_kv, "xkv": cache["xkv"]}
 
 
@@ -398,6 +418,7 @@ def decode_step(p: Params, cfg, plan: BuildPlan, cache, tokens: Tensor,
         lp = dequantize_qt_tree(lp, cd, keep_fused=True)
         kw = {f"{key}_state": st} if key else {}
         x, kv, st = tfm.layer_decode(lp, x, cfg, plan, kv, pos, **kw)
+        x = plan.constrain(x, "residual")
         new_kv.append(kv)
         new_states.append(st)
     x = apply_norm(p["final_norm"], x, cfg)
@@ -432,6 +453,44 @@ def decode_step_paged(p: Params, cfg, plan: BuildPlan, pool, block_tables,
         x = tfm.layer_decode_paged(lp, x, cfg, plan, pool["k"][i],
                                    pool["v"][i], block_tables, pos,
                                    *scales)[0]
+        x = plan.constrain(x, "residual")
     x = apply_norm(p["final_norm"], x, cfg)
     logits = unembed(p, cfg, plan, x)
     return logits[:, 0], pool
+
+
+# ---------------------------------------------------------------------------
+# input stand-ins (the dry run; no allocation)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg, shape, plan: BuildPlan = None) -> Dict[str, Any]:
+    """Meta-device stand-ins for every model input of `shape` (a
+    ShapeConfig), JAX's `input_specs`: tokens / labels (train), tokens
+    (prefill), tokens, pos and the empty cache (decode); a VLM adds its
+    image's patch embeddings, an encoder takes patch embeddings and
+    labels."""
+    plan = plan or BuildPlan()
+    gb, T = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+    i32 = torch.int32
+
+    def empty(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device=meta)
+    if cfg.family == "encoder":
+        return {"embeds": empty((gb, 197, cfg.d_model), torch.bfloat16),
+                "labels": empty((gb,), i32)}
+    specs: Dict[str, Any] = {}
+    if shape.kind == "train":
+        specs["tokens"] = empty((gb, T), i32)
+        specs["labels"] = empty((gb, T), i32)
+    elif shape.kind == "prefill":
+        specs["tokens"] = empty((gb, T), i32)
+    else:   # decode: one new token against a cache of length T
+        specs["tokens"] = empty((gb, 1), i32)
+        specs["pos"] = empty((), i32)
+        specs["cache"] = init_cache(cfg, plan, gb, T, device=meta)
+    if cfg.family == "vlm" and shape.kind != "decode":
+        ca = cfg.cross_attn
+        specs["vision_embeds"] = empty(
+            (gb, ca.n_vision_tokens, ca.vision_dim), torch.bfloat16)
+    return specs

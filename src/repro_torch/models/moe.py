@@ -12,9 +12,10 @@ layer's one-hot einsums: the same function, summed in another order. The
 combine does not use `index_add_`, whose CUDA atomics add in no fixed
 order. The expert GEMMs are batched products over the expert axis.
 
-Padded experts (the JAX package pads E to its TP degree) get -1e30
-logits so no token routes there; the port runs tp = 1 and pads none,
-but callers may pass a larger `n_experts_padded`.
+Padded experts (`BuildPlan.experts_padded`: E rounded up to a multiple
+of the plan's tp, granite's 40 -> 48 at tp = 16) get -1e30 router logits
+so no token routes there, as in the JAX layer; at tp = 1 none are
+padded. The quantize walk and its launcher run at tp = 1, as JAX's do.
 
 Global routing under a data axis (`group`, the "data" process group of
 a sharded calibration walk): JAX routes the whole batch at once, with

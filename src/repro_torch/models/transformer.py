@@ -8,16 +8,27 @@ package scans stacked params; its VLM scans groups of `every`-1 self
 layers and one cross layer, which the port holds as per-group lists).
 `BuildPlan` keeps the facts the ported paths read: the KV-cache dtype or
 its int8 form, the prefill cache length, the paged pool's code width,
-the MoE token chunk and capacity rounding, and whether training
-recomputes each layer in its backward pass (remat).
-The port runs on one device, so there is no TP head, expert or vocab
-padding (the JAX plan's tp=1).
+the MoE token chunk and capacity rounding, whether training recomputes
+each layer in its backward pass (remat), and the tensor-parallel degree
+`tp` with JAX's padding rules: query heads pad to a multiple of tp
+(`heads_padded`: qwen2 28 -> 32 at tp = 16), experts too
+(`experts_padded`: padded experts get -1e30 router logits, so no token
+routes there), and with tp > 1 the vocabulary to a multiple of 256
+(`vocab_padded`: padded logit columns are -1e30 in `unembed`). At tp = 1
+nothing pads. Padded rows are random at init, as JAX's are, so a padded
+plan is another model, not the unpadded one with zero heads.
+`constrain(x, kind)` is JAX's activation-sharding hook, called at its
+sites ("residual", "block_in", "kv_cache", "ffn_hidden", "logits"); the
+default is the identity, and `dist.sharding.make_constrain` computes
+JAX's spec for each kind (the port has no partitioner to hand it to).
+JAX's `attn_block_size` (the block of its XLA pair scan) has no
+counterpart: the kernels' tiles are fixed.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -32,13 +43,18 @@ from repro_torch.models.attention import (cache_insert, cache_prefill,
                                           paged_decode_attend, paged_insert,
                                           qkv_project)
 from repro_torch.models.common import (apply_norm, apply_rope, norm_params,
-                                       zeros_init)
+                                       pad_to_multiple, zeros_init)
 
 Tensor = torch.Tensor
 
 
+def _ident_constrain(x, kind):
+    return x
+
+
 @dataclass(frozen=True)
 class BuildPlan:
+    tp: int = 1                  # tensor-parallel degree: the padding rules
     cache_dtype: torch.dtype = torch.bfloat16
     cache_quant: bool = False    # int8 KV cache (per-entry absmax scales)
     # prefill cache capacity (0 -> prompt length); decode callers set
@@ -60,9 +76,24 @@ class BuildPlan:
     # layer in torch.utils.checkpoint while autograd records, and does
     # nothing under torch.no_grad (quantize, serve)
     remat: bool = True
+    # activation-sharding hook (dist.sharding.make_constrain); identity
+    constrain: Callable[[Any, str], Any] = field(default=_ident_constrain,
+                                                 compare=False, repr=False)
+
+    def heads_padded(self, cfg) -> int:
+        return pad_to_multiple(cfg.n_heads, self.tp)
 
     def experts_padded(self, cfg) -> int:
-        return 0 if cfg.moe is None else cfg.moe.n_experts
+        if cfg.moe is None:
+            return 0
+        return pad_to_multiple(cfg.moe.n_experts, self.tp)
+
+    def vocab_padded(self, cfg) -> int:
+        """Vocab rows padded so TP sharding divides (and int8-moment
+        blocks align); padded logit columns are masked in unembed()."""
+        if self.tp <= 1:
+            return cfg.vocab_size
+        return pad_to_multiple(cfg.vocab_size, 256)
 
     def replace(self, **kw) -> "BuildPlan":
         return dataclasses.replace(self, **kw)
@@ -121,7 +152,8 @@ def init_layer(gen: torch.Generator, cfg, plan: BuildPlan, device) -> dict:
                 "ln2": norm_params(cfg, device),
                 "cm": rwkv_mod.init_channel_mix(gen, cfg, device)}
     p = {"ln1": norm_params(cfg, device),
-         "attn": attn_mod.init_attn(gen, cfg, device)}
+         "attn": attn_mod.init_attn(gen, cfg, device,
+                                    plan.heads_padded(cfg))}
     if cfg.parallel_ssm_heads:
         p["ssm"] = ssm_mod.init_ssm(gen, cfg, device)
     p["ln2"] = norm_params(cfg, device)
@@ -133,21 +165,26 @@ def init_layer(gen: torch.Generator, cfg, plan: BuildPlan, device) -> dict:
     return p
 
 
-def init_cross_layer(gen: torch.Generator, cfg, device) -> dict:
+def init_cross_layer(gen: torch.Generator, cfg, plan: BuildPlan,
+                     device) -> dict:
     """A VLM cross-attention layer: `xattn` (its wk / wv read the projected
     image, width d_model) and the scalar gates gate_attn / gate_mlp, zero
     at init as in the JAX package (tanh(0) = 0: the layer starts as the
     identity)."""
     return {"ln1": norm_params(cfg, device),
-            "xattn": attn_mod.init_attn(gen, cfg, device),
+            "xattn": attn_mod.init_attn(gen, cfg, device,
+                                        plan.heads_padded(cfg)),
             "gate_attn": zeros_init((), device),
             "ln2": norm_params(cfg, device),
             "mlp": mlp_mod.init_mlp(gen, cfg, device),
             "gate_mlp": zeros_init((), device)}
 
 
-def _hmap(cfg, device):
-    return head_to_kv_map(cfg.n_heads, cfg.n_heads, cfg.n_kv_heads, device)
+def _hmap(cfg, plan: BuildPlan):
+    """The plan's head map for the attention dispatch: None for the even
+    map, else a host tuple (`attention.kernel_head_map`)."""
+    return attn_mod.kernel_head_map(cfg.n_heads, plan.heads_padded(cfg),
+                                    cfg.n_kv_heads)
 
 
 # ---------------------------------------------------------------------------
@@ -167,7 +204,7 @@ def _self_attention_full(p, x, cfg, plan, make_cache: bool, taps=None,
         pos = torch.arange(T, device=x.device).expand(B, T)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-    o = flash_attention(q, k, v, _hmap(cfg, x.device),
+    o = flash_attention(q, k, v, _hmap(cfg, plan),
                         causal=cfg.causal, window=cfg.sliding_window)
     if taps is not None:
         taps["wo_in"] = o.reshape(B, T, -1)   # feeds wo (Hp*hd, d)
@@ -183,12 +220,15 @@ def _self_attention_full(p, x, cfg, plan, make_cache: bool, taps=None,
                               plan.cache_dtype, x.device,
                               quantized=plan.cache_quant)
         cache = cache_prefill(cache, k, v)
+        cache = plan.constrain(cache, "kv_cache")
     return attn_mod.out_project(ap, o), cache
 
 
 def _ffn_full(p: dict, xn: Tensor, cfg, plan: BuildPlan, taps=None,
-              quantize_cb=None):
-    """The feed-forward block: (out, aux loss or None)."""
+              quantize_cb=None, decode: bool = False):
+    """The feed-forward block: (out, aux loss or None). A full sequence
+    calls the plan's "ffn_hidden" site; a decode step does not (JAX's
+    `_decode_ffn`)."""
     if cfg.moe is not None:
         return moe_mod.apply_moe(p["moe"], xn, cfg, plan.experts_padded(cfg),
                                  plan.moe_token_chunk, taps=taps,
@@ -196,6 +236,7 @@ def _ffn_full(p: dict, xn: Tensor, cfg, plan: BuildPlan, taps=None,
                                  capacity_multiple=plan.moe_capacity_multiple,
                                  group=plan.moe_group)
     return mlp_mod.apply_mlp(p["mlp"], xn, cfg, taps=taps,
+                             constrain=None if decode else plan.constrain,
                              quantize_cb=quantize_cb), None
 
 
@@ -233,6 +274,7 @@ def layer_full(p: dict, x: Tensor, cfg, plan: BuildPlan, make_cache: bool,
     the rest of this forward runs on the already-quantized sub-blocks —
     the staged one-forward-per-layer calibration walk."""
     check_ported(cfg)
+    x = plan.constrain(x, "block_in")   # Megatron-SP gather (JAX's site)
     if cfg.attn_free:
         x, state = _rwkv_layer(p, x, cfg, rwkv_state, taps, quantize_cb)
         return x, None, None, state
@@ -271,7 +313,7 @@ def cross_layer_full(p: dict, x: Tensor, cfg, plan: BuildPlan, vision_kv,
             xp = {**xp, **quantize_cb("xattn_q_in")}
     k, v = vision_kv
     o = flash_attention(attn_mod._project_in(xp["wq"], xn, cd), k.to(cd),
-                        v.to(cd), _hmap(cfg, x.device), causal=False)
+                        v.to(cd), _hmap(cfg, plan), causal=False)
     if taps is not None:
         taps["xattn_wo_in"] = o.reshape(*o.shape[:2], -1)
         if quantize_cb is not None:
@@ -314,7 +356,7 @@ def layer_decode(p: dict, x: Tensor, cfg, plan: BuildPlan, kv_cache,
     q = apply_rope(q, posb, cfg.rope_theta)
     k = apply_rope(k, posb, cfg.rope_theta)
     kv_cache = cache_insert(kv_cache, k, v, pos)
-    o = decode_attend(q, kv_cache, _hmap(cfg, x.device), pos=pos,
+    o = decode_attend(q, kv_cache, _hmap(cfg, plan), pos=pos,
                       window=cfg.sliding_window)
     a_out = attn_mod.out_project(p["attn"], o)
     new_ssm = None
@@ -328,7 +370,8 @@ def layer_decode(p: dict, x: Tensor, cfg, plan: BuildPlan, kv_cache,
 def _decode_ffn(p: dict, x: Tensor, cfg, plan: BuildPlan) -> Tensor:
     """The feed-forward block of a decode step (all slots routed, the
     inactive ones too, as in the JAX package)."""
-    return _ffn_full(p, apply_norm(p["ln2"], x, cfg), cfg, plan)[0]
+    return _ffn_full(p, apply_norm(p["ln2"], x, cfg), cfg, plan,
+                     decode=True)[0]
 
 
 def layer_decode_paged(p: dict, x: Tensor, cfg, plan: BuildPlan,
@@ -349,7 +392,7 @@ def layer_decode_paged(p: dict, x: Tensor, cfg, plan: BuildPlan,
     re-quantizes under a running-max page scale and attention dequantizes
     in the kernel. Returns (x, k_pool, v_pool, k_scale, v_scale) then."""
     check_paged(cfg)
-    hmap = _hmap(cfg, x.device)
+    hmap = _hmap(cfg, plan)
     xn = apply_norm(p["ln1"], x, cfg)
     q, k, v = qkv_project(p["attn"], xn)
     posb = pos.clamp(min=0)[:, None]                     # (B, 1)

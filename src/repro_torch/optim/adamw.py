@@ -218,9 +218,11 @@ def _update(grads: PyTree, state: Dict[str, Any], params: PyTree,
         # leading rows at a time: every quantity is elementwise or per
         # last-dim block, so the slabs' results are the whole leaf's, and
         # the temporaries (the codec's f64 roots among them) are a slab's
+        # (on the meta device, the dry run's, nothing is allocated: the
+        # whole leaf at once, which counts the same operations and bytes)
         rows = p.shape[0] if p.dim() > 1 else 1
         step = max(1, CHUNK // max(1, p.numel() // rows))
-        if not inplace or rows <= step:
+        if not inplace or rows <= step or p.device.type == "meta":
             return upd(p, g, m_enc, v_enc)
         cut = (lambda x, sl: {k: t[sl] for k, t in x.items()}
                if isinstance(x, dict) else x[sl])

@@ -6,7 +6,10 @@
 Each artifact is one JSON object with "arch", "shape", "mesh", "memory"
 {"per_device_total_gb"} and "hlo" {"flops_per_device",
 "bytes_per_device", "collective_bytes"} (or "error"): the JAX dry run's
-format. The port's dry run, which writes them, is still to come.
+format. The port's dry run (`launch/dryrun.py`, on the meta device) has no
+"hlo": it writes "counted" with the same keys and "collectives_counted":
+false, and the table prints n/a in the collective column for such a
+cell (nothing was counted there, which is not zero).
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ def load(dir_):
 def fmt_cell(d, hw=H100):
     if "error" in d:
         return None
-    h = d.get("hlo")
+    h = d.get("hlo") or d.get("counted")
     if not h:
         return None
     chips = 512 if d["mesh"] == "2x16x16" else 256
@@ -57,6 +60,9 @@ def fmt_cell(d, hw=H100):
                       bytes_accessed=h["bytes_per_device"],
                       collective_bytes=h.get("collective_bytes", {}))
     t = roofline_terms(cost, hw)
+    collectives = h.get("collectives_counted", True)
+    if not collectives:     # unknown, not zero: the bound is a floor
+        t = {**t, "collective_s": None}
     mf = model_flops(d["arch"], d["shape"]) / chips
     useful = mf / max(h["flops_per_device"], 1.0)
     roofline_frac = (mf / hw.peak_flops["bf16"]) / max(t["bound_s"], 1e-12)
@@ -64,7 +70,9 @@ def fmt_cell(d, hw=H100):
         "arch": d["arch"], "shape": d["shape"], "mesh": d["mesh"],
         "mem_gb": d["memory"]["per_device_total_gb"],
         "compute_s": t["compute_s"], "memory_s": t["memory_s"],
-        "collective_s": t["collective_s"], "dominant": t["dominant"],
+        "collective_s": t["collective_s"],
+        "dominant": t["dominant"] if collectives else
+        t["dominant"] + " (no collectives counted)",
         "useful": useful, "roofline_frac": roofline_frac,
         "overrides": d.get("overrides") or {},
     }
@@ -90,9 +98,11 @@ def main(argv=None):
         if args.mesh and c["mesh"] != args.mesh:
             continue
         ov = ",".join(f"{k}={v}" for k, v in c["overrides"].items()) or "-"
+        coll = ("n/a" if c["collective_s"] is None
+                else f"{c['collective_s']:.4f}")
         print(f"| {c['arch']} | {c['shape']} | {c['mesh']} | "
               f"{c['mem_gb']:.2f} | {c['compute_s']:.4f} | "
-              f"{c['memory_s']:.4f} | {c['collective_s']:.4f} | "
+              f"{c['memory_s']:.4f} | {coll} | "
               f"{c['dominant']} | {c['useful']:.3f} | "
               f"{c['roofline_frac']:.4f} | {ov} |")
 

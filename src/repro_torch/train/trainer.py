@@ -12,10 +12,17 @@ Trainer resumes the other's.
 
 Where JAX's Trainer runs an int8_ef step under a 1-shard `shard_map`, the
 port's starts a world of one (`dist.init_world`) for the run when no
-process group is up, and all-reduces over it. JAX's elastic
-`shard_state_fn` re-shard needs `CheckpointManager.restore(shardings=)`,
-which the port has with the dry run (ROADMAP item 17): a Trainer given one
-refuses it.
+process group is up, and all-reduces over it.
+
+Elastic restore: `shard_state_fn(state)` returns the state's shardings (a
+tree like the state of `dist.sharding.NamedSharding` on a DeviceMesh, or
+None for a leaf), and a resume restores the checkpoint through
+`CheckpointManager.restore(shardings=)`, as JAX's Trainer re-shards a
+restored state onto another topology. The port's train step is not
+GSPMD: it runs on the local tensors. So a sharding that splits a leaf
+over a mesh axis larger than one raises, naming the leaf; a world of one
+or replicated placements restore DTensors whose local tensors are the
+whole leaves, and the step runs on those.
 """
 from __future__ import annotations
 
@@ -43,11 +50,7 @@ class Trainer:
                  host_id: int = 0, failure_hook: Optional[Callable] = None,
                  shard_state_fn: Optional[Callable] = None,
                  device: DeviceLike = None):
-        if shard_state_fn is not None:
-            raise NotImplementedError(
-                "shard_state_fn re-shards a restored state with "
-                "CheckpointManager.restore(shardings=), which the port does "
-                "not have yet (it comes with the dry run, ROADMAP item 17)")
+        self.shard_state_fn = shard_state_fn   # elastic re-shard on restore
         self.cfg = cfg
         self.plan = plan
         self.run = run_cfg
@@ -66,7 +69,7 @@ class Trainer:
         self.metrics_log = []
 
     def init_state(self):
-        params = init_params(self.cfg, seed=self.run.seed,
+        params = init_params(self.cfg, self.plan, seed=self.run.seed,
                              device=self.device)
         return init_train_state(params, self.adamw_cfg, self.run)
 
@@ -74,10 +77,13 @@ class Trainer:
         latest = self.ckpt.latest_step()
         state = self.init_state()
         start_step = 0
+        shardings = (_checked_shardings(self.shard_state_fn(state))
+                     if self.shard_state_fn else None)
         if latest is not None:
             like = train_state_to_numpy(state, leaf_fn=lambda ls: _KEEP,
                                         one_fn=lambda l: _KEEP)
-            saved, meta = self.ckpt.restore(latest, like)
+            saved, meta = self.ckpt.restore(latest, like,
+                                            shardings=shardings)
             _load_into(state, saved)
             start_step = meta["step"]
         return state, start_step
@@ -125,9 +131,37 @@ class Trainer:
                 "metrics": self.metrics_log}
 
 
+def _stacked_sharding(layers):
+    """The sharding of a JAX-layout stacked leaf from its layers' (the
+    leading layer axis replicated), or None."""
+    from repro_torch.dist.sharding import NamedSharding
+    first = layers[0]
+    if first is None:
+        return None
+    return NamedSharding(first.mesh, (None, *first.spec))
+
+
+def _checked_shardings(shardings):
+    """`shard_state_fn`'s shardings in the checkpoint's (JAX) layout;
+    raises, naming the leaf, for one that splits a leaf over a mesh axis
+    larger than one (the step runs on local tensors, not GSPMD)."""
+    from repro_torch.ckpt.checkpoint import flatten_with_paths
+    out = train_state_to_numpy(shardings, leaf_fn=_stacked_sharding,
+                               one_fn=lambda s: s)
+    for key, sh in flatten_with_paths(out).items():
+        if sh is not None and sh.splits():
+            raise NotImplementedError(
+                f"shard_state_fn: {key} is split by {sh!r}; the port's "
+                "train step runs on local tensors (not GSPMD), so a "
+                "restored leaf must be whole on every rank (replicated, "
+                "or split over axes of size one)")
+    return out
+
+
 def _load_into(state, saved) -> None:
-    """Copy a restored JAX-layout tree (numpy) into the port's state in
-    place: layer l of a stacked leaf into layer l's tensor; leaves the
+    """Copy a restored JAX-layout tree (numpy, or DTensors from an elastic
+    restore, each holding its whole leaf) into the port's state in place:
+    layer l of a stacked leaf into layer l's tensor; leaves the
     checkpoint predates (restored as the template's `_KEEP`) stay."""
     flat_saved = pytree.tree_leaves(saved)
     flat_dst = pytree.tree_leaves(train_state_to_numpy(
@@ -139,8 +173,12 @@ def _load_into(state, saved) -> None:
     for arr, dst in zip(flat_saved, flat_dst):
         if arr is _KEEP:
             continue
+        if isinstance(arr, torch.Tensor):
+            arr = arr.to_local() if hasattr(arr, "to_local") else arr
+        else:
+            arr = torch.from_numpy(np.array(arr))
         if isinstance(dst, list):
             for layer, t in enumerate(dst):
-                t.copy_(torch.from_numpy(np.array(arr[layer])))
+                t.copy_(arr[layer])
         else:
-            dst.copy_(torch.from_numpy(np.array(arr)))
+            dst.copy_(arr)

@@ -137,6 +137,54 @@ def test_restore_places_tensors_on_the_device(tmp_path):
         CheckpointManager(str(tmp_path / "empty")).restore(None, t)
 
 
+def test_elastic_restore_resharding(tmp_path):
+    """restore(shardings=) on the smoke mesh (a world of one), JAX's
+    tests/test_checkpoint.py::test_elastic_restore_resharding: every leaf
+    comes back a DTensor on the mesh whose full tensor is the saved one,
+    for a replicated spec and one split over the (size-one) data axis."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch import dist as rd
+    from repro_torch.dist.sharding import P, NamedSharding
+    from repro_torch.launch.mesh import make_smoke_mesh
+    mgr = CheckpointManager(str(tmp_path))
+    t = _tree()
+    mgr.save(1, t)
+    mesh = make_smoke_mesh("cpu")
+    try:
+        sh = {"a": NamedSharding(mesh, P("data", None)),
+              "nested": {"b": NamedSharding(mesh, P()),
+                         "c": NamedSharding(mesh, P())}}
+        out, _ = mgr.restore(1, t, shardings=sh)
+        for got, want in zip(flatten_with_paths(out).values(),
+                             flatten_with_paths(t).values()):
+            assert isinstance(got, DTensor)
+            assert torch.equal(got.full_tensor(), want)
+            assert torch.equal(got.to_local(), want)
+        assert str(out["a"].placements[0]) == "S(0)"
+    finally:
+        rd.close_world(True)
+
+
+def test_elastic_restore_shards_over_a_gloo_world_of_two(tmp_path):
+    """In a gloo world of 2 on the CPU a leaf sharded over "data" gives
+    each rank its slice of rows; a replicated leaf is whole on both."""
+    from torch_dist_worker import spawn
+    from repro_torch.dist.sharding import P
+    t = _tree()
+    CheckpointManager(str(tmp_path / "ck")).save(1, {"a": t["a"],
+                                                     "b": t["nested"]["b"]})
+    outs = spawn("restore", {"dir": str(tmp_path / "ck"),
+                             "shapes": {"a": (8, 16), "b": (10,)},
+                             "specs": {"a": P("data", None), "b": P()}},
+                 2, tmp_path / "w")
+    for r, o in enumerate(outs):
+        np.testing.assert_array_equal(o["local"]["a"],
+                                      t["a"][4 * r:4 * (r + 1)].numpy())
+        np.testing.assert_array_equal(o["full"]["a"], t["a"].numpy())
+        np.testing.assert_array_equal(o["local"]["b"], t["nested"]["b"])
+        assert o["placements"] == {"a": ["S(0)"], "b": ["R"]}
+
+
 def test_missing_leaf_errors(tmp_path):
     mgr = CheckpointManager(str(tmp_path))
     mgr.save(1, {"a": torch.zeros(3)})

@@ -1488,3 +1488,130 @@ def test_registry_world_entries_pass_on_the_card(cuda):
     from repro_torch.analysis.registry import run_gate
     for res in run_gate(WORLD_ENTRIES, device=cuda):
         assert res.ok and not res.skipped, (res.name, res.violations)
+
+
+# ---------------------------------------------------------------------------
+# uneven head maps (tensor-parallel head padding): the kernels read the
+# map's table (kernels/headmap.py)
+# ---------------------------------------------------------------------------
+
+def _floor_map(n_heads, hp, kv):
+    from repro_torch.models.attention import kernel_head_map
+    return kernel_head_map(n_heads, hp, kv)
+
+
+# hymba at tp = 16 (25 -> 32 heads over 5: KV head 0 serves 12), qwen2-7b
+# at tp = 3 (28 -> 30 over 4: groups of 9, 7, 7, 7)
+MAP_CASES = [dict(n=25, H=32, KV=5, hd=64), dict(n=28, H=30, KV=4, hd=128)]
+
+
+@pytest.mark.parametrize("case", MAP_CASES, ids=lambda c: f"H{c['H']}")
+@pytest.mark.parametrize("shape", [(2, 128, 128, True, 0),
+                                   (1, 300, 300, True, 100),
+                                   (2, 33, 77, False, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_with_a_head_map_matches_plain(cuda, case, shape, dtype):
+    """Forward, LSE and backward at an uneven map, against the plain
+    versions (K/V expanded by index) and their autograd."""
+    B, Tq, Tk, causal, window = shape
+    hmap = _floor_map(case["n"], case["H"], case["KV"])
+    c = dict(B=B, Tq=Tq, Tk=Tk, H=case["H"], KV=case["KV"], hd=case["hd"])
+    q, k, v, do = _bwd_inputs(cuda, c, dtype, Tq + case["H"])
+    kw = dict(causal=causal, window=window, head_map=hmap)
+    got = flash_attention.flash_attention_cuda(q, k, v, **kw).float()
+    want = flash_attention.flash_attention_plain(q, k, v, **kw).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        assert bool(((got - want).abs() <= 8e-3 * want.abs() + 1e-3).all())
+    _, lse = flash_attention._forward(q, k, v, causal, window, True,
+                                      head_map=hmap)
+    want_lse = flash_attention.attention_lse_plain(q, k, **kw)
+    assert bool(((lse - want_lse).abs()
+                 <= 1e-4 + 1e-5 * want_lse.abs()).all())
+    grads = flash_attention.flash_attention_bwd_cuda(q, k, v, do, lse, **kw)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    flash_attention.flash_attention_plain(*leaves, **kw).backward(do)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, leaves):
+        _grad_close(a, b.grad, dtype, name)
+    # the autograd path carries the map into its backward
+    leaves2 = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    flash_attention.flash_attention_cuda(*leaves2, **kw).backward(do)
+    for a, b in zip(leaves2, grads):
+        assert torch.equal(a.grad, b)
+
+
+@pytest.mark.parametrize("case", MAP_CASES, ids=lambda c: f"H{c['H']}")
+@pytest.mark.parametrize("kv_bits", [0, 8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_with_a_head_map_matches_plain(cuda, case, kv_bits, dtype):
+    from repro_torch.kernels import paged_attention as pa
+    hmap = _floor_map(case["n"], case["H"], case["KV"])
+    lengths = [1, 1500, 0, 700]
+    BS, MAXB = 16, 128
+    NB = MAXB * len(lengths)
+    q, k, v, bt, lens = _paged_inputs(cuda, len(lengths), case["H"],
+                                      case["KV"], case["hd"], NB, BS, MAXB,
+                                      lengths, dtype, seed=case["H"])
+    for window in (0, 100):
+        if kv_bits:
+            kq, ks = _quantize_pool(k, kv_bits)
+            vq, vs = _quantize_pool(v, kv_bits)
+            args = (q, kq, vq, ks, vs, bt, lens)
+            kw = dict(window=window, kv_bits=kv_bits, head_map=hmap)
+            got = pa.paged_attention_quant_cuda(*args, **kw)
+            want = pa.paged_attention_quant_plain(*args, **kw)
+        else:
+            args = (q, k.to(dtype), v.to(dtype), bt, lens)
+            got = pa.paged_attention_cuda(*args, window=window,
+                                          head_map=hmap)
+            want = pa.paged_attention_plain(*args, window=window,
+                                            head_map=hmap)
+        d, w = _paged_diff(got, want, lens)
+        if dtype == torch.float32:
+            assert float(d.max()) <= 1e-4
+        else:
+            assert bool((d <= 8e-3 * w + 1e-3).all()), float(d.max())
+
+
+def test_the_table_path_at_the_even_map_is_bit_identical(cuda, monkeypatch):
+    """The kernels reading a table of the even map give the bits of the
+    no-table path (today's), forward, backward (split) and both paged."""
+    from repro_torch.kernels import headmap
+    from repro_torch.kernels import paged_attention as pa
+    c = dict(B=2, Tq=130, Tk=130, H=28, KV=4, hd=128)
+    even = headmap.even_map(28, 4)
+    runs = []
+    for forced in (False, True):
+        if forced:    # keep the even map as a table
+            monkeypatch.setattr(headmap, "normalize",
+                                lambda m, H, KV: None if m is None
+                                else tuple(m))
+        hm = dict(head_map=even if forced else None)
+        out = []
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = _bwd_inputs(cuda, c, dtype, 5)
+            o, lse = flash_attention._forward(q, k, v, True, 0, True, **hm)
+            out += [o, lse, *flash_attention.flash_attention_bwd_cuda(
+                q, k, v, do, lse, **hm)]
+            pq, pk, pv, bt, lens = _paged_inputs(
+                cuda, 3, 28, 4, 128, 3 * 64, 16, 64, [5, 900, 0], dtype, 3)
+            out.append(pa.paged_attention_cuda(pq, pk.to(dtype),
+                                               pv.to(dtype), bt, lens, **hm))
+            kq, ks = _quantize_pool(pk, 8)
+            vq, vs = _quantize_pool(pv, 8)
+            out.append(pa.paged_attention_quant_cuda(pq, kq, vq, ks, vs, bt,
+                                                     lens, kv_bits=8, **hm))
+        runs.append(out)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_paged_refuses_a_group_over_16(cuda):
+    from repro_torch.kernels import paged_attention as pa
+    q, k, v, bt, lens = _paged_inputs(cuda, 2, 20, 2, 64, 16, 16, 8,
+                                      [3, 9], torch.bfloat16, 0)
+    hmap = (0,) * 17 + (1,) * 3
+    with pytest.raises(ValueError, match="at most 16"):
+        pa.paged_attention_cuda(q, k.bfloat16(), v.bfloat16(), bt, lens,
+                                head_map=hmap)

@@ -190,8 +190,8 @@ def test_model_attention_sends_noncausal_calls_to_the_flash_dispatch(
         monkeypatch, dtype):
     """`models.attention.flash_attention(causal=False)` reaches
     `kernels.ops.flash_attention` (the CUDA kernel on a card, its plain
-    version here), never `_dense_attention`; the uneven head map still
-    raises."""
+    version here), never `_dense_attention`; an uneven head map goes to
+    it too, and three heads over two with no map raise."""
     from repro_torch.kernels import ops
     from repro_torch.models import attention as attn
     calls = []
@@ -206,7 +206,12 @@ def test_model_attention_sends_noncausal_calls_to_the_flash_dispatch(
                for a in _qkv(NONCAUSAL[1], 3))
     out = attn.flash_attention(q, k, v, attn.head_to_kv_map(4, 4, 2),
                                causal=False, window=7)
-    assert calls == [dict(causal=False, window=0)]
+    assert [(c["causal"], c["window"]) for c in calls] == [(False, 0)]
     assert out.dtype == q.dtype and out.shape == q.shape
-    with pytest.raises(NotImplementedError, match="Hp % KV"):
-        attn.flash_attention(q[:, :, :3], k, v, None, causal=False)
+    q3 = q[:, :, :3]
+    out3 = attn.flash_attention(q3, k, v, (0, 1, 0), causal=False)
+    assert calls[-1]["head_map"] == (0, 1, 0)
+    assert torch.equal(out3, real(q3, k, v, causal=False,
+                                  head_map=(0, 1, 0)))
+    with pytest.raises(ValueError, match="need a head map"):
+        attn.flash_attention(q3, k, v, None, causal=False)

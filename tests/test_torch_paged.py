@@ -129,7 +129,15 @@ def test_model_paged_attend_dispatches_to_the_plain_version_on_cpu():
                                   None)
     want = pa.paged_attention_plain(T(q), T(k), T(v), T(bt), T(lens))
     assert torch.equal(o[:, 0], want)
-    with pytest.raises(NotImplementedError, match="hymba"):
+    # an uneven head map (3 query heads over 2 KV heads, the third parked
+    # on KV head 0) goes to the dispatch as its table; no map there raises
+    hmap = (0, 1, 0)
+    o3 = tattn.paged_decode_attend(T(q)[:, None, :3], T(k), T(v), T(bt),
+                                   T(lens), hmap)
+    want3 = pa.paged_attention_plain(T(q)[:, :3].contiguous(), T(k), T(v),
+                                     T(bt), T(lens), head_map=hmap)
+    assert torch.equal(o3[:, 0], want3)
+    with pytest.raises(ValueError, match="need a head map"):
         tattn.paged_decode_attend(T(q)[:, None, :3], T(k), T(v), T(bt),
                                   T(lens), None)
 

@@ -268,11 +268,59 @@ def test_train_crash_restart_resumes(tmp_path):
     assert history[0] == losses[:7] and history[1] == losses[5:]
 
 
+def _row_shardings(mesh):
+    """shard_state_fn: every leaf of one dim or more split over "data"
+    along dim 0, scalars replicated."""
+    from repro_torch.dist.sharding import P, NamedSharding
+
+    def fn(state):
+        return pytree.tree_map(
+            lambda t: NamedSharding(mesh, P("data") if t.dim() else P()),
+            state)
+    return fn
+
+
+def test_trainer_resumes_through_shard_state_fn(tmp_path):
+    """Trainer(shard_state_fn=) on the smoke mesh (a world of one): the
+    resume restores through restore(shardings=) and gives the unsharded
+    resume's losses, bit for bit."""
+    from repro_torch import dist as rd
+    from repro_torch.launch.mesh import make_smoke_mesh
+    cfg = get_smoke_config("qwen2-7b")
+    kw = dict(arch="qwen2-7b", ckpt_every=3, learning_rate=1e-3,
+              warmup_steps=1, total_steps=6, async_ckpt=False)
+    Trainer(cfg, BuildPlan(remat=False),
+            RunConfig(ckpt_dir=str(tmp_path), **kw),
+            device="cpu").run_loop(3, 32, 4)
+
+    def resumed(**extra):
+        import shutil
+        d = tmp_path / f"r{len(extra)}"
+        shutil.copytree(tmp_path / "step_3", d / "step_3")
+        t = Trainer(cfg, BuildPlan(remat=False),
+                    RunConfig(ckpt_dir=str(d), **kw), device="cpu", **extra)
+        t.run_loop(6, 32, 4)
+        return [m["loss"] for m in t.metrics_log]
+
+    plain = resumed()
+    mesh = make_smoke_mesh("cpu")
+    try:
+        sharded = resumed(shard_state_fn=_row_shardings(mesh))
+    finally:
+        rd.close_world(True)
+    assert len(plain) == 3 and sharded == plain
+
+
 def test_trainer_refuses_shard_state_fn(tmp_path):
-    with pytest.raises(NotImplementedError, match="restore"):
-        Trainer(get_smoke_config("qwen2-7b"), BuildPlan(),
+    """A sharding that splits a leaf over a mesh axis larger than one is
+    refused, naming the leaf: the port's step runs on local tensors."""
+    from repro_torch.launch.mesh import make_production_mesh
+    t = Trainer(get_smoke_config("qwen2-7b"), BuildPlan(),
                 RunConfig(arch="q", ckpt_dir=str(tmp_path)),
-                shard_state_fn=lambda s: None, device="cpu")
+                shard_state_fn=_row_shardings(make_production_mesh()),
+                device="cpu")
+    with pytest.raises(NotImplementedError, match="m/embed is split"):
+        t.resume_or_init()
 
 
 def test_trainer_runs_with_int8_ef_and_moments(tmp_path):

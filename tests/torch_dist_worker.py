@@ -4,7 +4,7 @@ runs it too):
     python -m torch.distributed.run --standalone --nproc-per-node N \\
         tests/torch_dist_worker.py TASK IN.pkl OUT_DIR
 
-TASK is prims, walk or serve; IN.pkl holds the task's inputs (numpy); each
+TASK is prims, walk, serve or restore; IN.pkl holds the task's inputs (numpy); each
 rank writes its results to OUT_DIR/rank{R}.pkl, which the test reads.
 """
 import os
@@ -259,6 +259,22 @@ def serve(inp, dev):
     return out
 
 
+def restore(inp, dev):
+    """restore(shardings=) of the checkpoint in inp["dir"] on a ("data",)
+    mesh of the world: each leaf's spec from inp["specs"]; returns each
+    rank's local shards and the full tensors."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.dist.sharding import NamedSharding
+    mesh = rd.data_mesh()
+    like = {k: torch.zeros(v) for k, v in inp["shapes"].items()}
+    sh = {k: NamedSharding(mesh, s) for k, s in inp["specs"].items()}
+    out, _ = CheckpointManager(inp["dir"]).restore(1, like, shardings=sh)
+    return {"local": {k: host(v.to_local()) for k, v in out.items()},
+            "full": {k: host(v.full_tensor()) for k, v in out.items()},
+            "placements": {k: [str(p) for p in v.placements]
+                           for k, v in out.items()}}
+
+
 def main():
     task, inp_path, out_dir = sys.argv[1:4]
     device = sys.argv[4] if len(sys.argv) > 4 else "cpu"
@@ -267,7 +283,8 @@ def main():
     dev, started = rd.init_world(backend, device, timeout_s=TIMEOUT_S)
     with open(inp_path, "rb") as f:
         inp = pickle.load(f)
-    out = {"prims": prims, "walk": walk, "serve": serve}[task](inp, dev)
+    out = {"prims": prims, "walk": walk, "serve": serve,
+           "restore": restore}[task](inp, dev)
     path = Path(out_dir) / f"rank{dist.get_rank()}.pkl"
     with open(path, "wb") as f:
         pickle.dump(out, f)
