@@ -189,7 +189,8 @@ no result line):
    and carries the delivered tokens, the registry's tokens, preemptions
    and retirements equal the runtime's, and the small pool preempts and
    resumes. (c) the per-step hook sequence of a live tracer and registry
-   at 16 live slots (the decode_step span with record_function, 16
+   at 16 live slots (the decode_step span, which enters record_function
+   only while a profiler is attached, none here; 16
    token_events, 3 gauges), microbenchmarked, over the median untraced
    bf16 step wall of (b): < 2% (JAX's budget, benchmarks/serve_bench.py).
    (d) under torch.profiler (CPU and CUDA) a traced 1-layer quantize and
@@ -337,6 +338,28 @@ no result line):
    qwen2-7b at its four shapes on both production meshes, on the meta
    device in processes that see no card (started with the phase):
    per_device_total_gb and the roofline report's rows (collectives n/a).
+
+22. the serving steps as CUDA graphs — the Runtime's and the Engine's
+   decode steps are captured once per signature and replayed every step
+   (analysis.retrace.guard_graph), so every serve run of phases 8-21
+   replays, and each replay adds the launches its capture recorded to the
+   counts. (a) on phase 4's 2-layer qwen, right after phase 20, at bf16
+   kv_bits 0, 8 and 4 and f32 kv_bits 0: a step replayed against a direct
+   decode_step_paged call on the same inputs from the same pool (the
+   logits' max|d|/max|logit| printed, the first op that differs named
+   where they do; the pools gated equal), then (c) the phase-8 traffic
+   through a Runtime whose step is called directly and through one that
+   replays (both runs' tok/s, TTFT p50, ITL p50/p99 printed; tokens gated
+   equal request for request) and (d) one capture of serve.decode_step
+   and the graph pool's bytes. (b) in phase 20: its full-width step
+   eager and replayed (CUDA events) against the bound. (e) in phases 11,
+   13 and 14: the static Engine eager and replayed for hymba, rwkv6 and
+   the VLM (tok/s; tokens gated equal; one capture of
+   serve.engine.decode_step for every position); 11(d)'s lockstep gate
+   runs on replays through DecodeTape's card-side tape. (f) in phases 10
+   and 12: granite's and musicgen's traffic eager and replayed (tokens
+   gated equal, one capture). Every number is printed beside the card's
+   name and power limit.
 
 Launch counts: the quantize-and-decode path (phases 4-5), the serve path
 (phase 8), the policy path (phase 9a), the durability runs (phase 16:
@@ -1038,13 +1061,81 @@ class DecodeTape:
     token of the layer. A VLM's cross layers are held the same way
     (`cross_layer_full`, which a cross decode step also runs). In lockstep
     the logits see only the last layer's work, so each layer's output is
-    also held against the recorded one (`check_layers`)."""
+    also held against the recorded one (`check_layers`).
 
-    def __init__(self, torch, tfm, moe_mod):
+    A serve.Engine's decode step is a CUDA graph: its Python runs at the
+    warm-up and the capture only, and each replay runs the ops these hooks
+    captured. So a `layer_decode` call with a device position (the
+    Engine's step) keeps its tape on the card: with `base`, the prompt
+    length, step pos - base's input, SSM state and output go to row
+    pos - base of a buffer per layer (made at the warm-up, before the
+    capture), and in lockstep each layer reads its row and writes its
+    output to a second buffer, which `check_layers` holds to the first
+    after the run."""
+
+    def __init__(self, torch, tfm, moe_mod, base=None, steps=SERVE_NEW):
         self.torch, self.tfm, self.moe = torch, tfm, moe_mod
         self.xs, self.ys, self.ids, self.states = [], [], [], []
         self.flips = self.pairs = 0
         self.held, self.worst, self.worst_at = 0, 0.0, None
+        self.base, self.steps = base, steps
+        self.dev_rows = {}    # (what, layer) -> (steps, *shape) buffer
+        self.dev_calls = 0
+
+    def _row(self, what, j, t):
+        """The card-side tape's buffer `what` of layer j, shaped for t."""
+        key = (what, j)
+        if key not in self.dev_rows:
+            self.dev_rows[key] = self.torch.zeros(
+                (self.steps, *t.shape), dtype=t.dtype, device=t.device)
+        return self.dev_rows[key]
+
+    def _device_layer(self, mode, real, p, x, a, k):
+        """One layer_decode call of a captured step (see the class
+        docstring): every op here is captured and runs at each replay."""
+        cfg, pos = a[0], a[3]
+        if mode not in ("record", "lockstep"):
+            return real(p, x, *a, **k)
+        if cfg.family == "vlm" or self.base is None:
+            raise RuntimeError("the card-side tape holds the decode layers "
+                               "of a non-VLM Engine with a `base` only")
+        j = self.dev_calls % cfg.n_layers
+        self.dev_calls += 1
+        idx = (pos - self.base).reshape(1)
+        st = k.get("ssm_state")
+        if mode == "record":
+            self._row("x", j, x).index_copy_(0, idx, x[None])
+            if st is not None:
+                for f, t in zip(st._fields, st):
+                    self._row(f"ssm.{f}", j, t).index_copy_(0, idx, t[None])
+        elif mode == "lockstep":
+            x = self._row("x", j, x).index_select(0, idx)[0]
+            if st is not None:
+                k["ssm_state"] = type(st)(*(
+                    self._row(f"ssm.{f}", j, t).index_select(0, idx)[0]
+                    for f, t in zip(st._fields, st)))
+        out = real(p, x, *a, **k)
+        self._row("y" if mode == "record" else "y_lock", j,
+                  out[0]).index_copy_(0, idx, out[0][None])
+        return out
+
+    def _hold_device(self):
+        """Hold the lockstep run's card-side outputs to the recorded ones,
+        step by step over the rows the run wrote."""
+        for (what, j), lock in sorted(self.dev_rows.items()):
+            if what != "y_lock":
+                continue
+            want = self.dev_rows[("y", j)]
+            for s in range(lock.shape[0]):
+                w = want[s].float()
+                if not bool((w != 0).any()):
+                    continue         # a row no step wrote
+                gap = (float((lock[s].float() - w).abs().max())
+                       / max(float(w.abs().max()), 1e-30))
+                self.held += 1
+                if gap >= self.worst:
+                    self.worst, self.worst_at = gap, (
+                        f"captured step {s} layer {j} (layer_decode)")
 
     @contextlib.contextmanager
     def mode(self, mode: str):
@@ -1057,6 +1148,9 @@ class DecodeTape:
 
         def stepped(name):
             def layer(p, x, *a, **k):
+                if (name == "layer_decode" and len(a) > 3
+                        and isinstance(a[3], torch.Tensor)):
+                    return self._device_layer(mode, real[name], p, x, a, k)
                 i = None
                 if mode == "record":
                     self.xs.append(x)
@@ -1094,6 +1188,9 @@ class DecodeTape:
 
         if mode == "lockstep":
             self.held, self.worst, self.worst_at = 0, 0.0, None
+            for key in [k for k in self.dev_rows if k[0] == "y_lock"]:
+                del self.dev_rows[key]
+        self.dev_calls = 0
         for name in real:
             setattr(tfm, name, stepped(name))
         moe.route_slots = routed
@@ -1116,6 +1213,7 @@ class DecodeTape:
     def check_layers(self, label: str, what: str):
         """Gate the last lockstep run's layer outputs: the worst max|d| /
         max|recorded output| under the precision gate of `label`."""
+        self._hold_device()
         say(f"{what} {label}, layers in lockstep: {self.held} layer outputs "
             f"held, worst max|d|/max|out| {self.worst:.3e} at "
             f"{self.worst_at} (tol {LOGITS_REL[label]})")
@@ -1307,13 +1405,20 @@ def serve_config(num_blocks=None):
                        buckets=SERVE_BUCKETS, max_blocks_per_slot=maxb)
 
 
-def serve_traffic(torch, dev, sp, cfg, plan, prompts, sc, label):
+def serve_traffic(torch, dev, sp, cfg, plan, prompts, sc, label,
+                  eager=False):
     """Drive one Runtime: SERVE_SLOTS requests up front, the rest one per
     decode step, then drain. Checks every request ran to its length and the
-    pool ends clean; prints the run's metrics. Returns (runtime, requests)."""
+    pool ends clean; prints the run's metrics. With `eager`, the reference
+    run of phase 22: the step called directly (`eager_steps`). Returns
+    (runtime, requests)."""
     import numpy as np
+
+    from repro_torch.analysis.retrace import capture_seconds
     from repro_torch.serve import Runtime, paged_cache_bytes
     rt = Runtime(sp, cfg, plan, sc, device=dev)
+    if eager:
+        eager_steps(rt)
     t0 = time.time()
     reqs = [rt.submit(p, max_new_tokens=SERVE_NEW)
             for p in prompts[:SERVE_SLOTS]]
@@ -1324,13 +1429,16 @@ def serve_traffic(torch, dev, sp, cfg, plan, prompts, sc, label):
     wall = time.time() - t0
     ntok = sum(len(r.out_tokens) for r in reqs)
     itl = np.asarray([dt for r in reqs for dt in r.itl])
+    captured = getattr(rt._decode, "__comq_graphs__", None)
     say(f"serve {label}: {len(reqs)} requests, {ntok} tokens in {wall:.3f} "
         f"s: tok_per_s {ntok / wall:.1f}, ttft_p50_s "
         f"{float(np.percentile([r.ttft for r in reqs], 50)):.4f}, "
         f"itl_p50_s {float(np.percentile(itl, 50)):.4f}, itl_p99_s "
         f"{float(np.percentile(itl, 99)):.4f}, decode_steps {rt.steps}, "
         f"preemptions {rt.scheduler.preemptions}, cache_bytes "
-        f"{paged_cache_bytes(cfg, plan, sc.num_blocks, sc.block_size)}")
+        f"{paged_cache_bytes(cfg, plan, sc.num_blocks, sc.block_size)}"
+        + ("" if captured is None else
+           f", warm-up and capture {capture_seconds(rt._decode):.3f} s"))
     check(all(r.finish_reason == "length"
               and len(r.out_tokens) == SERVE_NEW for r in reqs),
           f"serve {label}: a request did not run to its length: "
@@ -1340,6 +1448,220 @@ def serve_traffic(torch, dev, sp, cfg, plan, prompts, sc, label):
           and rt.scheduler.idle, f"serve {label}: pool or queue not clean")
     return rt, reqs
 
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the serving steps as CUDA graphs (its parts run in phases 8,
+# 10-14 and 20, where their models are on the card)
+# ---------------------------------------------------------------------------
+
+GRAPH_STEP = "serve.decode_step"
+ENGINE_STEP = "serve.engine.decode_step"
+
+
+def eager_steps(rt):
+    """`rt` with its decode step called directly: `decode_step_paged` on
+    the step's inputs moved to the card, the reference a replay is held
+    to. Only this script does this (as `plain_kernels` swaps the kernels);
+    the runtime has no such switch."""
+    from repro_torch.models.model import decode_step_paged
+    dev = rt.device
+
+    def direct(params, cfg, plan, pool, bt, tok, pos):
+        return decode_step_paged(params, cfg, plan, pool, bt, tok.to(dev),
+                                 pos.to(dev))
+    rt._decode = direct
+    return rt
+
+
+def replay_vs_direct(torch, dev, sp, cfg, plan, prompts, label, card):
+    """22(a): a Runtime past its capture (SERVE_SLOTS requests admitted,
+    3 steps replayed), its last step replayed once more and called
+    directly on the same inputs from the same pool: the logits' max|d| /
+    max|logit| and whether the two pools agree bit for bit (rewriting a
+    step's own rows is idempotent). Returns the logits' gap."""
+    from repro_torch.models.model import decode_step_paged
+    from repro_torch.serve import Runtime
+    rt = Runtime(sp, cfg, plan, serve_config(), device=dev)
+    for p in prompts[:SERVE_SLOTS]:
+        rt.submit(p, max_new_tokens=SERVE_NEW)
+    for _ in range(4):
+        rt.step()
+    args = (rt.params, rt.cfg, rt.plan, rt.pool, rt._bt_dev, rt._h_tok,
+            rt._h_pos)
+    start = {k: v.clone() for k, v in rt.pool.items()}
+    replay = rt._decode(*args)[0].float().clone()
+    after = {k: v.clone() for k, v in rt.pool.items()}
+    for k, v in rt.pool.items():
+        v.copy_(start[k])
+    direct = decode_step_paged(*args[:5], rt._h_tok.to(dev),
+                               rt._h_pos.to(dev))[0].float()
+    torch.cuda.synchronize()
+    gap = float((replay - direct).abs().max()) / float(direct.abs().max())
+    pools = all(torch.equal(after[k], rt.pool[k]) for k in after)
+    say(f"graphs {label}: a step replayed vs called directly on the "
+        f"same inputs: logits max|d|/max|logit| {gap:.3e} "
+        f"({'bit-identical' if gap == 0 else 'they differ'}), pools "
+        f"{'equal' if pools else 'differ'} ({card})")
+    check(pools, f"graphs {label}: the replay's pool writes differ from "
+          "the direct call's")
+    del rt
+    return gap
+
+
+def serve_graph_vs_eager(torch, dev, sp, cfg, plan, prompts, label, card):
+    """22(a, c, d, f): the phase-8 traffic through a Runtime whose step is
+    called directly (`eager_steps`) and through one that replays its
+    graph, both runs' metrics lines printed: the tokens equal request for
+    request, one capture (`compile_count`), the graph pool's bytes."""
+    from repro_torch.analysis.retrace import capture_seconds, compile_count
+    with torch.no_grad():
+        _, ref = serve_traffic(torch, dev, sp, cfg, plan, prompts,
+                               serve_config(), f"{label} eager", eager=True)
+        rt, got = serve_traffic(torch, dev, sp, cfg, plan, prompts,
+                                serve_config(), f"{label} replayed")
+        caps, pool = compile_count(GRAPH_STEP), rt.graph_pool_bytes()
+        secs = capture_seconds(rt._decode)
+        del rt
+    same = sum(a.out_tokens == b.out_tokens for a, b in zip(got, ref))
+    say(f"graphs {label}: replayed tokens == eager for {same}/{len(ref)} "
+        f"requests; captures of {GRAPH_STEP} {caps} (warm-up and capture "
+        f"{secs:.3f} s, host clock); graph pool "
+        f"{'not measured' if pool is None else f'{pool} bytes'} ({card})")
+    check(same == len(ref), f"graphs {label}: a replayed request's tokens "
+          "differ from the eager step's")
+    check(caps == 1, f"graphs {label}: {caps} captures, want 1")
+    return pool
+
+
+def eager_engine(eng):
+    """`eng` with its decode step run directly (the same step, eager): the
+    reference a replay is held to; only this script does this."""
+    from repro_torch.serve.engine import _decode_into
+    eng._decode = _decode_into
+    return eng
+
+
+def engine_graph_vs_eager(torch, dev, sp, cfg, prompts, what, card, **kw):
+    """22(e): the static Engine on `prompts` (a warm 2-token run, then
+    SERVE_NEW tokens timed), eager then replayed: tok/s of each (prefill
+    included), the tokens equal, one capture for every position, the
+    graph pool's bytes. Prints the replayed run on the phase's own serve
+    line. Returns the replayed tokens."""
+    from repro_torch.analysis.retrace import (capture_seconds, compile_count,
+                                              graph_pool_bytes)
+    from repro_torch.models import BuildPlan
+    from repro_torch.serve import Engine
+    runs = {}
+    with torch.no_grad():
+        for how in ("eager", "replayed"):
+            eng = Engine(sp, cfg, BuildPlan(), max_len=PROMPT + SERVE_NEW,
+                         device=dev)
+            if how == "eager":
+                eager_engine(eng)
+            eng.generate_batch(prompts, max_new_tokens=2, **kw)   # warm
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = eng.generate_batch(prompts, max_new_tokens=SERVE_NEW, **kw)
+            runs[how] = (out, time.time() - t0)
+            if how == "replayed":
+                caps, pool = (compile_count(ENGINE_STEP),
+                              graph_pool_bytes(eng._decode))
+                secs = capture_seconds(eng._decode)
+            del eng
+    out, wall = runs["replayed"]
+    say(f"{what} serve bf16 (static Engine): {out.size} tokens in "
+        f"{wall:.3f} s: tok_per_s {out.size / wall:.1f} (prefill "
+        f"{SERVE_SLOTS}x{PROMPT} included)")
+    ref, eager_wall = runs["eager"]
+    same = int((out == ref).all(axis=1).sum())
+    say(f"graphs (e) {what} Engine: tok_per_s eager "
+        f"{ref.size / eager_wall:.1f}, replayed {out.size / wall:.1f}; "
+        f"replayed tokens == eager for "
+        f"{same}/{len(ref)} requests; captures of {ENGINE_STEP} {caps} "
+        f"for the warm batch's step and the timed batch's {SERVE_NEW - 1} "
+        f"(positions {PROMPT}-{PROMPT + SERVE_NEW - 2}; warm-up and "
+        f"capture {secs:.3f} s, host clock); graph pool "
+        f"{'not measured' if pool is None else f'{pool} bytes'} ({card})")
+    check(same == len(ref), f"graphs (e) {what}: the replayed Engine's "
+          "tokens differ from the eager step's")
+    check(caps == 1, f"graphs (e) {what}: {caps} captures, want 1")
+    return out
+
+
+def first_differing_op(torch, dev, rt):
+    """Where a replay's logits part from the direct call's: a step whose
+    every floating aten output is cloned, captured by a guard_graph of its
+    own (its warm-up runs it directly, the replay fills the capture's
+    clones), both lists compared in call order. Returns the first op whose
+    outputs differ (the kernels' own outputs show at the op that reads
+    them), or None."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.analysis.retrace import guard_graph
+    from repro_torch.models.model import decode_step_paged
+    runs = []
+
+    class Keep(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func._schema.name
+            if (isinstance(out, torch.Tensor) and out.is_floating_point()
+                    and not name.startswith(("aten::empty",
+                                             "aten::new_empty"))):
+                runs[-1].append((name, out.clone()))
+            return out
+
+    def step(*a):
+        runs.append([])
+        with Keep():
+            return decode_step_paged(*a)
+
+    g = guard_graph(step, name="chip_smoke.first_differing_op",
+                    copy_argnums=(5, 6), device=dev)
+    args = (rt.params, rt.cfg, rt.plan, rt.pool, rt._bt_dev, rt._h_tok,
+            rt._h_pos)
+    g(*args)                 # runs[0] direct (the warm-up), runs[1] captured
+    g(*args)                 # the replay fills runs[1]
+    torch.cuda.synchronize()
+    for i, ((op, a), (_, b)) in enumerate(zip(runs[0], runs[1])):
+        if not torch.equal(a, b):
+            return f"{op} (output {i} of {len(runs[0])})"
+    return None
+
+
+def phase_graphs(torch, dev, sp, cfg, prompts, card):
+    """Phase 22 (a, c, d) on phase 4's packed 2-layer qwen at full width,
+    bf16 at kv_bits 0, 8 and 4 and f32 at 0: a step replayed against a
+    direct call on the same inputs (`replay_vs_direct`; where they differ,
+    the first op that does), then the phase-8 traffic eager and replayed
+    (`serve_graph_vs_eager`: tokens, metrics, one capture, the pool's
+    bytes). Returns {label: graph pool bytes}."""
+    from repro_torch.models import BuildPlan
+    t0 = time.time()
+    cfg32 = cfg.replace(compute_dtype="float32")
+    pools = {}
+    for label, c, plan in (
+            ("bf16 kv_bits=0", cfg, BuildPlan()),
+            ("bf16 kv_bits=8", cfg, BuildPlan(kv_bits=8)),
+            ("bf16 kv_bits=4", cfg, BuildPlan(kv_bits=4)),
+            ("f32 kv_bits=0", cfg32, BuildPlan(cache_dtype=torch.float32))):
+        with torch.no_grad():
+            gap = replay_vs_direct(torch, dev, sp, c, plan, prompts,
+                                   f"(a) {label}", card)
+            if gap:
+                from repro_torch.serve import Runtime
+                rt = Runtime(sp, c, plan, serve_config(), device=dev)
+                for p in prompts[:SERVE_SLOTS]:
+                    rt.submit(p, max_new_tokens=SERVE_NEW)
+                rt.step()
+                say(f"graphs (a) {label}: the first op whose replayed "
+                    f"output differs: {first_differing_op(torch, dev, rt)}")
+                del rt
+        pools[label] = serve_graph_vs_eager(torch, dev, sp, c, plan,
+                                            prompts, f"(a) {label}", card)
+    say(f"graphs: phase 22 (a, c, d) in {time.time() - t0:.1f} s")
+    return pools
 
 
 # ---------------------------------------------------------------------------
@@ -1593,7 +1915,7 @@ def check_moe_kernels(torch, dev, kernels, results, cfg):
     check_paged(torch, paged, dev, results, heads, ("moe",))
 
 
-def phase_moe(torch, dev, ops, kernels, cfg):
+def phase_moe(torch, dev, ops, kernels, cfg, card):
     """The counted MoE path on `cfg` (granite-moe-3b-a800m at full width,
     depth cut): quantize (per-expert blocked COMQ, one panel launch a
     panel for all experts), decode from the packed codes against the plain
@@ -1644,6 +1966,9 @@ def phase_moe(torch, dev, ops, kernels, cfg):
         f"expert-batched comq_panel launches {batched}")
     check(all(counts[k] > 0 for k in MOE_PATH),
           f"a kernel of the moe path never launched: {counts}")
+    # 22(f): the traffic replayed against the eager step (group 3)
+    serve_graph_vs_eager(torch, dev, sp, cfg, BuildPlan(), prompts,
+                         "(f) moe bf16 kv_bits=0", card)
 
     # f32: each request's tokens equal its solo run
     p32 = BuildPlan(cache_dtype=torch.float32)
@@ -1762,7 +2087,7 @@ def decode_vs_plain(torch, ops, kernels, sp, cfg, plan, tokens, what,
         del outs, tape
 
 
-def phase_hybrid(torch, dev, ops, kernels, cfg):
+def phase_hybrid(torch, dev, ops, kernels, cfg, card):
     """The counted hybrid path on `cfg` (hymba-1.5b at full width, depth
     cut): quantize (blocked COMQ over the attention, SSM and MLP leaves;
     the SSM state carried from layer to layer), decode from the packed
@@ -1807,20 +2132,12 @@ def phase_hybrid(torch, dev, ops, kernels, cfg):
                     f"hybrid decode B=1 T={HYBRID_LONG} (ring of "
                     f"{HYBRID_WINDOW})")
 
-    # (d) serve through the static Engine: 8 prompts of 128 tokens
+    # (d) serve through the static Engine: 8 prompts of 128 tokens,
+    # replayed against the eager step (22e)
     prompts = np.random.RandomState(6).randint(
         0, cfg.vocab_size, (SERVE_SLOTS, PROMPT)).astype(np.int32)
+    engine_graph_vs_eager(torch, dev, sp, cfg, prompts, "hybrid", card)
     with torch.no_grad():
-        eng = Engine(sp, cfg, BuildPlan(), max_len=PROMPT + SERVE_NEW,
-                     device=dev)
-        eng.generate_batch(prompts, max_new_tokens=2)       # warm
-        torch.cuda.synchronize()
-        t0 = time.time()
-        out = eng.generate_batch(prompts, max_new_tokens=SERVE_NEW)
-        wall = time.time() - t0
-        say(f"hybrid serve bf16 (static Engine): {out.size} tokens in "
-            f"{wall:.3f} s: tok_per_s {out.size / wall:.1f} (prefill "
-            f"{SERVE_SLOTS}x{PROMPT} included)")
         # f32: the plain versions' greedy tokens with every layer in
         # lockstep with the kernel run (gated), and free-running (printed:
         # a logit gap of ~1e-2 flips near-ties, and a flipped token
@@ -1832,7 +2149,7 @@ def phase_hybrid(torch, dev, ops, kernels, cfg):
             return Engine(sp, cfg32, p32, max_len=PROMPT + SERVE_NEW,
                           device=dev).generate_batch(
                               prompts, max_new_tokens=SERVE_NEW)
-        tape = DecodeTape(torch, tfm, moe_mod)
+        tape = DecodeTape(torch, tfm, moe_mod, base=PROMPT)
         with tape.mode("record"):
             got = engine_tokens()
         with plain_kernels(ops, kernels):
@@ -1882,7 +2199,7 @@ def check_audio_kernels(torch, dev, kernels, results, cfg):
     check_paged(torch, paged, dev, results, heads, ("musicgen",))
 
 
-def phase_audio(torch, dev, ops, kernels, cfg):
+def phase_audio(torch, dev, ops, kernels, cfg, card):
     """The counted audio path on `cfg` (musicgen-large at full width,
     depth cut): quantize, decode from the packed codes against the plain
     versions (8x128; gated with the layers in lockstep at both types,
@@ -1919,6 +2236,9 @@ def phase_audio(torch, dev, ops, kernels, cfg):
     say(f"audio path launches (quantize + decode + serve): {counts}")
     check(all(counts[k] > 0 for k in AUDIO_PATH),
           f"a kernel of the audio path never launched: {counts}")
+    # 22(f): the traffic replayed against the eager step (group 1)
+    serve_graph_vs_eager(torch, dev, sp, cfg, BuildPlan(), prompts,
+                         "(f) audio bf16 kv_bits=0", card)
 
     # f32: each request's tokens equal its solo run; a small pool preempts
     cfg32 = cfg.replace(compute_dtype="float32")
@@ -2010,7 +2330,7 @@ def rwkv_forms_agree(torch, sp, cfg, tokens, what):
     check(bool(torch.isfinite(got).all()), f"{what}: non-finite logits")
 
 
-def phase_rwkv(torch, dev, ops, kernels, cfg):
+def phase_rwkv(torch, dev, ops, kernels, cfg, card):
     """The counted attention-free path on `cfg` (rwkv6-7b at full width,
     depth cut): quantize (the eight projections of each layer through
     comq_panel, the RWKV state carried from layer to layer), the
@@ -2020,8 +2340,6 @@ def phase_rwkv(torch, dev, ops, kernels, cfg):
     Returns the path's launch counts."""
     import numpy as np
     from repro_torch.core.apply import serving_params
-    from repro_torch.models import BuildPlan
-    from repro_torch.serve import Engine
     panel = kernels[0]
 
     ops.reset_launch_counts()
@@ -2048,17 +2366,7 @@ def phase_rwkv(torch, dev, ops, kernels, cfg):
 
     prompts = np.random.RandomState(6).randint(
         0, cfg.vocab_size, (SERVE_SLOTS, PROMPT)).astype(np.int32)
-    with torch.no_grad():
-        eng = Engine(sp, cfg, BuildPlan(), max_len=PROMPT + SERVE_NEW,
-                     device=dev)
-        eng.generate_batch(prompts, max_new_tokens=2)       # warm
-        torch.cuda.synchronize()
-        t0 = time.time()
-        out = eng.generate_batch(prompts, max_new_tokens=SERVE_NEW)
-        wall = time.time() - t0
-    say(f"rwkv serve bf16 (static Engine): {out.size} tokens in {wall:.3f} "
-        f"s: tok_per_s {out.size / wall:.1f} (prefill {SERVE_SLOTS}x{PROMPT} "
-        f"included)")
+    out = engine_graph_vs_eager(torch, dev, sp, cfg, prompts, "rwkv", card)
     check(out.shape == (SERVE_SLOTS, SERVE_NEW)
           and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
           f"rwkv serve: tokens {out.shape}")
@@ -2110,7 +2418,7 @@ def gated(torch, params, gate: float):
     return {**params, "groups": {**params["groups"], "cross": cross}}
 
 
-def phase_vlm(torch, dev, ops, kernels, cfg):
+def phase_vlm(torch, dev, ops, kernels, cfg, card):
     """The counted VLM path on `cfg` (llama-3.2-vision-90b at full width,
     one group): the launcher's quantize with 8 images of 1601 features
     (every self and cross leaf through the panel; the loss gap cannot see
@@ -2122,7 +2430,6 @@ def phase_vlm(torch, dev, ops, kernels, cfg):
     import numpy as np
     from repro_torch.core import materialize
     from repro_torch.models import BuildPlan
-    from repro_torch.serve import Engine
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)
@@ -2149,19 +2456,10 @@ def phase_vlm(torch, dev, ops, kernels, cfg):
                     f"vlm decode (gates {VLM_GATE})", vision_embeds=ve)
     prompts = np.random.RandomState(6).randint(
         0, cfg.vocab_size, (SERVE_SLOTS, PROMPT)).astype(np.int32)
-    with torch.no_grad():
-        eng = Engine(mat, cfg, BuildPlan(), max_len=PROMPT + SERVE_NEW,
-                     device=dev)
-        eng.generate_batch(prompts, max_new_tokens=2, vision_embeds=ve)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        out = eng.generate_batch(prompts, max_new_tokens=SERVE_NEW,
-                                 vision_embeds=ve)
-        wall = time.time() - t0
-    say(f"vlm serve bf16 (static Engine, materialized, gates {VLM_GATE}, "
-        f"{ve.shape[1]} image tokens a prompt): {out.size} tokens in "
-        f"{wall:.3f} s: tok_per_s {out.size / wall:.1f} (prefill "
-        f"{SERVE_SLOTS}x{PROMPT} included)")
+    out = engine_graph_vs_eager(
+        torch, dev, mat, cfg, prompts, f"vlm (materialized, gates "
+        f"{VLM_GATE}, {ve.shape[1]} image tokens a prompt)", card,
+        vision_embeds=ve)
     check(out.shape == (SERVE_SLOTS, SERVE_NEW)
           and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
           f"vlm serve: tokens {out.shape}")
@@ -2175,7 +2473,7 @@ def phase_vlm(torch, dev, ops, kernels, cfg):
         f"{held / 2 ** 30:.2f} GiB held before the phase")
     check(all(counts[k] > 0 for k in VLM_PATH + ("flash_attention/decode",)),
           f"a kernel of the vlm path never launched: {counts}")
-    del mat, eng
+    del mat
     return counts
 
 
@@ -2972,6 +3270,10 @@ def phase_observability(torch, dev, ops, kernels, sp, cfg, prompts, smi):
         m_occ.set(0.5)
         m_kvb.set(123456)
 
+    def annotated(i):
+        with torch.profiler.record_function("decode_step"):
+            pass
+
     def hooks(i):
         span(i)
         token_hooks(i)
@@ -3000,15 +3302,18 @@ def phase_observability(torch, dev, ops, kernels, sp, cfg, prompts, smi):
             gc.enable()
 
     hook_s = per_call(hooks)
-    parts = {"span+record_function": per_call(span),
-             "span alone": per_call(lambda i: span(i, False)),
+    parts = {"span (device=True)": per_call(span),
+             "span (device=False)": per_call(lambda i: span(i, False)),
+             "record_function (entered under a profiler only)":
+                 per_call(lambda i: annotated(i)),
              f"{OBS_HOOK_SLOTS} token_events": per_call(token_hooks),
              "3 gauges": per_call(gauges),
              "all, cyclic collector off": per_call(hooks, collect=False)}
     med = stats.median(step_walls)
     share = hook_s / med
-    say(f"observability c: hook sequence ({OBS_HOOK_SLOTS} slots, span with "
-        f"record_function, {OBS_HOOK_SLOTS} token_events, 3 gauges) "
+    say(f"observability c: hook sequence ({OBS_HOOK_SLOTS} slots, the span "
+        f"(device=True: record_function entered only under a profiler, "
+        f"none here), {OBS_HOOK_SLOTS} token_events, 3 gauges) "
         f"{hook_s * 1e6:.3f} us a step (parts: "
         + ", ".join(f"{k} {v * 1e6:.3f} us" for k, v in parts.items())
         + f"); median untraced step wall {med * 1e3:.4f} ms (bf16 "
@@ -5022,6 +5327,10 @@ def phase_analysis(torch, dev, ops, sp, cfg, card):
             counted = ops.launch_counts()
             ms = cuda_ms(torch, lambda i: decode_step_paged(*args),
                          ANALYSIS_STEP_ITERS)
+            # 22(b): the same step replayed from the runtime's graph (its
+            # first call captures; each replay rewrites the same rows)
+            replay_ms = cuda_ms(torch, lambda i: rt._decode(*args),
+                                ANALYSIS_STEP_ITERS)
         pred = decode_step_bytes(
             sp, cfg, plan, max_slots=ANALYSIS_SLOTS, block_size=ANALYSIS_BS,
             max_blocks_per_slot=ANALYSIS_MAXB, num_blocks=sc.num_blocks,
@@ -5044,6 +5353,12 @@ def phase_analysis(torch, dev, ops, sp, cfg, card):
             f"measured {ms:.4f} ms a step (CUDA events, mean of "
             f"{ANALYSIS_STEP_ITERS}), {terms['bound_s'] * 1e3 / ms:.3f} of "
             f"the bound ({card})")
+        bound = terms["bound_s"] * 1e3
+        say(f"graphs (b) decode step {label}: eager {ms:.4f} ms, replayed "
+            f"{replay_ms:.4f} ms a step (CUDA events, mean of "
+            f"{ANALYSIS_STEP_ITERS}); bound {bound:.4f} ms: eager "
+            f"{bound / ms:.3f}, replayed {bound / replay_ms:.3f} of it; "
+            f"graph pool {rt.graph_pool_bytes()} bytes ({card})")
         rows[kv_bits] = (cost.bytes_accessed, pred["total"])
         del rt, args
         torch.cuda.empty_cache()
@@ -5630,6 +5945,9 @@ def main() -> int:
     t0 = time.time()
     phase_analysis(torch, dev, ops, sp, cfg, card)
     say(f"analysis: phase 20 in {time.time() - t0:.1f} s")
+    # 22. the serving steps as CUDA graphs, on the phase-4 model (its (b)
+    # ran in phase 20, its (e) and (f) run in phases 10-14)
+    phase_graphs(torch, dev, sp, cfg, prompts, card)
     # the phase-4 model's last holders (~6.6 GiB: phase 8's runtimes serve
     # sp, phase 6 kept layer 0), so that phase 18's ranks find the card
     del sp, rt, solo_rt, reqs, lp, w, outs, free, pool, free_pool
@@ -5644,7 +5962,8 @@ def main() -> int:
         f"{moe_cfg.d_ff} an expert, {moe_cfg.moe.n_experts} experts top-"
         f"{moe_cfg.moe.top_k}, vocab {moe_cfg.vocab_size})")
     check_moe_kernels(torch, dev, kernels, results, moe_cfg)
-    moe_counts, moe_batched = phase_moe(torch, dev, ops, kernels, moe_cfg)
+    moe_counts, moe_batched = phase_moe(torch, dev, ops, kernels, moe_cfg,
+                                        card)
 
     say(f"chip_smoke: phase 10 done at {time.time() - t_all:.1f} s")
 
@@ -5659,7 +5978,7 @@ def main() -> int:
         f"{hyb_cfg.ssm.state_dim}); then {HYBRID_FULL_LAYERS} layers for "
         f"the full-depth quantize")
     check_hybrid_kernels(torch, dev, kernels, results, hyb_cfg)
-    hyb_counts = phase_hybrid(torch, dev, ops, kernels, hyb_cfg)
+    hyb_counts = phase_hybrid(torch, dev, ops, kernels, hyb_cfg, card)
 
     say(f"chip_smoke: phase 11 done at {time.time() - t_all:.1f} s")
 
@@ -5672,7 +5991,7 @@ def main() -> int:
         f"{audio_cfg.vocab_size}, {audio_cfg.norm_type}, {audio_cfg.act}); "
         f"then {AUDIO_FULL_LAYERS} layers for the full-depth quantize")
     check_audio_kernels(torch, dev, kernels, results, audio_cfg)
-    audio_counts = phase_audio(torch, dev, ops, kernels, audio_cfg)
+    audio_counts = phase_audio(torch, dev, ops, kernels, audio_cfg, card)
 
     say(f"chip_smoke: phase 12 done at {time.time() - t_all:.1f} s")
 
@@ -5686,7 +6005,7 @@ def main() -> int:
         f"{rwkv_cfg.rwkv.gate_lora}/{rwkv_cfg.rwkv.token_shift_lora})")
     check_panel(torch, panel, dev, results, RWKV_PANEL)
     time_plain_wkv(torch, dev, rwkv_cfg)
-    rwkv_counts = phase_rwkv(torch, dev, ops, kernels, rwkv_cfg)
+    rwkv_counts = phase_rwkv(torch, dev, ops, kernels, rwkv_cfg, card)
 
     say(f"chip_smoke: phase 13 done at {time.time() - t_all:.1f} s")
 
@@ -5702,7 +6021,7 @@ def main() -> int:
         f"{vlm_cfg.d_ff}, vocab {vlm_cfg.vocab_size}, {ca.n_vision_tokens} "
         f"image tokens of width {ca.vision_dim}")
     check_vlm_kernels(torch, dev, kernels, results, vlm_cfg)
-    vlm_counts = phase_vlm(torch, dev, ops, kernels, vlm_cfg)
+    vlm_counts = phase_vlm(torch, dev, ops, kernels, vlm_cfg, card)
 
     say(f"chip_smoke: phase 14 done at {time.time() - t_all:.1f} s")
 

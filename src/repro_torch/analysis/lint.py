@@ -4,8 +4,9 @@ Three rules, each encoding a discipline the port's performance or
 durability story depends on:
 
 * ``host-sync``       — inside *hot zones* (`HOT_ZONES`: the serve
-  decode/admission path, the engine decode loop, the per-leaf pipeline
-  sentinels, the Gram all-reduce, the observability hooks), flag calls
+  decode/admission path, the engine decode loop, the graph replay of
+  `retrace.guard_graph`, the per-leaf pipeline sentinels, the Gram
+  all-reduce, the observability hooks), flag calls
   that make the host wait for the card: `.item()`, `.cpu()`,
   `.tolist()`, `.numpy()`, `torch.cuda.synchronize(...)` (and a stream's
   or an event's `.synchronize()`),
@@ -46,7 +47,10 @@ HOT_ZONES: Dict[str, Tuple[str, ...]] = {
     "serve/runtime.py": ("Runtime.step", "Runtime._admit_one",
                          "Runtime.run", "Runtime._emit",
                          "Runtime._clear_slot", "Runtime._retire"),
-    "serve/engine.py": ("Engine.generate_batch",),
+    "serve/engine.py": ("Engine.generate_batch", "Engine._static_cache",
+                        "_decode_into"),
+    # the signature check and graph replay every serving step goes through
+    "analysis/retrace.py": ("guard_graph.guarded", "guard_fn.guarded"),
     "core/guards.py": ("nonfinite_count", "sanitize_array", "gram_health",
                        "result_ok", "guarded_solve"),
     "core/pipeline.py": ("_results_finite", "_RunCtx.commit",

@@ -167,3 +167,30 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict:
     return {getattr(mod, name): getattr(mod, count)
             for mod, name, count in KERNELS}
+
+
+# every counter a launch moves: each kernel's, and the shares counted apart
+_COUNTERS = tuple((mod, count) for mod, _, count in KERNELS) + (
+    (_paged, "launches_quant_tc"), (_panel, "launches_batched"),
+    (_flash, "launches_single_query"))
+
+
+def launch_state() -> dict:
+    """Every launch counter, quant_matmul's by code packing included: what
+    a CUDA-graph capture diffs to learn the launches it holds."""
+    state = {(mod.__name__, count): getattr(mod, count)
+             for mod, count in _COUNTERS}
+    state.update({("cpb", cpb): n for cpb, n in _qmm.launches_by_cpb.items()})
+    return state
+
+
+def add_launches(delta: dict) -> None:
+    """Add `delta` (a difference of two `launch_state`s) to the counters:
+    a graph replay launches what its capture recorded, and no wrapper runs
+    to count it."""
+    mods = {mod.__name__: mod for mod, _ in _COUNTERS}
+    for (where, key), n in delta.items():
+        if where == "cpb":
+            _qmm.launches_by_cpb[key] = _qmm.launches_by_cpb.get(key, 0) + n
+        else:
+            setattr(mods[where], key, getattr(mods[where], key) + n)

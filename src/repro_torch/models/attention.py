@@ -237,22 +237,34 @@ def _dq8_kv(q: Tensor, scale: Tensor, dtype) -> Tensor:
 
 
 def cache_insert(cache: KVCache, k_new: Tensor, v_new: Tensor,
-                 pos: int) -> KVCache:
+                 pos) -> KVCache:
     """Write one token (B, 1, KV, hd) at absolute position `pos`, in place
     (quantized to int8 codes + scales for an int8 cache). Ring semantics:
-    slot = pos % cache_len."""
-    slot = int(pos) % cache.k.shape[1]
+    slot = pos % cache_len. `pos` is an int or a 0-dim integer tensor on
+    the cache's device (a captured step's): the slot is an index the card
+    computes either way, so nothing is read on the host."""
+    B, S = cache.k.shape[:2]
+    col = position_column(pos, B, cache.k.device)          # (B, 1)
+    slot = (col[:1, 0] % S).long()
     if cache.k_scale is not None:
         for codes, scales, new in ((cache.k, cache.k_scale, k_new),
                                    (cache.v, cache.v_scale, v_new)):
             q, sc = _q8_kv(new[:, 0])
-            codes[:, slot] = q
-            scales[:, slot] = sc
+            codes.index_copy_(1, slot, q[:, None])
+            scales.index_copy_(1, slot, sc[:, None])
     else:
-        cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
-        cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
-    cache.pos[:, slot] = int(pos)
+        cache.k.index_copy_(1, slot, k_new.to(cache.k.dtype))
+        cache.v.index_copy_(1, slot, v_new.to(cache.v.dtype))
+    cache.pos.index_copy_(1, slot, col.to(cache.pos.dtype))
     return cache
+
+
+def position_column(pos, B: int, device) -> Tensor:
+    """The decode position as a (B, 1) column: `pos` an int (a fill), or
+    a 0-dim tensor on `device` (broadcast; nothing read on the host)."""
+    if isinstance(pos, Tensor):
+        return pos.reshape(1, 1).expand(B, 1)
+    return torch.full((B, 1), int(pos), device=device)
 
 
 def cache_prefill(cache: KVCache, k: Tensor, v: Tensor) -> KVCache:
@@ -283,11 +295,10 @@ def cache_prefill(cache: KVCache, k: Tensor, v: Tensor) -> KVCache:
 
 
 def decode_attend(q: Tensor, cache: KVCache, head_map: Tensor, *,
-                  pos: int, window: int = 0) -> Tensor:
-    """q: (B, 1, Hp, hd) at absolute position `pos`. An int8 cache is
-    dequantized to q's dtype first."""
-    B = q.shape[0]
-    qp = torch.full((B, 1), int(pos), dtype=torch.int32, device=q.device)
+                  pos, window: int = 0) -> Tensor:
+    """q: (B, 1, Hp, hd) at absolute position `pos` (an int or a 0-dim
+    device tensor). An int8 cache is dequantized to q's dtype first."""
+    qp = position_column(pos, q.shape[0], q.device).to(torch.int32)
     k, v = cache.k, cache.v
     if cache.k_scale is not None:
         k = _dq8_kv(k, cache.k_scale, q.dtype)
@@ -318,8 +329,10 @@ def _redirect_inactive(active: Tensor, *vals: Tensor):
     active one: a scatter that drops inactive slots without reading `pos`
     on the host. With no active slot, every slot rewrites slot 0's values,
     which the callers set to what the pool already holds there."""
-    first = torch.argmax(active.to(torch.int32))
-    return [torch.where(active.view(-1, *[1] * (v.dim() - 1)), v, v[first])
+    first = torch.argmax(active.to(torch.int32)).reshape(1)
+    # an index tensor, not v[first]: a 0-dim index is read on the host
+    return [torch.where(active.view(-1, *[1] * (v.dim() - 1)), v,
+                        v.index_select(0, first))
             for v in vals]
 
 

@@ -370,7 +370,7 @@ def prefill(p: Params, cfg, plan: BuildPlan, tokens: Tensor,
     return logits[:, -1], cache
 
 
-def _decode_vlm(p: Params, cfg, plan, cache, x, pos: int):
+def _decode_vlm(p: Params, cfg, plan, cache, x, pos):
     """A VLM decode step: every self and cross layer dequantized (no
     fused leaves, as in the JAX package), the cross layers over the
     cached image K/V. Returns (x, the new cache)."""
@@ -394,8 +394,10 @@ def _decode_vlm(p: Params, cfg, plan, cache, x, pos: int):
 
 
 def decode_step(p: Params, cfg, plan: BuildPlan, cache, tokens: Tensor,
-                pos: int):
-    """tokens: (B, 1); pos: absolute position (int). Fused-layout QT
+                pos):
+    """tokens: (B, 1); pos: absolute position, an int or a 0-dim integer
+    tensor on the cache's device (JAX traces it: one program for every
+    position; serve.Engine's captured step passes it so). Fused-layout QT
     projections stay packed and run through quant_matmul (keep_fused);
     other QT leaves (hymba's w_in / w_out, every RWKV projection) are
     dequantized each step, as in the JAX package. The KV cache is updated

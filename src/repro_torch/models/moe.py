@@ -33,7 +33,6 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models.common import act_fn, dense_init, pad_to_multiple
 
@@ -61,6 +60,13 @@ def _route(logits: Tensor, n_real: int, top_k: int):
     return torch.softmax(w.float(), dim=-1), ids
 
 
+def _one_hot(ids: Tensor, n: int) -> Tensor:
+    """`F.one_hot(ids, n)` (int64) by a comparison: the same values, and
+    nothing read on the host (on the CPU F.one_hot checks the ids' range
+    with a host read)."""
+    return (ids[..., None] == torch.arange(n, device=ids.device)).long()
+
+
 def slots_for(ids: Tensor, e_pad: int, capacity: int,
               offset: Optional[Tensor] = None):
     """Capacity placement of routed pairs ids (N, k): (pos (N, k) the slot
@@ -71,7 +77,7 @@ def slots_for(ids: Tensor, e_pad: int, capacity: int,
     tokens (on lower ranks, under global routing)."""
     N, k = ids.shape
     flat = ids.reshape(N * k)
-    onehot = F.one_hot(flat, e_pad)                   # (N·k, E)
+    onehot = _one_hot(flat, e_pad)                    # (N·k, E)
     pos = torch.cumsum(onehot, dim=0).gather(1, flat[:, None])[:, 0] - 1
     if offset is not None:
         pos = pos + offset[flat]
@@ -164,7 +170,7 @@ def _dispatch_chunk(x: Tensor, p: dict, cfg, n_real: int, capacity: int,
 
     # load-balance aux loss (Switch-style), on the unmasked logits
     me = torch.softmax(logits, dim=-1).mean(dim=0)
-    ce = F.one_hot(ids, e_pad).sum(dim=1).float().mean(dim=0)
+    ce = _one_hot(ids, e_pad).sum(dim=1).float().mean(dim=0)
     aux = e_pad * torch.sum(me * ce)
     return y, aux
 

@@ -339,11 +339,12 @@ def vision_kv_for_layer(p_cross: dict, vision_embeds: Tensor):
 # ---------------------------------------------------------------------------
 
 def layer_decode(p: dict, x: Tensor, cfg, plan: BuildPlan, kv_cache,
-                 pos: int, ssm_state=None, rwkv_state=None):
-    """x: (B, 1, d) at absolute position `pos`. Returns (x, kv_cache,
-    state); the KV cache is updated in place, a parallel-SSM layer
-    steps its branch from `ssm_state`, an attention-free layer (no KV
-    cache) from `rwkv_state`, and returns the new one (None for the
+                 pos, ssm_state=None, rwkv_state=None):
+    """x: (B, 1, d) at absolute position `pos` (an int, or a 0-dim integer
+    tensor on x's device, as a captured step passes it). Returns (x,
+    kv_cache, state); the KV cache is updated in place, a parallel-SSM
+    layer steps its branch from `ssm_state`, an attention-free layer (no
+    KV cache) from `rwkv_state`, and returns the new one (None for the
     other families)."""
     check_ported(cfg)
     if cfg.attn_free:
@@ -351,8 +352,7 @@ def layer_decode(p: dict, x: Tensor, cfg, plan: BuildPlan, kv_cache,
         return x, None, state
     xn = apply_norm(p["ln1"], x, cfg)
     q, k, v = qkv_project(p["attn"], xn)
-    B = x.shape[0]
-    posb = torch.full((B, 1), int(pos), device=x.device)
+    posb = attn_mod.position_column(pos, x.shape[0], x.device)
     q = apply_rope(q, posb, cfg.rope_theta)
     k = apply_rope(k, posb, cfg.rope_theta)
     kv_cache = cache_insert(kv_cache, k, v, pos)

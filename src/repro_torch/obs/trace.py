@@ -12,12 +12,13 @@
   the raw material `obs/timeline.py` reconstructs per-request serve
   timelines from (and dedups by rid across crash-replay restarts).
 
-Device bridging: when a span is opened with `device=True` the tracer
-also enters `torch.profiler.record_function(label)`, a cheap no-op range
-when no profiler is attached and a user annotation when one is — so in a
-`torch.profiler` trace the host span brackets the CUDA kernels it
-launched (the serve runtime's `decode_step`, the pipeline's
-`leaf_solve`).
+Device bridging: when a span is opened with `device=True` while a
+`torch.profiler` is attached, the tracer also enters
+`torch.profiler.record_function(label)`, a user annotation — so in a
+profiler trace the host span brackets the CUDA kernels it launched (the
+serve runtime's `decode_step`, the pipeline's `leaf_solve`). With no
+profiler attached the annotation would record nothing, and entering it
+costs ~10 µs: the span skips it.
 
 Timestamps are epoch microseconds (`time.time()*1e6`) so traces written
 by different processes — e.g. restart generations of a crash-replay run
@@ -27,14 +28,24 @@ so they are monotonic within a span.
 Zero-cost-disabled rule: callers hold `tracer or NULL_TRACER`.  The null
 tracer's `span()` returns one shared no-op context manager and its event
 hooks return immediately — no allocation, no branching in callees.
+
+Hot-path rule: a token event (once a live slot a decode step) leaves no
+object for Python's cyclic collector behind: its fields go to a flat
+list and a shared marker to the event list, so a long trace does not
+make the collector's passes, which grow with the whole process's heap,
+a cost of the step.
 """
 from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional
+
+
+_TOKEN = "token"     # event-list marker: the next fields of Tracer._tokens
 
 
 class _NullSpan:
@@ -125,8 +136,11 @@ class Tracer:
         self.run = run
         self.pid = os.getpid() if pid is None else pid
         # raw entries: ("X", name, ts_us, dur_us, tid, args) for spans,
-        # ("i", name, cat, ts_us, tid, args) for instants
-        self._events: List[tuple] = []
+        # ("i", name, cat, ts_us, tid, args) for instants, _TOKEN for a
+        # token event, whose (rid, i, token, ts_us, tid) are the next five
+        # entries of _tokens
+        self._events: List[Any] = []
+        self._tokens: List[Any] = []
 
     # -- emission ------------------------------------------------------
     def span(self, name: str, *, device: bool = False, **args: Any) -> Span:
@@ -135,7 +149,7 @@ class Tracer:
         a user annotation around the span's kernels when a profiler is
         attached."""
         annotation = None
-        if device:
+        if device and _profiling():
             annotation = _trace_annotation(name)
         return Span(self, name, args, annotation)
 
@@ -156,17 +170,24 @@ class Tracer:
         """Specialized `request_event("token", ...)` for the decode
         loop's once-per-token hot call: the caller passes the step's
         already-taken timestamp so N live slots share one clock read,
-        and the kwargs plumbing is skipped."""
-        self._events.append(("i", "token", "request", ts_us,
-                             threading.get_ident(),
-                             {"rid": rid, "i": i, "token": token}))
+        and the kwargs plumbing is skipped. The fields are kept flat (see
+        the module docstring); `events` builds the same event."""
+        self._tokens.extend((rid, i, token, ts_us, threading.get_ident()))
+        self._events.append(_TOKEN)
 
     # -- access / persistence -----------------------------------------
     @property
     def events(self) -> List[Dict[str, Any]]:
         out: List[Dict[str, Any]] = []
+        tokens, k = list(self._tokens), 0
         for ev in list(self._events):
-            if ev[0] == "X":
+            if ev is _TOKEN:
+                rid, i, token, ts, tid = tokens[k:k + 5]
+                k += 5
+                out.append({"name": "token", "ph": "i", "cat": "request",
+                            "s": "t", "ts": ts, "pid": self.pid, "tid": tid,
+                            "args": {"rid": rid, "i": i, "token": token}})
+            elif ev[0] == "X":
                 _, name, ts, dur, tid, args = ev
                 out.append({"name": name, "ph": "X", "cat": "span",
                             "ts": ts, "dur": dur, "pid": self.pid,
@@ -207,6 +228,13 @@ def next_trace_path(directory: str, prefix: str) -> str:
     n = len([f for f in os.listdir(directory)
              if f.startswith(prefix + ".g") and f.endswith(".trace.json")])
     return os.path.join(directory, f"{prefix}.g{n}.trace.json")
+
+
+def _profiling() -> bool:
+    """Whether a torch profiler is attached (False where torch was never
+    imported: then none can be)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch._C._autograd._profiler_enabled()
 
 
 def _trace_annotation(label: str):

@@ -40,14 +40,21 @@ tokens but the last, then feeds the last emitted token through the normal
 decode step, so every resumed token comes from the same decode step as an
 uninterrupted run.
 
-Per decode step the host uploads the tokens and positions, re-uploads
-the block tables only when they changed, and pulls the sampled tokens:
-that pull is the step's one host sync. The observability hooks read host
-values only and add none. The decode step and each prefill bucket run
-under signature budgets (`analysis.retrace.guard_fn`, JAX's
-`serve.decode_step` and `serve.prefill[bucket]` guards): one (shape,
-dtype) signature each for the runtime's life, which is what a CUDA-graph
-capture of the step would need.
+The decode step is JAX's one compiled, donated program: on the card it is
+captured once as a CUDA graph (`analysis.retrace.guard_graph`, JAX's
+`serve.decode_step` guard, budget one signature: a fixed (max_slots,
+maxb) table) and replayed every step; on the CPU it runs eagerly through
+the same static buffers. The graph writes the K/V pool in place, so the
+pool and the params stay the tensors it was captured on (the prefill
+writes land in the same storages between replays). Per step the host
+writes the tokens and positions into pinned buffers that the replay's
+static inputs are copied from, re-copies the block tables into their
+device buffer only when they changed, and pulls the sampled tokens: that
+pull is the step's one host sync, and what makes rewriting the pinned
+buffers next step safe. Sampling runs after the replay, outside the
+graph. The observability hooks read host values only and add none. Each
+prefill bucket runs eagerly under its own budget (`guard_fn`, JAX's
+`serve.prefill[bucket]`).
 
 Slot+page sharding (`mesh`, a DeviceMesh with a "model" axis of tp over
 the SPMD ranks), as in the JAX runtime: the partitioned allocator gives
@@ -70,7 +77,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.analysis.retrace import guard_fn
+from repro_torch.analysis.retrace import (graph_pool_bytes, guard_fn,
+                                          guard_graph)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.ft.inject import InjectedFault, SimulatedKill
 from repro_torch.ft.journal import Journal
@@ -221,19 +229,40 @@ class Runtime:
         self._topp = np.zeros((B,), np.float32)
         self._seed = np.zeros((B,), np.uint32)   # per-request sampling seed
         self._count = np.zeros((B,), np.int32)   # tokens emitted so far
-        # device-resident block tables, re-uploaded only on change
-        self._bt_dev = None
+        # this rank's rows of the step's inputs in pinned host buffers
+        # (rewritten only after the step's token pull has synced), and the
+        # block tables' device buffer, re-copied only on change
+        self._h_tok = self._host((self._spp, 1), torch.int64)
+        self._h_pos = self._host((self._spp,), torch.int32)
+        self._h_bt = self._host((self._spp, self.maxb), torch.int32)
+        # numpy views of them, which the host writes in place
+        self._h_views = tuple(t.numpy() for t in (self._h_tok, self._h_pos,
+                                                  self._h_bt))
+        self._bt_dev = torch.zeros((self._spp, self.maxb), dtype=torch.int32,
+                                   device=self.device)
         self._bt_dirty = True
         self._any_sampling = False   # any live slot with temperature > 0
-        # signature budgets: one for the decode step, one a prefill bucket
-        self._decode = guard_fn(_decode_step, name="serve.decode_step",
-                                max_signatures=1)
+        # the decode step: one graph, replayed every step (tokens and
+        # positions its copied inputs; params, pool and tables held); one
+        # signature budget a prefill bucket
+        self._decode = guard_graph(_decode_step, name="serve.decode_step",
+                                   max_signatures=1, copy_argnums=(5, 6),
+                                   device=self.device)
         self._prefills = {}
         # run() metrics
         self.steps = 0
         self.decode_seconds = 0.0
         self._occ_sum = 0.0          # live-token occupancy, summed per step
         self._occ_steps = 0
+
+    def _host(self, shape, dtype) -> Tensor:
+        """A zeroed host buffer, pinned when the runtime runs on the card."""
+        t = torch.zeros(shape, dtype=dtype)
+        return t if self.device.type == "cpu" else t.pin_memory()
+
+    def graph_pool_bytes(self) -> Optional[int]:
+        """Device bytes the decode step's graph holds (0 on the CPU)."""
+        return graph_pool_bytes(self._decode)
 
     def _upload(self, a: np.ndarray) -> Tensor:
         """Host array -> a tensor on the runtime's device (a copy). On the
@@ -457,24 +486,26 @@ class Runtime:
                 self._bt_dirty = True
         t0 = time.time()
         rows = slice(self._slot_lo, self._slot_lo + self._spp)
-        if self._bt_dirty or self._bt_dev is None:
+        if self.injector is not None:
+            self.injector.check("decode_step")
+        h_tok, h_pos, h_bt = self._h_views
+        if self._bt_dirty:
             # this rank's rows, their page ids made local (the clamp only
             # touches entries past a slot's live pages, which the length
             # mask hides)
-            self._bt_dev = self._upload(
-                np.maximum(self._bt[rows] - self._page_lo, 0))
+            h_bt[:] = np.maximum(self._bt[rows] - self._page_lo, 0)
+            self._bt_dev.copy_(self._h_bt, non_blocking=True)
             self._bt_dirty = False
-        if self.injector is not None:
-            self.injector.check("decode_step")
+        h_tok[:, 0] = self._tok[rows]
+        h_pos[:] = self._pos[rows]
         # the span brackets the step's launches and the token pull it makes
         # anyway: no extra sync, and in a profiler trace the annotation
         # holds the step's kernels
         with self.tracer.span("decode_step", device=True, step=self.steps,
                               slots=len(running)):
-            logits, self.pool = self._decode(
-                self.params, self.cfg, self.plan, self.pool, self._bt_dev,
-                self._upload(self._tok[rows, None]),
-                self._upload(self._pos[rows]))
+            logits = self._decode(self.params, self.cfg, self.plan,
+                                  self.pool, self._bt_dev, self._h_tok,
+                                  self._h_pos)[0]
             if self._any_sampling:
                 toks = sample_batch_seeded(
                     logits, self._seed[rows], self._count[rows],

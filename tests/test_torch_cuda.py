@@ -1615,3 +1615,147 @@ def test_paged_refuses_a_group_over_16(cuda):
     with pytest.raises(ValueError, match="at most 16"):
         pa.paged_attention_cuda(q, k.bfloat16(), v.bfloat16(), bt, lens,
                                 head_map=hmap)
+
+
+# ---------------------------------------------------------------------------
+# the serving steps as CUDA graphs (analysis/retrace.guard_graph)
+# ---------------------------------------------------------------------------
+
+def _graph_runtime(cuda, dtype, kv_bits):
+    from repro_torch.analysis.registry import Smoke
+    from repro_torch.models import BuildPlan
+    from repro_torch.serve import Runtime, ServeConfig
+    smoke = Smoke(cuda)
+    cfg = smoke.cfg.replace(compute_dtype=dtype)
+    plan = BuildPlan(cache_dtype=torch.float32 if dtype == "float32"
+                     else torch.bfloat16, kv_bits=kv_bits)
+    return lambda: Runtime(smoke.serving, cfg, plan, ServeConfig(
+        max_slots=3, block_size=8, num_blocks=24, buckets=(8, 16),
+        max_blocks_per_slot=4), device=cuda)
+
+
+def _direct(rt):
+    """The runtime's step called directly (the reference of a replay)."""
+    from repro_torch.models.model import decode_step_paged
+    dev = rt.device
+    rt._decode = lambda p, c, pl, pool, bt, tok, pos: decode_step_paged(
+        p, c, pl, pool, bt, tok.to(dev), pos.to(dev))
+    return rt
+
+
+def _traffic(rt, prompts):
+    reqs = [rt.submit(p, max_new_tokens=6) for p in prompts[:2]]
+    for p in prompts[2:]:
+        rt.step()
+        reqs.append(rt.submit(p, max_new_tokens=6))
+    rt.run()
+    return [list(r.out_tokens) for r in reqs]
+
+
+@pytest.mark.parametrize("kv_bits", [0, 8, 4])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_runtime_replay_matches_the_direct_step(cuda, dtype, kv_bits):
+    """A replayed step's logits and pool writes equal a direct
+    decode_step_paged call's on the same inputs, bit for bit, and mixed,
+    staggered traffic gives the same tokens through both; one capture."""
+    import numpy as np
+
+    from repro_torch.analysis.retrace import compile_count
+    from repro_torch.models.model import decode_step_paged
+    make = _graph_runtime(cuda, dtype, kv_bits)
+    prompts = [np.arange(n, dtype=np.int32) * 7 % 200 for n in (5, 14, 9,
+                                                                 11)]
+    with torch.no_grad():
+        want = _traffic(_direct(make()), prompts)
+        rt = make()
+        assert _traffic(rt, prompts) == want
+        assert compile_count("serve.decode_step") == 1
+        for p in prompts[:3]:
+            rt.submit(p, max_new_tokens=6)
+        for _ in range(3):
+            rt.step()
+        args = (rt.params, rt.cfg, rt.plan, rt.pool, rt._bt_dev, rt._h_tok,
+                rt._h_pos)
+        start = {k: v.clone() for k, v in rt.pool.items()}
+        replay = rt._decode(*args)[0].clone()
+        after = {k: v.clone() for k, v in rt.pool.items()}
+        for k, v in rt.pool.items():
+            v.copy_(start[k])
+        direct = decode_step_paged(*args[:5], rt._h_tok.to(cuda),
+                                   rt._h_pos.to(cuda))[0]
+    assert torch.equal(replay, direct)
+    assert all(torch.equal(after[k], rt.pool[k]) for k in after)
+    assert rt.graph_pool_bytes() != 0
+
+
+def test_engine_replay_matches_the_int_position_loop(cuda, monkeypatch):
+    """hymba's Engine step, captured once with a device position and
+    replayed for every position (the SSM state copied back in place),
+    against the eager loop with an int position: the same logits bit for
+    bit."""
+    import numpy as np
+
+    from repro_torch.analysis.retrace import compile_count
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import BuildPlan, decode_step, init_params, \
+        prefill
+    from repro_torch.serve import Engine
+    from repro_torch.serve import engine as engine_mod
+    cfg = get_smoke_config("hymba-1.5b").replace(n_layers=2)
+    params = init_params(cfg, seed=0, device=cuda)
+    prompts = np.random.RandomState(3).randint(0, cfg.vocab_size, (3, 12))
+    seen, real = [], engine_mod.sample
+
+    def sample(logits, *a, **k):
+        seen.append(logits.clone())
+        return real(logits, *a, **k)
+    monkeypatch.setattr(engine_mod, "sample", sample)
+    plan = BuildPlan()
+    with torch.no_grad():
+        got = Engine(params, cfg, plan, max_len=18,
+                     device=cuda).generate_batch(prompts, max_new_tokens=6)
+        assert compile_count("serve.engine.decode_step") == 1
+        logits, cache = prefill(params, cfg, plan.replace(
+            prefill_cache_len=18), torch.as_tensor(prompts, device=cuda))
+        for i in range(5):
+            nxt = torch.argmax(logits, dim=-1)
+            assert torch.equal(nxt.int().cpu(), torch.as_tensor(got[:, i]))
+            logits, cache = decode_step(params, cfg, plan.replace(
+                prefill_cache_len=18), cache, nxt[:, None], 12 + i)
+            assert torch.equal(seen[i + 1], logits), f"step {i}"
+
+
+def test_a_replay_adds_the_launches_it_captured(cuda):
+    """Each replayed step adds one step's kernel launches to the
+    counters: the launches of a direct call of the same step."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import decode_step_paged
+    with torch.no_grad():
+        rt = _graph_runtime(cuda, "bfloat16", 8)()
+        for n in (5, 9, 7):
+            rt.submit(np.arange(n, dtype=np.int32), max_new_tokens=6)
+        rt.step()                      # admissions, the capture
+        ops.reset_launch_counts()
+        decode_step_paged(rt.params, rt.cfg, rt.plan, rt.pool, rt._bt_dev,
+                          rt._h_tok.to(cuda), rt._h_pos.to(cuda))
+        one = ops.launch_state()
+        assert one[("repro_torch.kernels.paged_attention",
+                    "launches_quant")] == rt.cfg.n_layers
+        ops.reset_launch_counts()
+        rt.step()
+        rt.step()
+    assert ops.launch_state() == {k: 2 * n for k, n in one.items()}
+
+
+def test_a_host_read_in_a_captured_step_raises_and_does_not_fall_back(cuda):
+    from repro_torch.analysis.retrace import GraphCaptureError, guard_graph
+    g = guard_graph(lambda x: x * float(x.sum()), name="t.cuda.refuse",
+                    per_signature=True, copy_argnums=(0,), device=cuda)
+    for _ in range(2):
+        with pytest.raises(GraphCaptureError,
+                           match="aten::_local_scalar_dense"):
+            g(torch.ones(4, device=cuda))
+    assert g.__comq_graphs__ == {}
+    assert float((torch.ones(3, device=cuda) * 2).sum()) == 6.0
