@@ -1071,7 +1071,13 @@ class DecodeTape:
     pos - base of a buffer per layer (made at the warm-up, before the
     capture), and in lockstep each layer reads its row and writes its
     output to a second buffer, which `check_layers` holds to the first
-    after the run."""
+    after the run.
+
+    An Engine's prefill is a CUDA graph too: a signature's first call (each
+    run here builds its own Engine) runs the prefill eagerly as its
+    warm-up, which the tape records or holds as any call, and then
+    captures it, which the tape leaves alone (`_capturing`: a capture runs
+    nothing, and its result is not that call's)."""
 
     def __init__(self, torch, tfm, moe_mod, base=None, steps=SERVE_NEW):
         self.torch, self.tfm, self.moe = torch, tfm, moe_mod
@@ -1089,6 +1095,11 @@ class DecodeTape:
             self.dev_rows[key] = self.torch.zeros(
                 (self.steps, *t.shape), dtype=t.dtype, device=t.device)
         return self.dev_rows[key]
+
+    def _capturing(self, x) -> bool:
+        """Whether a CUDA-graph capture is recording the call that gave
+        `x` (a layer of a captured prefill)."""
+        return x.is_cuda and self.torch.cuda.is_current_stream_capturing()
 
     def _device_layer(self, mode, real, p, x, a, k):
         """One layer_decode call of a captured step (see the class
@@ -1151,6 +1162,8 @@ class DecodeTape:
                 if (name == "layer_decode" and len(a) > 3
                         and isinstance(a[3], torch.Tensor)):
                     return self._device_layer(mode, real[name], p, x, a, k)
+                if self._capturing(x):
+                    return real[name](p, x, *a, **k)
                 i = None
                 if mode == "record":
                     self.xs.append(x)
@@ -1170,6 +1183,8 @@ class DecodeTape:
             return layer
 
         def routed(x, router, n_real, top_k, capacity, offset=None):
+            if self._capturing(x):
+                return real_route(x, router, n_real, top_k, capacity, offset)
             if mode == "record":
                 out = real_route(x, router, n_real, top_k, capacity, offset)
                 self.ids.append(out[2])
@@ -1300,14 +1315,18 @@ def kernel_cache_rows():
 
 
 def compare_decode(torch, ops, modules, rerun, outs, label, what="decode",
-                   gate=True):
+                   gate=True, vocab=None):
     """Re-run the teacher-forced steps with the plain versions on the card
     (`rerun()` returns their per-step logits) and hold each step's logits
-    against `outs` (with gate=False the gap is printed, not gated)."""
+    against `outs` (with gate=False the gap is printed, not gated). With
+    `vocab`, over the first `vocab` columns only: a padded vocab's
+    columns are -1e30 (`unembed` at tp > 1), which would make the
+    divisor 1e30."""
     with torch.no_grad(), plain_kernels(ops, modules):
         ref_outs = rerun()
     worst = 0.0
     for i, (a, b) in enumerate(zip(outs, ref_outs)):
+        a, b = a[..., :vocab], b[..., :vocab]
         d = (a - b).abs()
         rel = float(d.max()) / float(b.abs().max())
         worst = max(worst, rel)
@@ -1406,17 +1425,18 @@ def serve_config(num_blocks=None):
 
 
 def serve_traffic(torch, dev, sp, cfg, plan, prompts, sc, label,
-                  eager=False):
-    """Drive one Runtime: SERVE_SLOTS requests up front, the rest one per
-    decode step, then drain. Checks every request ran to its length and the
-    pool ends clean; prints the run's metrics. With `eager`, the reference
-    run of phase 22: the step called directly (`eager_steps`). Returns
-    (runtime, requests)."""
+                  eager=False, rt=None):
+    """Drive one Runtime (`rt`, or a new one): SERVE_SLOTS requests up
+    front, the rest one per decode step, then drain. Checks every request
+    ran to its length and the pool ends clean; prints the run's metrics.
+    With `eager`, the reference run of phase 22: every program called
+    directly (`eager_steps`). Returns (runtime, requests)."""
     import numpy as np
 
     from repro_torch.analysis.retrace import capture_seconds
     from repro_torch.serve import Runtime, paged_cache_bytes
-    rt = Runtime(sp, cfg, plan, sc, device=dev)
+    if rt is None:
+        rt = Runtime(sp, cfg, plan, sc, device=dev)
     if eager:
         eager_steps(rt)
     t0 = time.time()
@@ -1457,20 +1477,31 @@ def serve_traffic(torch, dev, sp, cfg, plan, prompts, sc, label,
 
 GRAPH_STEP = "serve.decode_step"
 ENGINE_STEP = "serve.engine.decode_step"
+ENGINE_PREFILL = "serve.engine.prefill"
+PREFILL_ITERS = 10        # CUDA-event timed calls a prefill bucket
 
 
 def eager_steps(rt):
-    """`rt` with its decode step called directly: `decode_step_paged` on
-    the step's inputs moved to the card, the reference a replay is held
-    to. Only this script does this (as `plain_kernels` swaps the kernels);
-    the runtime has no such switch."""
+    """`rt` with its decode step, prefill buckets and prefill writes called
+    directly (`decode_step_paged` on the step's inputs moved to the card;
+    the prefill and write programs on their inputs, already there): the
+    reference a replay is held to. Only this script does this (as
+    `plain_kernels` swaps the kernels); the runtime has no such switch."""
+    import functools
+
     from repro_torch.models.model import decode_step_paged
+    from repro_torch.serve.runtime import _prefill_forward, _write_rows
     dev = rt.device
 
     def direct(params, cfg, plan, pool, bt, tok, pos):
         return decode_step_paged(params, cfg, plan, pool, bt, tok.to(dev),
                                  pos.to(dev))
     rt._decode = direct
+    rt._prefill_fn = lambda bucket: functools.partial(
+        _prefill_forward, rt.params, rt.cfg,
+        rt.plan.replace(prefill_cache_len=bucket))
+    rt._write_fn = lambda cache_len: functools.partial(
+        _write_rows, rt.pool, rt.kv_bits)
     return rt
 
 
@@ -1514,30 +1545,134 @@ def serve_graph_vs_eager(torch, dev, sp, cfg, plan, prompts, label, card):
     called directly (`eager_steps`) and through one that replays its
     graph, both runs' metrics lines printed: the tokens equal request for
     request, one capture (`compile_count`), the graph pool's bytes."""
+    import numpy as np
+
     from repro_torch.analysis.retrace import capture_seconds, compile_count
     with torch.no_grad():
         _, ref = serve_traffic(torch, dev, sp, cfg, plan, prompts,
                                serve_config(), f"{label} eager", eager=True)
         rt, got = serve_traffic(torch, dev, sp, cfg, plan, prompts,
                                 serve_config(), f"{label} replayed")
+        # the same traffic again on the captured Runtime: no capture in it
+        _, warm = serve_traffic(torch, dev, sp, cfg, plan, prompts,
+                                serve_config(), f"{label} replayed, warm",
+                                rt=rt)
         caps, pool = compile_count(GRAPH_STEP), rt.graph_pool_bytes()
         secs = capture_seconds(rt._decode)
+        prefill_caps = {b: compile_count(f"serve.prefill[{b}]")
+                        for b in sorted(rt._prefills)}
+        write_caps = {c: compile_count(f"serve.prefill_write[{c}]")
+                      for c in sorted(rt._writes)}
+        secs_prefill = sum(capture_seconds(f.func) for f in (
+            *rt._prefills.values(), *rt._writes.values()))
         del rt
     same = sum(a.out_tokens == b.out_tokens for a, b in zip(got, ref))
+    same_warm = sum(a.out_tokens == b.out_tokens for a, b in zip(warm, ref))
     say(f"graphs {label}: replayed tokens == eager for {same}/{len(ref)} "
         f"requests; captures of {GRAPH_STEP} {caps} (warm-up and capture "
         f"{secs:.3f} s, host clock); graph pool "
         f"{'not measured' if pool is None else f'{pool} bytes'} ({card})")
-    check(same == len(ref), f"graphs {label}: a replayed request's tokens "
-          "differ from the eager step's")
+
+    def pct(reqs, q, what):
+        vals = ([r.ttft for r in reqs] if what == "ttft"
+                else [dt for r in reqs for dt in r.itl])
+        return float(np.percentile(vals, q))
+    say(f"graphs (g) {label}: prefill and write replayed against called "
+        f"directly (eager: every program direct): TTFT p50 eager "
+        f"{pct(ref, 50, 'ttft'):.4f} s, replayed {pct(got, 50, 'ttft'):.4f}"
+        f" s (captures inside), warm {pct(warm, 50, 'ttft'):.4f} s; ITL p99"
+        f" eager {pct(ref, 99, 'itl'):.4f} s, replayed "
+        f"{pct(got, 99, 'itl'):.4f} s, warm {pct(warm, 99, 'itl'):.4f} s "
+        f"(host clock); warm tokens == eager for {same_warm}/{len(ref)}; "
+        f"captures a prefill "
+        f"bucket {prefill_caps}, a write cache length {write_caps} (warm-up"
+        f" and capture {secs_prefill:.3f} s); shared graph pool "
+        f"{'not measured' if pool is None else f'{pool} bytes'} ({card})")
+    check(same == len(ref) and same_warm == len(ref),
+          f"graphs {label}: a replayed request's tokens differ from the "
+          "eager step's")
     check(caps == 1, f"graphs {label}: {caps} captures, want 1")
+    check(prefill_caps and write_caps and all(
+        n == 1 for n in (*prefill_caps.values(), *write_caps.values())),
+        f"graphs (g) {label}: captures a bucket {prefill_caps}, a cache "
+        f"length {write_caps}, want 1 each")
     return pool
 
 
+def prefill_replay_vs_direct(torch, dev, sp, cfg, plan, prompts, label,
+                             card):
+    """22(g): each prefill bucket of a fresh Runtime, on a prompt of the
+    phase-8 traffic that falls in it: the bucket's graph and its write's
+    replayed (each past its capture) against the programs called directly
+    on the same inputs: the logits row, the cache rows and positions, and
+    the pool the write leaves, bit for bit; then the prefill's ms replayed
+    and called directly (CUDA events, PREFILL_ITERS calls; a replay's
+    time includes its inputs' copies), and the write's. Returns {bucket:
+    (eager ms, replayed ms)}."""
+    import numpy as np
+
+    from repro_torch.serve import Runtime
+    from repro_torch.serve.runtime import _prefill_forward, _write_rows
+    rt = Runtime(sp, cfg, plan, serve_config(), device=dev)
+    table = rt._upload(np.arange(rt.maxb, dtype=np.int32))
+    times, same = {}, {}
+    for bucket in SERVE_BUCKETS:
+        prompt = next(p for p in prompts
+                      if rt.scheduler.bucket_for(len(p)) == bucket)
+        plan_b = rt.plan.replace(prefill_cache_len=bucket)
+        fn = rt._prefill_fn(bucket)
+        for _ in range(2):                 # the capture's call, then a replay
+            out = rt._prefill(prompt, bucket)
+        replay = [t.clone() for t in out[:4]]
+        tokens, tlen = next(iter(
+            fn.func.__comq_graphs__.values())).args[3:5]
+        direct = _prefill_forward(rt.params, rt.cfg, plan_b, tokens.clone(),
+                                  tlen.clone())
+        rows = all(torch.equal(a, b) for a, b in zip(replay, direct))
+        write = rt._write_fn(int(replay[1].shape[1]))
+        start = {k: v.clone() for k, v in rt.pool.items()}
+        for _ in range(2):                 # the capture's call, then a replay
+            for k, v in rt.pool.items():
+                v.copy_(start[k])
+            write(*replay[1:], out[4], table)
+        after = {k: v.clone() for k, v in rt.pool.items()}
+        for k, v in rt.pool.items():
+            v.copy_(start[k])
+        _write_rows(rt.pool, rt.kv_bits, *replay[1:], out[4], table)
+        pools = all(torch.equal(after[k], rt.pool[k]) for k in after)
+        same[bucket] = (rows, pools)
+        ms_eager = cuda_ms(torch, lambda i: _prefill_forward(
+            rt.params, rt.cfg, plan_b, tokens, tlen), PREFILL_ITERS)
+        ms_graph = cuda_ms(torch, lambda i: fn(tokens, tlen), PREFILL_ITERS)
+        w_eager = cuda_ms(torch, lambda i: _write_rows(
+            rt.pool, rt.kv_bits, *replay[1:], out[4], table), PREFILL_ITERS)
+        w_graph = cuda_ms(torch, lambda i: write(*replay[1:], out[4], table),
+                          PREFILL_ITERS)
+        times[bucket] = (ms_eager, ms_graph)
+        say(f"graphs (g) {label} prefill[{bucket}] (a {len(prompt)}-token "
+            f"prompt): replayed vs called directly: logits row, cache rows "
+            f"and positions {'bit-identical' if rows else 'differ'}, the "
+            f"write's pool {'equal' if pools else 'differs'}; prefill "
+            f"{ms_eager:.4f} ms called directly, {ms_graph:.4f} ms "
+            f"replayed; write {w_eager:.4f} / {w_graph:.4f} ms (CUDA "
+            f"events, mean of {PREFILL_ITERS}) ({card})")
+    pool = rt.graph_pool_bytes()
+    say(f"graphs (g) {label}: a Runtime's {len(SERVE_BUCKETS)} prefill "
+        f"graphs and {len(rt._writes)} write graphs share a graph pool of "
+        f"{'not measured' if pool is None else f'{pool} bytes'} ({card})")
+    check(all(r and p for r, p in same.values()),
+          f"graphs (g) {label}: a replayed prefill or write differs from the "
+          f"direct call: {same}")
+    del rt
+    return times
+
+
 def eager_engine(eng):
-    """`eng` with its decode step run directly (the same step, eager): the
-    reference a replay is held to; only this script does this."""
-    from repro_torch.serve.engine import _decode_into
+    """`eng` with its prefill and decode step run directly (the same
+    programs, eager): the reference a replay is held to; only this script
+    does this."""
+    from repro_torch.serve.engine import _decode_into, _prefill_batch
+    eng._prefill = _prefill_batch
     eng._decode = _decode_into
     return eng
 
@@ -1568,6 +1703,8 @@ def engine_graph_vs_eager(torch, dev, sp, cfg, prompts, what, card, **kw):
                 caps, pool = (compile_count(ENGINE_STEP),
                               graph_pool_bytes(eng._decode))
                 secs = capture_seconds(eng._decode)
+                pcaps = compile_count(ENGINE_PREFILL)
+                psecs = capture_seconds(eng._prefill)
             del eng
     out, wall = runs["replayed"]
     say(f"{what} serve bf16 (static Engine): {out.size} tokens in "
@@ -1583,9 +1720,15 @@ def engine_graph_vs_eager(torch, dev, sp, cfg, prompts, what, card, **kw):
         f"(positions {PROMPT}-{PROMPT + SERVE_NEW - 2}; warm-up and "
         f"capture {secs:.3f} s, host clock); graph pool "
         f"{'not measured' if pool is None else f'{pool} bytes'} ({card})")
+    say(f"graphs (g) {what} Engine: the prefill replayed too (eager: "
+        f"called directly); captures of {ENGINE_PREFILL} {pcaps} for both "
+        f"batches (warm-up and capture {psecs:.3f} s); the prefill and "
+        f"decode graphs share that pool ({card})")
     check(same == len(ref), f"graphs (e) {what}: the replayed Engine's "
           "tokens differ from the eager step's")
     check(caps == 1, f"graphs (e) {what}: {caps} captures, want 1")
+    check(pcaps == 1, f"graphs (g) {what}: {pcaps} prefill captures, "
+          "want 1")
     return out
 
 
@@ -1631,12 +1774,14 @@ def first_differing_op(torch, dev, rt):
 
 
 def phase_graphs(torch, dev, sp, cfg, prompts, card):
-    """Phase 22 (a, c, d) on phase 4's packed 2-layer qwen at full width,
-    bf16 at kv_bits 0, 8 and 4 and f32 at 0: a step replayed against a
-    direct call on the same inputs (`replay_vs_direct`; where they differ,
-    the first op that does), then the phase-8 traffic eager and replayed
-    (`serve_graph_vs_eager`: tokens, metrics, one capture, the pool's
-    bytes). Returns {label: graph pool bytes}."""
+    """Phase 22 (a, c, d, g) on phase 4's packed 2-layer qwen at full
+    width, bf16 at kv_bits 0, 8 and 4 and f32 at 0: a step replayed
+    against a direct call on the same inputs (`replay_vs_direct`; where
+    they differ, the first op that does), each prefill bucket and its
+    write likewise, with their ms (`prefill_replay_vs_direct`), then the
+    phase-8 traffic with every program called directly and replayed
+    (`serve_graph_vs_eager`: tokens, metrics, one capture a signature,
+    the pool's bytes). Returns {label: graph pool bytes}."""
     from repro_torch.models import BuildPlan
     t0 = time.time()
     cfg32 = cfg.replace(compute_dtype="float32")
@@ -1658,9 +1803,11 @@ def phase_graphs(torch, dev, sp, cfg, prompts, card):
                 say(f"graphs (a) {label}: the first op whose replayed "
                     f"output differs: {first_differing_op(torch, dev, rt)}")
                 del rt
+            prefill_replay_vs_direct(torch, dev, sp, c, plan, prompts,
+                                     label, card)
         pools[label] = serve_graph_vs_eager(torch, dev, sp, c, plan,
                                             prompts, f"(a) {label}", card)
-    say(f"graphs: phase 22 (a, c, d) in {time.time() - t0:.1f} s")
+    say(f"graphs: phase 22 (a, c, d, g) in {time.time() - t0:.1f} s")
     return pools
 
 
@@ -2076,13 +2223,14 @@ def decode_vs_plain(torch, ops, kernels, sp, cfg, plan, tokens, what,
                                   vision_embeds=vision_embeds)[0]
         compare_decode(torch, ops, kernels, lambda: rerun("free"), outs,
                        label, what=f"{what}, free-running",
-                       gate=label in gate_free)
+                       gate=label in gate_free, vocab=cfg.vocab_size)
         if tape.pairs:
             say(f"{what} {label}, free-running plain run: {tape.flips} of "
                 f"{tape.pairs} routed (token, expert) pairs differ from the "
                 f"kernel run's")
         compare_decode(torch, ops, kernels, lambda: rerun("lockstep"), outs,
-                       label, what=f"{what}, layers in lockstep")
+                       label, what=f"{what}, layers in lockstep",
+                       vocab=cfg.vocab_size)
         tape.check_layers(label, what)
         del outs, tape
 
@@ -5615,7 +5763,8 @@ def phase_padding(torch, dev, ops, kernels, results, card, ckpt19):
                     torch, sp, c, pl, tokens, lens, feed=fed,
                     lockstep=snaps)[0], outs, label,
                     what=f"phase 21 (c) tp={qtp} paged decode "
-                         f"kv_bits={kv_bits}, lockstep")
+                         f"kv_bits={kv_bits}, lockstep",
+                    vocab=qcfg.vocab_size)
                 del snaps, outs
         del sp
         t_part = took("(c)", t_part)

@@ -16,9 +16,10 @@ durability story depends on:
   a new stall on the hot path.
 * ``time-in-capture`` — a wall clock (`time.time()`/`perf_counter()`/
   `monotonic()`) inside code that is captured and replayed: a function
-  given to `torch.compile` (or decorated with it) or to
-  `make_graphed_callables`, and the body of a `with torch.cuda.graph(...)`
-  block. The clock runs once, at capture, and never again (JAX's
+  given to `torch.compile` (or decorated with it), to
+  `make_graphed_callables` or to `retrace.guard_graph` (the serving
+  steps' and prefills' graphs), and the body of a `with
+  torch.cuda.graph(...)` block. The clock runs once, at capture, and never again (JAX's
   `time-in-jit`).
 * ``fsync-before-replace`` — in `ft/` and `ckpt/`, every `os.replace`
   must be lexically preceded, in the same function, by an fsync-ish call
@@ -69,7 +70,7 @@ HOT_ZONES: Dict[str, Tuple[str, ...]] = {
 DURABLE_DIRS = ("ft", "ckpt")
 
 _TIME_CALLS = {"time", "perf_counter", "monotonic"}
-_CAPTURE_FNS = {"compile", "make_graphed_callables"}
+_CAPTURE_FNS = {"compile", "make_graphed_callables", "guard_graph"}
 _SYNC_METHODS = {"item": ".item() copies a device scalar to the host and "
                          "waits for it",
                  "cpu": ".cpu() copies a device tensor to the host and "

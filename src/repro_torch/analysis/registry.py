@@ -12,8 +12,10 @@ with `analysis.contracts.check_call`:
 * ``serve.decode_step_q8_tp`` — the slot+page-sharded decode step of a
   rank on a model axis of 2: still no collective inside the step, its
   pool updated in place;
-* ``serve.prefill``        — zero collectives (one bucket's forward);
-* ``serve.prefill_write``  — the pool updated in place by the scatter;
+* ``serve.prefill``        — zero collectives (one bucket's forward,
+  through its graph);
+* ``serve.prefill_write``  — the pool updated in place by the scatter
+  (through its graph);
 * ``solver.comq_blocked``  — zero collectives;
 * ``train.step``           — the train state (params, moments) updated in
   place;
@@ -144,26 +146,30 @@ def _check_decode_quant_tp(s: Smoke) -> List[str]:
 
 
 def _check_prefill(s: Smoke) -> List[str]:
+    """One bucket's prefill through its graph (`serve.prefill[bucket]`)."""
     rt = s.runtime()
     bucket = rt.serve_cfg.buckets[0]
     con = Contract(name="serve.prefill", collectives=0)
     with torch.no_grad():
-        return check_call(con, rt._prefill, np.zeros(bucket, np.int64),
-                          bucket)
+        return check_call(con, rt._prefill_fn(bucket),
+                          rt._upload(np.zeros((1, bucket), np.int64)),
+                          rt._upload(np.asarray(bucket, np.int64)))
 
 
 def _check_prefill_write(s: Smoke) -> List[str]:
-    from repro_torch.serve.kv_cache import write_prefill
+    """The bucket's rows written through the write graph
+    (`serve.prefill_write[cache_len]`), the pool its held argument."""
     rt = s.runtime()
     bucket = rt.serve_cfg.buckets[0]
     with torch.no_grad():
-        _, k_seq, v_seq, pos = rt._prefill(np.zeros(bucket, np.int64),
-                                           bucket)
+        _, k_seq, v_seq, pos, tlen = rt._prefill(np.zeros(bucket, np.int64),
+                                                 bucket)
+        write = rt._write_fn(int(k_seq.shape[1]))
         table = rt._upload(np.arange(rt.maxb, dtype=np.int32))
         con = Contract(name="serve.prefill_write", collectives=0,
                        inplace=(0,))
-        return check_call(con, write_prefill, rt.pool, k_seq, v_seq, pos,
-                          table)
+        return check_call(con, write.func, *write.args, k_seq, v_seq, pos,
+                          tlen, table)
 
 
 def _check_solver_blocked(s: Smoke) -> List[str]:

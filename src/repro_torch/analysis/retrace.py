@@ -6,19 +6,20 @@ jitted entry point, so counting traces counts compiles. The port has two
 wrappers that count the same way:
 
 * `guard_fn(fn, name=..., max_signatures=N)` counts the distinct (shape,
-  dtype, device, static) signatures of an eager callable (the runtime's
-  prefill buckets); a repeat is free, as a jit cache hit is.
+  dtype, device, static) signatures of an eager callable; a repeat is
+  free, as a jit cache hit is.
 * `guard_graph(fn, name=..., device=..., copy_argnums=...)` is JAX's
   `guard_jit`: a signature's first call captures `fn` as one CUDA graph
   and every later call replays it (on the CPU it runs `fn` eagerly; see
-  its docstring). The runtime's and the Engine's decode steps run under
-  it.
+  its docstring). The runtime's decode step, prefill buckets and prefill
+  writes, and the Engine's prefill and decode step run under it; a
+  `GraphPool` lets one owner's graphs share one memory pool.
 
 Budgets:
 
 * ``max_signatures=N``   — a ceiling on distinct signatures (the serve
   decode step declares 1: a fixed (max_slots, maxb) table; each prefill
-  bucket declares 1);
+  bucket and each prefill write's cache length declares 1);
 * ``per_signature=True`` — any number of distinct signatures; noting a
   signature already noted is a violation (JAX's cache-thrash check,
   which the wrappers themselves never trigger: they note new ones only).
@@ -170,23 +171,69 @@ class _Captured:
     seconds: float = 0.0
 
 
-def _capture(fn, name: str, args, copied, dev: torch.device, pool: list):
+class GraphPool:
+    """The memory pool of one owner's CUDA graphs (a Runtime's decode
+    step, prefill buckets and prefill writes; an Engine's prefill and
+    decode signatures), given to each of its `guard_graph`s as `pool=`.
+
+    A graph captured into a shared pool may place its temporaries and its
+    outputs in memory an earlier graph of the pool freed at the end of its
+    own capture: another graph's temporaries, never another graph's
+    outputs, which stay allocated. So the pool holds the largest
+    temporary once, not once a graph (a bf16 prefill's cast of the
+    unembed, 1.09 GB at qwen2-7b's width, would otherwise sit in every
+    bucket's graph). The rule that makes sharing safe: one graph of the
+    pool replays at a time, on one stream, and the caller reads a graph's
+    outputs (enqueues what reads them, on that stream) before any other
+    graph of the pool replays, since that replay may overwrite them.
+
+    The pool's graphs are warmed up and captured on one side stream of
+    its own: the caching allocator hands a freed block only to an
+    allocation on the stream that freed it, so graphs captured on
+    streams of their own would each keep their temporaries apart (at
+    qwen2-7b's width, every prefill bucket its own ~2.5 GB).
+    The handle and the stream are made at the first capture; a failed
+    capture drops the handle, and the next capture starts a fresh pool."""
+
+    def __init__(self):
+        self.handle = None
+        self.stream = None
+
+    def bytes(self) -> Optional[int]:
+        """Device bytes the pool holds: 0 before its first capture (and on
+        the CPU, which captures nothing), None where the allocator's
+        snapshot does not say which pool a segment belongs to."""
+        return 0 if self.handle is None else _pool_bytes(tuple(self.handle))
+
+
+def _copy_inputs(dst, args, copied) -> None:
+    """Copy the call's inputs into the static buffers, without waiting. A
+    copied position the call leaves out (an optional trailing input)
+    has no buffer."""
+    for i in copied:
+        if i < len(args):
+            dst[i].copy_(args[i], non_blocking=True)
+
+
+def _capture(fn, name: str, args, copied, dev: torch.device,
+             pool: GraphPool):
     """A new signature: its static buffers and, on the card, the warm-up
     (whose result is this call's) and the capture. Returns (captured, the
     call's result)."""
     static = [torch.empty(a.shape, dtype=a.dtype, device=dev)
               if i in copied else a for i, a in enumerate(args)]
-    for i in copied:
-        static[i].copy_(args[i], non_blocking=True)
+    _copy_inputs(static, args, copied)
     if dev.type != "cuda":
         with _OpTrail(name, refuse=True):
             return _Captured(static), fn(*static)
     from repro_torch.kernels import ops
     cur = torch.cuda.current_stream(dev)
-    side = torch.cuda.Stream(dev)
+    if pool.stream is None:
+        pool.stream = torch.cuda.Stream(dev)
+    side = pool.stream
     side.wait_stream(cur)
-    if not pool:
-        pool.append(torch.cuda.graph_pool_handle())
+    if pool.handle is None:
+        pool.handle = torch.cuda.graph_pool_handle()
     graph = torch.cuda.CUDAGraph()
     t0 = time.perf_counter()
     with torch.cuda.stream(side):
@@ -196,7 +243,7 @@ def _capture(fn, name: str, args, copied, dev: torch.device, pool: list):
         out = fn(*static)
         before = ops.launch_state()
         try:
-            with torch.cuda.graph(graph, pool=pool[0], stream=side):
+            with torch.cuda.graph(graph, pool=pool.handle, stream=side):
                 static_out = fn(*static)
         except Exception as e:
             _end_pool(dev, pool)
@@ -218,17 +265,17 @@ def _capture(fn, name: str, args, copied, dev: torch.device, pool: list):
                      time.perf_counter() - t0), out
 
 
-def _end_pool(dev: torch.device, pool: list) -> None:
+def _end_pool(dev: torch.device, pool: GraphPool) -> None:
     """After a failed capture: the capture ended before the allocator
     stopped recording into the pool; stop it, and let the next capture
     take a fresh pool."""
     try:
         torch._C._cuda_endAllocateToPool(
             torch.cuda.current_device() if dev.index is None else dev.index,
-            pool[0])
+            pool.handle)
     except Exception:   # noqa: BLE001 - the next pool is fresh anyway
         pass
-    pool.clear()
+    pool.handle = None
 
 
 def _failing_op(fn, static, dev: torch.device, stream) -> str:
@@ -237,10 +284,11 @@ def _failing_op(fn, static, dev: torch.device, stream) -> str:
     process's first dispatch mode imports ~850 modules, seconds that would
     fall on a serving step). A capture runs nothing, so the step's state
     is as the warm-up left it."""
-    trail, pool = _OpTrail("", refuse=False), [torch.cuda.graph_pool_handle()]
+    trail, pool = _OpTrail("", refuse=False), GraphPool()
+    pool.handle = torch.cuda.graph_pool_handle()
     try:
-        with trail, torch.cuda.graph(torch.cuda.CUDAGraph(), pool=pool[0],
-                                     stream=stream):
+        with trail, torch.cuda.graph(torch.cuda.CUDAGraph(),
+                                     pool=pool.handle, stream=stream):
             fn(*static)
     except Exception:   # noqa: BLE001 - the failure being located
         _end_pool(dev, pool)
@@ -250,7 +298,8 @@ def _failing_op(fn, static, dev: torch.device, stream) -> str:
 
 def guard_graph(fn, *, name: str, device, copy_argnums=(),
                 max_signatures: Optional[int] = None,
-                per_signature: bool = False):
+                per_signature: bool = False,
+                pool: Optional[GraphPool] = None):
     """`fn` run as one CUDA graph per signature, with a signature budget
     registered under `name` (JAX's `guard_jit`: a compile is a capture
     here, and a donated buffer one the step updates in place).
@@ -259,15 +308,18 @@ def guard_graph(fn, *, name: str, device, copy_argnums=(),
     step's inputs: every call copies them into static buffers on `device`
     (without waiting: from pinned host memory the copy is asynchronous,
     and the caller must not rewrite its buffer before the stream has read
-    it). Every other argument is held: the graph reads it where it lay at
-    capture, so every call must pass the very same objects (the params,
-    a pool or cache the step updates in place, a device scalar it
-    advances); another object is another signature. The signature is the
-    inputs' (shape, dtype) and the held arguments' identity.
+    it); a call may leave out trailing ones (an optional input). Every
+    other argument is held: the graph reads it where it lay at capture,
+    so every call must pass the very same objects (the params, a pool or
+    cache the step updates in place, a device scalar it advances);
+    another object is another signature. The signature is the inputs'
+    (shape, dtype) and the held arguments' identity.
 
     On a CUDA `device` a signature's first call warms `fn` up on a side
     stream (its result is that call's), then captures it into the memory
-    pool this guard's graphs share; every later call copies its inputs,
+    pool this guard's graphs share, `pool`'s where one is given (the
+    rule its docstring states is then the caller's to keep), else one of
+    the guard's own; every later call copies its inputs,
     replays the graph and returns the graph's own outputs (read them
     before the next call overwrites them), and adds the kernel launches
     the capture recorded to `kernels.ops`'s counters. A capture that fails
@@ -281,7 +333,7 @@ def guard_graph(fn, *, name: str, device, copy_argnums=(),
     dev = torch.device(device)
     copied = frozenset(copy_argnums)
     graphs: Dict[Any, _Captured] = {}
-    pool: list = []
+    pool = GraphPool() if pool is None else pool
 
     @functools.wraps(fn)
     def guarded(*args):
@@ -302,8 +354,7 @@ def guard_graph(fn, *, name: str, device, copy_argnums=(),
                 raise
             graphs[key] = cap
             return out
-        for i in copied:
-            cap.args[i].copy_(args[i], non_blocking=True)
+        _copy_inputs(cap.args, args, copied)
         if cap.graph is None:
             return fn(*cap.args)
         cap.graph.replay()
@@ -313,6 +364,7 @@ def guard_graph(fn, *, name: str, device, copy_argnums=(),
 
     guarded.__comq_retrace_guard__ = rec
     guarded.__comq_graphs__ = graphs
+    guarded.__comq_pool__ = pool
     return guarded
 
 
@@ -323,14 +375,16 @@ def capture_seconds(guarded) -> float:
 
 
 def graph_pool_bytes(guarded) -> Optional[int]:
-    """Device bytes of the memory pool a `guard_graph`'s graphs share: 0
-    with no graph (the CPU), None where the allocator's snapshot does not
-    say which pool a segment belongs to."""
+    """Device bytes of the memory pool a `guard_graph`'s graphs share
+    (with a `GraphPool`, every graph of that pool): 0 with no graph (the
+    CPU), None where the allocator's snapshot does not say which pool a
+    segment belongs to."""
     caps = [c for c in guarded.__comq_graphs__.values()
             if c.graph is not None]
-    if not caps:
-        return 0
-    pool_id = tuple(caps[0].graph.pool())
+    return _pool_bytes(tuple(caps[0].graph.pool())) if caps else 0
+
+
+def _pool_bytes(pool_id) -> Optional[int]:
     total, seen = 0, False
     for seg in torch.cuda.memory_snapshot():
         if "segment_pool_id" in seg:

@@ -6,16 +6,26 @@ a dense per-slot `max_len` KV cache, one shared position, equal-length
 prompts. Takes dense params or a packed QT-leaf tree
 (`core.apply.serving_params`). Runs on the card unless `device="cpu"`.
 
-Prefill runs eagerly. The decode step is JAX's jitted one, traced with
-the position as a value: on the card it is captured once as a CUDA graph
-per signature (`analysis.retrace.guard_graph`) and replayed for every
-position; on the CPU it runs eagerly through the same static buffers.
-The position is a device scalar the step itself advances, the sampled
-tokens are copied into the graph's static input, and the cache is the
-engine's own for the batch's shapes: each prefill's rows are copied into
-it, and the step writes the KV rows and the new recurrent states (hymba's
-SSM, rwkv's) back into it in place, which is JAX's donation. Sampling
-runs between replays, outside the graph.
+Prefill and the decode step are JAX's two jitted programs: on the card
+each is captured once as a CUDA graph per signature
+(`analysis.retrace.guard_graph`) and replayed after; on the CPU each runs
+eagerly through the same static buffers. Both share the engine's memory
+pool (`retrace.GraphPool`): a prefill's logits and cache are read (the
+cache copied into the engine's own, the first tokens sampled) before the
+decode step replays.
+
+The prefill's inputs are the tokens (B, T) and, for the VLM, the image
+features; a signature is their shapes. The decode step is traced with
+the position as a value: it is captured once per signature and replayed
+for every position. The position is a device scalar the step itself
+advances, the sampled tokens are copied into the graph's static input,
+and the cache is the engine's own for the batch's shapes: the first
+prefill of those shapes gives it (a signature's first call returns its
+warm-up's tensors, which lie outside the graph pool), every later one is
+copied into it, and the step writes the KV rows and the new recurrent
+states (hymba's SSM, rwkv's) back into it in place, which is JAX's
+donation. So the decode graph sees one cache for every prefill
+signature. Sampling runs between replays, outside the graph.
 """
 from __future__ import annotations
 
@@ -23,7 +33,7 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten
 
-from repro_torch.analysis.retrace import guard_graph
+from repro_torch.analysis.retrace import GraphPool, guard_graph
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import decode_step, prefill
 from repro_torch.serve.runtime import check_params_device
@@ -33,6 +43,12 @@ from repro_torch.serve.sampler import sample
 def _tensors(tree):
     leaves, spec = tree_flatten(tree)
     return [t for t in leaves if isinstance(t, torch.Tensor)], spec
+
+
+def _prefill_batch(params, cfg, plan, tokens, vision_embeds=None):
+    """JAX's jitted Engine prefill: (the last position's logits (B, V),
+    the cache)."""
+    return prefill(params, cfg, plan, tokens, vision_embeds=vision_embeds)
 
 
 def _decode_into(params, cfg, plan, cache, tokens, pos):
@@ -61,18 +77,26 @@ class Engine:
         self.plan = plan.replace(prefill_cache_len=max_len)
         self.max_len = max_len
         self.gen = torch.Generator(device=self.device).manual_seed(rng_seed)
-        # one graph per signature (a batch's cache shapes), each captured
-        # at its first step and replayed for every later position
+        # one prefill graph per signature (the tokens' and image
+        # features' shapes) and one decode graph per signature (a batch's
+        # cache shapes), each captured at its first call and replayed
+        # after (the decode graph for every later position); one pool
+        self._graph_pool = GraphPool()
+        self._prefill = guard_graph(_prefill_batch,
+                                    name="serve.engine.prefill",
+                                    per_signature=True, copy_argnums=(3, 4),
+                                    device=self.device, pool=self._graph_pool)
         self._decode = guard_graph(_decode_into,
                                    name="serve.engine.decode_step",
                                    per_signature=True, copy_argnums=(4,),
-                                   device=self.device)
+                                   device=self.device, pool=self._graph_pool)
         self._caches = {}    # cache shapes -> (static cache, position)
 
     def _static_cache(self, cache, pos: int):
         """The engine's cache and device position for `cache`'s shapes,
         holding `cache`'s rows and `pos`: the first prefill's own cache
-        becomes it, a later one is copied in."""
+        becomes it (new shapes mean a new prefill signature, whose first
+        call returns its warm-up's tensors), a later one is copied in."""
         rows, spec = _tensors(cache)
         key = (str(spec), tuple((tuple(t.shape), t.dtype) for t in rows))
         held = self._caches.get(key)
@@ -95,11 +119,11 @@ class Engine:
         B, T = prompts.shape
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
                                  device=self.device)
+        inputs = (tokens,)
         if vision_embeds is not None:
-            vision_embeds = torch.as_tensor(vision_embeds,
-                                            device=self.device)
-        logits, cache = prefill(self.params, self.cfg, self.plan, tokens,
-                                vision_embeds=vision_embeds)
+            inputs += (torch.as_tensor(vision_embeds, device=self.device),)
+        logits, cache = self._prefill(self.params, self.cfg, self.plan,
+                                      *inputs)
         cache, pos = self._static_cache(cache, T)
         out = torch.zeros(B, max_new_tokens, dtype=torch.int32,
                           device=self.device)

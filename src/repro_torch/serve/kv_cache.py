@@ -232,26 +232,40 @@ def write_prefill(pool: Dict[str, Tensor], k_seq: Tensor, v_seq: Tensor,
     request), then rows encode at their page's scale and the codes
     scatter. Untouched pages keep code and scale bits untouched.
 
-    Selecting the valid rows reads `pos_row` on the host (one sync per
-    admission, not per decode step)."""
+    Every shape is fixed and nothing is read on the host, so the write is
+    one CUDA graph a cache length. JAX drops a row by an out-of-range
+    index; here every one of the S rows writes, and a dropped row carries
+    the first kept row's bytes to that row's place (so it touches no other
+    page, and adds nothing to a page's absmax that the kept row does not).
+    With no kept row, every row writes back what its place already holds.
+    Duplicate writes of the same bytes make the result the same whatever
+    order they land in."""
     k_pool, v_pool = pool["k"], pool["v"]
     L, NB, BS = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
-    rows = torch.nonzero(pos_row >= 0).flatten()
-    pos = pos_row[rows].long()
+    S = pos_row.shape[0]
+    valid = pos_row >= 0
+    any_valid = valid.any()
+    # each row's source: itself if kept, else the first kept row (argmax
+    # returns the first maximum; row 0 when none is kept)
+    first = torch.argmax(valid.to(torch.uint8))
+    src = torch.where(valid, torch.arange(S, device=pos_row.device), first)
+    pos = pos_row.long()[src].clamp_min(0)
     phys = table_row.long()[pos // BS]
     dest = phys * BS + pos % BS
     if not kv_bits:
         for cpool, seq in ((k_pool, k_seq), (v_pool, v_seq)):
             flat = cpool.view(L, NB * BS, *cpool.shape[3:])
-            flat[:, dest] = seq[:, rows].to(cpool.dtype)
+            rows = torch.where(any_valid, seq[:, src].to(cpool.dtype),
+                               flat[:, dest])
+            flat[:, dest] = rows
         return pool
 
     touched = torch.zeros(NB, dtype=torch.bool, device=k_pool.device)
-    touched[phys] = True
+    touched[phys] = any_valid
     for name, cpool, seq in (("k", k_pool, k_seq), ("v", v_pool, v_seq)):
         KV = cpool.shape[3]
-        r = seq[:, rows].float()                                # (L, S', KV, hd)
-        absmax = r.abs().amax(dim=-1)                           # (L, S', KV)
+        r = seq[:, src].float()                                 # (L, S, KV, hd)
+        absmax = r.abs().amax(dim=-1)                           # (L, S, KV)
         pmax = torch.zeros(L, NB, KV, dtype=torch.float32,
                            device=cpool.device)
         idx = phys[None, :, None].expand(L, -1, KV)
@@ -259,8 +273,10 @@ def write_prefill(pool: Dict[str, Tensor], k_seq: Tensor, v_seq: Tensor,
         scale = pool[name + "_scale"]
         new_scale = torch.where(touched[None, :, None],
                                 kv_scale_of(pmax, kv_bits), scale)
-        codes = kv_encode(r, new_scale[:, phys], kv_bits)
         flat = cpool.view(L, NB * BS, *cpool.shape[3:])
+        codes = torch.where(any_valid,
+                            kv_encode(r, new_scale[:, phys], kv_bits),
+                            flat[:, dest])
         flat[:, dest] = codes
         scale.copy_(new_scale)
     return pool

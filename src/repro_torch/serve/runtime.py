@@ -40,21 +40,38 @@ tokens but the last, then feeds the last emitted token through the normal
 decode step, so every resumed token comes from the same decode step as an
 uninterrupted run.
 
-The decode step is JAX's one compiled, donated program: on the card it is
-captured once as a CUDA graph (`analysis.retrace.guard_graph`, JAX's
-`serve.decode_step` guard, budget one signature: a fixed (max_slots,
-maxb) table) and replayed every step; on the CPU it runs eagerly through
-the same static buffers. The graph writes the K/V pool in place, so the
-pool and the params stay the tensors it was captured on (the prefill
-writes land in the same storages between replays). Per step the host
-writes the tokens and positions into pinned buffers that the replay's
-static inputs are copied from, re-copies the block tables into their
-device buffer only when they changed, and pulls the sampled tokens: that
-pull is the step's one host sync, and what makes rewriting the pinned
-buffers next step safe. Sampling runs after the replay, outside the
-graph. The observability hooks read host values only and add none. Each
-prefill bucket runs eagerly under its own budget (`guard_fn`, JAX's
-`serve.prefill[bucket]`).
+The runtime runs JAX's compiled programs as CUDA graphs
+(`analysis.retrace.guard_graph`), each captured at its first call and
+replayed after; on the CPU each runs eagerly through the same static
+buffers. All of one runtime's graphs share one memory pool
+(`retrace.GraphPool`), under its rule: they replay one at a time on one
+stream, and what reads a graph's outputs is enqueued before the next
+graph replays (the write reads the prefill's rows, the first token's
+argmax its logits row, the sampling the step's logits).
+
+* ``serve.decode_step`` — JAX's one compiled, donated decode program,
+  budget one signature (a fixed (max_slots, maxb) table), replayed every
+  step. The graph writes the K/V pool in place, so the pool and the
+  params stay the tensors it was captured on (the prefill writes land in
+  the same storages). Per step the host writes the tokens and positions
+  into pinned buffers that the replay's static inputs are copied from,
+  re-copies the block tables into their device buffer only when they
+  changed, and pulls the sampled tokens: that pull is the step's one
+  host sync, and what makes rewriting the pinned buffers next step safe.
+  Sampling runs after the replay, outside the graph.
+* ``serve.prefill[bucket]`` — one graph a bucket: the forward of one
+  right-padded request, returning the logits row at tlen - 1 (gathered
+  inside the graph: the only row read) and the prefill cache's rows and
+  positions.
+* ``serve.prefill_write[cache_len]`` — one graph a prefill cache length
+  (JAX's key): the rows at positions < tlen scattered into the slot's
+  pages, the pool written in place (JAX's donation).
+
+A prefill's tokens, true length and table row are uploaded through a
+fresh pinned block each (`_upload`): the host never rewrites a buffer a
+copy may still read, so admissions need no sync of their own (a resumed
+request reads nothing back; a fresh one reads its first token). The
+observability hooks read host values only and add none.
 
 Slot+page sharding (`mesh`, a DeviceMesh with a "model" axis of tp over
 the SPMD ranks), as in the JAX runtime: the partitioned allocator gives
@@ -71,14 +88,14 @@ alike. Rank 0 alone journals and traces.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.analysis.retrace import (graph_pool_bytes, guard_fn,
-                                          guard_graph)
+from repro_torch.analysis.retrace import GraphPool, guard_graph
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.ft.inject import InjectedFault, SimulatedKill
 from repro_torch.ft.journal import Journal
@@ -243,12 +260,15 @@ class Runtime:
         self._bt_dirty = True
         self._any_sampling = False   # any live slot with temperature > 0
         # the decode step: one graph, replayed every step (tokens and
-        # positions its copied inputs; params, pool and tables held); one
-        # signature budget a prefill bucket
+        # positions its copied inputs; params, pool and tables held); a
+        # graph a prefill bucket and a prefill write's cache length, made
+        # at first use; all in one memory pool
+        self._graph_pool = GraphPool()
         self._decode = guard_graph(_decode_step, name="serve.decode_step",
                                    max_signatures=1, copy_argnums=(5, 6),
-                                   device=self.device)
+                                   device=self.device, pool=self._graph_pool)
         self._prefills = {}
+        self._writes = {}
         # run() metrics
         self.steps = 0
         self.decode_seconds = 0.0
@@ -261,8 +281,9 @@ class Runtime:
         return t if self.device.type == "cpu" else t.pin_memory()
 
     def graph_pool_bytes(self) -> Optional[int]:
-        """Device bytes the decode step's graph holds (0 on the CPU)."""
-        return graph_pool_bytes(self._decode)
+        """Device bytes of the memory pool the runtime's graphs share (0
+        on the CPU, or before a capture)."""
+        return self._graph_pool.bytes()
 
     def _upload(self, a: np.ndarray) -> Tensor:
         """Host array -> a tensor on the runtime's device (a copy). On the
@@ -344,26 +365,48 @@ class Runtime:
                                   n_preempts=int(req.n_preempts) + 1)
         self._m_preempt.inc()
 
+    def _prefill_fn(self, bucket: int):
+        """JAX's `serve.prefill[bucket]`: the bucket's graph (one
+        signature), called as fn(tokens (1, bucket), tlen) on the device."""
+        fn = self._prefills.get(bucket)
+        if fn is None:
+            # cache capacity >= bucket: the right-pad rows must not
+            # ring-evict real rows before the write drops them
+            plan = self.plan.replace(prefill_cache_len=bucket)
+            graph = guard_graph(_prefill_forward,
+                                name=f"serve.prefill[{bucket}]",
+                                max_signatures=1, copy_argnums=(3, 4),
+                                device=self.device, pool=self._graph_pool)
+            fn = self._prefills[bucket] = functools.partial(
+                graph, self.params, self.cfg, plan)
+        return fn
+
+    def _write_fn(self, cache_len: int):
+        """JAX's `serve.prefill_write[cache_len]`: the graph (one
+        signature) that writes a prefill cache of `cache_len` rows into
+        the pool in place, called as fn(k_seq, v_seq, kv_pos, tlen,
+        table_row) on the device."""
+        fn = self._writes.get(cache_len)
+        if fn is None:
+            graph = guard_graph(_write_rows,
+                                name=f"serve.prefill_write[{cache_len}]",
+                                max_signatures=1,
+                                copy_argnums=(2, 3, 4, 5, 6),
+                                device=self.device, pool=self._graph_pool)
+            fn = self._writes[cache_len] = functools.partial(
+                graph, self.pool, self.kv_bits)
+        return fn
+
     def _prefill(self, tokens_in: np.ndarray, bucket: int):
-        """Prefill one right-padded request; returns (logits (1, bucket,
-        V), k_seq, v_seq (L, S, KV, hd), positions (S,))."""
+        """Prefill one right-padded request through its bucket's graph;
+        returns (the logits row at tlen - 1 (1, V), k_seq, v_seq (L, S,
+        KV, hd), positions (S,), tlen as a device scalar)."""
         tlen = len(tokens_in)
         tokens = np.zeros((1, bucket), np.int64)
         tokens[0, :tlen] = tokens_in
-        # cache capacity >= bucket: the right-pad rows must not ring-evict
-        # real rows before the scatter drops them
-        plan = self.plan.replace(prefill_cache_len=bucket)
-        fn = self._prefills.get(bucket)
-        if fn is None:
-            fn = self._prefills[bucket] = guard_fn(
-                _prefill_forward, name=f"serve.prefill[{bucket}]",
-                max_signatures=1)
-        logits, _, cache = fn(self.params, self.cfg, plan,
-                              self._upload(tokens))
-        kv = cache["kv"]
-        k_seq = torch.stack([c.k[0] for c in kv])
-        v_seq = torch.stack([c.v[0] for c in kv])
-        return logits, k_seq, v_seq, kv[0].pos[0]
+        tlen_dev = self._upload(np.asarray(tlen, np.int64))
+        return (*self._prefill_fn(bucket)(self._upload(tokens), tlen_dev),
+                tlen_dev)
 
     def _admit_one(self, req: Request) -> int:
         """Prefill + scatter for a newly (re-)admitted request. Fresh
@@ -380,7 +423,19 @@ class Runtime:
             tokens_in = req.prompt
         tlen = int(len(tokens_in))
         bucket = self.scheduler.bucket_for(tlen, extend=resume)
-        logits, k_seq, v_seq, kv_pos = self._prefill(tokens_in, bucket)
+        last, k_seq, v_seq, kv_pos, tlen_dev = self._prefill(tokens_in,
+                                                             bucket)
+        if not resume:
+            # the first token (TTFT) from the prefill's logits row: its
+            # argmax or draw is enqueued before the write replays, which
+            # may reuse the row's memory (the graph pool's rule)
+            if req.temperature <= 0.0:
+                first = torch.argmax(last, dim=-1)
+            else:
+                first = sample_batch_seeded(
+                    last, [req.seed or 0], [0],
+                    temperature=[req.temperature], top_k=[req.top_k],
+                    top_p=[req.top_p])
         table_row = np.zeros((self.maxb,), np.int32)
         table_row[:len(req.blocks)] = req.blocks
         s = req.slot
@@ -388,12 +443,9 @@ class Runtime:
             # only positions < true length: the right-pad rows are dropped;
             # under a mesh only the owner of the slot's pages writes them,
             # at their local ids (every other rank drops the rows)
-            pos_row = torch.where((kv_pos >= 0) & (kv_pos < tlen), kv_pos,
-                                  torch.full_like(kv_pos, -1))
-            write_prefill(self.pool, k_seq, v_seq, pos_row,
-                          self._upload(np.maximum(table_row - self._page_lo,
-                                                  0)),
-                          kv_bits=self.kv_bits)
+            self._write_fn(int(k_seq.shape[1]))(
+                k_seq, v_seq, kv_pos, tlen_dev,
+                self._upload(np.maximum(table_row - self._page_lo, 0)))
         self._bt[s] = table_row
         self._pos[s] = tlen          # next decode writes K/V here
         self._temp[s] = req.temperature
@@ -412,14 +464,6 @@ class Runtime:
                 self.journal.record_resume(req)
             self._m_resumes.inc()
             return 0
-        # first token comes straight from the prefill logits (TTFT token)
-        last = logits[:, tlen - 1]
-        if req.temperature <= 0.0:
-            first = torch.argmax(last, dim=-1)
-        else:
-            first = sample_batch_seeded(
-                last, [req.seed or 0], [0], temperature=[req.temperature],
-                top_k=[req.top_k], top_p=[req.top_p])
         first = int(first[0])        # the TTFT token must reach the stream
         self._emit(req, first, time.time())
         self._tok[s] = first
@@ -621,9 +665,27 @@ def _decode_step(*args):
     return decode_step_paged(*args)
 
 
-def _prefill_forward(params, cfg, plan, tokens):
-    """The prefill forward of one right-padded request, with its cache."""
-    return forward(params, cfg, plan, tokens, make_cache=True)
+def _prefill_forward(params, cfg, plan, tokens, tlen):
+    """The prefill forward of one right-padded request (1, bucket) of true
+    length `tlen` (a device scalar): (the logits row at tlen - 1 (1, V),
+    k_seq, v_seq (L, S, KV, hd), the cache positions (S,)). The unembed
+    runs over the whole bucket, as JAX's `prefill_full` does; only the
+    row read is gathered here."""
+    logits, _, cache = forward(params, cfg, plan, tokens, make_cache=True)
+    kv = cache["kv"]
+    return (logits[0].index_select(0, tlen.reshape(1) - 1),
+            torch.stack([c.k[0] for c in kv]),
+            torch.stack([c.v[0] for c in kv]), kv[0].pos[0])
+
+
+def _write_rows(pool, kv_bits, k_seq, v_seq, kv_pos, tlen, table_row):
+    """JAX's `prefill_write`: the rows at positions < tlen written into
+    the pages of `table_row`, the pool in place; the right-pad rows and
+    the unwritten ones dropped."""
+    pos_row = torch.where((kv_pos >= 0) & (kv_pos < tlen), kv_pos,
+                          torch.full_like(kv_pos, -1))
+    return write_prefill(pool, k_seq, v_seq, pos_row, table_row,
+                         kv_bits=kv_bits)
 
 
 def recover_runtime(params, cfg, plan, journal_dir: str,

@@ -203,7 +203,9 @@ def test_runtime_declares_its_guards():
     src = inspect.getsource(runtime.Runtime)
     assert 'name="serve.decode_step"' in src
     assert 'name=f"serve.prefill[{bucket}]"' in src
-    assert src.count("max_signatures=1") == 2
+    assert 'name=f"serve.prefill_write[{cache_len}]"' in src
+    assert src.count("max_signatures=1") == 3
+    assert src.count("guard_graph(") == 3 and "guard_fn" not in src
 
 
 def test_runtime_decode_guard_one_signature_mixed_staggered():
@@ -215,7 +217,8 @@ def test_runtime_decode_guard_one_signature_mixed_staggered():
     assert compile_count("serve.decode_step") == 1
     assert out["retrace"]["signatures"] == {
         "serve.decode_step": 1, "serve.prefill[8]": 1,
-        "serve.prefill[16]": 1}
+        "serve.prefill[16]": 1, "serve.prefill_write[8]": 1,
+        "serve.prefill_write[16]": 1}
 
 
 # ---------------------------------------------------------------------------

@@ -1635,11 +1635,20 @@ def _graph_runtime(cuda, dtype, kv_bits):
 
 
 def _direct(rt):
-    """The runtime's step called directly (the reference of a replay)."""
+    """The runtime's step, prefill buckets and prefill writes called
+    directly (the reference of a replay)."""
+    import functools
+
     from repro_torch.models.model import decode_step_paged
+    from repro_torch.serve.runtime import _prefill_forward, _write_rows
     dev = rt.device
     rt._decode = lambda p, c, pl, pool, bt, tok, pos: decode_step_paged(
         p, c, pl, pool, bt, tok.to(dev), pos.to(dev))
+    rt._prefill_fn = lambda b: functools.partial(
+        _prefill_forward, rt.params, rt.cfg,
+        rt.plan.replace(prefill_cache_len=b))
+    rt._write_fn = lambda c: functools.partial(_write_rows, rt.pool,
+                                               rt.kv_bits)
     return rt
 
 
@@ -1759,3 +1768,109 @@ def test_a_host_read_in_a_captured_step_raises_and_does_not_fall_back(cuda):
             g(torch.ones(4, device=cuda))
     assert g.__comq_graphs__ == {}
     assert float((torch.ones(3, device=cuda) * 2).sum()) == 6.0
+
+
+# ---------------------------------------------------------------------------
+# the prefill programs as CUDA graphs: the runtime's prefill buckets and
+# prefill writes, the Engine's prefill
+# ---------------------------------------------------------------------------
+
+# two long requests outgrow a pool of five 8-token pages: the later one is
+# preempted and re-prefills 17 tokens through the extend= bucket 32, in the
+# step the first retires, ahead of a fresh request queued behind it
+RESUME_SC = dict(max_slots=2, block_size=8, num_blocks=5, buckets=(8, 16),
+                 max_blocks_per_slot=4)
+RESUME_PROMPTS = ((14, 8), (15, 9), (5, 6), (6, 4))   # (length, max_new)
+
+
+def _resume_traffic(rt):
+    import numpy as np
+    rs = np.random.RandomState(4)
+    reqs = []
+    for i, (n, m) in enumerate(RESUME_PROMPTS):
+        if i >= 2:
+            for _ in range(6):
+                rt.step()
+        reqs.append(rt.submit(rs.randint(0, 200, (n,)).astype(np.int32),
+                              max_new_tokens=m))
+    while not rt.scheduler.idle:
+        rt.step()
+    return [list(r.out_tokens) for r in reqs]
+
+
+@pytest.mark.parametrize("kv_bits", [0, 8, 4])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_prefill_replay_matches_the_direct_call(cuda, dtype, kv_bits):
+    """Each bucket's prefill graph and its write graph, replayed, equal the
+    programs called directly on the same inputs bit for bit (the logits
+    row, the cache rows and positions, the pool the write leaves); traffic
+    that preempts and resumes through an extend= bucket, a resume and a
+    fresh request admitted in one step, gives the direct runtime's tokens;
+    one capture a bucket and a cache length, in the runtime's one pool."""
+    import numpy as np
+
+    from repro_torch.analysis.retrace import compile_count
+    from repro_torch.serve import Runtime, ServeConfig
+    from repro_torch.serve.runtime import _prefill_forward, _write_rows
+    make = _graph_runtime(cuda, dtype, kv_bits)
+    with torch.no_grad():
+        base = make()
+        again = lambda: Runtime(base.params, base.cfg, base.plan,  # noqa: E731
+                                ServeConfig(**RESUME_SC), device=cuda)
+        want = _resume_traffic(_direct(again()))
+        rt = again()
+        assert _resume_traffic(rt) == want
+        assert rt.scheduler.preemptions >= 1
+        assert sorted(rt._prefills) == [8, 16, 32]
+        for b in (8, 16, 32):
+            assert compile_count(f"serve.prefill[{b}]") == 1
+            assert compile_count(f"serve.prefill_write[{b}]") == 1
+        table = rt._upload(np.arange(rt.maxb, dtype=np.int32))
+        for b, n in ((8, 5), (16, 13), (32, 20)):
+            out = rt._prefill(np.arange(n, dtype=np.int64) * 3 % 200, b)
+            replay = [t.clone() for t in out[:4]]
+            cap = next(iter(rt._prefills[b].func.__comq_graphs__.values()))
+            direct = _prefill_forward(rt.params, rt.cfg, rt.plan.replace(
+                prefill_cache_len=b), cap.args[3].clone(), cap.args[4])
+            assert all(torch.equal(x, y) for x, y in zip(replay, direct))
+            start = {k: v.clone() for k, v in rt.pool.items()}
+            rt._write_fn(b)(*replay[1:], out[4], table)
+            after = {k: v.clone() for k, v in rt.pool.items()}
+            for k, v in rt.pool.items():
+                v.copy_(start[k])
+            _write_rows(rt.pool, rt.kv_bits, *replay[1:], out[4], table)
+            assert all(torch.equal(after[k], rt.pool[k]) for k in after)
+            assert not all(torch.equal(after[k], start[k]) for k in after)
+    assert rt.graph_pool_bytes() != 0
+
+
+def test_engine_prefill_replay_matches_the_direct_prefill(cuda, monkeypatch):
+    """hymba's Engine prefill, captured at its first batch and replayed
+    at the second, gives the direct prefill's logits bit for bit and the
+    same tokens; one prefill capture."""
+    import numpy as np
+
+    from repro_torch.analysis.retrace import compile_count
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import BuildPlan, init_params, prefill
+    from repro_torch.serve import Engine
+    from repro_torch.serve import engine as engine_mod
+    cfg = get_smoke_config("hymba-1.5b").replace(n_layers=2)
+    params = init_params(cfg, seed=0, device=cuda)
+    prompts = np.random.RandomState(3).randint(0, cfg.vocab_size, (3, 12))
+    seen, real = [], engine_mod.sample
+
+    def sample(logits, *a, **k):
+        seen.append(logits.clone())
+        return real(logits, *a, **k)
+    monkeypatch.setattr(engine_mod, "sample", sample)
+    plan = BuildPlan()
+    with torch.no_grad():
+        eng = Engine(params, cfg, plan, max_len=18, device=cuda)
+        got = eng.generate_batch(prompts, max_new_tokens=6)
+        again = eng.generate_batch(prompts, max_new_tokens=6)
+        assert compile_count("serve.engine.prefill") == 1
+        want, _ = prefill(params, cfg, plan.replace(prefill_cache_len=18),
+                          torch.as_tensor(prompts, device=cuda))
+    assert torch.equal(seen[0], want) and torch.equal(seen[6], want)
+    np.testing.assert_array_equal(got, again)

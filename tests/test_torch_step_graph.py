@@ -44,6 +44,7 @@ from repro_torch.models import (BuildPlan, decode_step, init_params,
                                  prefill)
 from repro_torch.serve import Engine, Runtime, ServeConfig
 from repro_torch.serve import engine as engine_mod
+from repro_torch.serve import runtime as runtime_mod
 
 torch.set_num_threads(2)
 
@@ -272,8 +273,10 @@ def test_launch_state_round_trip():
 
 def test_lint_is_clean_over_the_capture_sites():
     """The capture site is one the time-in-capture rule reads (a clock
-    put inside it is flagged), the replay is a host-sync hot zone, and
-    the sources are clean."""
+    put inside it is flagged), the replay is a host-sync hot zone, the
+    programs the Engine and the Runtime give guard_graph (decode steps,
+    prefills, the prefill write) are captured code to that rule, and the
+    sources are clean."""
     src = inspect.getsource(retrace)
     assert lint.lint_source(src, "analysis/retrace.py") == []
     line = "                static_out = fn(*static)\n"
@@ -285,5 +288,13 @@ def test_lint_is_clean_over_the_capture_sites():
     zones = lint.HOT_ZONES["analysis/retrace.py"]
     assert "guard_graph.guarded" in zones
     assert set(zones) <= lint.qualnames(ast.parse(src))
-    for mod, rel in ((engine_mod, "serve/engine.py"),):
-        assert lint.lint_source(inspect.getsource(mod), rel) == []
+    for mod, rel, captured in (
+            (engine_mod, "serve/engine.py", {"_prefill_batch",
+                                             "_decode_into"}),
+            (runtime_mod, "serve/runtime.py", {"_decode_step",
+                                               "_prefill_forward",
+                                               "_write_rows"})):
+        src = inspect.getsource(mod)
+        assert lint.lint_source(src, rel) == []
+        assert captured <= {b.name for b in lint._captured_bodies(
+            ast.parse(src)) if isinstance(b, ast.FunctionDef)}

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where a full-width decode step's time goes, eager and replayed from its
-CUDA graph, on one CUDA card.
+"""Where a full-width decode step's and prefill's time goes, eager and
+replayed from their CUDA graphs, on one CUDA card.
 
     python3 tools/serve_step_profile.py
 
@@ -13,7 +13,11 @@ directly (`decode_step_paged`) and replayed from the Runtime's graph
 calls by CUDA events; torch.profiler's device time a step over 5 calls of
 each (the sum of every kernel's time, and the largest kernels); the
 step's bound (`roofline_terms` of its `count_cost`); the graph pool's
-bytes; the card's name and power limit.
+bytes; the card's name and power limit. Then the same readings for one
+request's prefill at buckets 128 and 512 (bf16 pages, a prompt 5 tokens
+short of the bucket): `_prefill_forward` called directly and the
+bucket's graph (`Runtime._prefill_fn`, `serve.prefill[bucket]`)
+replayed.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 ITERS, PROFILED = 20, 5
+PREFILL_BUCKETS = (128, 512)
 
 
 def device_ms(torch, fn, n):
@@ -62,6 +67,7 @@ def main() -> int:
         roofline_terms
     from repro_torch.roofline.kv_bytes import decode_step_inputs
     from repro_torch.serve import Runtime, ServeConfig
+    from repro_torch.serve.runtime import _prefill_forward
 
     set_precision()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -105,6 +111,26 @@ def main() -> int:
                   f"{card}", flush=True)
             del rt, args
             torch.cuda.empty_cache()
+        rt = Runtime(sp, cfg, BuildPlan(), sc, device=dev)
+        for bucket in PREFILL_BUCKETS:
+            n = bucket - 5
+            tokens = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
+            tokens[0, :n] = torch.arange(n, device=dev) * 7 % cfg.vocab_size
+            tlen = torch.tensor(n, dtype=torch.int64, device=dev)
+            plan = rt.plan.replace(prefill_cache_len=bucket)
+            graph = rt._prefill_fn(bucket)
+            for how, fn in (("eager", lambda i: _prefill_forward(
+                    rt.params, cfg, plan, tokens, tlen)),
+                            ("replayed", lambda i: graph(tokens, tlen))):
+                ms = cs.cuda_ms(torch, fn, ITERS)
+                dms, rows = device_ms(torch, fn, PROFILED)
+                top = ", ".join(f"{k[:60]} {v:.4f}" for k, v in rows[:8])
+                print(f"prefill[{bucket}] ({n} tokens) {how}: {ms:.4f} ms "
+                      f"(CUDA events, mean of {ITERS}); profiler device time "
+                      f"{dms:.4f} ms (mean of {PROFILED}); largest kernels "
+                      f"(ms a call): {top}", flush=True)
+        print(f"prefill: graph pool {rt.graph_pool_bytes()} bytes; {card}",
+              flush=True)
     return 0
 
 
