@@ -249,7 +249,14 @@ no result line):
    backward and SDPA's autograd backward (a yardstick; graph replay, as
    the kernel's, and eager), and the forward
    with and without its LSE write, beside SDPA's flash forward that also
-   returns the LSE (K/V expanded to H heads). (b) one step's loss and per-leaf
+   returns the LSE (K/V expanded to H heads); then the fused AdamW update
+   (csrc/adamw.cu) against its plain version at qwen's, granite's and
+   hymba's leaf shapes (a ragged last block of 64 at hymba's 1600, a 0-d
+   leaf), f32 and int8 moments, the clip factor folded in: m and v (int8:
+   codes, scales and EF bytes) bit for bit, params within 1e-6 of |p| +
+   10 lr; timed beside its bound, the plain version and
+   torch._fused_adamw_ over the same f32 leaf (a yardstick the port never
+   calls). (b) one step's loss and per-leaf
    gradients (make_train_step's own gradient function, 8 x 128 from
    SyntheticLM), kernels against plain versions from the same params, at
    bf16 and f32 compute: every leaf must have a finite nonzero gradient,
@@ -262,11 +269,18 @@ no result line):
    attention's inputs and gradients rounded to bf16) must fail that
    gate. (c) the Trainer through launch.train's code path at JAX's
    tests/test_train.py:23 settings (lr 3e-3, warmup 5, 30 steps of 8 x
-   64, no remat, f32 moments; the training path, counted): every loss
-   finite and the mean of the last 5 below the mean of the first 5; the
-   drop, step wall p50, peak memory and straggler events printed, beside
-   the same run through the plain versions and a held-out batch's loss
-   at the init and after each run. (e) COMQ (comq_blocked) and RTN at
+   64, no remat, f32 moments; the training path, counted): the Trainer's
+   step captured once as a CUDA graph ("train.step", one capture a run,
+   checked for every Trainer run of the phase) and replayed; every loss
+   finite and the mean of the last 5 below the mean of the first 5, the
+   AdamW kernel launched once a leaf a step; the drop, step wall p50, peak
+   memory and straggler events printed, beside the same run through the
+   plain versions (the step called directly) and a held-out batch's loss
+   at the init and after each run. The same run with the step called
+   directly (the same kernels): its 30 losses and final params bit for bit
+   the replayed run's; both step walls printed, then the step eager and
+   replayed on a fresh state (`train_step_timings`: walls and profiler
+   device time). (e) COMQ (comq_blocked) and RTN at
    3 bits per channel on a model that learned: JAX's tests/test_system.py
    on the card (h2o-danube-1.8b's smoke config, 60 steps of 8 x 64
    through launch.train's code path; its loss must drop by more than
@@ -274,21 +288,25 @@ no result line):
    distributions at most RTN's, and its loss within 1.0 of the float
    model's; the eval losses printed, and the same readings for (c)'s
    model (printed only: it learns too little for either). (f) the same
-   run with int8 moments: the CUDA adamw_update equals the CPU one from
+   run with int8 moments (replayed; the AdamW kernel once a leaf a step):
+   the CUDA adamw_update equals the CPU one from
    the same state and gradient (codes, scales, EF planes bit for bit;
    params within f32 rounding); the loss gap to (c), JAX's
    10%-of-the-change figure and the optimizer bytes a parameter
    printed. (d) (f)'s run killed at step 7
    with a checkpoint every 5, resumed by run_with_restarts to step 10
-   (under (f)'s 30-step schedule): every loss of both attempts equals
-   (f)'s. Only (d)'s step-5 checkpoint is written:
+   (under (f)'s 30-step schedule; each attempt's Trainer captures its
+   step once and the resume loads into the captured state's tensors):
+   every loss of both attempts equals (f)'s. Only (d)'s step-5
+   checkpoint is written:
    nothing reads the others. (g) the other families, each from
    init_params(seed=0) at full width: granite-moe-3b-a800m, hymba-1.5b
    (1 x 2048, so its window of 1024 binds), musicgen-large and rwkv6-7b
    at 2 layers each, vit-base-16 whole (its lm_loss from patch
    embeddings and labels): 3 make_train_step steps (the training path,
    counted; every loss finite, the forward and backward kernels launched
-   once a layer a step), each step's wall, the peak memory and the
+   once a layer a step, the AdamW kernel once a leaf a step), each step's
+   wall, the peak memory and the
    backward kernel's device time in the last step printed; then (b)'s
    bf16 gates on the first batch — every leaf a finite nonzero gradient,
    the loss within 1e-2, each backward launch, every leaf in lockstep
@@ -381,7 +399,9 @@ hymba's, musicgen's, rwkv's, the VLM's and the encoder's new shapes as
 entries of their own, with their path's launches; the backward at
 granite's, hymba's, musicgen's and vit's shapes with their steps'
 launches; the head-map variants of phase 21 with the padded paths'
-launches), and last the device line.
+launches; the fused AdamW update at qwen's w_down with f32 and with
+int8 moments, with the training path's launches), and last the device
+line.
 """
 from __future__ import annotations
 
@@ -586,10 +606,13 @@ def autograd_graph_ms(torch, forward, inputs, grad_out, iters: int):
 def plain_kernels(ops, modules):
     """Route the dispatch to the plain versions for a reference run on the
     card (only this script does this; the package never does)."""
+    from repro_torch.kernels import adamw
     saved = {name: getattr(ops, name) for name in
              ("comq_panel_dq", "flash_attention", "quant_matmul",
-              "paged_attention", "paged_attention_quant")}
+              "paged_attention", "paged_attention_quant",
+              "adamw_update_leaf")}
     panel, flash, qmm, paged = modules
+    ops.adamw_update_leaf = adamw.adamw_leaf_plain
     ops.comq_panel_dq = panel.comq_panel_dq_plain
     ops.flash_attention = flash.flash_attention_plain
     ops.quant_matmul = qmm.quant_matmul_plain
@@ -4276,6 +4299,16 @@ LEARN_ARCH, LEARN_STEPS, LEARN_DROP = "h2o-danube-1.8b", 60, 0.8
 TRAIN_OPT_LEAVES = ("layers.0.attn", "layers.0.mlp.w_down",
                     "layers.3.ln2")
 TRAIN_PATH = ("flash_attention", "flash_attention_bwd")
+# (a) the fused AdamW update (csrc/adamw.cu) against its plain version at
+# the families' leaf shapes, f32 and int8 moments: (tag, leaf shape) —
+# qwen's w_down and a norm, granite's expert stack, hymba's w_down (last
+# dim 1600: a ragged last block of 64) and its norm, and a 0-d leaf
+ADAMW_CASES = (("qwen", (18944, 3584)), ("qwen", (3584,)),
+               ("granite", (40, 1536, 512)), ("hymba", (5504, 1600)),
+               ("hymba", (1600,)), ("0-d", ()))
+ADAMW_ROW = ("qwen", (18944, 3584))     # the kernels line's shape
+ADAMW_P_REL = 1e-6     # params: max |d| / (|p| + 10 lr), as (f) holds them
+ADAMW_ITERS = 10
 # (g): one family a row (arch, layers or None for the whole model, batch,
 # sequence, its BWD_CASES tag): full width, depth cut, FAMILY_STEPS train
 # steps counted and timed, then (b)'s gates at bf16 compute (the step's
@@ -4289,6 +4322,72 @@ FAMILY_TRAIN = (("granite-moe-3b-a800m", 2, 8, PROMPT, "granite"),
 FAMILY_STEPS = 3         # the first warms up; walls are read from the rest
 TRAIN_BUDGET_S = 270     # phase 19's share of the script's time
 TRAIN_EXTRA = ()         # more launch.train flags (a CPU dry run: --device)
+
+
+def check_adamw(torch, dev, results, card):
+    """(a) The fused AdamW update against its plain version on the card at
+    ADAMW_CASES, f32 and int8 moments, the clip factor folded in: m, v
+    (int8: codes, scales and EF bytes) bit for bit, params within
+    ADAMW_P_REL; timed (graph replay) beside its bound, the plain
+    version and, for f32 moments, `torch._fused_adamw_` over the same
+    leaf (a yardstick the port never calls: decoupled weight decay, its
+    own rounding)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import bias_corrections
+    from repro_torch.roofline import kernels as cost
+    gen = torch.Generator(device=dev).manual_seed(21)
+    step = torch.full((), 7, dtype=torch.int32, device=dev)
+    lr, c1, c2 = bias_corrections(step, AdamWConfig(), FIT_LR)
+    factor = torch.full((), 0.625, dtype=torch.float32, device=dev)
+    for tag, shape in ADAMW_CASES:
+        p, g, m = (torch.randn(shape, generator=gen, device=dev) * sc
+                   for sc in (1.0, 1e-2, 1e-3))
+        v = torch.rand(shape, generator=gen, device=dev) * 1e-5
+        for moments in ("float32", "int8"):
+            cfg = AdamWConfig(moment_dtype=moments)
+            start = (p, m, v) if moments == "float32" else (
+                p, kadamw.encode_m(m), kadamw.encode_v(v))
+            kw = dict(lr=lr, c1=c1, c2=c2, cfg=cfg, factor=factor)
+            got, want, work, slow = (pytree.tree_map(torch.clone, start)
+                                     for _ in range(4))
+            kadamw.adamw_leaf_cuda(got[0], g, *got[1:], **kw)
+            kadamw.adamw_leaf_plain(want[0], g, *want[1:], **kw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(
+                pytree.tree_leaves(got[1:]), pytree.tree_leaves(want[1:])))
+            d = (got[0] - want[0]).abs()
+            err = float(d.max())
+            rel = float((d / (want[0].abs() + 10 * FIT_LR)).max())
+            t = Timing(torch, lambda i: kadamw.adamw_leaf_cuda(
+                work[0], g, *work[1:], **kw), ADAMW_ITERS)
+            plain_ms = cuda_ms(torch, lambda i: kadamw.adamw_leaf_plain(
+                slow[0], g, *slow[1:], **kw), 3)
+            lib = None
+            if moments == "float32":
+                st = [torch.full((), 7.0, device=dev)]
+                lib = Timing(torch, lambda i: torch._fused_adamw_(
+                    [slow[0]], [g], [slow[1]], [slow[2]], [], st, lr=FIT_LR,
+                    beta1=cfg.b1, beta2=cfg.b2, weight_decay=cfg.weight_decay,
+                    eps=cfg.eps, amsgrad=False, maximize=False),
+                    ADAMW_ITERS).ms
+            bms, by = cost.bound_ms(cost.adamw_update_of(p, start[1]))
+            results[("adamw", tag, shape, moments)] = dict(
+                max_abs_err=err, ms=t.ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib)
+            say(f"training (a) adamw {tag} {shape} {moments} moments: "
+                f"moments{' and codes' if moments == 'int8' else ''} "
+                f"bit-equal {same}, params max|d| {err:.3e}, rel "
+                f"{rel:.3e} (tol {ADAMW_P_REL}); kernel {t} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+                f"torch._fused_adamw_ "
+                f"{'none' if lib is None else f'{lib:.4f}'} ms ({card})")
+            check(same and rel <= ADAMW_P_REL, f"(a) adamw {tag} {shape} "
+                  f"{moments}: moments equal {same}, params rel {rel}")
+            del got, want, work, slow
+        del p, g, m, v
 
 
 def check_flash_bwd(torch, flash, dev, results, card, cases=BWD_CASES,
@@ -4692,15 +4791,35 @@ def fit_args(tmp: Path, *extra, arch=TRAIN_ARCH, steps=FIT_STEPS):
          *TRAIN_EXTRA])
 
 
-def fit(torch, cfg, args, what, card, failure_hook=None, **run_kw):
+@contextlib.contextmanager
+def eager_trainer():
+    """The Trainer with its step called directly (`make_train_step`'s
+    function, eager) in place of the graph it captures and replays: the
+    reference a replay is held to. Only this script does this (as
+    `plain_kernels` swaps the kernels); the Trainer has no such switch."""
+    from repro_torch.train import trainer as tr
+    real = tr.Trainer._step_program
+    tr.Trainer._step_program = lambda self: self.direct_step
+    try:
+        yield
+    finally:
+        tr.Trainer._step_program = real
+
+
+def fit(torch, cfg, args, what, card, failure_hook=None, eager=False,
+        **run_kw):
     """One run of launch.train's code path (`train.train`) on `cfg`, with
-    JAX's test warmup and synchronous checkpoints. Step walls are read
-    between consecutive calls of the failure hook (each step ends in the
-    host pulling its metrics, so they are synchronized). Returns (out,
-    losses)."""
+    JAX's test warmup and synchronous checkpoints: the step captured once
+    as a CUDA graph and replayed (one capture is checked), or with
+    `eager` called directly. Step walls are read between consecutive
+    calls of the failure hook (each step ends in the host pulling its
+    metrics, so they are synchronized). Returns (out, losses); out
+    ["step_walls"] holds the walls."""
     import dataclasses
 
+    from repro_torch.analysis.retrace import compile_count, reset_guards
     from repro_torch.launch import train
+    from repro_torch.train.trainer import STEP_NAME
     run_cfg = dataclasses.replace(train.run_config(args),
                                   warmup_steps=FIT_WARMUP, async_ckpt=False,
                                   **run_kw)
@@ -4711,21 +4830,121 @@ def fit(torch, cfg, args, what, card, failure_hook=None, **run_kw):
         if failure_hook is not None:
             failure_hook(step)
 
+    reset_guards(STEP_NAME)
     torch.cuda.synchronize()
     t0 = time.time()
     try:
-        trainer, out, line = train.train(cfg, run_cfg, args,
-                                         failure_hook=hook)
+        with eager_trainer() if eager else contextlib.nullcontext():
+            trainer, out, line = train.train(cfg, run_cfg, args,
+                                             failure_hook=hook)
     finally:
         torch.cuda.synchronize()
     wall = time.time() - t0
     losses = [m["loss"] for m in out["metrics"]]
     walls = [b - a for a, b in zip(ends, ends[1:])]
+    captures = compile_count(STEP_NAME)
     say(f"training {what}: {json.dumps(line)}; {len(losses)} steps in "
         f"{wall:.1f} s, step wall p50 {statistics.median(walls):.4f} s (min "
         f"{min(walls):.4f}, max {max(walls):.4f}; from step end to step "
-        f"end), straggler events {len(trainer.watchdog.events)} ({card})")
+        f"end; the step {'called directly' if eager else 'replayed'}, "
+        f"{captures} capture(s) of {STEP_NAME}), straggler events "
+        f"{len(trainer.watchdog.events)} ({card})")
+    check(captures == (0 if eager else 1), f"{what}: {captures} captures "
+          f"of {STEP_NAME}, not {0 if eager else 1}")
+    out["step_walls"] = walls
     return out, losses
+
+
+def profiled_ms(torch, fn, n):
+    """(device ms a call, host ms a call, [(kernel, ms a call)] largest
+    first) from torch.profiler over n calls of fn(i): the device time is
+    the sum of the kernels' times (one stream, so their union)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / n
+    kernel = torch.autograd.DeviceType.CUDA     # kernels, not the ops
+    rows = [(e.key, e.self_device_time_total / 1e3 / n)
+            for e in prof.key_averages()
+            if e.device_type == kernel and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    return sum(ms for _, ms in rows), host, rows
+
+
+STEP_WARMUP, STEP_TIMED, STEP_PROFILED = 2, 5, 3
+
+
+def train_step_timings(torch, cfg, moments, B, T, dev, work: Path, what,
+                       card, modes=("eager", "replayed")):
+    """A Trainer's step on `cfg` from `init_params(seed=0)` (lr FIT_LR,
+    warmup FIT_WARMUP, no remat, `moments` AdamW moments, B x T batches
+    of `family_batch`), called directly ("eager") and replayed from its
+    CUDA graph ("replayed", the Trainer's own program), in turn on one
+    state: STEP_WARMUP steps (the capture among them), the wall of each
+    of STEP_TIMED steps (host clock, each ending in a synchronize), then
+    torch.profiler over STEP_PROFILED steps. Prints a line a mode, with
+    the AdamW kernels' bound a step (`roofline.kernels.adamw_update_of`
+    summed over the state's leaves), and returns {mode: (wall p50 ms,
+    device ms, kernel rows)}."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import BuildPlan
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.roofline import kernels as cost
+    from repro_torch.train import Trainer
+    from repro_torch.train.trainer import BATCH_KEYS
+    trainer = Trainer(cfg, BuildPlan(remat=False),
+                      RunConfig(arch=cfg.name, learning_rate=FIT_LR,
+                                warmup_steps=FIT_WARMUP,
+                                total_steps=FIT_STEPS, ckpt_dir=str(work)),
+                      adamw_cfg=AdamWConfig(moment_dtype=moments),
+                      device=dev)
+    state = trainer.init_state()
+    leaves = pytree.tree_leaves(state["params"])
+    firsts = pytree.tree_leaves(
+        state["opt"]["m"], is_leaf=lambda x: isinstance(x, dict) and "q" in x)
+    adamw_bound = sum(cost.bound_ms(cost.adamw_update_of(p, m))[0]
+                      for p, m in zip(leaves, firsts))
+    n_params = sum(p.numel() for p in leaves)
+    n = STEP_WARMUP + STEP_TIMED + STEP_PROFILED
+    batches = [[b[k] for k in BATCH_KEYS] for b in
+               (family_batch(torch, cfg, B, T, dev, i) for i in range(n))]
+    programs = {"eager": trainer.direct_step,
+                "replayed": trainer._step_program()}
+    out = {}
+    for mode in modes:
+        step = programs[mode]
+        for i in range(STEP_WARMUP):
+            step(state, *batches[i])
+        walls = []
+        for i in range(STEP_WARMUP, STEP_WARMUP + STEP_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = step(state, *batches[i])
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        loss = float(m["loss"])
+        dms, host, rows = profiled_ms(
+            torch, lambda i: step(state, *batches[n - STEP_PROFILED + i]),
+            STEP_PROFILED)
+        wall = statistics.median(walls)
+        top = ", ".join(f"{k[:40]} {v:.3f}" for k, v in rows[:8])
+        say(f"{what} {mode}: step wall p50 {wall:.3f} ms over {STEP_TIMED} "
+            f"(host clock, synchronized; walls "
+            f"{[round(w, 3) for w in walls]}), loss {loss:.4f}; profiler "
+            f"device time {dms:.3f} ms a step over {STEP_PROFILED} "
+            f"({host:.3f} ms wall a step under the profiler, {len(rows)} "
+            f"kernels): device share {dms / wall:.3f} of the wall; largest "
+            f"kernels (ms a step): {top}; AdamW bound {adamw_bound:.3f} ms "
+            f"a step ({len(leaves)} leaves, {n_params} parameters); {card}")
+        out[mode] = (wall, dms, rows)
+    del state, trainer, programs, batches
+    return out
 
 
 def held_out(torch, cfg, dev):
@@ -5064,7 +5283,9 @@ def family_step(torch, flash, ops, kernels, arch, layers, B, T, dev, card):
     check(all(math.isfinite(x) for x in losses),
           f"(g) {arch}: a non-finite loss {losses}")
     want = {n: n_attn * FAMILY_STEPS for n in TRAIN_PATH}
-    check(all(counts[n] == want[n] for n in TRAIN_PATH),
+    want["adamw"] = len(torch.utils._pytree.tree_leaves(params)) * \
+        FAMILY_STEPS
+    check(all(counts[n] == want[n] for n in want),
           f"(g) {arch}: the steps launched {counts}, not {want}")
     step_grads(torch, flash, ops, kernels, cfg, params, batches[0],
                "bfloat16", card, what=f"(g) {arch}", n_attn=n_attn)
@@ -5150,8 +5371,9 @@ def phase_training(torch, dev, ops, kernels, results, card):
         torch.cuda.empty_cache()
         return time.time()
 
-    # (a) the backward kernel
+    # (a) the backward kernel, and the fused AdamW update
     check_flash_bwd(torch, flash, dev, results, card)
+    check_adamw(torch, dev, results, card)
     t_part = took("(a)", t_phase)
 
     # (b) one step, kernels against the plain versions from the same params
@@ -5192,14 +5414,15 @@ def phase_training(torch, dev, ops, kernels, results, card):
             SaveFilter(lambda step: False) as unsaved:
         out, lplain = fit(torch, cfg, fit_args(work / "w"),
                           "(c) witness, plain versions", card,
-                          failure_hook=unsaved.hook)
+                          failure_hook=unsaved.hook, eager=True)
     held["plain"] = eval_loss(out["state"]["params"])
     del out
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (c) the Trainer through launch.train's code path, f32 moments: the
-    # training path, counted. Nothing reads its final checkpoint
+    # (c) the Trainer through launch.train's code path, f32 moments, its
+    # step captured once and replayed: the training path, counted. Nothing
+    # reads its final checkpoint
     torch.cuda.reset_peak_memory_stats(dev)
     held32 = torch.cuda.memory_allocated(dev) / 2 ** 30
     ops.reset_launch_counts()
@@ -5208,6 +5431,10 @@ def phase_training(torch, dev, ops, kernels, results, card):
                        card, failure_hook=unsaved.hook)
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    n_leaves = len(torch.utils._pytree.tree_leaves(out["state"]["params"]))
+    check(counts["adamw"] == n_leaves * FIT_STEPS,
+          f"(c) the AdamW kernel launched {counts['adamw']} times, not once "
+          f"a leaf a step ({n_leaves} x {FIT_STEPS})")
     first5, last5 = statistics.mean(l32[:5]), statistics.mean(l32[-5:])
     say(f"training (c) losses {[round(x, 4) for x in l32]}; mean of the "
         f"first 5 {first5:.4f}, of the last 5 {last5:.4f} (drop "
@@ -5221,7 +5448,31 @@ def phase_training(torch, dev, ops, kernels, results, card):
     check(all(counts[n] > 0 for n in TRAIN_PATH),
           f"a kernel of the training path never launched: {counts}")
     trained = out["state"]["params"]
+    replayed_walls = out["step_walls"]
     del out
+    # the same run with the step called directly, the same kernels: every
+    # loss and the final params bit for bit the replayed run's
+    with SaveFilter(lambda step: False) as unsaved:
+        out, leager = fit(torch, cfg, fit_args(work / "c2"),
+                          "(c) f32 moments, the step called directly", card,
+                          failure_hook=unsaved.hook, eager=True)
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        torch.utils._pytree.tree_leaves(out["state"]["params"]),
+        torch.utils._pytree.tree_leaves(trained)))
+    say(f"training (c) replayed vs called directly: {FIT_STEPS} losses "
+        f"bit-equal {leager == l32}, final params bit-equal {same_params}; "
+        f"step wall p50 replayed {statistics.median(replayed_walls):.4f} s, "
+        f"direct {statistics.median(out['step_walls']):.4f} s ({card})")
+    check(leager == l32 and same_params, f"(c) the replayed run differs "
+          f"from the direct one: losses {l32} vs {leager}, params equal "
+          f"{same_params}")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_step_timings(torch, cfg, "float32", FIT_BATCH, FIT_SEQ, dev,
+                       work / "t", "training (c) the step", card)
+    gc.collect()
+    torch.cuda.empty_cache()
     held["kernels"] = eval_loss(trained)
     gaps = [abs(a - b) for a, b in zip(l32, lplain)]
     say(f"training (c) witness, the plain versions' losses "
@@ -5271,10 +5522,15 @@ def phase_training(torch, dev, ops, kernels, results, card):
     acfg8 = AdamWConfig(moment_dtype="int8")
     torch.cuda.reset_peak_memory_stats(dev)
     held8 = torch.cuda.memory_allocated(dev) / 2 ** 30    # (c)'s params too
+    ops.reset_launch_counts()
     with SaveFilter(lambda step: False) as unsaved:
         out, l8 = fit(torch, cfg, fit_args(work / "f", "--moment-dtype",
                                            "int8"),
                       "(f) int8 moments", card, failure_hook=unsaved.hook)
+    counts["adamw@int8"] = ops.launch_counts()["adamw"]
+    check(counts["adamw@int8"] == n_leaves * FIT_STEPS, f"(f) the AdamW "
+          f"kernel launched {counts['adamw@int8']} times, not "
+          f"{n_leaves} x {FIT_STEPS}")
     peak8 = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     state = out["state"]
     del out
@@ -6221,6 +6477,9 @@ def main() -> int:
         launches[n] = launches.get(n, 0) + v
     for n, v in pad_counts["entries"].items():
         launches[n] = v
+    launches["adamw"] = (launches.get("adamw", 0) + train_counts["adamw"]
+                         + sum(c["adamw"] for c in families.values()))
+    launches["adamw@int8"] = train_counts["adamw@int8"]
     for arch, counts in families.items():
         launches["flash_attention"] += counts["flash_attention"]
         launches["flash_attention_bwd"] += counts["flash_attention_bwd"]
@@ -6322,6 +6581,13 @@ def main() -> int:
     # (b: hymba at tp = 16; c: qwen2-7b at tp = 3)
     entries += [(name, source, results[key], where)
                 for name, source, key, where in PAD_ENTRIES]
+    # the fused AdamW update (19a) at qwen's w_down, with the training
+    # path's launches (f32 moments: 19c, 19g and 21b's step; int8: 19f):
+    # no Pallas kernel, it replaces XLA's fusion of the JAX update
+    entries += [(name, "adamw", results[("adamw", *ADAMW_ROW, moments)],
+                 "src/repro/optim/adamw.py:154")
+                for name, moments in (("adamw", "float32"),
+                                      ("adamw@int8", "int8"))]
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src.format(source),
          "replaces": where, "launches": launches[name],

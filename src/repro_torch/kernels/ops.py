@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import adamw as _adamw
 from repro_torch.kernels import comq_panel as _panel
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _paged
@@ -118,6 +119,20 @@ def paged_attention_quant(q: Tensor, k_pool: Tensor, v_pool: Tensor,
             window=window, kv_bits=kv_bits, head_map=head_map)
 
 
+def adamw_update_leaf(p: Tensor, g: Tensor, m, v, *, lr: Tensor, c1: Tensor,
+                      c2: Tensor, cfg, factor=None) -> None:
+    """One leaf's AdamW update in place: p and its moments (f32 tensors,
+    or int8 codec dicts when `cfg.moment_dtype` is "int8") from gradient
+    `g`, times the clip `factor` (a 0-d tensor) when given; lr and the
+    bias corrections c1, c2 are 0-d f32 tensors on p's device."""
+    with charged(_cost.adamw_update_of, p, m):
+        if _plain(p):
+            return _adamw.adamw_leaf_plain(p, g, m, v, lr=lr, c1=c1, c2=c2,
+                                           cfg=cfg, factor=factor)
+        return _adamw.adamw_leaf_cuda(p, g, m, v, lr=lr, c1=c1, c2=c2,
+                                      cfg=cfg, factor=factor)
+
+
 def _needs_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
@@ -152,7 +167,8 @@ class _CountedPlainAttention(torch.autograd.Function):
 KERNELS = ((_panel, "NAME", "launches"), (_flash, "NAME", "launches"),
            (_qmm, "NAME", "launches"), (_paged, "NAME", "launches"),
            (_paged, "NAME_QUANT", "launches_quant"),
-           (_flash, "NAME_BWD", "launches_bwd"))
+           (_flash, "NAME_BWD", "launches_bwd"),
+           (_adamw, "NAME", "launches"))
 
 
 def reset_launch_counts() -> None:

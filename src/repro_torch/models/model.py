@@ -173,11 +173,15 @@ def _remat(plan, body):
     """`body` recomputed in the backward pass (`torch.utils.checkpoint`,
     non-reentrant) when the plan asks for it and autograd is recording, as
     the JAX package wraps its layer bodies in `jax.checkpoint`; `body`
-    itself otherwise, so no_grad paths pay nothing."""
+    itself otherwise, so no_grad paths pay nothing. A layer body draws no
+    random numbers, so the recomputation needs no saved RNG state: a
+    CUDA-graph capture of the train step refuses to read the generator's
+    (`preserve_rng_state=False`)."""
     if not (plan.remat and torch.is_grad_enabled()):
         return body
     from torch.utils.checkpoint import checkpoint
-    return lambda *a: checkpoint(body, *a, use_reentrant=False)
+    return lambda *a: checkpoint(body, *a, use_reentrant=False,
+                                 preserve_rng_state=False)
 
 
 def _run_layers(p: Params, cfg, plan, x, make_cache: bool):

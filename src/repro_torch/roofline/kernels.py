@@ -123,6 +123,23 @@ def paged_attention(B: int, H: int, KV: int, hd: int, block_size: int,
                       "int8" if kv_bits else "bf16")
 
 
+def adamw_update(n: int, moment_dtype: str,
+                 n_codes: Optional[int] = None) -> KernelCost:
+    """One leaf's fused AdamW update, n parameters: p and g (f32) in, p
+    out; f32 moments m and v in and out (28 bytes a parameter), or int8
+    codes on `n_codes` padded entries (n by default): the first moment's
+    int8 codes, 2-bit EF codes and a block scale a 256, the second's uint8
+    codes and scale, in and out (~16.6 bytes a parameter); lr, the bias
+    corrections and the clip factor in. 17 f32 operations a parameter,
+    ~41 with the codec's decode and encode."""
+    scalars = 4 * 4
+    if moment_dtype != "int8":
+        return KernelCost(17.0 * n, 28.0 * n + scalars, "f32")
+    c = n if n_codes is None else n_codes
+    moments = 2 * (c + c / 4 + 4 * c / 256 + c + 4 * c / 256)
+    return KernelCost(41.0 * n, 12.0 * n + moments + scalars, "f32")
+
+
 def ssm_scan(B: int, T: int, d_inner: int, n: int, dt_rank: int,
              param_numel: int) -> KernelCost:
     """The one-pass selective scan (plain PyTorch, no kernel): x (bf16) in,
@@ -174,6 +191,14 @@ def quant_matmul_of(x: Tensor, codes: Tensor, *, cpb: int) -> KernelCost:
     return quant_matmul(M, K, codes.shape[1] * cpb,
                         codes.numel() * codes.element_size(),
                         x.element_size())
+
+
+def adamw_update_of(p: Tensor, m) -> KernelCost:
+    """The update of leaf `p` whose first moment is `m` (an f32 tensor,
+    or an int8 codec dict whose codes give the padded count)."""
+    if isinstance(m, dict):
+        return adamw_update(p.numel(), "int8", m["q"].numel())
+    return adamw_update(p.numel(), "float32")
 
 
 def paged_attention_of(q: Tensor, k_pool: Tensor, block_tables: Tensor,

@@ -83,17 +83,20 @@ def _loss_and_grads(cfg, plan, nm: int, params: PyTree,
 
 def make_train_step(cfg, plan, run_cfg, adamw_cfg: AdamWConfig,
                     group=None):
-    """Returns `train_step(state, batch) -> (new_state, metrics)`.
+    """Returns `train_step(state, batch) -> (state, metrics)`.
 
     `group`: the process group the int8_ef all-reduce runs over, or
     "world" for the default group of whatever world is up when the step
     runs; required for int8_ef, as JAX's step requires `axis_name=`.
 
     The step owns its input state, as JAX's `donate_argnums=(0,)` makes
-    it: the new params, moments and error state are written into its
-    tensors, so the update needs no second copy of the state. A caller
-    that keeps a state must pass a copy (`init_train_state` takes one of
-    the params)."""
+    it: the new params, moments, error state and step counter are written
+    into its tensors, and the same state object is returned, so the
+    update needs no second copy of the state. A caller that keeps a state
+    must pass a copy (`init_train_state` takes one of the params). The
+    step reads nothing back to the host, so the Trainer captures it as a
+    CUDA graph (`Trainer._step_program`); called directly, it runs
+    eagerly."""
     nm = max(1, run_cfg.microbatches)
     compress = run_cfg.grad_compression == "int8_ef"
     if run_cfg.grad_compression not in ("none", "int8_ef"):
@@ -114,7 +117,6 @@ def make_train_step(cfg, plan, run_cfg, adamw_cfg: AdamWConfig,
                            warmup_steps=run_cfg.warmup_steps,
                            total_steps=run_cfg.total_steps)
         loss, grads = _loss_and_grads(cfg, plan, nm, params, batch)
-        new_err = None
         if compress:
             # int8-EF all-reduce of the local gradient mean; the carried
             # residual rides in the state so no mass is ever lost
@@ -126,22 +128,17 @@ def make_train_step(cfg, plan, run_cfg, adamw_cfg: AdamWConfig,
             for old, new in zip(pytree.tree_leaves(state["grad_err"]),
                                 pytree.tree_leaves(new_err)):
                 old.copy_(new)
-            new_err = state["grad_err"]
             loss = loss.clone()
             dist.all_reduce(loss, group=pg)
             loss = loss / dist.get_world_size(pg)
-        # clip_by_global_norm, applied to the step's own gradient tree
+        # clip_by_global_norm: its factor is folded into the update (one
+        # multiply of each gradient, the rounding of `g * factor`)
         gnorm = global_norm(grads)
         factor = torch.clamp(run_cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-        for g in pytree.tree_leaves(grads):
-            g.mul_(factor)
-        new_params, new_opt = adamw_update_(grads, opt, params, adamw_cfg, lr)
+        adamw_update_(grads, opt, params, adamw_cfg, lr, factor=factor)
         del grads
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,
-                   "step": new_opt["step"]}
-        new_state = {"params": new_params, "opt": new_opt}
-        if compress:
-            new_state["grad_err"] = new_err
-        return new_state, metrics
+                   "step": opt["step"].clone()}
+        return state, metrics
 
     return train_step

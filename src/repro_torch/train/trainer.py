@@ -10,9 +10,21 @@ committed checkpoint. Checkpoints are written in the JAX package's layout
 (`convert.train_state_to_numpy`: "layers" stacked), so either package's
 Trainer resumes the other's.
 
+The step is JAX's compiled program: as JAX's Trainer jits its step with
+the state donated, the port's captures it once per signature as a CUDA
+graph (`analysis.retrace.guard_graph`, "train.step", one signature a
+loop: the batch's shape and dtype with the loop's state held) and
+replays it every later step; the step updates the state in place and
+returns it, and a resume loads a checkpoint into the same tensors
+(`_load_into`), so the graph stays valid. On the CPU the guard runs the
+step eagerly and refuses at its first call the ops a capture refuses.
+
 Where JAX's Trainer runs an int8_ef step under a 1-shard `shard_map`, the
 port's starts a world of one (`dist.init_world`) for the run when no
-process group is up, and all-reduces over it.
+process group is up, and all-reduces over it. That all-reduce runs
+through host memory (gloo), which a graph cannot hold, so with
+`grad_compression="int8_ef"` the step runs eagerly: the configuration
+decides, never a failed capture.
 
 Elastic restore: `shard_state_fn(state)` returns the state's shardings (a
 tree like the state of `dist.sharding.NamedSharding` on a DeviceMesh, or
@@ -39,10 +51,13 @@ from repro_torch.data import ShardedLoader
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.ft import Heartbeat, Watchdog
 from repro_torch.models.model import init_params
+from repro_torch.analysis.retrace import guard_graph
 from repro_torch.optim import AdamWConfig
 from repro_torch.train.train_step import init_train_state, make_train_step
 
 _KEEP = np.empty(0)      # a restore template leaf: keep the state's own
+BATCH_KEYS = ("tokens", "labels")    # the loader's batch, in call order
+STEP_NAME = "train.step"
 
 
 class Trainer:
@@ -67,6 +82,22 @@ class Trainer:
                                        group="world" if self.compress
                                        else None)
         self.metrics_log = []
+
+    def direct_step(self, state, *batch):
+        """`step_fn` on a batch given as BATCH_KEYS' tensors, eager."""
+        return self.step_fn(state, dict(zip(BATCH_KEYS, batch)))
+
+    def _step_program(self):
+        """The step `run_loop` calls, `(state, tokens, labels) -> (state,
+        metrics)`: `direct_step` under a fresh `guard_graph` (the batch
+        copied into its static buffers, the state held; a budget of one
+        signature), or `direct_step` itself, eager, for int8_ef."""
+        if self.compress:
+            return self.direct_step
+        return guard_graph(self.direct_step, name=STEP_NAME,
+                           device=self.device,
+                           copy_argnums=range(1, 1 + len(BATCH_KEYS)),
+                           max_signatures=1)
 
     def init_state(self):
         params = init_params(self.cfg, self.plan, seed=self.run.seed,
@@ -102,12 +133,14 @@ class Trainer:
                                seq_len or 128,
                                seed=self.run.seed, start_step=start)
         step = start
+        program = self._step_program()
         try:
             while step < total:
-                batch = {k: torch.from_numpy(v).to(self.device)
-                         for k, v in next(loader).items()}
+                batch = next(loader)
+                batch = [torch.from_numpy(batch[k]).to(self.device)
+                         for k in BATCH_KEYS]
                 self.watchdog.step_start()
-                state, metrics = self.step_fn(state, batch)
+                state, metrics = program(state, *batch)
                 metrics = {k: float(v) for k, v in metrics.items()}
                 ev = self.watchdog.step_end(step)
                 if ev is not None:

@@ -1874,3 +1874,150 @@ def test_engine_prefill_replay_matches_the_direct_prefill(cuda, monkeypatch):
                           torch.as_tensor(prompts, device=cuda))
     assert torch.equal(seen[0], want) and torch.equal(seen[6], want)
     np.testing.assert_array_equal(got, again)
+
+
+# ---------------------------------------------------------------------------
+# the fused AdamW update (csrc/adamw.cu) and the Trainer's step as a CUDA
+# graph
+# ---------------------------------------------------------------------------
+
+# ragged last blocks (300, 1600), whole blocks, 1-d, 3-d, 0-d, a short row
+ADAMW_SHAPES = [(37, 300), (5, 256), (1600,), (3, 2, 1600), (), (7,)]
+
+
+def _adamw_start(dev, shape, moments, seed):
+    from repro_torch.kernels import adamw
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p, m = (torch.randn(shape, generator=gen, device=dev) * s
+            for s in (1.0, 1e-3))
+    v = torch.rand(shape, generator=gen, device=dev) * 1e-5
+    if moments == "int8":
+        return [p, adamw.encode_m(m), adamw.encode_v(v)]
+    return [p, m, v]
+
+
+def _adamw_steps(dev, shape, moments, clip, leaf_fn, start, steps=3,
+                 in_place=False):
+    """`steps` updates by `leaf_fn` of a copy of `start` (of `start`
+    itself with `in_place`); returns the updated leaf."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import bias_corrections
+    cfg = AdamWConfig(moment_dtype=moments)
+    st = start if in_place else pytree.tree_map(torch.clone, start)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for i in range(steps):
+        g = torch.randn(shape, generator=gen, device=dev) * 1e-2
+        lr, c1, c2 = bias_corrections(
+            torch.full((), i + 1, dtype=torch.int32, device=dev), cfg, 3e-3)
+        factor = (torch.full((), 0.5 + 0.1 * i, device=dev) if clip
+                  else None)
+        leaf_fn(st[0], g, st[1], st[2], lr=lr, c1=c1, c2=c2, cfg=cfg,
+                factor=factor)
+    return st
+
+
+@pytest.mark.parametrize("clip", [True, False])
+@pytest.mark.parametrize("moments", ["float32", "int8"])
+@pytest.mark.parametrize("shape", ADAMW_SHAPES, ids=str)
+def test_adamw_matches_plain(cuda, shape, moments, clip):
+    """Three in-place steps of the kernel and of the plain version on the
+    card: m and v (int8: codes, scales, EF bytes) bit for bit, params
+    within 1e-6 of |p| + 10 lr."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.kernels import adamw
+    start = _adamw_start(cuda, shape, moments, 3)
+    got = _adamw_steps(cuda, shape, moments, clip, adamw.adamw_leaf_cuda,
+                       start)
+    want = _adamw_steps(cuda, shape, moments, clip, adamw.adamw_leaf_plain,
+                        start)
+    for a, b in zip(pytree.tree_leaves(got[1:]),
+                    pytree.tree_leaves(want[1:])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    rel = ((got[0] - want[0]).abs() / (want[0].abs() + 3e-2)).max()
+    assert float(rel) <= 1e-6
+
+
+def test_adamw_reads_unaligned_f32_leaves(cuda):
+    """f32 leaves that start one float into their storage (no 16-byte
+    loads) update as aligned copies do."""
+    from repro_torch.kernels import adamw
+    start = _adamw_start(cuda, (1001,), "float32", 5)
+    views = []
+    for t in start:
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        buf[1:].copy_(t)
+        views.append(buf[1:])
+    assert views[0].data_ptr() % 16
+    got = _adamw_steps(cuda, (1001,), "float32", True, adamw.adamw_leaf_cuda,
+                       views, in_place=True)
+    want = _adamw_steps(cuda, (1001,), "float32", True,
+                        adamw.adamw_leaf_cuda, start)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_adamw_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import adamw
+    from repro_torch.optim import AdamWConfig
+    one = torch.ones((), device=cuda)
+    kw = dict(lr=one, c1=one, c2=one)
+    p = torch.ones(4, 300, device=cuda)
+    with pytest.raises(TypeError, match="p must be"):
+        adamw.adamw_leaf_cuda(p.bfloat16(), p, p, p, cfg=AdamWConfig(), **kw)
+    with pytest.raises(ValueError, match="m must be contiguous"):
+        adamw.adamw_leaf_cuda(p, p, p.t().contiguous().t(), p,
+                              cfg=AdamWConfig(), **kw)
+    cfg8 = AdamWConfig(moment_dtype="int8")
+    m, v = adamw.encode_m(p), adamw.encode_v(p)
+    with pytest.raises(TypeError, match="'ef'"):
+        adamw.adamw_leaf_cuda(p, p, {"q": m["q"], "scale": m["scale"]}, v,
+                              cfg=cfg8, **kw)
+    with pytest.raises(ValueError, match="m.q must be contiguous"):
+        adamw.adamw_leaf_cuda(p[:2], p[:2], m, v, cfg=cfg8, **kw)
+
+
+@pytest.mark.parametrize("moments", ["float32", "int8"])
+def test_trainer_replay_equals_the_direct_step(cuda, tmp_path, moments,
+                                               monkeypatch):
+    """The Trainer's step captured once and replayed against the same
+    run with the step called directly: every loss and the final state
+    bit for bit; one capture; the AdamW kernel launched once a leaf a
+    step, by the replays too."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.analysis.retrace import compile_count
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import BuildPlan
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer
+    from repro_torch.train import trainer as tr
+    cfg = get_smoke_config("qwen2-7b")
+
+    def run(where):
+        t = Trainer(cfg, BuildPlan(remat=False),
+                    RunConfig(arch="qwen2-7b", ckpt_dir=str(tmp_path / where),
+                              ckpt_every=100, total_steps=10,
+                              learning_rate=3e-3, warmup_steps=2,
+                              async_ckpt=False),
+                    adamw_cfg=AdamWConfig(moment_dtype=moments), device=cuda)
+        ops.reset_launch_counts()
+        out = t.run_loop(6, 32, 4)
+        return out, ops.launch_counts()["adamw"]
+
+    replayed, n = run("g")
+    assert compile_count(tr.STEP_NAME) == 1
+    leaves = len(pytree.tree_leaves(replayed["state"]["params"]))
+    assert n == 6 * leaves
+    monkeypatch.setattr(tr.Trainer, "_step_program",
+                        lambda self: self.direct_step)
+    direct, n = run("e")
+    assert n == 6 * leaves
+    assert [m["loss"] for m in replayed["metrics"]] == \
+        [m["loss"] for m in direct["metrics"]]
+    for a, b in zip(pytree.tree_leaves(replayed["state"]),
+                    pytree.tree_leaves(direct["state"])):
+        assert torch.equal(a, b)

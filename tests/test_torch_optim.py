@@ -18,6 +18,7 @@ from repro.optim import clip_by_global_norm as jclip
 from repro.optim import constant as jconstant
 from repro.optim import warmup_cosine as jwarmup_cosine
 from repro_torch.data import ShardedLoader, SyntheticLM, batches
+from repro_torch.kernels import adamw as kadamw
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                clip_by_global_norm, constant, warmup_cosine)
 from repro_torch.optim import adamw as tadamw
@@ -81,33 +82,33 @@ def test_q8_codec_equals_jax(shape):
     x = np.asarray(rs.standard_normal(shape) * 1e-3, dtype=np.float32)
     if x.size > 3:
         x.reshape(-1)[:3] = 0.0                  # exact zeros, a zero block
-    enc, jenc = tadamw._q8_encode(torch.from_numpy(x)), jadamw._q8_encode(
+    enc, jenc = kadamw.encode_m(torch.from_numpy(x)), jadamw._q8_encode(
         jnp.asarray(x))
     assert set(enc) == set(jenc) == {"q", "scale", "ef"}
     for k in enc:
         assert _np(enc[k]).dtype == np.asarray(jenc[k]).dtype, k
         assert np.array_equal(_np(enc[k]), np.asarray(jenc[k])), k
-    dec = tadamw._q8_decode(enc, shape)
+    dec = kadamw.decode_m(enc, shape)
     assert np.array_equal(_np(dec), np.asarray(jadamw._q8_decode(jenc,
                                                                  shape)))
     v = np.asarray(np.square(x) + np.float32(1e-12) * (rs.rand(*shape) > 0.5),
                    dtype=np.float32)
-    enc, jenc = (tadamw._q8_encode_pow(torch.from_numpy(v)),
+    enc, jenc = (kadamw.encode_v(torch.from_numpy(v)),
                  jadamw._q8_encode_pow(jnp.asarray(v)))
     assert set(enc) == set(jenc) == {"q", "scale"}
     for k in enc:
         assert np.array_equal(_np(enc[k]), np.asarray(jenc[k])), k
-    assert np.array_equal(_np(tadamw._q8_decode_pow(enc, shape)),
+    assert np.array_equal(_np(kadamw.decode_v(enc, shape)),
                           np.asarray(jadamw._q8_decode_pow(jenc, shape)))
 
 
 def test_pack2_equals_jax():
     codes = np.random.RandomState(0).randint(0, 4, (6, 512)).astype(np.uint8)
-    packed = tadamw._pack2(torch.from_numpy(codes))
+    packed = kadamw.pack2(torch.from_numpy(codes))
     assert packed.dtype == torch.uint8
     assert np.array_equal(_np(packed),
                           np.asarray(jadamw._pack2(jnp.asarray(codes))))
-    assert np.array_equal(_np(tadamw._unpack2(packed)), codes)
+    assert np.array_equal(_np(kadamw.unpack2(packed)), codes)
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +200,8 @@ def test_adamw_update_matches_jax(moment_dtype):
             if moment_dtype == "int8":
                 assert np.abs(_np(a["q"]).astype(int)
                               - np.asarray(b["q"]).astype(int)).max() <= 1
-                dec = tadamw._moment_read(a, "int8", shape, signed)
+                dec = (kadamw.decode_m if signed else kadamw.decode_v)(
+                    a, shape)
                 jdec = jadamw._moment_read(b, "int8", shape, signed)
             else:
                 dec, jdec = a, b
@@ -241,20 +243,33 @@ def test_owned_update_in_slabs_equals_the_whole_leaf(moment_dtype,
     """`adamw_update_` updates a leaf of more than CHUNK entries a slab of
     rows at a time (a ragged last slab included): three steps give the
     params, moments, scales and EF planes of the whole-leaf
-    `adamw_update` bit for bit."""
-    monkeypatch.setattr(tadamw, "CHUNK", 1000)   # slabs of 3 rows of 300
+    `adamw_update` (the default CHUNK, above every leaf here) bit for
+    bit."""
     rs = np.random.RandomState(6)
     cfg = AdamWConfig(moment_dtype=moment_dtype)
     p = _torch_tree(_tree(rs))
+    assert max(x.numel() for x in torch.utils._pytree.tree_leaves(p)) > 1000
     want_p, want_s = p, adamw_init(p, cfg)
     got_p = torch.utils._pytree.tree_map(torch.clone, p)
     got_s = adamw_init(got_p, cfg)
+    writes = []                                  # (p, m, v) writes a step
+    write_into = kadamw._write_into
+    monkeypatch.setattr(kadamw, "_write_into",
+                        lambda old, new: (writes.append(1),
+                                          write_into(old, new)))
     for _ in range(3):
         g = _torch_tree(_tree(rs))
         want_p, want_s = adamw_update(g, want_s, want_p, cfg,
                                       torch.tensor(1e-2))
-        got_p, got_s = tadamw.adamw_update_(g, got_s, got_p, cfg,
-                                            torch.tensor(1e-2))
+        assert len(writes) == 3 * 3              # three whole leaves
+        writes.clear()
+        # the slab loop is the plain leaf update's (kernels/adamw.py)
+        with monkeypatch.context() as mp:
+            mp.setattr(kadamw, "CHUNK", 1000)    # slabs of 3 rows of 300
+            got_p, got_s = tadamw.adamw_update_(g, got_s, got_p, cfg,
+                                                torch.tensor(1e-2))
+        assert len(writes) == 3 * (6 + 1 + 1)    # 16 rows in 6 slabs
+        writes.clear()
     for a, b in zip(torch.utils._pytree.tree_leaves((got_p, got_s)),
                     torch.utils._pytree.tree_leaves((want_p, want_s))):
         assert torch.equal(a, b)

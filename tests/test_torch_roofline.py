@@ -390,6 +390,17 @@ BOUND_ROWS = [
     ("paged 4-bit musicgen", kc.paged_attention(8, 32, 32, 64, 16, 32, 256,
                                                 1090, 1090 * 16, kv_bits=4),
      "0.0108"),
+    # the AdamW update at qwen's w_down, granite's expert stack and
+    # hymba's w_down (rows of 1600 coded as 1792: 7 blocks of 256)
+    ("adamw qwen", kc.adamw_update(18944 * 3584, "float32"), "0.5675"),
+    ("adamw qwen int8", kc.adamw_update(18944 * 3584, "int8"), "0.3357"),
+    ("adamw granite", kc.adamw_update(40 * 1536 * 512, "float32"),
+     "0.2629"),
+    ("adamw granite int8", kc.adamw_update(40 * 1536 * 512, "int8"),
+     "0.1555"),
+    ("adamw hymba", kc.adamw_update(5504 * 1600, "float32"), "0.0736"),
+    ("adamw hymba int8", kc.adamw_update(5504 * 1600, "int8", 5504 * 1792),
+     "0.0450"),
     ("wkv 8x128", kc.wkv(8, 128, 64, 64, 4096), "0.0301"),
     ("wkv 8x1", kc.wkv(8, 1, 64, 64, 4096), "0.0052"),
     ("wkv 1x1000", kc.wkv(1, 1000, 64, 64, 4096), "0.0251"),
