@@ -17,11 +17,12 @@ no result line):
    the kernel) and bf16 X (the bf16 decode and serve paths) at M=1, 8 and
    1024, bounded by bytes or bf16 products. flash_attention at B=8, T=128
    (quantize and decode) and B=1, T=512 (serve prefill) in bf16, and
-   checked in f32;
+   in f32 (the CUDA-core kernel) at B=8, T=128 beside SDPA at f32;
    the two paged-attention kernels at the serve shapes (8 slots, 28/4
    heads, head_dim 128, 16-token pages, up to 4096 tokens a slot): bf16
    pages and, for int8 / 4-bit codes, the kernel the wrapper's dispatch
-   rule names (printed: tensor cores for bf16 q, CUDA cores for f32 q).
+   rule names (printed: tensor cores for bf16 q, CUDA cores for f32 q);
+   f32 q over f32 pages timed too.
 4. quantize — qwen2-7b at full width, n_layers cut 28 -> 2 (the only
    reduction): calibration 8x128, comq_blocked, 4-bit per-channel, greedy,
    3 sweeps, lambda 0.9; the launcher's JSON summary.
@@ -245,9 +246,9 @@ no result line):
    (qwen B=8 T=128 and B=1 T=512, granite's group 3 at hd 64, hymba's
    window of 1024 at T=2048, musicgen's group 1, the VLM's non-causal
    Tq=128 over Tk=1601, vit's non-causal 197), bf16 and f32: dQ, dK, dV
-   and the forward's LSE gated; bf16 timed beside its bound, the plain
-   backward and SDPA's autograd backward (a yardstick; graph replay, as
-   the kernel's, and eager), and the forward
+   and the forward's LSE gated; both timed beside the bound, the plain
+   backward and SDPA's autograd backward at the same dtype (a yardstick;
+   graph replay, as the kernel's, and eager), and the bf16 forward
    with and without its LSE write, beside SDPA's flash forward that also
    returns the LSE (K/V expanded to H heads); then the fused AdamW update
    (csrc/adamw.cu) against its plain version at qwen's, granite's and
@@ -256,7 +257,13 @@ no result line):
    codes, scales and EF bytes) bit for bit, params within 1e-6 of |p| +
    10 lr; timed beside its bound, the plain version and
    torch._fused_adamw_ over the same f32 leaf (a yardstick the port never
-   calls). (b) one step's loss and per-leaf
+   calls); then the int8 path's divisions (a corrected multiply by a
+   reciprocal taken once) against __fdiv_rn over all 2^32 numerators at
+   each of ~920 divisors (3, 127, 255; c1 and c2 of steps 1-1000; block
+   scales: all-ones mantissas, powers of two, the range's edges,
+   absmax / 127 and / 3, 240 random): the update's bit for bit, the
+   encode's unless both are below 2^-40, 0 mismatches or the phase
+   fails. (b) one step's loss and per-leaf
    gradients (make_train_step's own gradient function, 8 x 128 from
    SyntheticLM), kernels against plain versions from the same params, at
    bf16 and f32 compute: every leaf must have a finite nonzero gradient,
@@ -689,7 +696,8 @@ def check_flash(torch, flash, dev, results, heads=(28, 4, 128), tag=(),
     """bf16 (the main path, tensor cores) at `shapes` ((B, T), or (B, Tq,
     Tk) for Tq != Tk: by default the quantize/decode shape B=8, T=128 and
     the serve-prefill shape B=1, T=512), each timed; then the f32
-    (CUDA-core) kernel at the first shape, checked only. `heads` is (H,
+    (CUDA-core) kernel at the first shape, checked and timed beside SDPA
+    at f32. `heads` is (H,
     KV, hd); `window` the sliding window (0: full causal); `causal=False`
     attends every query to every key (the encoder, the VLM's cross
     layers); `head_map` a tensor-parallel plan's uneven map (a host
@@ -769,11 +777,33 @@ def check_flash(torch, flash, dev, results, heads=(28, 4, 128), tag=(),
     torch.cuda.synchronize()
     diff = (got - want).abs()
     err = float(diff.max())
+    t = Timing(torch, lambda i: flash.flash_attention_cuda(
+        q, k, v, causal=causal, window=window, **hm), 20)
+    plain_ms = cuda_ms(torch, lambda i: flash.flash_attention_plain(
+        q, k, v, causal=causal, window=window, **hm), 5)
+    kl, vl = ((expand_heads(torch, x, head_map) for x in (k, v))
+              if head_map is not None else (k, v))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, kl, vl))
+    mask = flash.attention_mask(Tq, Tk, True, window, dev) if window else None
+    try:
+        lib = Timing(torch, lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=head_map is None), 20).ms
+    except TypeError:   # torch without enable_gqa
+        lib = None
+    bms, by = kc.bound_ms(kc.flash_attention_of(q, k, causal=causal,
+                                                window=window))
     say(f"kernel flash_attention B={B} Tq={Tq} Tk={Tk} H={H} KV={KV} "
         f"hd={hd} f32 {kind}: max|d| {err:.3e} (tol {FLASH_F32_TOL}"
-        f"*|want|+{FLASH_F32_TOL})")
+        f"*|want|+{FLASH_F32_TOL}), ms {t}, plain_ms {plain_ms:.4f}, "
+        f"bound_ms {bms:.4f} ({by}), library_ms "
+        f"{'null' if lib is None else f'{lib:.4f}'} (SDPA at f32, as the "
+        f"bf16 row's)")
     check(bool((diff <= FLASH_F32_TOL * want.abs() + FLASH_F32_TOL).all()),
           f"flash_attention f32 disagrees with its plain version ({err})")
+    results[("flash_attention_f32", B, Tq, Tk) + tag] = dict(
+        ms=t.ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=lib, max_abs_err=err)
 
 
 def qwen_qmm_cases(torch):
@@ -850,7 +880,8 @@ def check_paged(torch, paged, dev, results, heads=(28, 4, 128), tag=(),
                 head_map=None):
     """Both paged-attention kernels against their plain versions at the
     serve shapes: bf16 (main path) and f32 q, window 0 and 1024, bf16 /
-    f32 pages and int8 / 4-bit codes; times at bf16, window 0. `heads` is
+    f32 pages and int8 / 4-bit codes; times at window 0 for bf16 q and
+    for f32 q over f32 pages. `heads` is
     (H, KV, hd); `head_map` a tensor-parallel plan's uneven map (a host
     tuple); `tag` extends the result keys."""
     import torch.nn.functional as F
@@ -939,8 +970,10 @@ def check_paged(torch, paged, dev, results, heads=(28, 4, 128), tag=(),
                     f"slot exact 0: {zero_ok}")
                 check(ok and zero_ok, f"{label} disagrees with its plain "
                       f"version ({err}, zero slot {zero_ok})")
-                if dtype != torch.bfloat16 or window != 0:
+                # timed: bf16 q, and the f32 path over f32 pages; window 0
+                if window != 0 or (dtype != torch.bfloat16 and kv_bits):
                     continue
+                f32 = dtype != torch.bfloat16
                 # rotate pool copies past the 50 MB L2, as a decode step
                 # finds the pages
                 pool_bytes = 2 * kpp.numel() * kpp.element_size()
@@ -992,7 +1025,8 @@ def check_paged(torch, paged, dev, results, heads=(28, 4, 128), tag=(),
                     f"bound_ms {bms:.4f} ({by}; {pages} live pages, "
                     f"{cost.bytes / 1e6:.2f} MB), library_ms {lib} "
                     f"({lib_note})")
-                results[(name, kv_bits) + tag] = dict(
+                results[(name, kv_bits) + (("float32",) if f32 else ())
+                        + tag] = dict(
                     ms=t.ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                     library_ms=lib.ms if lib else None, max_abs_err=err)
     r = {k: results[("paged_attention_quant", k) + tag]["ms"]
@@ -4302,13 +4336,18 @@ TRAIN_PATH = ("flash_attention", "flash_attention_bwd")
 # (a) the fused AdamW update (csrc/adamw.cu) against its plain version at
 # the families' leaf shapes, f32 and int8 moments: (tag, leaf shape) —
 # qwen's w_down and a norm, granite's expert stack, hymba's w_down (last
-# dim 1600: a ragged last block of 64) and its norm, and a 0-d leaf
+# dim 1600: a ragged last block of 64) and its norm, a 0-d leaf, and
+# "tiny" inputs at hymba's width (`adamw_case_scales`: blocks whose update
+# and encode take the int8 kernel's IEEE-division paths)
 ADAMW_CASES = (("qwen", (18944, 3584)), ("qwen", (3584,)),
                ("granite", (40, 1536, 512)), ("hymba", (5504, 1600)),
-               ("hymba", (1600,)), ("0-d", ()))
+               ("hymba", (1600,)), ("0-d", ()), ("tiny", (64, 1600)))
 ADAMW_ROW = ("qwen", (18944, 3584))     # the kernels line's shape
 ADAMW_P_REL = 1e-6     # params: max |d| / (|p| + 10 lr), as (f) holds them
 ADAMW_ITERS = 10
+# (a): the division probe's bias corrections, steps 1 to this (from step
+# ~340 on, c1 and c2 of the default betas are exactly 1)
+ADAMW_PROBE_STEPS = 1000
 # (g): one family a row (arch, layers or None for the whole model, batch,
 # sequence, its BWD_CASES tag): full width, depth cut, FAMILY_STEPS train
 # steps counted and timed, then (b)'s gates at bf16 compute (the step's
@@ -4322,6 +4361,27 @@ FAMILY_TRAIN = (("granite-moe-3b-a800m", 2, 8, PROMPT, "granite"),
 FAMILY_STEPS = 3         # the first warms up; walls are read from the rest
 TRAIN_BUDGET_S = 270     # phase 19's share of the script's time
 TRAIN_EXTRA = ()         # more launch.train flags (a CPU dry run: --device)
+
+
+def adamw_case_scales(torch, tag, shape, dev):
+    """(g, m, v) scales of (a)'s inputs, element by element: 1e-2, 1e-3,
+    1e-5; for the "tiny" case, each third 256-block (rows and blocks in
+    order, from the first) takes g 1e-20, m and v 1e-30 (v numerators
+    under 2^-100, subnormal g^2, scales under 2^-60: the block's update
+    is taken again with IEEE divisions, and its encode with them), and
+    the next g and m 1e-18 (an m absmax under 1e-17: IEEE divisions in
+    its encode only)."""
+    d = shape[-1] if shape else 1
+    rows = math.prod(shape) // d if shape else 1
+    nb = -(-d // 256)
+    kind = (torch.arange(rows, device=dev)[:, None] * nb
+            + torch.arange(d, device=dev)[None] // 256) % 3
+    scales = torch.tensor([1e-2, 1e-3, 1e-5], device=dev).expand(
+        rows, d, 3).clone()
+    if tag == "tiny":
+        scales[kind == 0] = torch.tensor([1e-20, 1e-30, 1e-30], device=dev)
+        scales[kind == 1] = torch.tensor([1e-18, 1e-18, 1e-5], device=dev)
+    return [scales[..., i].reshape(shape) for i in range(3)]
 
 
 def check_adamw(torch, dev, results, card):
@@ -4343,9 +4403,10 @@ def check_adamw(torch, dev, results, card):
     lr, c1, c2 = bias_corrections(step, AdamWConfig(), FIT_LR)
     factor = torch.full((), 0.625, dtype=torch.float32, device=dev)
     for tag, shape in ADAMW_CASES:
+        sg, sm, sv = adamw_case_scales(torch, tag, shape, dev)
         p, g, m = (torch.randn(shape, generator=gen, device=dev) * sc
-                   for sc in (1.0, 1e-2, 1e-3))
-        v = torch.rand(shape, generator=gen, device=dev) * 1e-5
+                   for sc in (1.0, sg, sm))
+        v = torch.rand(shape, generator=gen, device=dev) * sv
         for moments in ("float32", "int8"):
             cfg = AdamWConfig(moment_dtype=moments)
             start = (p, m, v) if moments == "float32" else (
@@ -4390,16 +4451,92 @@ def check_adamw(torch, dev, results, card):
         del p, g, m, v
 
 
+def adamw_probe_divisors(torch, dev):
+    """{set name: f32 divisors} for `check_adamw_division`: the int8
+    path's constant divisors; the bias corrections c1 and c2 of steps
+    1-ADAMW_PROBE_STEPS as the step computes them on the card (from
+    step ~340 on, both are exactly 1.0 at the default betas, which the
+    set holds); and block-scale divisors: mantissas of all ones and
+    powers of two across the exponents, the smallest normal scales and
+    the edges of the corrected multiply's divisor range [2^-100, 2^100],
+    absmax / 127 and its / 3 for sampled absmaxes, and random divisors
+    over every exponent (16 of them negative)."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import bias_corrections
+
+    def as_f32(bits):
+        return torch.tensor(bits, dtype=torch.int64).to(torch.int32).view(
+            torch.float32)
+
+    steps = torch.arange(1, ADAMW_PROBE_STEPS + 1, dtype=torch.int32,
+                         device=dev)
+    _, c1, c2 = bias_corrections(steps, AdamWConfig(), FIT_LR)
+    gen = torch.Generator().manual_seed(33)
+    ones = as_f32([(e << 23) | 0x7FFFFF for e in range(1, 255, 3)])
+    twos = as_f32([e << 23 for e in range(1, 255, 3)])
+    edges = as_f32([0x00800000, 0x00800001, 0x00FFFFFF, 0x01000000,
+                    0x0D7FFFFF, 0x0D800000, 0x0D800001, 0x717FFFFF,
+                    0x71800000, 0x71800001, 0x7F7FFFFF])
+    absmax = torch.exp2(torch.rand(48, generator=gen) * 120 - 80) * (
+        1 + torch.rand(48, generator=gen))
+    by127 = absmax / torch.tensor(127.0)
+    expo = torch.randint(1, 255, (240,), generator=gen)
+    mant = torch.randint(0, 1 << 23, (240,), generator=gen)
+    rand = as_f32(((expo << 23) | mant).tolist())
+    rand[:16] = -rand[:16]
+    return {"constants (3, 127, 255)": torch.tensor([3.0, 127.0, 255.0]),
+            f"c1, c2 of steps 1-{ADAMW_PROBE_STEPS}":
+                torch.unique(torch.cat([c1, c2]).cpu()),
+            "block scales (all-ones mantissas, powers of two, edges, "
+            "absmax/127 and /3, random)":
+                torch.unique(torch.cat([ones, twos, edges, by127,
+                                        by127 / torch.tensor(3.0), rand]))}
+
+
+def check_adamw_division(torch, dev, results, card):
+    """(a) The int8 path's divisions (csrc/adamw.cu: a corrected multiply
+    by a reciprocal taken once) against __fdiv_rn on the card, for every
+    f32 numerator (all 2^32 bit patterns) at each divisor of
+    `adamw_probe_divisors`, in both of `adamw.div_probe`'s modes: the
+    update's c1 / c2 quotients bit for bit; the encode's where a block
+    scale admits it, bit for bit unless both are below 2^-40 (codes 0).
+    One mismatch fails the phase."""
+    from repro_torch.kernels import adamw as kadamw
+    total = 0
+    for name, divisors in adamw_probe_divisors(torch, dev).items():
+        divisors = divisors.to(dev)
+        for mode in kadamw.PROBE_MODES:
+            t0 = time.time()
+            found = [kadamw.div_probe(chunk, mode)
+                     for chunk in divisors.split(64)]
+            bad = torch.cat([b for b, _ in found]).cpu()
+            first = torch.cat([f for _, f in found]).cpu()
+            n_bad = int(bad.sum())
+            total += n_bad
+            where = [(float(d), hex(int(f))) for d, f, b in zip(
+                divisors.cpu(), first, bad) if int(b)][:5]
+            say(f"training (a) adamw division probe ({mode}), {name}: "
+                f"{divisors.numel()} divisors x 2^32 numerators, {n_bad} "
+                f"mismatches with __fdiv_rn"
+                + (f" (divisor, least numerator's bits: {where})" if where
+                   else "") + f", {time.time() - t0:.1f} s ({card})")
+            results[("adamw_probe", name, mode)] = dict(
+                divisors=divisors.numel(), mismatches=n_bad)
+    check(total == 0, f"(a) the int8 path's division differs from "
+          f"__fdiv_rn for {total} (divisor, numerator) pairs")
+
+
 def check_flash_bwd(torch, flash, dev, results, card, cases=BWD_CASES,
                     head_map=None):
     """(a) The backward kernel against the plain version's autograd at the
     families' shapes, bf16 and f32: dQ, dK, dV and the forward's LSE under
-    BWD_TOL. bf16 is timed (CUDA events, graph replay) beside its bound,
+    BWD_TOL. Both are timed (CUDA events, graph replay) beside the bound,
     the plain backward and the autograd backward of
-    F.scaled_dot_product_attention (a yardstick the port never calls;
-    graph replay, and eager), with the split plan of its dK/dV kernel
-    (flash.plan_bwd); at qwen's training shape the forward is timed with
-    and without its LSE write. `head_map` (a host tuple) maps the query
+    F.scaled_dot_product_attention at the same dtype (a yardstick the
+    port never calls; graph replay, and eager); bf16 with the split plan
+    of its dK/dV kernel (flash.plan_bwd); at qwen's training shape the
+    bf16 forward is timed with and without its LSE write. `head_map` (a
+    host tuple) maps the query
     heads of every case unevenly (SDPA then runs over K/V expanded by
     it, the expansion outside the timed window)."""
     import torch.nn.functional as F
@@ -4449,84 +4586,87 @@ def check_flash_bwd(torch, flash, dev, results, card, cases=BWD_CASES,
                    f"KV={KV} hd={hd} {label} {kind} ({tag}): max|d| dq "
                    f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} lse "
                    f"{lse_err:.3e} (tol {rel_max}*max|want|+{rel}*|want|)")
-            if dt == torch.bfloat16:
-                t = Timing(torch, lambda i: flash.flash_attention_bwd_cuda(
-                    q, k, v, do, lse, causal=causal, window=window, **hm),
-                    20)
-                plain_ms = cuda_ms(torch, lambda i: torch.autograd.grad(
-                    out, leaves, do, retain_graph=True), 5)
-                # SDPA's backward replayed from a graph, as the kernel is
-                # (its eager CUDA-event time is mostly the host's)
-                lib, lib_eager = None, None
-                lib_note = "SDPA backward (autograd), GQA"
-                kl, vl = k, v
-                if head_map is not None:
-                    kl, vl = (expand_heads(torch, x, head_map)
-                              for x in (k, v))
-                    lib_note = ("SDPA backward (autograd) over K/V "
-                                "expanded by the map beforehand")
-                qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True)
-                              for x in (q, kl, vl))
-                mask = (flash.attention_mask(Tq, Tk, True, window, dev)
-                        if window else None)
-                dot = do.transpose(1, 2)
+            bf16 = dt == torch.bfloat16      # f32: the CUDA-core pair
+            t = Timing(torch, lambda i: flash.flash_attention_bwd_cuda(
+                q, k, v, do, lse, causal=causal, window=window, **hm),
+                20 if bf16 else 10)
+            plain_ms = cuda_ms(torch, lambda i: torch.autograd.grad(
+                out, leaves, do, retain_graph=True), 5)
+            # SDPA's backward replayed from a graph, as the kernel is
+            # (its eager CUDA-event time is mostly the host's)
+            lib, lib_eager = None, None
+            lib_note = "SDPA backward (autograd), GQA"
+            kl, vl = k, v
+            if head_map is not None:
+                kl, vl = (expand_heads(torch, x, head_map)
+                          for x in (k, v))
+                lib_note = ("SDPA backward (autograd) over K/V "
+                            "expanded by the map beforehand")
+            qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True)
+                          for x in (q, kl, vl))
+            mask = (flash.attention_mask(Tq, Tk, True, window, dev)
+                    if window else None)
+            dot = do.transpose(1, 2)
 
-                def sdpa():
-                    return F.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=mask,
-                        is_causal=causal and mask is None,
-                        enable_gqa=head_map is None)
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask,
+                    is_causal=causal and mask is None,
+                    enable_gqa=head_map is None)
 
+            try:
+                ref = sdpa()
+                lib_eager = cuda_ms(torch, lambda i: torch.autograd.grad(
+                    ref, (qt, kt, vt), dot, retain_graph=True), 10)
+                del ref
+                lib, how = autograd_graph_ms(torch, sdpa, (qt, kt, vt),
+                                             dot, 10)
+                lib_note += f", {how}"
+            except (TypeError, RuntimeError) as e:
+                lib_note = f"none ({type(e).__name__}: {e})"
+            # reads q, dO, k, v and the LSE, writes dQ, dK, dV (bf16)
+            bms, by = kc.bound_ms(kc.flash_attention_bwd_of(
+                q, k, causal=causal, window=window))
+            group = (0 if head_map is None
+                     else headmap.max_group(head_map, H, KV))
+            plan = flash.plan_bwd(B, Tq, Tk, H, KV, hd,
+                                  build.sm_count(dev.index or 0), group)
+            fmt = lambda x: "null" if x is None else f"{x:.4f}"
+            if bf16:      # the split plan is the tensor-core kernels'
+                msg += (f", nsplit {plan.nsplit}, dkdv blocks "
+                        f"{plan.blocks}")
+            msg += (f", ms {t}, plain_ms {plain_ms:.4f} "
+                    f"(eager), bound_ms {bms:.4f} ({by}), library_ms "
+                    f"{fmt(lib)} ({lib_note}; eager {fmt(lib_eager)}) "
+                    f"({card})")
+            results[("flash_attention_bwd" + ("" if bf16 else "_f32"),
+                     B, Tq, Tk, tag)] = dict(
+                ms=t.ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib, max_abs_err=max(errs))
+            if bf16 and tag == "qwen" and Tq == PROMPT:
+                with_lse = Timing(torch, lambda i: flash._forward(
+                    q, k, v, True, 0, with_lse=True), 50)
+                without = Timing(torch, lambda i: flash._forward(
+                    q, k, v, True, 0, with_lse=False), 50)
+                # the yardstick that also writes the log-sum-exp:
+                # SDPA's flash forward over K/V expanded to H heads
+                # (it takes no GQA), timed with its expansion outside
+                qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (
+                    q, k.repeat_interleave(H // KV, dim=2),
+                    v.repeat_interleave(H // KV, dim=2)))
+                sdpa = torch.ops.aten._scaled_dot_product_flash_attention
                 try:
-                    ref = sdpa()
-                    lib_eager = cuda_ms(torch, lambda i: torch.autograd.grad(
-                        ref, (qt, kt, vt), dot, retain_graph=True), 10)
-                    del ref
-                    lib, how = autograd_graph_ms(torch, sdpa, (qt, kt, vt),
-                                                 dot, 10)
-                    lib_note += f", {how}"
-                except (TypeError, RuntimeError) as e:
-                    lib_note = f"none ({type(e).__name__}: {e})"
-                # reads q, dO, k, v and the LSE, writes dQ, dK, dV (bf16)
-                bms, by = kc.bound_ms(kc.flash_attention_bwd_of(
-                    q, k, causal=causal, window=window))
-                group = (0 if head_map is None
-                         else headmap.max_group(head_map, H, KV))
-                plan = flash.plan_bwd(B, Tq, Tk, H, KV, hd,
-                                      build.sm_count(dev.index or 0), group)
-                fmt = lambda x: "null" if x is None else f"{x:.4f}"
-                msg += (f", nsplit {plan.nsplit}, dkdv blocks {plan.blocks}"
-                        f", ms {t}, plain_ms {plain_ms:.4f} "
-                        f"(eager), bound_ms {bms:.4f} ({by}), library_ms "
-                        f"{fmt(lib)} ({lib_note}; eager {fmt(lib_eager)}) "
-                        f"({card})")
-                results[("flash_attention_bwd", B, Tq, Tk, tag)] = dict(
-                    ms=t.ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                    library_ms=lib, max_abs_err=max(errs))
-                if tag == "qwen" and Tq == PROMPT:
-                    with_lse = Timing(torch, lambda i: flash._forward(
-                        q, k, v, True, 0, with_lse=True), 50)
-                    without = Timing(torch, lambda i: flash._forward(
-                        q, k, v, True, 0, with_lse=False), 50)
-                    # the yardstick that also writes the log-sum-exp:
-                    # SDPA's flash forward over K/V expanded to H heads
-                    # (it takes no GQA), timed with its expansion outside
-                    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (
-                        q, k.repeat_interleave(H // KV, dim=2),
-                        v.repeat_interleave(H // KV, dim=2)))
-                    sdpa = torch.ops.aten._scaled_dot_product_flash_attention
-                    try:
-                        lse_lib = Timing(torch, lambda i: sdpa(
-                            qh, kh, vh, 0.0, True), 50)
-                    except (RuntimeError, TypeError) as e:
-                        lse_lib = f"none ({type(e).__name__}: {e})"
-                    say(f"flash_attention forward B={B} T={Tq} bf16: with "
-                        f"LSE {with_lse}, without {without}; library "
-                        f"(aten._scaled_dot_product_flash_attention, LSE "
-                        f"out, K/V expanded to {H} heads) {lse_lib} "
-                        f"({card})")
-                    results[("flash_attention_lse", B, Tq)] = with_lse.ms
-                    del qh, kh, vh
+                    lse_lib = Timing(torch, lambda i: sdpa(
+                        qh, kh, vh, 0.0, True), 50)
+                except (RuntimeError, TypeError) as e:
+                    lse_lib = f"none ({type(e).__name__}: {e})"
+                say(f"flash_attention forward B={B} T={Tq} bf16: with "
+                    f"LSE {with_lse}, without {without}; library "
+                    f"(aten._scaled_dot_product_flash_attention, LSE "
+                    f"out, K/V expanded to {H} heads) {lse_lib} "
+                    f"({card})")
+                results[("flash_attention_lse", B, Tq)] = with_lse.ms
+                del qh, kh, vh
             say(msg)
             check(ok, f"flash_attention_bwd ({tag}, {label}) disagrees with "
                   f"the plain version's autograd: {errs}, lse {lse_err}")
@@ -5374,6 +5514,7 @@ def phase_training(torch, dev, ops, kernels, results, card):
     # (a) the backward kernel, and the fused AdamW update
     check_flash_bwd(torch, flash, dev, results, card)
     check_adamw(torch, dev, results, card)
+    check_adamw_division(torch, dev, results, card)
     t_part = took("(a)", t_phase)
 
     # (b) one step, kernels against the plain versions from the same params

@@ -18,15 +18,20 @@ round half to even (`torch.round`), divisions are true divisions on every
 device (`_div`) and roots correctly rounded (`_sqrt`), so the CPU's codes
 are the card's.
 
-Tolerance: the kernel performs the plain version's operations one for
-one, each rounded once (csrc/adamw.cu), so on one card m, v and the codes,
-scales and EF bytes are bit-identical to the plain version's; p is held
-within 1e-6 of |p| + 10 lr (the f32 path's square root is PyTorch's there).
+Tolerance: the kernel rounds as the plain version does, operation for
+operation (csrc/adamw.cu), so on one card m, v and the codes, scales and
+EF bytes are bit-identical to the plain version's; p is held within 1e-6
+of |p| + 10 lr (the f32 path's square root is PyTorch's there). The int8
+path divides by a divisor shared across a launch or a block as a
+corrected multiply by its reciprocal, exact where every intermediate is
+normal and __fdiv_rn elsewhere; `div_probe` counts where it would differ
+from the IEEE quotient.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import functools
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -45,7 +50,16 @@ CHUNK = 1 << 24
 _COMMON = [ctypes.c_void_p] * 4 + [ctypes.c_float] * 6 + [ctypes.c_void_p]
 _F32_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int]
                  + _COMMON)
-_Q8_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 3 + _COMMON
+_Q8_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 3
+                + _COMMON[:-1] + [ctypes.c_void_p, ctypes.c_longlong,
+                                  ctypes.c_void_p])
+_PROBE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+# the int8 kernel's thread blocks (8 warps, one (row, block) pair a warp
+# at a time) an SM: its __launch_bounds__ minimum, so a grid of this many
+# an SM is resident at once
+Q8_BLOCKS_PER_SM = 3
+Q8_WARPS = 8
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +152,36 @@ def decode_v(enc: Dict[str, Tensor], shape) -> Tensor:
     x = (frac * enc["scale"][..., None]).reshape(q.shape)
     d = shape[-1] if len(shape) else 1
     return x[..., :d].reshape(shape)
+
+
+def _v_codes(frac: Tensor) -> Tensor:
+    """encode_v's code of each f32 frac in [0, 1] (each in a block whose
+    max is 1, so the quotient is frac itself)."""
+    x = torch.zeros(frac.numel(), BLOCK)
+    x[:, 0] = 1.0
+    x[:, 1] = frac
+    return encode_v(x)["q"][:, 1].long()
+
+
+@functools.lru_cache(maxsize=None)
+def v_code_thresholds() -> Tuple[float, ...]:
+    """T_1..T_255: the least f32 frac in [0, 1] whose encode_v code is k
+    (the code is monotone in frac), found by bisection over f32 bit
+    patterns with encode_v itself. The kernel's v encode counts the
+    thresholds a frac reaches."""
+    k = torch.arange(1, 256)
+    lo = torch.zeros(255, dtype=torch.int64)                # code < k
+    hi = torch.full((255,), 0x3F800000, dtype=torch.int64)  # 1.0: code 255
+    while bool((hi - lo > 1).any()):
+        mid = (lo + hi) // 2
+        reach = _v_codes(mid.to(torch.int32).view(torch.float32)) >= k
+        hi, lo = torch.where(reach, mid, hi), torch.where(reach, lo, mid)
+    return tuple(hi.to(torch.int32).view(torch.float32).tolist())
+
+
+@functools.lru_cache(maxsize=None)
+def _thresholds_arg():
+    return (ctypes.c_float * 255)(*v_code_thresholds())
 
 
 def _moment_read(m, dtype: str, shape, signed: bool = True) -> Tensor:
@@ -268,8 +312,43 @@ def adamw_leaf_cuda(p: Tensor, g: Tensor, m_enc, v_enc, *, lr: Tensor,
                 _checked("v.q", v_enc["q"], dev, torch.uint8, codes, 8),
                 _checked("v.scale", v_enc["scale"], dev, torch.float32,
                          blocks)]
+        grid = min(-(-rows * nb // Q8_WARPS),
+                   build.sm_count(dev.index) * Q8_BLOCKS_PER_SM)
         fn = build.load(NAME, "adamw_q8", _Q8_ARGTYPES)
         rc = fn(p.data_ptr(), g.data_ptr(), *ptrs, rows, d, nb, *scalars,
-                *hyper, stream)
+                *hyper, _thresholds_arg(), grid, stream)
     build.check(NAME, rc)
     launches += 1
+
+
+PROBE_MODES = ("update", "encode")
+
+
+def div_probe(divisors: Tensor, mode: str = "update"):
+    """The int8 path's division against __fdiv_rn on the card, for each
+    f32 divisor over all 2^32 f32 numerators. `mode` "update": the c1 /
+    c2 quotients (a corrected multiply in range, __fdiv_rn out of it),
+    mismatched where any bit differs; "encode": the codes' quotients (the
+    corrected multiply unchecked, taken for a block scale in [2^-60,
+    2^100]; other divisors are not probed) over the numerators within 256
+    times the divisor (the codes' never pass 128 times their scale) and
+    NaN, mismatched where any bit differs unless both are below 2^-40
+    (codes 0). Returns (mismatches (n,) int64, the least mismatching
+    numerator's bits (n,) int64, -1 where none), on the divisors' card.
+    Not a main-path launch: it adds nothing to `launches`."""
+    dev = divisors.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"adamw division probe needs a CUDA tensor, got "
+                           f"{dev}")
+    n = divisors.numel()
+    if not 0 < n <= 65535 or mode not in PROBE_MODES:
+        raise ValueError(f"adamw: probe ({mode}) of {n} divisors")
+    divisors = divisors.reshape(-1).contiguous()
+    div = _checked("divisors", divisors, dev, torch.float32, (n,))
+    bad = torch.zeros(n, dtype=torch.int64, device=dev)
+    first = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    fn = build.load(NAME, "adamw_div_probe", _PROBE_ARGTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    build.check(NAME, fn(div, n, PROBE_MODES.index(mode), bad.data_ptr(),
+                         first.data_ptr(), stream))
+    return bad, torch.where(bad > 0, first.long() & 0xffffffff, -1)

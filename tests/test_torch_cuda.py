@@ -6,6 +6,8 @@ on a machine with only PyTorch and the CUDA toolkit:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import math
+
 import pytest
 import torch
 
@@ -1881,25 +1883,51 @@ def test_engine_prefill_replay_matches_the_direct_prefill(cuda, monkeypatch):
 # graph
 # ---------------------------------------------------------------------------
 
-# ragged last blocks (300, 1600), whole blocks, 1-d, 3-d, 0-d, a short row
-ADAMW_SHAPES = [(37, 300), (5, 256), (1600,), (3, 2, 1600), (), (7,)]
+# ragged last blocks (300, 1600), whole blocks, 1-d, 3-d, 0-d, a short row;
+# hymba's w_down (1600: a ragged block a row, and more (row, block) pairs
+# than the card holds warps at once, so each warp walks several)
+ADAMW_SHAPES = [(37, 300), (5, 256), (1600,), (3, 2, 1600), (), (7,),
+                (5504, 1600)]
 
 
-def _adamw_start(dev, shape, moments, seed):
+def _adamw_scales(dev, shape, inputs):
+    """(g, m, v) scales of each element: 1e-2, 1e-3, 1e-5 ("randn"); with
+    "tiny", each third 256-block (rows and blocks in order, from the
+    first) takes g 1e-20, m and v 1e-30 (the update's v numerators fall
+    under 2^-100, some g^2 are subnormal, the scales under 2^-60: the
+    block is updated again with IEEE divisions and encoded with them),
+    and the next one g and m 1e-18 (an m absmax under 1e-17: its encode
+    takes IEEE divisions, its update not)."""
+    want = torch.tensor([1e-2, 1e-3, 1e-5], device=dev)
+    d = shape[-1] if shape else 1
+    rows = math.prod(shape) // d if shape else 1
+    nb = -(-d // 256)
+    kind = (torch.arange(rows, device=dev)[:, None] * nb
+            + torch.arange(d, device=dev)[None] // 256) % 3
+    scales = want.expand(rows, d, 3).clone()
+    if inputs == "tiny":
+        scales[kind == 0] = torch.tensor([1e-20, 1e-30, 1e-30], device=dev)
+        scales[kind == 1] = torch.tensor([1e-18, 1e-18, 1e-5], device=dev)
+    return [scales[..., i].reshape(shape) for i in range(3)]
+
+
+def _adamw_start(dev, shape, moments, seed, inputs="randn"):
     from repro_torch.kernels import adamw
     gen = torch.Generator(device=dev).manual_seed(seed)
+    _, sm, sv = _adamw_scales(dev, shape, inputs)
     p, m = (torch.randn(shape, generator=gen, device=dev) * s
-            for s in (1.0, 1e-3))
-    v = torch.rand(shape, generator=gen, device=dev) * 1e-5
+            for s in (1.0, sm))
+    v = torch.rand(shape, generator=gen, device=dev) * sv
     if moments == "int8":
         return [p, adamw.encode_m(m), adamw.encode_v(v)]
     return [p, m, v]
 
 
 def _adamw_steps(dev, shape, moments, clip, leaf_fn, start, steps=3,
-                 in_place=False):
+                 in_place=False, inputs="randn"):
     """`steps` updates by `leaf_fn` of a copy of `start` (of `start`
-    itself with `in_place`); returns the updated leaf."""
+    itself with `in_place`), gradients on `_adamw_scales`; returns the
+    updated leaf."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.optim import AdamWConfig
@@ -1907,8 +1935,9 @@ def _adamw_steps(dev, shape, moments, clip, leaf_fn, start, steps=3,
     cfg = AdamWConfig(moment_dtype=moments)
     st = start if in_place else pytree.tree_map(torch.clone, start)
     gen = torch.Generator(device=dev).manual_seed(9)
+    sg = _adamw_scales(dev, shape, inputs)[0]
     for i in range(steps):
-        g = torch.randn(shape, generator=gen, device=dev) * 1e-2
+        g = torch.randn(shape, generator=gen, device=dev) * sg
         lr, c1, c2 = bias_corrections(
             torch.full((), i + 1, dtype=torch.int32, device=dev), cfg, 3e-3)
         factor = (torch.full((), 0.5 + 0.1 * i, device=dev) if clip
@@ -1918,26 +1947,70 @@ def _adamw_steps(dev, shape, moments, clip, leaf_fn, start, steps=3,
     return st
 
 
+@pytest.mark.parametrize("inputs", ["randn", "tiny"])
+@pytest.mark.parametrize("steps", [3, 12])
 @pytest.mark.parametrize("clip", [True, False])
 @pytest.mark.parametrize("moments", ["float32", "int8"])
 @pytest.mark.parametrize("shape", ADAMW_SHAPES, ids=str)
-def test_adamw_matches_plain(cuda, shape, moments, clip):
-    """Three in-place steps of the kernel and of the plain version on the
-    card: m and v (int8: codes, scales, EF bytes) bit for bit, params
-    within 1e-6 of |p| + 10 lr."""
+def test_adamw_matches_plain(cuda, shape, moments, clip, steps, inputs):
+    """`steps` in-place steps of the kernel and of the plain version on
+    the card (each step's bias corrections new divisors): m and v (int8:
+    codes, scales, EF bytes) bit for bit, params within 1e-6 of |p| +
+    10 lr. "tiny" inputs (`_adamw_scales`) run the int8 kernel's two
+    paths with IEEE divisions: a block's update again, and its encode."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.kernels import adamw
-    start = _adamw_start(cuda, shape, moments, 3)
+    start = _adamw_start(cuda, shape, moments, 3, inputs)
     got = _adamw_steps(cuda, shape, moments, clip, adamw.adamw_leaf_cuda,
-                       start)
+                       start, steps, inputs=inputs)
     want = _adamw_steps(cuda, shape, moments, clip, adamw.adamw_leaf_plain,
-                        start)
+                        start, steps, inputs=inputs)
     for a, b in zip(pytree.tree_leaves(got[1:]),
                     pytree.tree_leaves(want[1:])):
         assert a.dtype == b.dtype and torch.equal(a, b)
     rel = ((got[0] - want[0]).abs() / (want[0].abs() + 3e-2)).max()
     assert float(rel) <= 1e-6
+
+
+def _probe_divisors(kind):
+    """The probe's divisor sets at test size: the int8 path's constants;
+    c1 and c2 of steps 1-400 at the default betas (every value they take:
+    both are exactly 1 from step ~340); block scales (all-ones mantissas
+    and powers of two over the exponents, the divisor range's edges,
+    random divisors)."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import bias_corrections
+    if kind == "constants":
+        return torch.tensor([3.0, 127.0, 255.0])
+    if kind == "bias corrections":
+        steps = torch.arange(1, 401, dtype=torch.int32, device="cuda")
+        _, c1, c2 = bias_corrections(steps, AdamWConfig(), 3e-3)
+        return torch.unique(torch.cat([c1, c2]).cpu())
+    gen = torch.Generator().manual_seed(5)
+    bits = ([(e << 23) | 0x7FFFFF for e in range(1, 255, 17)]
+            + [e << 23 for e in range(1, 255, 17)]
+            + [0x00800000, 0x0D7FFFFF, 0x0D800000, 0x71800000, 0x71800001,
+               0x7F7FFFFF]
+            + (torch.randint(1, 255, (16,), generator=gen) << 23
+               | torch.randint(0, 1 << 23, (16,), generator=gen)).tolist())
+    return torch.tensor(bits, dtype=torch.int64).to(torch.int32).view(
+        torch.float32)
+
+
+@pytest.mark.parametrize("mode", ["update", "encode"])
+@pytest.mark.parametrize("kind", ["constants", "bias corrections",
+                                  "block scales"])
+def test_adamw_division_probe_finds_no_mismatch(cuda, kind, mode):
+    """The int8 path's divisions (a corrected multiply by a reciprocal
+    taken once) against __fdiv_rn for all 2^32 numerators at each
+    divisor: the update's bit for bit, the encode's unless both are below
+    2^-40."""
+    from repro_torch.kernels import adamw
+    divisors = _probe_divisors(kind).to(cuda)
+    bad, first = adamw.div_probe(divisors, mode)
+    assert int(bad.sum()) == 0 and bool((first == -1).all()), (
+        divisors[bad > 0].tolist(), first[bad > 0].tolist())
 
 
 def test_adamw_reads_unaligned_f32_leaves(cuda):
